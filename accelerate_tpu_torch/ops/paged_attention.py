@@ -1,0 +1,123 @@
+"""Paged (block-table) KV cache — pool helpers and the gather op.
+
+The PyTorch counterpart of ``accelerate_tpu/ops/paged_attention.py:66-235``.
+The serving engine's paged mode keeps each layer's KV cache as a block pool,
+``(L, num_blocks + 1, block_size, kv_heads, head_dim)``, plus per-slot block
+tables mapping a request's token chain onto pool blocks. Pool invariants,
+shared with ``serving.py``:
+
+- Block 0 is the **trash block**: never allocated, and its mask rows stay
+  zero, so unassigned table entries (0) gather as masked garbage.
+- ``pool["mask"]`` is per-token validity (1 = real token).
+- Rope rotations are baked into K at write time from the token position, so
+  a full block's K/V is a pure function of (params, token prefix) and can be
+  shared by every request whose prompt starts with the same tokens.
+
+:func:`gather_block_view` is the plain version of the gather;
+:func:`gather_view` dispatches op ``paged_gather`` (``ops/registry.py``) to
+the hand-written CUDA kernel for CUDA tensors (``ops/kernels/paged_gather``).
+``export_chain_blocks``/``import_chain_blocks`` arrive with the serving
+network slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils.device import resolve_device
+from .attention import cached_attention
+from .kernels.paged_gather import paged_gather
+from .registry import dispatch, register_op
+
+
+def init_kv_pool(module, num_blocks: int, block_size: int, dtype=torch.bfloat16,
+                 quant: str | None = None, device=None):
+    """Allocate the per-layer block pool for ``module``'s cache layout.
+
+    Returns ``{"k": (L, N, bs, Hkv, D), "v": same, "mask": (N, bs) int32}``
+    with ``N = num_blocks + 1`` (block 0 is the trash block).
+    ``quant="int8"`` stores K/V as int8 and adds per-token scale tables
+    ``{"k_scale": (L, N, bs) float32, "v_scale": same}``."""
+    if quant not in (None, "int8"):
+        raise ValueError(f"kv pool quant must be None or 'int8', got {quant!r}")
+    dev = resolve_device(device)
+    cfg = module.config
+    L, hkv, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    n = num_blocks + 1
+    store = torch.int8 if quant == "int8" else dtype
+    pool = {
+        "k": torch.zeros((L, n, block_size, hkv, hd), dtype=store, device=dev),
+        "v": torch.zeros((L, n, block_size, hkv, hd), dtype=store, device=dev),
+        "mask": torch.zeros((n, block_size), dtype=torch.int32, device=dev),
+    }
+    if quant == "int8":
+        pool["k_scale"] = torch.zeros((L, n, block_size), dtype=torch.float32, device=dev)
+        pool["v_scale"] = torch.zeros((L, n, block_size), dtype=torch.float32, device=dev)
+    return pool
+
+
+def pool_is_quantized(pool) -> bool:
+    """Whether a pool carries int8 payloads + per-token scale tables."""
+    return "k_scale" in pool
+
+
+def gather_block_view(pool_kv, block_tables, *, active=None, scales=None, out_dtype=None):
+    """Plain version: materialize per-slot contiguous KV views from the pool.
+
+    ``pool_kv``: ``(..., N, bs, H, D)`` (one layer or the L-stacked pool);
+    ``block_tables``: ``(B, M)`` block ids. Returns ``(..., B, M*bs, H, D)``,
+    slot ``b``'s chain left-packed in table order. ``scales`` (``(..., N,
+    bs)``) dequantizes an int8 pool per token row (``q.float() * scale``,
+    then one cast to ``out_dtype``, float32 by default). ``active`` is
+    accepted for signature parity with the kernel, which zeroes inactive
+    slots; this version gathers every slot (their rows are masked garbage)."""
+    del active
+    b, m = block_tables.shape
+    idx = block_tables.reshape(-1).long()
+    view = pool_kv.index_select(pool_kv.dim() - 4, idx)  # (..., B*M, bs, H, D)
+    view = view.reshape(view.shape[:-4] + (b, m * view.shape[-3]) + view.shape[-2:])
+    if scales is None:
+        return view if out_dtype is None else view.to(out_dtype)
+    s = scales.index_select(scales.dim() - 2, idx)  # (..., B*M, bs)
+    s = s.reshape(s.shape[:-2] + (b, m * s.shape[-1]))
+    deq = view.float() * s[..., None, None].float()
+    return deq.to(torch.float32 if out_dtype is None else out_dtype)
+
+
+def gather_view(pool_kv, block_tables, *, active=None, scales=None, out_dtype=None,
+                kernels=None):
+    """Registry-dispatched view assembly (op ``paged_gather``): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors or
+    ``kernels="off"``. Bitwise equal on active slots."""
+    return dispatch("paged_gather", pool_kv, block_tables, active=active, scales=scales,
+                    out_dtype=out_dtype, kernels=kernels)
+
+
+def gather_block_mask(pool_mask, block_tables):
+    """Per-slot validity view: ``(N, bs)`` pool mask + ``(B, M)`` tables →
+    ``(B, M*bs)``."""
+    b, m = block_tables.shape
+    return pool_mask.index_select(0, block_tables.reshape(-1).long()).reshape(
+        b, m * pool_mask.shape[1])
+
+
+def paged_attention_reference(q, k_pool, v_pool, block_tables, *, q_positions,
+                              pool_mask=None, window=None, softcap=None, scale=None,
+                              active=None, k_scale=None, v_scale=None):
+    """Gather each slot's chain to a contiguous view, then run
+    :func:`~.attention.cached_attention` (causality on chain-slot order,
+    validity from the gathered mask, windows in valid-slot distance). The
+    fused paged-decode kernel that replaces this composition is a later
+    slice (ROADMAP.md, kernel queue). The gather goes through
+    :func:`gather_view` with every slot active, so on the card it is the
+    CUDA kernel and equals the plain version bitwise."""
+    del active
+    k_view = gather_view(k_pool, block_tables, scales=k_scale)
+    v_view = gather_view(v_pool, block_tables, scales=v_scale)
+    kv_mask = gather_block_mask(pool_mask, block_tables) if pool_mask is not None else None
+    return cached_attention(q, k_view, v_view, q_positions=q_positions, kv_mask=kv_mask,
+                            window=window, softcap=softcap, scale=scale)
+
+
+# Chain-walk assembly of per-slot KV views (zeros for inactive slots).
+register_op("paged_gather", gather_block_view, paged_gather)
