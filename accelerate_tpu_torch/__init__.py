@@ -8,24 +8,41 @@ its plain PyTorch version beside it (``ops/registry.py``).
 
 Ported so far: the paged serving engine (``serving.ContinuousBatcher``) on
 the Llama decoder (``models/llama.py``), greedy and sampled ``generate``,
-and the paged KV gather kernel. ROADMAP.md lists what comes next.
+and the paged KV gather kernel; the fused training step
+(``Accelerator.build_train_step``) with the optimizer transforms of
+``optim.py``, causal flash attention (forward and backward) and the fused
+optimizer update as kernels. ROADMAP.md lists what comes next.
 
 Entry points run on the card by default and raise without one unless the
 caller passes ``device="cpu"``.
 """
 
+from . import optim
+from .accelerator import Accelerator
 from .generation import generate
-from .models import Llama, LlamaConfig, llama_params_from_numpy
+from .models import Llama, LlamaConfig, llama_params_from_numpy, optax_state_from_numpy
 from .ops.paged_attention import init_kv_pool
+from .optim import adam, adamw, sgd
 from .serving import ContinuousBatcher
+from .state import AcceleratorState, GradientState
 from .utils.device import resolve_device
+from .utils.random import set_seed
 
 __all__ = [
+    "Accelerator",
+    "AcceleratorState",
     "ContinuousBatcher",
+    "GradientState",
     "Llama",
     "LlamaConfig",
+    "adam",
+    "adamw",
     "generate",
     "init_kv_pool",
     "llama_params_from_numpy",
+    "optax_state_from_numpy",
+    "optim",
     "resolve_device",
+    "set_seed",
+    "sgd",
 ]

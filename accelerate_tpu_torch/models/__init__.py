@@ -1,4 +1,4 @@
-from .from_jax import llama_params_from_numpy
+from .from_jax import llama_params_from_numpy, optax_state_from_numpy
 from .llama import Llama, LlamaConfig
 
-__all__ = ["Llama", "LlamaConfig", "llama_params_from_numpy"]
+__all__ = ["Llama", "LlamaConfig", "llama_params_from_numpy", "optax_state_from_numpy"]

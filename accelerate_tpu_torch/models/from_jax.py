@@ -1,4 +1,4 @@
-"""Carry parameters across from the JAX package.
+"""Carry parameters and optimizer state across from the JAX package.
 
 ``llama_params_from_numpy`` takes the JAX package's Llama parameter tree with
 its leaves already converted to numpy arrays (``jax.tree_util.tree_map(
@@ -7,6 +7,10 @@ returns the port's parameter dictionary. The layouts are the same by design
 (stacked ``(L, ...)`` layer weights, ``(in, out)`` projections, ``(h, V)``
 LM head), so the conversion is a shape check and a copy; both packages then
 compute the same function on the same inputs.
+
+``optax_state_from_numpy`` does the same for an optax chain state (adamw's
+``count``/``mu``/``nu``, sgd's momentum ``trace``), converted to numpy the
+same way, into the state of the port's matching ``optim`` chain.
 """
 
 from __future__ import annotations
@@ -14,7 +18,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..optim import EmptyState, ScaleByAdam, ScaleByAdamState, Trace, TraceState
 from ..utils.device import resolve_device
+from ..utils.tree import tree_map
 from .llama import Llama, LlamaConfig
 
 
@@ -48,3 +54,38 @@ def llama_params_from_numpy(tree, config: LlamaConfig, device=None, dtype=torch.
         return torch.tensor(arr.astype(np.float32), device=dev, dtype=dtype)
 
     return convert(tree, expected, "")
+
+
+def optax_state_from_numpy(tx, state, params, device=None):
+    """An optax chain state with numpy leaves (``jax.tree_util.tree_map(
+    np.asarray, opt_state)``) → the state of the port's chain ``tx`` for
+    ``params``, on ``device``. The two chains must match transform for
+    transform (``optim.adamw`` mirrors ``optax.adamw`` and so on): the adam
+    state carries ``count``, ``mu`` and ``nu``, the momentum state its
+    ``trace``; the moments take each parameter's shape and dtype; stateless
+    transforms get ``EmptyState()``. Raises on a length, key or shape
+    mismatch."""
+    dev = resolve_device(device)
+    if len(state) != len(tx.transforms):
+        raise ValueError(f"optimizer state has {len(state)} entries, the chain "
+                         f"{len(tx.transforms)}")
+
+    def like_params(src, what):
+        def leaf(a, ref):
+            arr = np.asarray(a)
+            if tuple(arr.shape) != tuple(ref.shape):
+                raise ValueError(f"{what}: expected shape {tuple(ref.shape)}, got {arr.shape}")
+            return torch.tensor(arr, dtype=ref.dtype, device=dev)
+        return tree_map(leaf, src, params)
+
+    out = []
+    for t, src in zip(tx.transforms, state):
+        if isinstance(t, ScaleByAdam):
+            count = torch.tensor(np.asarray(src.count), dtype=torch.int32, device=dev)
+            out.append(ScaleByAdamState(count=count, mu=like_params(src.mu, "mu"),
+                                        nu=like_params(src.nu, "nu")))
+        elif isinstance(t, Trace):
+            out.append(TraceState(trace=like_params(src.trace, "trace")))
+        else:
+            out.append(EmptyState())
+    return tuple(out)

@@ -13,10 +13,12 @@ PyTorch runs eagerly, so the JAX ``lax.scan`` over the layer stack is a plain
 loop over layer indices, and the per-layer window of mixed-regime models
 (``layer_windows``) is read per layer instead of per scan segment.
 
-Left out of this slice, and raising when set: remat, the pipeline schedule,
-the fused loss (and training losses in general), MoE, the ring/ulysses
-attention impls, ``matmul_precision="int8"``, and the ``yarn``/``dynamic``
-rope types.
+With ``labels`` the head adds the shifted-label cross-entropy
+(``ops/losses.py``), which is what the training step differentiates.
+
+Left out so far, and raising when set: remat, the pipeline schedule, the
+fused (vocab-chunked) loss, MoE, the ring/ulysses attention impls,
+``matmul_precision="int8"``, and the ``yarn``/``dynamic`` rope types.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 from ..modules import ModelOutput, Module
 from ..ops.attention import attention as _attention
 from ..ops.attention import cached_attention, softcap_scores
+from ..ops.losses import cross_entropy_loss
 from ..utils.device import host_to_device, resolve_device
 
 
@@ -75,7 +78,7 @@ class LlamaConfig:
     # Gemma-2 sandwich norms (four norms per layer instead of two).
     sandwich_norms: bool = False
     # Training-loss knobs of the JAX package, kept so configs carry across;
-    # fused_loss=True raises in this port until the training slice.
+    # fused_loss=True raises in this port (the fused loss is not ported yet).
     fused_loss: bool = False
     fused_loss_chunk: int = 8192
     fused_loss_dtype: str = "fp32"
@@ -357,7 +360,7 @@ class Llama(Module):
             attn_out = _attention(
                 q, k, v, causal=True, mask=ctx["attention_mask"],
                 impl=cfg.attention_impl, window=window,
-                softcap=cfg.attn_logit_softcap, scale=scale,
+                softcap=cfg.attn_logit_softcap, scale=scale, kernels=ctx.get("kernels"),
             )
         attn_out = attn_out.reshape(B, S, nh * hd) @ a["wo"]
         if cfg.sandwich_norms:
@@ -378,14 +381,25 @@ class Llama(Module):
         gate = F.silu(gate) if self.config.hidden_act == "silu" else F.gelu(gate, approximate="tanh")
         return (gate * (h2 @ m["w_up"])) @ m["w_down"]
 
+    @staticmethod
+    def _shift_labels(labels, attention_mask):
+        """Next-token targets: predict t+1 from t; final position untargeted.
+        A position trains only if it is itself real (left-padding guard) AND
+        its target token t+1 is real (right-padding guard)."""
+        B = labels.shape[0]
+        pad = torch.full((B, 1), -100, dtype=labels.dtype, device=labels.device)
+        shifted = torch.cat([labels[:, 1:], pad], dim=1)
+        if attention_mask is not None:
+            tail = torch.zeros((B, 1), dtype=attention_mask.dtype, device=attention_mask.device)
+            target_valid = torch.cat([attention_mask[:, 1:], tail], dim=1)
+            valid = target_valid.bool() & attention_mask.bool()
+            shifted = torch.where(valid, shifted, torch.full_like(shifted, -100))
+        return shifted
+
     def head(self, params, x, labels=None, attention_mask=None):
-        """Final norm + LM head. The tied head reads the embed table in its
-        native (V, h) layout."""
+        """Final norm + LM head (+ shifted-label loss with ``labels``). The
+        tied head reads the embed table in its native (V, h) layout."""
         cfg = self.config
-        if labels is not None:
-            raise NotImplementedError(
-                "training losses are not ported yet (ROADMAP.md, module queue: training)"
-            )
         x = rms_norm(x, params["final_norm"]["weight"], cfg.rms_norm_eps)
         if cfg.tie_word_embeddings:
             logits = x @ params["embed"]["weight"].to(x.dtype).T
@@ -393,7 +407,10 @@ class Llama(Module):
             logits = x @ params["lm_head"]["weight"]
         if cfg.final_logit_softcap is not None:
             logits = softcap_scores(logits.float(), cfg.final_logit_softcap)
-        return ModelOutput(logits=logits)
+        out = ModelOutput(logits=logits)
+        if labels is not None:
+            out["loss"] = cross_entropy_loss(logits, self._shift_labels(labels, attention_mask))
+        return out
 
     # ------------------------------------------------------------------ cache
     def init_cache(self, batch_size: int, max_len: int, dtype=torch.bfloat16):
@@ -415,13 +432,17 @@ class Llama(Module):
         return cfg.sliding_window if cfg.layer_windows is None else cfg.layer_windows[i]
 
     def apply(self, params, input_ids=None, labels=None, attention_mask=None,
-              positions=None, cache=None, **kwargs):
+              positions=None, cache=None, kernels=None, **kwargs):
+        """Forward. ``kernels`` is the registry spec for the uncached
+        attention's flash op (``None``: the CUDA kernel for CUDA tensors;
+        ``"off"``: its plain version)."""
         if kwargs.get("pipeline") is not None:
             raise NotImplementedError("pipeline schedules are not ported yet (ROADMAP.md)")
         if cache is not None:
             return self._apply_cached(params, input_ids, attention_mask, cache,
                                       labels=labels, positions=positions)
         x, ctx = self.embed(params, input_ids, positions, attention_mask)
+        ctx["kernels"] = kernels
         for i in range(self.config.num_hidden_layers):
             x = self.block(_index_tree(params["layers"], i), x, ctx,
                            window=self._layer_window(i))
@@ -472,3 +493,9 @@ class Llama(Module):
         if not cfg.tie_word_embeddings:
             total += h * cfg.vocab_size
         return total
+
+    def flops_per_token(self) -> float:
+        """Approximate forward+backward FLOPs per token (6N + attention)."""
+        cfg = self.config
+        attn_extra = 12 * cfg.num_hidden_layers * cfg.hidden_size * cfg.max_position_embeddings
+        return 6 * self.num_params() + attn_extra

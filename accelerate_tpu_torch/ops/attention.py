@@ -1,9 +1,18 @@
-"""Attention in plain PyTorch — the counterpart of ``accelerate_tpu/ops/attention.py``.
+"""Attention — the counterpart of ``accelerate_tpu/ops/attention.py``.
 
-Layout (B, S, H, D) throughout, as in the JAX package. This slice ports the
-dense path and the cached (decode) path, which is what the paged serving
-engine runs; the flash and splash kernels and the sequence-parallel paths
-are later slices (ROADMAP.md, kernel queue) and raise when asked for.
+Layout (B, S, H, D) throughout, as in the JAX package. Ported: the dense
+path, the cached (decode) path the paged serving engine runs, and causal
+flash attention (op ``flash_attention``: the hand-written CUDA kernel of
+``csrc/flash_attention.cu`` for CUDA tensors, :func:`flash_attention_reference`
+for CPU tensors or ``kernels="off"``). Splash attention and the
+sequence-parallel paths are later slices (ROADMAP.md, kernel queue) and raise
+when asked for.
+
+``impl="auto"`` resolves by :func:`resolve_auto_impl`: flash for a bf16
+CUDA tensor at flash-friendly shapes from :data:`FLASH_MIN_SEQ` tokens on
+and head widths the kernel takes (bf16, D of 64 or 128), dense otherwise
+and always dense for a CPU tensor. The crossover is a
+constant: the port reads no environment variable.
 """
 
 from __future__ import annotations
@@ -11,6 +20,16 @@ from __future__ import annotations
 import math
 
 import torch
+
+from .kernels.flash_attention import HEAD_DIMS as KERNEL_HEAD_DIMS
+from .kernels.flash_attention import flash_attention_cuda
+from .registry import dispatch, register_op
+
+# Dense/flash crossover: the JAX package's default for a device without an
+# entry of its own (``_DEFAULT_FLASH_MIN_SEQ``).
+FLASH_MIN_SEQ = 1024
+# The library flash kernel's DEFAULT_MASK_VALUE, added to masked logits.
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def repeat_kv(k, v, n_rep: int):
@@ -100,15 +119,104 @@ def cached_attention(q, k_cache, v_cache, *, q_positions, kv_mask=None, window=N
     return out.reshape(B, S, H, D)
 
 
+def flash_attention_reference(q, k, v, segment_ids=None, causal=True, sm_scale=1.0):
+    """Plain version of the flash kernel, with the semantics of the library's
+    ``mha_reference`` (``jax/experimental/pallas/ops/tpu/flash_attention.py``)
+    in this package's (B, S, H, D) layout: f32 logits times ``sm_scale``,
+    ``MASK_VALUE`` added where the causal or segment-id mask excludes a key,
+    max-subtracted softmax, weights times V. ``segment_ids``: (B, S) int; a
+    query sees only keys of its own segment. Its gradient comes from
+    autograd. Returns q's dtype."""
+    S, Skv = q.shape[1], k.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if sm_scale != 1.0:
+        logits = logits * sm_scale
+    mask = None
+    if segment_ids is not None:
+        mask = (segment_ids[:, :, None] == segment_ids[:, None, :])[:, None]
+    if causal:
+        rows = torch.arange(S, device=q.device)[:, None]
+        cols = torch.arange(Skv, device=q.device)[None, :]
+        causal_mask = (cols <= rows)[None, None]
+        mask = causal_mask if mask is None else mask & causal_mask
+    if mask is not None:
+        logits = logits + torch.where(mask, 0.0, MASK_VALUE)
+    m = logits.amax(dim=-1, keepdim=True)
+    unnormalized = torch.exp(logits - m)
+    weights = unnormalized / unnormalized.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v.float()).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal=True, mask=None, kernels=None):
+    """Flash attention, layout (B, S, H, D); the counterpart of the JAX
+    package's ``flash_attention`` (``ops/attention.py:144``).
+
+    ``mask``: (B, S) with 1 for real tokens. Padding rides segment ids as
+    in the JAX package: real tokens are segment 2 and pads segment 1, so
+    pads see only pads. GQA KV heads (``k.shape[2] < q.shape[2]``) are
+    repeated to the query heads first, so the gradients are the repeat's
+    VJP (each KV head sums its G query heads). ``sm_scale`` is 1/sqrt(D)."""
+    n_rep = q.shape[2] // k.shape[2]
+    k, v = repeat_kv(k, v, n_rep)
+    segment_ids = None
+    if mask is not None:
+        segment_ids = torch.where(mask.bool(), 2, 1).to(torch.int32).contiguous()
+    return dispatch("flash_attention", q.contiguous(), k.contiguous(), v.contiguous(),
+                    segment_ids=segment_ids, causal=causal,
+                    sm_scale=1.0 / math.sqrt(q.shape[-1]), kernels=kernels)
+
+
+def resolve_auto_impl(seq_len: int, head_dim: int, *, kv_len: int | None = None,
+                      window=None, softcap=None, scale=None, device=None, dtype=None) -> str:
+    """What ``impl='auto'`` resolves to for this shape, recipe, device and
+    dtype — the single source of the dispatch predicate. Windowed,
+    softcapped or scaled recipes resolve to dense (splash is not ported).
+    Plain attention resolves to flash where the CUDA kernel takes it: a CUDA
+    device, a bf16 (or unstated) dtype, equal query and key lengths, a
+    sequence that is a multiple of 128 from :data:`FLASH_MIN_SEQ` tokens on,
+    and a head width in :data:`KERNEL_HEAD_DIMS` (the JAX predicate also
+    admits 96 and 256, which wait for a later kernel). Everything else, and
+    every CPU tensor, resolves to dense."""
+    kv_len = seq_len if kv_len is None else kv_len
+    if window is not None or softcap is not None or scale is not None:
+        return "dense"
+    on_card = device is not None and torch.device(device).type == "cuda"
+    dtype_ok = dtype is None or dtype == torch.bfloat16
+    if (on_card and dtype_ok and kv_len == seq_len and seq_len % 128 == 0
+            and seq_len >= FLASH_MIN_SEQ and head_dim in KERNEL_HEAD_DIMS):
+        return "flash"
+    return "dense"
+
+
 def attention(q, k, v, *, causal=True, mask=None, impl: str = "auto", window=None,
-              softcap=None, scale=None):
-    """Entry used by the model zoo for the uncached forward. ``auto`` and
-    ``dense`` run :func:`dense_attention`; the flash, splash, ring and
-    ulysses implementations are not ported yet."""
-    if impl not in ("auto", "dense"):
+              softcap=None, scale=None, kernels=None):
+    """Entry used by the model zoo for the uncached forward.
+    ``impl``: auto | dense | flash. ``window``, ``softcap`` and ``scale``
+    need the dense path here (splash is not ported). ``kernels`` is the
+    registry spec handed to the flash op (``"off"`` runs its plain
+    version)."""
+    if impl in ("splash", "ring", "ulysses"):
         raise NotImplementedError(
             f"attention impl={impl!r} is not ported yet (ROADMAP.md, kernel "
-            "queue: flash and splash attention, ring attention)"
+            "queue: splash attention, ring attention)"
         )
-    return dense_attention(q, k, v, causal=causal, mask=mask, window=window,
-                           softcap=softcap, scale=scale)
+    if window is not None or softcap is not None or scale is not None:
+        if impl not in ("auto", "dense"):
+            raise ValueError(
+                f"window/softcap/scale attention options need the dense path; "
+                f"impl={impl!r} cannot apply them."
+            )
+        return dense_attention(q, k, v, causal=causal, mask=mask, window=window,
+                               softcap=softcap, scale=scale)
+    if impl == "auto":
+        impl = resolve_auto_impl(q.shape[1], q.shape[3], kv_len=k.shape[1], device=q.device,
+                                 dtype=q.dtype)
+    if impl == "flash":
+        return flash_attention(q, k, v, causal=causal, mask=mask, kernels=kernels)
+    if impl != "dense":
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return dense_attention(q, k, v, causal=causal, mask=mask)
+
+
+# Causal flash attention, forward and backward (one autograd.Function).
+register_op("flash_attention", flash_attention_reference, flash_attention_cuda)

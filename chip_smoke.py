@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py            # what the checks need; a few minutes
-    python3 chip_smoke.py --profile  # adds a torch.profiler pass over one wave
+    python3 chip_smoke.py --profile  # adds torch.profiler passes over one
+                                     # serving wave and one training step
 
 Phases, in order; any failure exits non-zero and nothing is caught:
 
@@ -22,7 +23,24 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 4. The same with an int8 KV pool (the dequant variant of the kernel).
 5. Small-input reference check: on ``LlamaConfig.tiny()`` in fp32 the engine's
    output equals per-request ``generate()``, and the 8B forward's logits are
-   finite with the expected shape.
+   finite with the expected shape. The 16 GB serving model is then freed.
+6. Training-kernel op phase: causal flash attention (forward, and backward
+   through autograd) against its plain version at the training shape
+   (B2, S2048, H32, D128, bf16), with a right-padding mask, and at S=1024
+   (the crossover), held to pinned tolerances; the fused optimizer update,
+   every family, bitwise against its plain version on the largest leaf of
+   the training cell (the embedding or LM head, 128256 x 4096 = 525M f32)
+   and on 1- and 0-element leaves. Times for kernel, plain version and the library call
+   (``scaled_dot_product_attention``; ``torch.optim.AdamW``/``SGD`` with
+   ``fused=True``, another op order) beside the bound.
+7. Training phase: ``Accelerator(mixed_precision="bf16").prepare(model,
+   adamw(3e-4))`` → ``build_train_step`` on Llama-3-8B widths cut to 4
+   layers, batch 2 x 2048 seeded tokens, ``clip_norm=1.0``: 2 warm-up and 5
+   timed steps with finite, falling losses and the flash and update kernels
+   launched every step; a ``kernels="off"`` arm whose first 3 losses agree
+   with the kernel arm's; and an accumulation-2 build whose update launches
+   only at the 2 boundaries of 4 micro-steps. Prints step time, tokens/s,
+   MFU against 989 TFLOP/s and each arm's peak memory.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -32,6 +50,7 @@ beside it, the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -39,7 +58,22 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 SEED = 0
+# Flash kernel vs its plain version, bf16 in and out: the kernel rounds P to
+# bf16 before P.V (as the TPU library does) and the plain version does not,
+# and both round the output to bf16, each a relative error of about 2^-9 an
+# element. A causal output row i mixes i+1 values and shrinks as
+# sqrt(e / (i + 1)), so the forward is held per 64-row query tile against
+# that tile's own size: a dropped or wrong KV tile moves its query tile's
+# output by tens of percent.
+FLASH_FWD_TILE_REL = 1e-2  # forward: max over (batch, head, 64-row tile) of
+                           # ||kernel - plain||_F / ||plain||_F, real-token rows
+FLASH_BWD_REL = 2e-2       # dq, dk, dv: ||kernel - plain||_F / ||plain||_F
+# Training: losses of the kernel arm vs the kernels="off" arm, first 3 steps.
+TRAIN_LOSS_ATOL = 3e-2
+TRAIN_CUT = dict(num_hidden_layers=4, max_position_embeddings=2048)
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 T_START = time.perf_counter()
 
 
@@ -293,6 +327,355 @@ def profile_wave(model):
         log(f"profile:   {device_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
 
 
+def free_cuda():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def bound_row(flops: float, moved: float):
+    t_ops, t_bytes = flops / BF16_OPS_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def tile_rel_err(got, ref, real, tile: int = 64) -> float:
+    """Largest ``||got - ref||_F / ||ref||_F`` over the (batch, head,
+    ``tile``-row query tile) blocks of (B, S, H, D) outputs, on the rows
+    ``real`` (B, S) marks; a tile with no such row is skipped."""
+    B, S, H, D = ref.shape
+    keep = real[:, :, None, None].float()
+    diff = ((got.float() - ref.float()) * keep).reshape(B, S // tile, tile, H, D)
+    base = (ref.float() * keep).reshape(B, S // tile, tile, H, D)
+    num, den = diff.square().sum((2, 4)), base.square().sum((2, 4))
+    return float((num[den > 0] / den[den > 0]).sqrt().max())
+
+
+def flash_case(B, S, H, D, padded: bool):
+    """Inputs of one flash case, made on the card from the seed."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+                   for _ in range(4))
+    seg = None
+    if padded:  # right padding: the last quarter of row 1 is pads
+        seg = torch.full((B, S), 2, dtype=torch.int32, device="cuda")
+        seg[1, -S // 4:] = 1
+    return q, k, v, do, seg
+
+
+def flash_op_phase():
+    """Flash kernel vs its plain version; returns the fwd and bwd rows at
+    the training shape (the first case)."""
+    import torch
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops.attention import flash_attention_reference
+    from accelerate_tpu_torch.ops.kernels import flash_attention as fk
+
+    cases = [("causal S2048", 2, 2048, 32, 128, False), ("padded S2048", 2, 2048, 32, 128, True),
+             ("crossover S1024", 2, 1024, 32, 128, False)]
+    rows = []
+    for label, B, S, H, D, padded in cases:
+        q, k, v, do, seg = flash_case(B, S, H, D, padded)
+        scale = 1.0 / math.sqrt(D)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fk.flash_attention_cuda(*leaves, segment_ids=seg, causal=True, sm_scale=scale)
+        out.backward(do)
+        ref = flash_attention_reference(*ref_leaves, segment_ids=seg, causal=True,
+                                        sm_scale=scale)
+        ref.backward(do)
+        torch.cuda.synchronize()
+        out, ref = out.detach(), ref.detach()
+        real = torch.ones((B, S), dtype=torch.bool, device="cuda") if seg is None else seg == 2
+        fwd_err = float((out.float() - ref.float())[real].abs().max())
+        fwd_rel = tile_rel_err(out, ref, real)
+        if not math.isfinite(fwd_rel) or fwd_rel > FLASH_FWD_TILE_REL:
+            raise SystemExit(f"flash {label}: forward relative error of a query tile "
+                             f"{fwd_rel} > {FLASH_FWD_TILE_REL}")
+        bwd_err = {}
+        for name, a, b in zip("qkv", leaves, ref_leaves):
+            rel = float((a.grad.float() - b.grad.float()).norm() / b.grad.float().norm())
+            if not math.isfinite(rel) or rel > FLASH_BWD_REL:
+                raise SystemExit(f"flash {label}: d{name} relative error {rel} > {FLASH_BWD_REL}")
+            bwd_err[f"d{name}"] = rel
+        # Work this run's data needs: kept (query, key) pairs.
+        keep = torch.tril(torch.ones((S, S), dtype=torch.bool, device="cuda"))
+        if seg is None:
+            pairs = H * B * int(keep.sum())
+        else:
+            same = seg[:, :, None] == seg[:, None, :]
+            pairs = H * int((same & keep).sum())
+        el = 2  # bf16 bytes
+        fwd_flops, bwd_flops = 4 * D * pairs, 10 * D * pairs
+        fwd_bytes = 4 * B * S * H * D * el + B * H * S * 4          # q,k,v in; o, lse out
+        bwd_bytes = 8 * B * S * H * D * el + 2 * B * H * S * 4      # q,k,v,o,dO in; dq,dk,dv out
+        mask = None
+        if seg is not None:
+            mask = (same & keep)[:, None]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def library_fwd():
+            if mask is None:
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        with torch.no_grad():
+            t_fwd = cuda_ms(lambda: fk.flash_attention_cuda(q, k, v, segment_ids=seg,
+                                                            causal=True, sm_scale=scale), 20)
+            t_plain_fwd = cuda_ms(lambda: flash_attention_reference(
+                q, k, v, segment_ids=seg, causal=True, sm_scale=scale), 5)
+            t_lib_fwd = cuda_ms(library_fwd, 20)
+        o, lse = fk._forward(q, k, v, seg, True, scale)
+        t_bwd = cuda_ms(lambda: fk._backward(q, k, v, seg, o, lse, do, True, scale), 20)
+        ref_out = flash_attention_reference(*ref_leaves, segment_ids=seg, causal=True,
+                                            sm_scale=scale)
+        t_plain_bwd = cuda_ms(lambda: torch.autograd.grad(ref_out, ref_leaves, do,
+                                                          retain_graph=True), 5)
+        lib_leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+        qt, kt, vt = lib_leaves
+        lib_out = library_fwd()
+        t_lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, do.transpose(1, 2),
+                                                        retain_graph=True), 20)
+        fb, fby = bound_row(fwd_flops, fwd_bytes)
+        bb, bby = bound_row(bwd_flops, bwd_bytes)
+        log(f"op flash {label}: fwd rel per query tile {fwd_rel:.3e} (pin {FLASH_FWD_TILE_REL}; "
+            f"max|err| {fwd_err:.3e}), bwd rel "
+            f"{', '.join(f'{n} {e:.3e}' for n, e in bwd_err.items())} (pin {FLASH_BWD_REL}); "
+            f"fwd kernel {t_fwd:.4f} ms, plain {t_plain_fwd:.4f}, library {t_lib_fwd:.4f}, "
+            f"bound {fb:.4f} ({fby}, {fwd_flops / 1e9:.1f} GFLOP, "
+            f"{fwd_flops / t_fwd / 1e9:.1f} TFLOP/s); bwd kernel {t_bwd:.4f} ms, plain "
+            f"{t_plain_bwd:.4f}, library {t_lib_bwd:.4f}, bound {bb:.4f} ({bby}, "
+            f"{bwd_flops / t_bwd / 1e9:.1f} TFLOP/s)")
+        if not rows:  # the training shape: the rows of the kernel table
+            base = {"route": "cuda", "source": "accelerate_tpu_torch/csrc/flash_attention.cu",
+                    "replaces": "accelerate_tpu/ops/attention.py:144", "launches": 0}
+            rows = [dict(base, name="flash_attention_fwd", max_abs_err=fwd_err, ms=t_fwd,
+                         plain_ms=t_plain_fwd, bound_ms=fb, bound_by=fby, library_ms=t_lib_fwd),
+                    dict(base, name="flash_attention_bwd",
+                         max_abs_err=float(max((a.grad.float() - b.grad.float()).abs().max()
+                                               for a, b in zip(leaves, ref_leaves))),
+                         ms=t_bwd, plain_ms=t_plain_bwd, bound_ms=bb, bound_by=bby,
+                         library_ms=t_lib_bwd)]
+        del q, k, v, do, leaves, ref_leaves, out, ref, o, lse, ref_out, lib_out, lib_leaves
+        free_cuda()
+    return rows
+
+
+def update_op_phase(cfg):
+    """Fused update kernel vs its plain version, bitwise, every family;
+    returns one row per family at the largest leaf."""
+    import torch
+
+    from accelerate_tpu_torch import optim
+    from accelerate_tpu_torch.ops.fused_update import leaf_update, plan_fused_update
+    from accelerate_tpu_torch.ops.kernels.fused_update import fused_update_cuda
+
+    big = cfg.vocab_size * cfg.hidden_size  # embed and lm_head, the largest leaves
+    families = {"adamw": optim.adamw(3e-4), "adam": optim.adam(3e-4), "sgd": optim.sgd(3e-4),
+                "sgd_momentum": optim.sgd(3e-4, momentum=0.9)}
+    streams = {"adam": 8, "sgd_momentum": 6, "sgd": 4}  # f32 reads + writes per element
+    ops_per_elem = {"adam": 16, "sgd_momentum": 5, "sgd": 4}
+    factor = torch.tensor(0.7, device="cuda")
+    bc1, bc2 = torch.tensor(0.271, device="cuda"), torch.tensor(0.002997, device="cuda")
+    rows = []
+    for name, tx in families.items():
+        plan = plan_fused_update(tx)
+        n_mom = {"adam": 2, "sgd_momentum": 1, "sgd": 0}[plan.kind]
+        for n in (big, 1, 0):
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            p = torch.randn(n, generator=g, device="cuda")
+            grad = torch.randn(n, generator=g, device="cuda")
+            moments = tuple(torch.rand(n, generator=g, device="cuda") for _ in range(n_mom))
+            p2, grad2, moments2 = p.clone(), grad.clone(), tuple(m.clone() for m in moments)
+            fused_update_cuda(p, grad, moments, factor, bc1, bc2, plan=plan)
+            leaf_update(p2, grad2, moments2, factor, bc1, bc2, plan=plan)
+            torch.cuda.synchronize()
+            same = torch.equal(p.view(torch.int32), p2.view(torch.int32)) and all(
+                torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in zip(moments, moments2))
+            zeroed = bool((grad == 0).all()) and bool((grad2 == 0).all())
+            if not (same and zeroed):
+                raise SystemExit(f"fused_{plan.describe()}_update n={n}: kernel disagrees "
+                                 f"with the plain version (bitwise={same}, zeroed={zeroed})")
+            if n != big:
+                continue
+            err = float((p - p2).abs().max())
+            t_kernel = cuda_ms(lambda: fused_update_cuda(p, grad, moments, factor, bc1, bc2,
+                                                         plan=plan), 20)
+            t_plain = cuda_ms(lambda: leaf_update(p2, grad2, moments2, factor, bc1, bc2,
+                                                  plan=plan), 5)
+            del p2, grad2, moments2
+            leaf = torch.nn.Parameter(p)
+            leaf.grad = grad
+            if plan.kind == "adam":
+                lib = torch.optim.AdamW([leaf], lr=3e-4, weight_decay=plan.weight_decay or 0.0,
+                                        fused=True)
+            else:
+                lib = torch.optim.SGD([leaf], lr=3e-4, momentum=plan.momentum, fused=True)
+            t_lib = cuda_ms(lib.step, 20)
+            bound, by = bound_row(0, streams[plan.kind] * 4 * n)
+            t_ops = ops_per_elem[plan.kind] * n / FP32_OPS_PER_S * 1e3
+            if t_ops > bound:
+                bound, by = t_ops, "operations"
+            rows.append({"name": f"fused_{plan.describe()}_update", "route": "cuda",
+                         "source": "accelerate_tpu_torch/csrc/fused_update.cu",
+                         "replaces": "accelerate_tpu/ops/pallas/fused_update.py:200",
+                         "launches": 0, "max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
+                         "bound_ms": bound, "bound_by": by, "library_ms": t_lib})
+            log(f"op fused_{plan.describe()}_update: {n} f32 elements, bitwise equal (also at "
+                f"1 and 0 elements), buffer zeroed; kernel {t_kernel:.4f} ms, plain "
+                f"{t_plain:.4f} ms, library {t_lib:.4f} ms (torch.optim "
+                f"{type(lib).__name__}(fused=True), another op order), bound {bound:.4f} ms "
+                f"({by}, {streams[plan.kind] * 4 * n / 1e9:.2f} GB, "
+                f"{streams[plan.kind] * 4 * n / t_kernel / 1e9:.2f} TB/s)")
+            del leaf, lib
+        del p, grad, moments
+        free_cuda()
+    return rows
+
+
+def train_arm(cfg, steps: int, kernels=None, accum: int = 1, warmup: int = 0,
+              per_step_counts: bool = False):
+    """Build the training step on a fresh model from the seed and run it;
+    returns (loss values, wall seconds of the steps after warm-up, launch
+    counts of all steps, per-step counts, peak bytes)."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, Llama, adamw
+    from accelerate_tpu_torch.ops import registry
+
+    torch.cuda.reset_peak_memory_stats()
+    model = Llama(cfg)
+    model.init_params(SEED)
+    acc = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=accum, kernels=kernels)
+    pm, po = acc.prepare(model, adamw(3e-4))
+    step = acc.build_train_step(pm, po)
+    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                               (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    batch = {"input_ids": ids, "labels": ids}
+    registry.reset_launch_counts()
+    losses, per_step = [], []
+    for _ in range(warmup):
+        losses.append(step(batch, clip_norm=1.0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps - warmup):
+        losses.append(step(batch, clip_norm=1.0))
+        if per_step_counts:
+            per_step.append(dict(registry.launch_counts))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(registry.launch_counts)
+    values = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    del model, acc, pm, po, step, losses
+    free_cuda()
+    return values, wall, counts, per_step, peak
+
+
+def train_phase(card):
+    """Phase 7; returns the kernel arm's launch counts."""
+    from accelerate_tpu_torch import Llama, LlamaConfig
+
+    cfg = LlamaConfig.llama3_8b(**TRAIN_CUT)
+    probe = Llama(cfg, device="cpu")
+    n_params, fpt = probe.num_params(), probe.flops_per_token()
+    layers, tokens = cfg.num_hidden_layers, TRAIN_BATCH * TRAIN_SEQ
+    losses, wall, counts, _, peak = train_arm(cfg, steps=7, warmup=2)
+    want = {"flash_attention_fwd": 7 * layers, "flash_attention_bwd": 7 * layers,
+            "fused_adamw_update": 7 * 12}
+    if counts != want:
+        raise SystemExit(f"train: launch counts {counts}, expected {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"train: losses not finite and falling: {losses}")
+    step_s = wall / 5
+    mfu = fpt * tokens / step_s / BF16_OPS_PER_S
+    log(f"train: Llama-3-8B widths, {layers} layers, {n_params / 1e9:.3f}B params, bf16 "
+        f"compute on f32 masters, adamw(3e-4), clip 1.0, batch {TRAIN_BATCH}x{TRAIN_SEQ}; "
+        f"losses {[round(x, 4) for x in losses]}; step {step_s * 1e3:.1f} ms, "
+        f"{tokens / step_s:.0f} tokens/s, MFU {100 * mfu:.2f}% of 989 TFLOP/s "
+        f"({fpt:.4g} FLOP/token); launches over 7 steps {counts}; peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    off, _, off_counts, _, off_peak = train_arm(cfg, steps=3, kernels="off")
+    diff = max(abs(a - b) for a, b in zip(off, losses[:3]))
+    if off_counts or diff > TRAIN_LOSS_ATOL:
+        raise SystemExit(f"train kernels='off': losses {off} vs {losses[:3]} (max |diff| "
+                         f"{diff}, pin {TRAIN_LOSS_ATOL}), launches {off_counts}")
+    log(f"train kernels='off': losses {[round(x, 4) for x in off]}, max |diff| {diff:.3e} "
+        f"vs the kernel arm (pin {TRAIN_LOSS_ATOL}); no launches; peak memory "
+        f"{off_peak / 2**30:.2f} GiB")
+    acc_losses, _, _, per_step, acc_peak = train_arm(cfg, steps=4, accum=2,
+                                                     per_step_counts=True)
+    updates = [c.get("fused_adamw_update", 0) for c in per_step]
+    if updates != [0, 12, 12, 24] or not all(math.isfinite(x) for x in acc_losses):
+        raise SystemExit(f"train accumulation 2: update launches after each micro-step "
+                         f"{updates}, expected [0, 12, 12, 24]; losses {acc_losses}")
+    log(f"train accumulation 2: 4 micro-steps, update launches after each {updates}, "
+        f"losses {[round(x, 4) for x in acc_losses]}; peak memory {acc_peak / 2**30:.2f} GiB")
+    return counts
+
+
+def profile_train_step():
+    """torch.profiler over one training step: device time by kernel, busy
+    share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch import Accelerator, Llama, LlamaConfig, adamw
+
+    cfg = LlamaConfig.llama3_8b(**TRAIN_CUT)
+    model = Llama(cfg)
+    model.init_params(SEED)
+    acc = Accelerator(mixed_precision="bf16")
+    pm, po = acc.prepare(model, adamw(3e-4))
+    step = acc.build_train_step(pm, po)
+    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                               (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    batch = {"input_ids": ids, "labels": ids}
+    step(batch, clip_norm=1.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch, clip_norm=1.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(device_us(e) for e in events) / 1e3
+    log(f"profile train step: wall {wall * 1e3:.1f} ms, device busy {total:.1f} ms "
+        f"({100 * total / (wall * 1e3):.1f}%), {sum(e.count for e in events)} kernel launches")
+
+    def group(key):
+        if "flash_" in key:
+            return "flash attention (csrc/flash_attention.cu)"
+        if "fused_update" in key:
+            return "fused update (csrc/fused_update.cu)"
+        if "nvjet" in key or "gemm" in key.lower() or "splitKreduce" in key:
+            return "cuBLAS GEMMs"
+        return "other PyTorch kernels"
+
+    groups = {}
+    for e in events:
+        ms, n = groups.get(group(e.key), (0.0, 0))
+        groups[group(e.key)] = (ms + device_us(e) / 1e3, n + e.count)
+    for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"profile train: {ms:9.2f} ms ({100 * ms / total:5.1f}%) {n:5d}x  {name}")
+    for e in sorted(events, key=lambda e: -device_us(e))[:20]:
+        log(f"profile train:   {device_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
+    del model, acc, pm, po, step
+    free_cuda()
+
+
 def main(argv) -> int:
     import torch
 
@@ -332,6 +715,16 @@ def main(argv) -> int:
     reference_phase(model)
     if "--profile" in argv:
         profile_wave(model)
+    del model  # free the 16 GB serving model before training
+    free_cuda()
+
+    train_rows = flash_op_phase() + update_op_phase(LlamaConfig.llama3_8b(**TRAIN_CUT))
+    counts = train_phase(card)
+    for row in train_rows:
+        row["launches"] = counts.get(row["name"], 0)
+    rows += train_rows
+    if "--profile" in argv:
+        profile_train_step()
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

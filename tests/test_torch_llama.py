@@ -188,11 +188,12 @@ def test_unported_rope_types_and_model_options_raise():
                dict(matmul_precision="int8")):
         with pytest.raises(NotImplementedError):
             Llama(LlamaConfig.tiny(**kw), device="cpu")
+    # Labels are ported now: the head adds the shifted-label loss.
     tm = Llama(LlamaConfig.tiny(), device="cpu")
     tm.init_params(0)
     ids = torch.ones((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="training"):
-        tm.apply(tm.params, input_ids=ids, labels=ids)
+    out = tm.apply(tm.params, input_ids=ids, labels=ids)
+    assert out["loss"].dim() == 0 and bool(torch.isfinite(out["loss"]))
 
 
 def test_llama3_8b_preset_and_param_count_match_jax():

@@ -4,16 +4,19 @@
   ``jax`` or ``accelerate_tpu`` (an AST scan of every import statement).
 - Entry points run on the card by default and raise without one unless the
   caller passes ``device="cpu"``; nothing drops to the CPU quietly.
-- The CUDA kernel wrapper refuses CPU tensors; only the registry routes CPU
+- The CUDA kernel wrappers refuse CPU tensors; only the registry routes CPU
   tensors (or an explicit ``kernels="off"``) to the plain version.
 - Options not ported yet raise ``NotImplementedError``, never a silent
   fallback.
-- Kernel vs plain version on the card: marked ``cuda``, skipped on hosts
-  without a GPU (chip_smoke.py runs the same comparison at the engine's
-  shapes on the card).
+- Kernel vs plain version on the card, for every kernel, and the training
+  step's kernel arm against its ``kernels="off"`` arm: marked ``cuda``,
+  skipped on hosts without a GPU (chip_smoke.py runs the same comparisons at
+  the Llama-3-8B shapes on the card). They live here because this file
+  imports no JAX, which the card's machine does not have.
 """
 
 import ast
+import math
 from pathlib import Path
 
 import numpy as np
@@ -21,8 +24,14 @@ import pytest
 import torch
 
 import accelerate_tpu_torch as T
+from accelerate_tpu_torch import optim
+from chip_smoke import tile_rel_err
 from accelerate_tpu_torch.ops import registry
+from accelerate_tpu_torch.ops.attention import flash_attention_reference
 from accelerate_tpu_torch.ops.kernels import _build
+from accelerate_tpu_torch.ops.fused_update import leaf_update, plan_fused_update
+from accelerate_tpu_torch.ops.kernels.flash_attention import flash_attention_cuda
+from accelerate_tpu_torch.ops.kernels.fused_update import fused_update_cuda
 from accelerate_tpu_torch.ops.kernels.paged_gather import paged_gather
 from accelerate_tpu_torch.ops.paged_attention import gather_block_view
 
@@ -60,7 +69,24 @@ def test_entry_points_raise_without_cuda_unless_cpu_requested(monkeypatch):
         T.generate(model, np.ones((1, 3), np.int32), max_new_tokens=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         T.ContinuousBatcher(model, batch_slots=2, max_new_tokens=2, max_cache_len=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.Accelerator()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.Accelerator(mixed_precision="bf16")
+    for make in (lambda: T.adamw(3e-4), lambda: T.adam(1e-3), lambda: T.sgd(0.1),
+                 lambda: T.sgd(0.1, momentum=0.9), lambda: T.optim.chain(T.optim.Scale(-1.0))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.set_seed(0)
     assert T.resolve_device("cpu").type == "cpu"
+    # The training entry points run end to end when the CPU is asked for.
+    acc = T.Accelerator(device="cpu")
+    pm, po = acc.prepare(model, T.adamw(3e-4, device="cpu"))
+    step = acc.build_train_step(pm, po)
+    ids = np.arange(1, 9, dtype=np.int32)[None]
+    assert bool(torch.isfinite(step({"input_ids": ids, "labels": ids})))
+    assert T.set_seed(0, device="cpu").device.type == "cpu"
     # The explicit CPU request works end to end.
     engine = T.ContinuousBatcher(model, batch_slots=2, max_new_tokens=2, max_cache_len=64,
                                  bucket_sizes=(8,), block_size=4, device="cpu")
@@ -74,8 +100,15 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_counts_nothing():
     tables = torch.zeros((2, 3), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensors"):
         paged_gather(pool, tables)
+    q = torch.zeros((1, 128, 2, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_cuda(q, q, q)
+    plan = plan_fused_update(T.adamw(3e-4, device="cpu"))
+    p, one = torch.zeros(8), torch.ones(())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_update_cuda(p, p.clone(), (p.clone(), p.clone()), one, one, one, plan=plan)
     assert registry.launch_counts == {}
-    assert registry.known_ops() == ("paged_gather",)
+    assert registry.known_ops() == ("flash_attention", "fused_update", "paged_gather")
     with pytest.raises(KeyError):
         registry.dispatch("no_such_op", pool)
 
@@ -84,7 +117,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    assert _build.sources() == ["paged_gather"]
+    assert _build.sources() == ["flash_attention", "fused_update", "paged_gather"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
 
@@ -138,3 +171,106 @@ def test_kernel_matches_plain_version_on_the_card(quant):
     assert registry.launch_counts == {"paged_gather_dequant" if quant else "paged_gather": 1}
     assert torch.equal(got[:, active].view(torch.int16), ref[:, active].view(torch.int16))
     assert bool((got[:, ~active] == 0).all())
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; chip_smoke.py runs this comparison on the card")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_mask", [False, True], ids=["causal", "padded"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernel_matches_plain_version_on_the_card(with_mask, D):
+    """bf16 in and out; the kernel rounds P to bf16 before P.V and the
+    plain version does not, and both round the output to bf16, each a
+    relative error of about 2^-9 an element. Outputs shrink along a causal
+    sequence, so the forward is held per 64-row query tile of real-token
+    rows: relative Frobenius error <= 1e-2 in every tile; gradients'
+    relative Frobenius error <= 2e-2 (chip_smoke.py holds the 8B shapes to
+    the same pins)."""
+    _needs_card()
+    B, S, H = 2, 256, 4
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+                   for _ in range(4))
+    seg = None
+    if with_mask:
+        seg = torch.full((B, S), 2, dtype=torch.int32, device="cuda")
+        seg[1, -50:] = 1
+    scale = 1.0 / math.sqrt(D)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    registry.reset_launch_counts()
+    out = flash_attention_cuda(*leaves, segment_ids=seg, causal=True, sm_scale=scale)
+    out.backward(do)
+    ref = flash_attention_reference(*ref_leaves, segment_ids=seg, causal=True, sm_scale=scale)
+    ref.backward(do)
+    torch.cuda.synchronize()
+    assert registry.launch_counts == {"flash_attention_fwd": 1, "flash_attention_bwd": 1}
+    real = torch.ones((B, S), dtype=torch.bool, device="cuda") if seg is None else seg == 2
+    assert tile_rel_err(out.detach(), ref.detach(), real) <= 1e-2
+    for a, b in zip(leaves, ref_leaves):
+        rel = float((a.grad.float() - b.grad.float()).norm() / b.grad.float().norm())
+        assert rel <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["adamw", "adam", "sgd", "sgd_momentum"])
+@pytest.mark.parametrize("n", [0, 1, 4097, 1 << 20])
+def test_fused_update_kernel_matches_plain_version_on_the_card(family, n):
+    """Bitwise: both round every f32 operation on its own, in one order."""
+    _needs_card()
+    tx = {"adamw": optim.adamw(3e-4, weight_decay=0.01), "adam": optim.adam(0.1),
+          "sgd": optim.sgd(0.1), "sgd_momentum": optim.sgd(0.1, momentum=0.9)}[family]
+    plan = plan_fused_update(tx)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = torch.randn(n, generator=gen, device="cuda")
+    g = torch.randn(n, generator=gen, device="cuda")
+    moments = tuple(torch.rand(n, generator=gen, device="cuda")
+                    for _ in range({"adam": 2, "sgd_momentum": 1, "sgd": 0}[plan.kind]))
+    p2, g2, moments2 = p.clone(), g.clone(), tuple(m.clone() for m in moments)
+    factor = torch.tensor(0.7, device="cuda")
+    bc1, bc2 = torch.tensor(0.271, device="cuda"), torch.tensor(0.002997, device="cuda")
+    registry.reset_launch_counts()
+    fused_update_cuda(p, g, moments, factor, bc1, bc2, plan=plan)
+    leaf_update(p2, g2, moments2, factor, bc1, bc2, plan=plan)
+    torch.cuda.synchronize()
+    assert registry.launch_counts == ({f"fused_{plan.describe()}_update": 1} if n else {})
+    assert torch.equal(p.view(torch.int32), p2.view(torch.int32))
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(moments, moments2))
+    assert bool((g == 0).all()) and bool((g2 == 0).all())
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_kernels_off():
+    """bf16 training on the card with ``attention_impl="flash"``: the kernel
+    arm launches flash fwd/bwd once per layer per micro-step and the fused
+    adamw update once per leaf per update; its losses agree with the plain
+    arm's to 2e-2 (bf16 compute, losses about 5.5)."""
+    _needs_card()
+    widths = dict(hidden_size=256, num_attention_heads=4, num_key_value_heads=2,
+                  attention_impl="flash")
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(3):
+        ids = rng.integers(0, 256, (8, 128)).astype(np.int32)
+        batches.append({"input_ids": ids, "labels": ids})
+    losses = {}
+    for spec in (None, "off"):
+        model = T.Llama(T.LlamaConfig.tiny(**widths))
+        model.init_params(0)
+        acc = T.Accelerator(mixed_precision="bf16", kernels=spec)
+        pm, po = acc.prepare(model, T.adamw(3e-4))
+        step = acc.build_train_step(pm, po)
+        registry.reset_launch_counts()
+        losses[spec] = [float(step(b, clip_norm=1.0)) for b in batches]
+        if spec is None:
+            L = model.config.num_hidden_layers
+            assert registry.launch_counts == {"flash_attention_fwd": 3 * L,
+                                              "flash_attention_bwd": 3 * L,
+                                              "fused_adamw_update": 3 * 12}
+        else:
+            assert registry.launch_counts == {}
+    np.testing.assert_allclose(losses[None], losses["off"], atol=2e-2)
