@@ -11,7 +11,9 @@ the Llama decoder (``models/llama.py``), greedy and sampled ``generate``,
 and the paged KV gather kernel; the fused training step
 (``Accelerator.build_train_step``) with the optimizer transforms of
 ``optim.py``, causal flash attention (forward and backward) and the fused
-optimizer update as kernels. ROADMAP.md lists what comes next.
+optimizer update as kernels; int8-weight serving (``matmul_precision="int8"``)
+with the int8 matmul kernel, and the fused paged decode attention
+(``ops.paged_attention.paged_attention``). ROADMAP.md lists what comes next.
 
 Entry points run on the card by default and raise without one unless the
 caller passes ``device="cpu"``.

@@ -8,11 +8,17 @@ Python loop; shapes stay static (the cache is pre-allocated to prompt +
 Ragged batches are left-aligned so one cache write offset serves every row,
 with token positions taken from the attention mask.
 
-Beam search, assisted (speculative) decoding, int8 matmuls and streamed
-(offloaded) models are not ported yet and raise.
+``matmul_precision="int8"`` runs the model's block projections through the
+int8 matmul (``ops/int8.py``) on a memoized config variant of the module
+(:func:`_precision_variant`); the parameters are shared. Beam search,
+assisted (speculative) decoding and streamed (offloaded) models are not
+ported yet and raise.
 """
 
 from __future__ import annotations
+
+import copy
+import dataclasses
 
 import torch
 
@@ -69,6 +75,32 @@ def _unwrap(model):
     return model, getattr(model, "params", None)
 
 
+def _precision_variant(module, precision: str):
+    """A shallow copy of ``module`` whose config has ``matmul_precision`` set,
+    memoized on the module; the counterpart of the JAX package's
+    ``_precision_variant``. The model routes its block projections through
+    ``ops.int8.matmul(precision=config.matmul_precision)``, so the config
+    field is the whole switch, and the parameters (quantized dynamically
+    inside the matmul) are shared with the original module."""
+    from .ops.int8 import PRECISIONS
+
+    cfg = getattr(module, "config", None)
+    if cfg is None or not hasattr(cfg, "matmul_precision"):
+        raise ValueError(f"model {type(module).__name__} has no matmul_precision config field; "
+                         "int8 serving needs a model routed through ops.int8.matmul")
+    if precision not in PRECISIONS:
+        raise ValueError(f"matmul precision must be 'default' or 'int8', got {precision!r}")
+    if precision == cfg.matmul_precision:
+        return module
+    variants = module.__dict__.setdefault("_precision_variants", {})
+    if precision not in variants:
+        clone = copy.copy(module)
+        clone.config = dataclasses.replace(cfg, matmul_precision=precision)
+        clone.__dict__.pop("_precision_variants", None)
+        variants[precision] = clone
+    return variants[precision]
+
+
 def generate(
     model,
     input_ids,
@@ -97,16 +129,18 @@ def generate(
     Runs on ``device`` (``cuda`` unless the caller passes ``"cpu"``), where
     the model's parameters must live. Returns int32 ids of shape
     (B, prompt_len + max_new_tokens) when ``include_prompt`` else
-    (B, max_new_tokens). Sampling draws from ``generator``."""
+    (B, max_new_tokens). Sampling draws from ``generator``.
+    ``matmul_precision="int8"`` quantizes the block projections' operands
+    dynamically (``ops/int8.py``); ``"default"`` or None leaves them exact."""
     if assistant_model is not None:
         raise NotImplementedError("assisted (speculative) generation is not ported yet (ROADMAP.md)")
     if num_beams > 1:
         raise NotImplementedError("beam search is not ported yet (ROADMAP.md)")
-    if matmul_precision not in (None, "", "default"):
-        raise NotImplementedError("matmul_precision='int8' is not ported yet (ROADMAP.md)")
     module, mparams = _unwrap(model)
     if hasattr(module, "encode"):
         raise NotImplementedError("encoder-decoder generation is not ported yet (ROADMAP.md)")
+    if matmul_precision not in (None, ""):
+        module = _precision_variant(module, matmul_precision)
     params = mparams if params is None else params
     if params is None:
         raise ValueError("Model has no params; pass params= or init the model first.")

@@ -16,9 +16,14 @@ loop over layer indices, and the per-layer window of mixed-regime models
 With ``labels`` the head adds the shifted-label cross-entropy
 (``ops/losses.py``), which is what the training step differentiates.
 
+``matmul_precision="int8"`` sends the seven block projections (wq, wk, wv,
+wo, gate, up, down) through ``ops/int8.matmul``, whose forward is the int8
+matmul kernel on the card; the embedding and the LM head stay exact, as in
+the JAX package.
+
 Left out so far, and raising when set: remat, the pipeline schedule, the
-fused (vocab-chunked) loss, MoE, the ring/ulysses attention impls,
-``matmul_precision="int8"``, and the ``yarn``/``dynamic`` rope types.
+fused (vocab-chunked) loss, MoE, the ring/ulysses attention impls, and the
+``yarn``/``dynamic`` rope types.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ import torch.nn.functional as F
 from ..modules import ModelOutput, Module
 from ..ops.attention import attention as _attention
 from ..ops.attention import cached_attention, softcap_scores
+from ..ops.int8 import PRECISIONS
+from ..ops.int8 import matmul as _precision_matmul
 from ..ops.losses import cross_entropy_loss
 from ..utils.device import host_to_device, resolve_device
 
@@ -223,14 +230,13 @@ class Llama(Module):
             "remat": config.remat,
             "fused_loss": config.fused_loss,
             "attention_impl in (ring, ulysses)": config.attention_impl in ("ring", "ulysses"),
-            "matmul_precision='int8'": config.matmul_precision == "int8",
         }
         for name, engaged in unported.items():
             if engaged:
                 raise NotImplementedError(
                     f"Llama option {name} is not ported yet (ROADMAP.md, module queue)"
                 )
-        if config.matmul_precision != "default":
+        if config.matmul_precision not in PRECISIONS:
             raise ValueError(f"matmul precision must be 'default' or 'int8', "
                              f"got {config.matmul_precision!r}")
         self.config = config
@@ -331,7 +337,7 @@ class Llama(Module):
         scale = cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar is not None else None
         h = rms_norm(x, layer["input_norm"]["weight"], cfg.rms_norm_eps)
         a = layer["attn"]
-        q, k, v = h @ a["wq"], h @ a["wk"], h @ a["wv"]
+        q, k, v = self._mm(h, a["wq"], ctx), self._mm(h, a["wk"], ctx), self._mm(h, a["wv"], ctx)
         if "bq" in a:  # Qwen2-style QKV biases
             q, k, v = q + a["bq"], k + a["bk"], v + a["bv"]
         q = q.reshape(B, S, nh, hd)
@@ -362,24 +368,31 @@ class Llama(Module):
                 impl=cfg.attention_impl, window=window,
                 softcap=cfg.attn_logit_softcap, scale=scale, kernels=ctx.get("kernels"),
             )
-        attn_out = attn_out.reshape(B, S, nh * hd) @ a["wo"]
+        attn_out = self._mm(attn_out.reshape(B, S, nh * hd), a["wo"], ctx)
         if cfg.sandwich_norms:
             x = x + rms_norm(attn_out, layer["post_attn_norm"]["weight"], cfg.rms_norm_eps)
             h2 = rms_norm(x, layer["pre_ffw_norm"]["weight"], cfg.rms_norm_eps)
-            m = self.mlp(layer, h2)
+            m = self.mlp(layer, h2, ctx)
             x = x + rms_norm(m, layer["post_ffw_norm"]["weight"], cfg.rms_norm_eps)
         else:
             x = x + attn_out
             h2 = rms_norm(x, layer["post_attn_norm"]["weight"], cfg.rms_norm_eps)
-            x = x + self.mlp(layer, h2)
+            x = x + self.mlp(layer, h2, ctx)
         return x if cache_layer is None else (x, cache_layer)
 
     def mlp(self, layer, h2, ctx=None):
         """SwiGLU (or GeGLU) FFN on the normed residual."""
         m = layer["mlp"]
-        gate = h2 @ m["w_gate"]
+        gate = self._mm(h2, m["w_gate"], ctx)
         gate = F.silu(gate) if self.config.hidden_act == "silu" else F.gelu(gate, approximate="tanh")
-        return (gate * (h2 @ m["w_up"])) @ m["w_down"]
+        return self._mm(gate * self._mm(h2, m["w_up"], ctx), m["w_down"], ctx)
+
+    def _mm(self, a, b, ctx=None):
+        """Block matmul through the precision dispatcher (``ops/int8.py``),
+        with the forward's kernel spec. The embedding and the LM head stay
+        exact, the usual QAT skip list."""
+        kernels = None if ctx is None else ctx.get("kernels")
+        return _precision_matmul(a, b, precision=self.config.matmul_precision, kernels=kernels)
 
     @staticmethod
     def _shift_labels(labels, attention_mask):
@@ -433,14 +446,15 @@ class Llama(Module):
 
     def apply(self, params, input_ids=None, labels=None, attention_mask=None,
               positions=None, cache=None, kernels=None, **kwargs):
-        """Forward. ``kernels`` is the registry spec for the uncached
-        attention's flash op (``None``: the CUDA kernel for CUDA tensors;
-        ``"off"``: its plain version)."""
+        """Forward. ``kernels`` is the registry spec for the kernels the
+        forward runs: the uncached attention's flash op and, with
+        ``matmul_precision="int8"``, the int8 matmul (``None``: the CUDA
+        kernels for CUDA tensors; ``"off"``: their plain versions)."""
         if kwargs.get("pipeline") is not None:
             raise NotImplementedError("pipeline schedules are not ported yet (ROADMAP.md)")
         if cache is not None:
             return self._apply_cached(params, input_ids, attention_mask, cache,
-                                      labels=labels, positions=positions)
+                                      labels=labels, positions=positions, kernels=kernels)
         x, ctx = self.embed(params, input_ids, positions, attention_mask)
         ctx["kernels"] = kernels
         for i in range(self.config.num_hidden_layers):
@@ -449,7 +463,7 @@ class Llama(Module):
         return self.head(params, x, labels=labels, attention_mask=attention_mask)
 
     def _apply_cached(self, params, input_ids, attention_mask, cache, labels=None,
-                      positions=None):
+                      positions=None, kernels=None):
         """Prefill/decode forward through the KV cache. The chunk is written
         at ``cache['pos']`` in place (the cache tensors are the caller's, as
         the JAX version's are donated); the output carries the advanced
@@ -469,6 +483,7 @@ class Llama(Module):
         ctx["positions"] = slot_positions
         ctx["kv_mask"] = kv_mask
         ctx["cache_pos"] = pos
+        ctx["kernels"] = kernels
         for i in range(self.config.num_hidden_layers):
             x, _ = self.block(
                 _index_tree(params["layers"], i), x, ctx,

@@ -2,4 +2,19 @@
 
 Sources live in ``accelerate_tpu_torch/csrc/``; ``_build.py`` compiles them
 at first use. Importing this package builds and loads nothing.
+
+One wrapper per kernel, each paired with its plain version in
+``ops/registry.py``: ``paged_gather`` (``ops/paged_attention``),
+``paged_decode_cuda`` (``ops/paged_attention``), ``int8_matmul_cuda``
+(``ops/int8``), ``flash_attention_cuda`` (``ops/attention``) and
+``fused_update_cuda`` (``ops/fused_update``).
 """
+
+from .flash_attention import flash_attention_cuda
+from .fused_update import fused_update_cuda
+from .int8_matmul import int8_matmul_cuda
+from .paged_decode import paged_decode_cuda
+from .paged_gather import paged_gather
+
+__all__ = ["flash_attention_cuda", "fused_update_cuda", "int8_matmul_cuda",
+           "paged_decode_cuda", "paged_gather"]

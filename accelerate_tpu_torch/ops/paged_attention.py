@@ -16,8 +16,13 @@ shared with ``serving.py``:
 :func:`gather_block_view` is the plain version of the gather;
 :func:`gather_view` dispatches op ``paged_gather`` (``ops/registry.py``) to
 the hand-written CUDA kernel for CUDA tensors (``ops/kernels/paged_gather``).
-``export_chain_blocks``/``import_chain_blocks`` arrive with the serving
-network slice.
+:func:`paged_attention` is the fused decode attention over block chains, op
+``paged_decode``: the CUDA kernel of ``ops/kernels/paged_decode`` for CUDA
+tensors, :func:`paged_attention_plain` (the plain gather, then
+``cached_attention``) for CPU tensors or ``kernels="off"``. As in the JAX
+package, the serving engine does not call it: the engine assembles views
+with the gather. ``export_chain_blocks``/``import_chain_blocks`` arrive
+with the serving network slice.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 
 from ..utils.device import resolve_device
 from .attention import cached_attention
+from .kernels.paged_decode import paged_decode_cuda
 from .kernels.paged_gather import paged_gather
 from .registry import dispatch, register_op
 
@@ -107,10 +113,10 @@ def paged_attention_reference(q, k_pool, v_pool, block_tables, *, q_positions,
     """Gather each slot's chain to a contiguous view, then run
     :func:`~.attention.cached_attention` (causality on chain-slot order,
     validity from the gathered mask, windows in valid-slot distance). The
-    fused paged-decode kernel that replaces this composition is a later
-    slice (ROADMAP.md, kernel queue). The gather goes through
-    :func:`gather_view` with every slot active, so on the card it is the
-    CUDA kernel and equals the plain version bitwise."""
+    gather goes through :func:`gather_view` with every slot active, so on
+    the card it is the gather kernel and equals the plain version bitwise.
+    The fused kernel that replaces this composition is op ``paged_decode``
+    (:func:`paged_attention`)."""
     del active
     k_view = gather_view(k_pool, block_tables, scales=k_scale)
     v_view = gather_view(v_pool, block_tables, scales=v_scale)
@@ -119,5 +125,46 @@ def paged_attention_reference(q, k_pool, v_pool, block_tables, *, q_positions,
                             window=window, softcap=softcap, scale=scale)
 
 
+def paged_attention_plain(q, k_pool, v_pool, block_tables, *, q_positions, pool_mask=None,
+                          window=None, softcap=None, scale=None, active=None, k_scale=None,
+                          v_scale=None):
+    """Plain version of op ``paged_decode``: the plain gather
+    (:func:`gather_block_view`) of each slot's chain, dequantized to f32
+    when ``k_scale``/``v_scale`` are given, then
+    :func:`~.attention.cached_attention`. ``active`` is ignored: inactive
+    slots get masked garbage here and zeros from the kernel."""
+    del active
+    k_view = gather_block_view(k_pool, block_tables, scales=k_scale)
+    v_view = gather_block_view(v_pool, block_tables, scales=v_scale)
+    kv_mask = gather_block_mask(pool_mask, block_tables) if pool_mask is not None else None
+    return cached_attention(q, k_view, v_view, q_positions=q_positions, kv_mask=kv_mask,
+                            window=window, softcap=softcap, scale=scale)
+
+
+def paged_attention(q, k_pool, v_pool, block_tables, *, q_positions, pool_mask=None,
+                    window=None, softcap=None, scale=None, active=None, k_scale=None,
+                    v_scale=None, kernels=None):
+    """Attention of a query chunk against block-table-addressed KV pools;
+    the counterpart of the JAX package's op face
+    (``accelerate_tpu/ops/paged_attention.py:238``).
+
+    q: ``(B, S, H, D)``; k_pool/v_pool: ``(N, bs, Hkv, D)`` (one layer);
+    block_tables: ``(B, M)``; q_positions: ``(S,)`` or ``(B, S)`` positions
+    in each slot's chain-slot index space; pool_mask: ``(N, bs)`` per-token
+    validity; ``active``: per-slot flags (the kernel gives zeros for
+    inactive slots); ``k_scale``/``v_scale``: ``(N, bs)`` f32 scales of an
+    int8 pool. Returns f32 for an int8 pool, else the promotion of q's and
+    the pool's types. Dispatches op ``paged_decode``: the CUDA kernel for
+    CUDA tensors, :func:`paged_attention_plain` for CPU tensors or
+    ``kernels="off"``."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("paged_attention: k_scale and v_scale come together")
+    return dispatch("paged_decode", q, k_pool, v_pool, block_tables, q_positions=q_positions,
+                    pool_mask=pool_mask, window=window, softcap=softcap, scale=scale,
+                    active=active, k_scale=k_scale, v_scale=v_scale, kernels=kernels)
+
+
 # Chain-walk assembly of per-slot KV views (zeros for inactive slots).
 register_op("paged_gather", gather_block_view, paged_gather)
+# Ragged decode attention over block-table chains (no gathered view).
+register_op("paged_decode", paged_attention_plain, paged_decode_cuda)

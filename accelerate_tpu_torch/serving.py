@@ -34,10 +34,14 @@ request draws from its own stream, a counter-based hash of (engine seed,
 request id, step), so its tokens do not depend on traffic or slot
 assignment.
 
+``matmul_precision="int8"`` serves a memoized config variant of the module
+(``generation._precision_variant``) whose block projections run through the
+int8 matmul kernel; the parameters are shared, quantized inside the matmul.
+
 Not ported yet, and raising when asked for: contiguous serving
 (``paged=False``) and ``compact``, speculative decoding (``speculative_k``,
-``draft_model``), SLO targets, the request tracer and streaming sink,
-``matmul_precision="int8"``, and the audit/fingerprint faces.
+``draft_model``), SLO targets, the request tracer and streaming sink, and
+the audit/fingerprint faces.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .generation import _unwrap, _warp_scores, mask_positions
+from .generation import _precision_variant, _unwrap, _warp_scores, mask_positions
 from .ops.int8 import quantize_kv
 from .ops.paged_attention import gather_block_mask, gather_view, init_kv_pool
 from .ops.registry import resolve_spec
@@ -119,7 +123,8 @@ class ContinuousBatcher:
 
     Runs on ``device`` (``cuda`` unless the caller passes ``"cpu"``), where
     the model's parameters must live. ``kernels="off"`` runs the plain
-    PyTorch gather instead of the CUDA kernel (the comparison arm).
+    PyTorch versions instead of the CUDA kernels (the gather and, with
+    ``matmul_precision="int8"``, the int8 matmul): the comparison arm.
     """
 
     def __init__(
@@ -157,7 +162,6 @@ class ContinuousBatcher:
             "paged=False (contiguous serving)": not paged,
             "speculative_k / draft_model": bool(speculative_k) or draft_model is not None,
             "slo targets": slo is not None,
-            "matmul_precision='int8'": matmul_precision not in (None, "", "default"),
             "trace_requests (request tracer)": trace_requests,
         }
         for name, asked in unported.items():
@@ -166,6 +170,10 @@ class ContinuousBatcher:
                     f"ContinuousBatcher option {name} is not ported yet (ROADMAP.md, module queue)"
                 )
         module, mparams = _unwrap(model)
+        if matmul_precision in ("", "default"):
+            matmul_precision = None
+        if matmul_precision is not None:
+            module = _precision_variant(module, matmul_precision)
         self.module = module
         self.params = params if params is not None else mparams
         if self.params is None:
@@ -466,7 +474,7 @@ class ContinuousBatcher:
         # Token positions continue the slot's REAL-token count, so rope is
         # exact across chunk boundaries and bucket-padding holes.
         out = self.module.apply(self.params, input_ids=ids, attention_mask=mask, cache=cache,
-                                positions=mask_positions(mask) + base_pos)
+                                positions=mask_positions(mask) + base_pos, kernels=self.kernels)
         idx = c0 + np.arange(P)
         blk = self._device(self._tables_np[s][idx // bs], torch.int64)
         off = self._device(idx % bs, torch.int64)
@@ -505,7 +513,7 @@ class ContinuousBatcher:
             col = cache["pos"]  # view column this step writes
             feed = torch.where(active, tok, self.pad)
             out = self.module.apply(self.params, input_ids=feed[:, None], cache=cache,
-                                    positions=pos[:, None])
+                                    positions=pos[:, None], kernels=self.kernels)
             nxt = self._sample_rows(out["logits"][:, -1], self._keys, n_out, self._slot_temp,
                                     sampled)
             nxt = torch.where(active, nxt, self.pad).to(torch.int32)

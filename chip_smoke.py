@@ -14,6 +14,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    int8-dequant-to-bf16, against its plain PyTorch version (bitwise on
    active slots, zeros on inactive ones), with times for the kernel, the
    plain version and one library call, beside the bytes-moved bound.
+2a. Op phase of the int8 matmul at the 7 Llama-3-8B projection shapes
+   ((K, N) of 4096x4096, 4096x1024, 4096x14336, 14336x4096) for M = 8
+   (a decode step over 8 slots) and M = 128 (a prefill chunk), bf16:
+   bitwise against its plain version; times for the kernel, the plain
+   version and ``torch._int_mm`` on pre-quantized operands (the
+   contraction only), beside the bound.
+2b. Op phase of the fused paged decode attention at the engine's geometry
+   (8 slots, block 16, 32 heads over 8 KV heads of 128, M = 26 blocks a
+   slot) and on 4096-token chains (M = 256): bf16 and int8 pools, ragged
+   chains with trash-block tails, holes in the mask, two inactive slots.
+   The op face ``paged_attention`` is driven for one decode step over all
+   32 layers (the launches counted), then the kernel is held to its plain
+   version per (slot, head) row, with times for the kernel, the plain
+   version, the gather kernel plus ``cached_attention`` (what the engine
+   runs), and ``scaled_dot_product_attention`` on the gathered view.
 3. Engine phase: ``ContinuousBatcher(paged=True)`` on Llama-3-8B widths
    (all 32 layers, bf16, random weights from a seed) answers a wave of
    greedy requests behind a shared prefix, with chunked prefill engaged.
@@ -21,6 +36,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    launched, and the tokens equal those of an engine built with
    ``kernels="off"`` (the plain gather).
 4. The same with an int8 KV pool (the dequant variant of the kernel).
+4a. Int8-weight serving: ``ContinuousBatcher(matmul_precision="int8",
+   kv_quant="int8")`` on the same model and wave: every block projection
+   through the int8 matmul kernel (224 launches a forward), tokens equal
+   to a ``kernels="off"`` arm's; tokens/s and TTFT beside phase 3's.
 5. Small-input reference check: on ``LlamaConfig.tiny()`` in fp32 the engine's
    output equals per-request ``generate()``, and the 8B forward's logits are
    finite with the expected shape. The 16 GB serving model is then freed.
@@ -59,6 +78,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+INT8_OPS_PER_S = 1979e12    # H100 SXM int8 tensor cores, dense
 SEED = 0
 # Flash kernel vs its plain version, bf16 in and out: the kernel rounds P to
 # bf16 before P.V (as the TPU library does) and the plain version does not,
@@ -70,6 +90,15 @@ SEED = 0
 FLASH_FWD_TILE_REL = 1e-2  # forward: max over (batch, head, 64-row tile) of
                            # ||kernel - plain||_F / ||plain||_F, real-token rows
 FLASH_BWD_REL = 2e-2       # dq, dk, dv: ||kernel - plain||_F / ||plain||_F
+# Paged decode attention vs its plain version: the kernel sums the scores,
+# the softmax and P.V in another order (f32), rounding the bf16 dot and the
+# probabilities as the plain version does, so the pin is the largest
+# ||kernel - plain|| / ||plain|| over the (slot, query, head) rows of active
+# slots; a dropped or wrong block moves its row by far more.
+PAGED_DECODE_ROW_REL = 1e-2
+# (K, N) of the Llama-3-8B block projections: wq and wo, wk and wv, w_gate
+# and w_up, w_down.
+INT8_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
 # Training: losses of the kernel arm vs the kernels="off" arm, first 3 steps.
 TRAIN_LOSS_ATOL = 3e-2
 TRAIN_CUT = dict(num_hidden_layers=4, max_position_embeddings=2048)
@@ -104,6 +133,31 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_us(event) -> float:
+    """Self device time of one ``torch.profiler`` key average, in us."""
+    return (getattr(event, "self_device_time_total", None)
+            or getattr(event, "self_cuda_time_total", 0))
+
+
+def profiled_ms(fn, iters: int = 10) -> float:
+    """Device time of the CUDA kernels ``fn()`` launches, per call, summed
+    from ``torch.profiler``. ``cuda_ms`` times back-to-back calls between two
+    events, so for a kernel of tens of microseconds it counts the gaps in
+    which the card waits for the host's per-call work; this leaves them
+    out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(device_us(e) for e in events) / 1e3 / iters
 
 
 def engine_kwargs():
@@ -224,30 +278,39 @@ def op_phase(model_cfg, kw, engine_blocks: int, max_blocks: int):
     return rows
 
 
-def engine_phase(model, kv_quant, kernel_name: str, card: str):
-    """Both arms on one wave; returns the kernel arm's launch count."""
+def engine_forwards(engine) -> int:
+    """Model forwards the engine ran: one per prefill chunk, ``sync_every``
+    per decode window."""
+    log_ = engine._dispatch_log
+    return sum(e.startswith("chunk") for e in log_) + engine.sync_every * log_.count("decode")
+
+
+def engine_phase(model, kv_quant, kernel_names, card: str, matmul_precision=None):
+    """Both arms on one wave; returns the kernel arm's launch counts, its
+    forwards, tokens/s and TTFT p50 (s)."""
     import numpy as np
 
     from accelerate_tpu_torch import ContinuousBatcher
     from accelerate_tpu_torch.ops import registry
 
-    kw = engine_kwargs()
+    kw = dict(engine_kwargs(), kv_quant=kv_quant, matmul_precision=matmul_precision)
     prefix, suffixes = make_traffic(model.config.vocab_size)
-    off = ContinuousBatcher(model, kernels="off", kv_quant=kv_quant, **kw)
-    ref_tokens, _ = run_wave(off, prefix, suffixes)
+    off = ContinuousBatcher(model, kernels="off", **kw)
+    ref_tokens, off_wall = run_wave(off, prefix, suffixes)
     del off
-    engine = ContinuousBatcher(model, kv_quant=kv_quant, **kw)
+    engine = ContinuousBatcher(model, **kw)
     registry.reset_launch_counts()
     tokens, wall = run_wave(engine, prefix, suffixes)
     launches = dict(registry.launch_counts)
     stats, slo = engine.pool_stats(), engine.slo_report()
-    label = f"engine[kv_quant={kv_quant}]"
+    label = f"engine[kv_quant={kv_quant}, matmul_precision={matmul_precision}]"
     if len(tokens) != len(suffixes) or any(t.size == 0 for t in tokens):
         raise SystemExit(f"{label}: not every request finished")
     if stats["blocks_free"] != stats["num_blocks"]:
         raise SystemExit(f"{label}: {stats['blocks_free']} of {stats['num_blocks']} blocks free")
-    if launches.get(kernel_name, 0) <= 0:
-        raise SystemExit(f"{label}: {kernel_name} was never launched ({launches})")
+    for name in kernel_names:
+        if launches.get(name, 0) <= 0:
+            raise SystemExit(f"{label}: {name} was never launched ({launches})")
     if slo["decisions"]["chunked_prefills"] < 1:
         raise SystemExit(f"{label}: chunked prefill did not engage")
     for i, (a, b) in enumerate(zip(tokens, ref_tokens)):
@@ -256,16 +319,35 @@ def engine_phase(model, kv_quant, kernel_name: str, card: str):
     vocab = model.config.vocab_size
     if any(((t < 0) | (t >= vocab)).any() for t in tokens):
         raise SystemExit(f"{label}: token id outside the vocabulary")
+    forwards = engine_forwards(engine)
     n_tok = int(sum(t.size for t in tokens))
     ttft = float(np.median(slo["ttft_s"]))
-    log(f"{label}: {len(tokens)} requests, {n_tok} tokens generated, wall {wall:.3f} s, "
-          f"{n_tok / wall:.1f} tokens/s, TTFT p50 {ttft * 1e3:.1f} ms, launches {launches}, "
-          f"decisions {slo['decisions']}, pool {stats['pool_bytes'] / 2**20:.0f} MiB; "
-          f"identical to kernels='off' [{card}]")
+    log(f"{label}: {len(tokens)} requests, {n_tok} tokens generated, wall {wall:.3f} s "
+        f"(kernels='off' arm {off_wall:.3f} s), {n_tok / wall:.1f} tokens/s, TTFT p50 "
+        f"{ttft * 1e3:.1f} ms, {forwards} forwards, launches {launches}, decisions "
+        f"{slo['decisions']}, pool {stats['pool_bytes'] / 2**20:.0f} MiB; identical to "
+        f"kernels='off' [{card}]")
     for i, (suffix, toks) in enumerate(zip(suffixes, tokens)):
         log(f"{label}: request {i}: prompt {prefix.size}+{suffix.size} tokens -> "
             f"{toks.size} tokens {toks.tolist()}")
-    return launches[kernel_name]
+    return dict(launches=launches, forwards=forwards, tokens_per_s=n_tok / wall, ttft_s=ttft)
+
+
+def int8_engine_phase(model, card: str, bf16_run: dict):
+    """Int8-weight serving on the int8 pool; returns its run."""
+    L = model.config.num_hidden_layers
+    run = engine_phase(model, "int8", ("int8_matmul", "paged_gather_dequant"), card,
+                       matmul_precision="int8")
+    want = 7 * L * run["forwards"]
+    got = run["launches"]["int8_matmul"]
+    if got != want:
+        raise SystemExit(f"int8 engine: int8_matmul launched {got} times over "
+                         f"{run['forwards']} forwards, expected {want} (7 projections x {L} layers)")
+    log(f"int8 engine: int8_matmul {got} launches = {got // run['forwards']} per forward over "
+        f"{run['forwards']} forwards; {run['tokens_per_s']:.1f} tokens/s and TTFT p50 "
+        f"{run['ttft_s'] * 1e3:.1f} ms, against {bf16_run['tokens_per_s']:.1f} tokens/s and "
+        f"{bf16_run['ttft_s'] * 1e3:.1f} ms with bf16 weights and pool in this process")
+    return run
 
 
 def reference_phase(model):
@@ -299,6 +381,211 @@ def reference_phase(model):
           "for 4 requests")
 
 
+def row_rel_err(got, ref, active) -> float:
+    """Largest ``||got - ref|| / ||ref||`` over the (slot, query, head) rows
+    of (B, S, H, D) outputs, on the slots ``active`` marks (the absolute
+    error where a row of ``ref`` is all zeros)."""
+    import torch
+
+    g, r = got[active].float(), ref[active].float()
+    num, den = (g - r).square().sum(-1), r.square().sum(-1)
+    return float(torch.where(den > 0, num / den.clamp_min(1e-30), num).sqrt().max())
+
+
+def int8_op_phase():
+    """Int8 matmul kernel vs its plain version at the projection shapes;
+    returns the kernel-table row (M = 8, the gate projection)."""
+    import torch
+
+    from accelerate_tpu_torch.ops.int8 import int8_matmul_reference, quantize_rowwise
+    from accelerate_tpu_torch.ops.kernels.int8_matmul import int8_matmul_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    row = None
+    for M in (8, 128):
+        for K, N in INT8_SHAPES:
+            x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.bfloat16)
+            w = (torch.randn((K, N), generator=g, device="cuda") / math.sqrt(K)).to(torch.bfloat16)
+            got, ref = int8_matmul_cuda(x, w), int8_matmul_reference(x, w)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            if got.dtype != ref.dtype or not torch.equal(got.view(torch.int16),
+                                                         ref.view(torch.int16)):
+                raise SystemExit(f"int8_matmul M={M} K={K} N={N}: kernel disagrees with the "
+                                 f"plain version (max_abs_err={err})")
+            qx, _ = quantize_rowwise(x, -1)
+            qw, _ = quantize_rowwise(w, 0)
+            # torch._int_mm takes more than 16 rows: decode rows are padded
+            # with zeros; the weight is column-major, cuBLASLt's int8 layout.
+            qa = qx if M > 16 else torch.cat([qx, qx.new_zeros((32 - M, K))])
+            qb = qw.t().contiguous().t()
+            t_kernel = cuda_ms(lambda: int8_matmul_cuda(x, w), 20)
+            t_device = profiled_ms(lambda: int8_matmul_cuda(x, w))
+            t_plain = cuda_ms(lambda: int8_matmul_reference(x, w), 5)
+            t_lib = cuda_ms(lambda: torch._int_mm(qa, qb), 20)
+            moved = 2 * (M * K + K * N + M * N)  # bf16 x and w in, bf16 out
+            t_bytes = moved / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * M * N * K / INT8_OPS_PER_S * 1e3
+            bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+            log(f"op int8_matmul M={M} K={K} N={N} bf16: bitwise equal; kernel "
+                f"{t_kernel:.4f} ms ({t_device:.4f} ms of device time, profiler), plain "
+                f"{t_plain:.4f} ms, library {t_lib:.4f} ms "
+                f"(torch._int_mm on pre-quantized operands{'' if M > 16 else ', 32 rows'}: the "
+                f"contraction only), bound {bound:.4f} ms ({by}, {moved / 1e6:.1f} MB, "
+                f"{moved / t_kernel / 1e9:.2f} TB/s achieved)")
+            if (M, K, N) == (8, 4096, 14336):
+                row = {"name": "int8_matmul", "route": "cuda",
+                       "source": "accelerate_tpu_torch/csrc/int8_matmul.cu",
+                       "replaces": "accelerate_tpu/ops/pallas/int8_mm.py:36", "launches": 0,
+                       "max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
+                       "bound_ms": bound, "bound_by": by, "library_ms": t_lib}
+            del x, w, got, ref, qx, qw, qa, qb
+    free_cuda()
+    return row
+
+
+def paged_decode_inputs(model_cfg, bs: int, B: int, M: int, N: int, quant: bool, layers=None):
+    """Pools (one layer, or ``layers`` stacked), tables with ragged chains
+    and trash-block tails, a mask with holes, two inactive slots, one query
+    per slot at its chain's last token; made on the card from the seed."""
+    import numpy as np
+    import torch
+
+    Hkv, D, H = model_cfg.num_key_value_heads, model_cfg.head_dim, model_cfg.num_attention_heads
+    rng = np.random.default_rng(SEED + M)
+    tables = np.zeros((B, M), np.int32)
+    active = np.ones((B,), bool)
+    active[[2, 5]] = False
+    free = rng.permutation(np.arange(1, N))
+    pos = np.zeros((B, 1), np.int32)
+    for b in np.nonzero(active)[0]:
+        n = int(rng.integers(M // 2, M + 1))
+        tables[b, :n], free = free[:n], free[n:]
+        pos[b, 0] = n * bs - 1 - int(rng.integers(0, bs))  # the frontier inside the last block
+    mask = (rng.random((N, bs)) > 0.1).astype(np.int32)
+    mask[0] = 0  # the trash block
+    g = torch.Generator(device="cuda").manual_seed(SEED + M)
+    lead = () if layers is None else (layers,)
+    shape = lead + (N, bs, Hkv, D)
+    if quant:
+        k, v = (torch.randint(-127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+                for _ in range(2))
+        scales = [torch.rand(lead + (N, bs), generator=g, device="cuda") * 0.05 + 1e-3
+                  for _ in range(2)]
+    else:
+        k, v = (torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+                for _ in range(2))
+        scales = [None, None]
+    q = torch.randn((B, 1, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    dev = torch.device("cuda")
+    return dict(q=q, k=k, v=v, k_scale=scales[0], v_scale=scales[1],
+                tables=torch.tensor(tables, device=dev), pos=torch.tensor(pos, device=dev),
+                mask=torch.tensor(mask, device=dev), active=torch.tensor(active, device=dev),
+                used=np.unique(tables[active]))
+
+
+def paged_decode_phase(model_cfg, kw, engine_blocks: int, max_blocks: int):
+    """Drive the op face over one decode step of all layers at the engine's
+    geometry (launches counted), then hold the kernel to its plain version;
+    returns the kernel-table rows (bf16 and int8 pools, engine geometry)."""
+    import torch
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import registry
+    from accelerate_tpu_torch.ops.kernels.paged_decode import paged_decode_cuda
+    from accelerate_tpu_torch.ops.paged_attention import (
+        gather_block_mask,
+        gather_block_view,
+        paged_attention,
+        paged_attention_plain,
+        paged_attention_reference,
+    )
+
+    L, bs, B = model_cfg.num_hidden_layers, kw["block_size"], kw["batch_slots"]
+    H, Hkv, D = model_cfg.num_attention_heads, model_cfg.num_key_value_heads, model_cfg.head_dim
+    launches = {}
+    for quant in (False, True):
+        c = paged_decode_inputs(model_cfg, bs, B, max_blocks, engine_blocks + 1, quant, layers=L)
+        registry.reset_launch_counts()
+        for layer in range(L):
+            scales = {} if not quant else dict(k_scale=c["k_scale"][layer],
+                                               v_scale=c["v_scale"][layer])
+            paged_attention(c["q"], c["k"][layer], c["v"][layer], c["tables"],
+                            q_positions=c["pos"], pool_mask=c["mask"], active=c["active"],
+                            **scales)
+        torch.cuda.synchronize()
+        launches[quant] = dict(registry.launch_counts)
+        if launches[quant] != {"paged_decode": L}:
+            raise SystemExit(f"paged_attention over {L} layers ({'int8' if quant else 'bf16'} "
+                             f"pool): launches {launches[quant]}, expected paged_decode {L}")
+        del c
+    log(f"paged_attention driven over one decode step of {L} layers at the engine's geometry "
+        f"(B={B}, M={max_blocks}, bs={bs}): launches {launches[False]} (bf16 pool), "
+        f"{launches[True]} (int8 pool)")
+    rows = []
+    for label, M, N in (("engine M=%d" % max_blocks, max_blocks, engine_blocks + 1),
+                        ("long M=256", 256, 6 * 256 + 1)):
+        for quant in (False, True):
+            c = paged_decode_inputs(model_cfg, bs, B, M, N, quant)
+            kwargs = dict(q_positions=c["pos"], pool_mask=c["mask"], active=c["active"],
+                          k_scale=c["k_scale"], v_scale=c["v_scale"])
+            args = (c["q"], c["k"], c["v"], c["tables"])
+            got, ref = paged_decode_cuda(*args, **kwargs), paged_attention_plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            act = c["active"]
+            rel = row_rel_err(got, ref, act)
+            zeros = bool((got[~act] == 0).all())
+            err = float((got[act].float() - ref[act].float()).abs().max())
+            name = "paged_decode_int8" if quant else "paged_decode"
+            if got.dtype != ref.dtype or not zeros or not math.isfinite(rel) \
+                    or rel > PAGED_DECODE_ROW_REL:
+                raise SystemExit(f"{name} {label}: kernel disagrees with the plain version "
+                                 f"(row rel err {rel}, pin {PAGED_DECODE_ROW_REL}; inactive zeros "
+                                 f"{zeros}; dtypes {got.dtype}/{ref.dtype})")
+            # The library yardstick: sdpa on the already-gathered bf16 view
+            # (attention only), with the causal and validity mask.
+            k_view = gather_block_view(c["k"], c["tables"], scales=c["k_scale"],
+                                       out_dtype=torch.bfloat16 if quant else None)
+            v_view = gather_block_view(c["v"], c["tables"], scales=c["v_scale"],
+                                       out_dtype=torch.bfloat16 if quant else None)
+            T = M * bs
+            keep = gather_block_mask(c["mask"], c["tables"]).bool() & (
+                torch.arange(T, device="cuda")[None] <= c["pos"])
+            qt, kt, vt = c["q"].transpose(1, 2), k_view.transpose(1, 2), v_view.transpose(1, 2)
+            attn_mask = keep[:, None, None, :]
+            t_kernel = cuda_ms(lambda: paged_decode_cuda(*args, **kwargs), 20)
+            t_device = profiled_ms(lambda: paged_decode_cuda(*args, **kwargs))
+            t_plain = cuda_ms(lambda: paged_attention_plain(*args, **kwargs), 5)
+            t_status = cuda_ms(lambda: paged_attention_reference(*args, **kwargs), 10)
+            t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=attn_mask, enable_gqa=True), 20)
+            el = c["k"].element_size()
+            per_block = 2 * bs * Hkv * D * el + bs * 4 + (2 * bs * 4 if quant else 0)
+            moved = (len(c["used"]) * per_block + c["q"].numel() * 2
+                     + got.numel() * got.element_size() + c["tables"].numel() * 4)
+            n_keys = int(act.sum()) * T
+            ops = 4 * H * D * n_keys  # q.k and p.v, a multiply and an add each
+            t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+            bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+            log(f"op {name} {label}: out {tuple(got.shape)} {got.dtype}, row rel err {rel:.3e} "
+                f"(pin {PAGED_DECODE_ROW_REL}), max|err| {err:.3e}, inactive slots zero; "
+                f"kernel {t_kernel:.4f} ms ({t_device:.4f} ms of device time, profiler), plain "
+                f"{t_plain:.4f} ms, gather kernel + "
+                f"cached_attention {t_status:.4f} ms, library {t_lib:.4f} ms "
+                f"(scaled_dot_product_attention on the gathered view: attention only), bound "
+                f"{bound:.4f} ms ({by}, {moved / 1e6:.2f} MB)")
+            if M == max_blocks:
+                rows.append({"name": name, "route": "cuda",
+                             "source": "accelerate_tpu_torch/csrc/paged_decode.cu",
+                             "replaces": "accelerate_tpu/ops/pallas/paged_decode.py:64",
+                             "launches": launches[quant]["paged_decode"], "max_abs_err": err,
+                             "ms": t_kernel, "plain_ms": t_plain, "bound_ms": bound,
+                             "bound_by": by, "library_ms": t_lib})
+            del c, got, ref, k_view, v_view, qt, kt, vt
+    free_cuda()
+    return rows
+
+
 def profile_wave(model):
     """torch.profiler over one wave: device time by kernel and busy share."""
     import torch
@@ -311,14 +598,10 @@ def profile_wave(model):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = run_wave(engine, prefix, suffixes)
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(device_us(e) for e in events) / 1e3  # ms
     launches = sum(e.count for e in events)
-    log_ = engine._dispatch_log
-    forwards = sum(e.startswith("chunk") for e in log_) + engine.sync_every * log_.count("decode")
+    forwards = engine_forwards(engine)
     log(f"profile: wave wall {wall * 1e3:.1f} ms, device busy {total:.1f} ms "
         f"({100 * total / (wall * 1e3):.1f}%), {launches} kernel launches over {forwards} "
         f"forwards ({launches / forwards:.0f} per forward, "
@@ -647,9 +930,6 @@ def profile_train_step():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(device_us(e) for e in events) / 1e3
     log(f"profile train step: wall {wall * 1e3:.1f} ms, device busy {total:.1f} ms "
@@ -708,10 +988,18 @@ def main(argv) -> int:
     from accelerate_tpu_torch import ContinuousBatcher
 
     probe = ContinuousBatcher(model, **engine_kwargs())
-    rows = op_phase(cfg, engine_kwargs(), probe.num_blocks, probe.max_blocks_per_slot)
+    blocks, max_blocks = probe.num_blocks, probe.max_blocks_per_slot
     del probe
-    rows[0]["launches"] = engine_phase(model, None, "paged_gather", card)
-    rows[1]["launches"] = engine_phase(model, "int8", "paged_gather_dequant", card)
+    rows = op_phase(cfg, engine_kwargs(), blocks, max_blocks)
+    int8_row = int8_op_phase()
+    rows += paged_decode_phase(cfg, engine_kwargs(), blocks, max_blocks)
+    bf16_run = engine_phase(model, None, ("paged_gather",), card)
+    rows[0]["launches"] = bf16_run["launches"]["paged_gather"]
+    rows[1]["launches"] = engine_phase(model, "int8", ("paged_gather_dequant",),
+                                       card)["launches"]["paged_gather_dequant"]
+    int8_run = int8_engine_phase(model, card, bf16_run)
+    int8_row["launches"] = int8_run["launches"]["int8_matmul"]
+    rows.append(int8_row)
     reference_phase(model)
     if "--profile" in argv:
         profile_wave(model)

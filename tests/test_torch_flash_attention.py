@@ -1,12 +1,20 @@
 """Parity of the port's flash attention with the JAX package's.
 
 The same q, k, v and output cotangent (numpy, seed below) go through the
-library's ``mha_reference`` (the plain version the JAX flash kernel is
-tested against; its gradients through ``jax.vjp`` of
-``mha_reference_no_custom_vjp``, since the custom VJP takes no
-``sm_scale``) and through the port's ``flash_attention_reference``, which
-is what ``impl="flash"`` runs for a CPU tensor. Layouts: the library's is
-(B, H, S, D), the port's (B, S, H, D).
+library's reference attention, ``mha_reference_no_custom_vjp`` (the plain
+version the JAX flash kernel is tested against; values and gradients from
+one ``jax.vjp``), and through the port's ``flash_attention_reference``,
+which is what ``impl="flash"`` runs for a CPU tensor. Layouts: the
+library's is (B, H, S, D), the port's (B, S, H, D).
+
+Every JAX reference here runs under ``jax.default_matmul_precision("float32")``
+(the fixture below). The library's jitted ``mha_reference`` sets
+``"bfloat16"`` (DEFAULT precision) on its einsums, and eager einsums default
+to DEFAULT too. At DEFAULT precision XLA may compute f32 products with
+fewer bits (x86 hosts with AMX or AVX-512 bf16 units can), and then the
+tolerances below do not hold: one run of the whole suite failed the first
+case here with a forward mismatch of up to 9.2e-5 in 12% of the elements,
+where full f32 products summed in another order differ by at most 5e-7.
 
 Tolerances, with their reasons: fp32 on the CPU in both frameworks, with
 sums in another order — ``atol=1e-5`` on values (O(1)) and ``atol=1e-4`` on
@@ -29,7 +37,6 @@ import jax
 import jax.numpy as jnp
 from jax.experimental.pallas.ops.tpu.flash_attention import (
     SegmentIds,
-    mha_reference,
     mha_reference_no_custom_vjp,
 )
 
@@ -49,6 +56,14 @@ torch.set_num_threads(2)
 SEED = 11
 VALUE_ATOL = 1e-5
 GRAD_ATOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _f32_jax_matmuls():
+    """Full f32 products in every JAX reference of a test (thread-local,
+    undone after the test)."""
+    with jax.default_matmul_precision("float32"):
+        yield
 
 
 def _seg(B, S):
@@ -73,9 +88,9 @@ def test_plain_flash_matches_mha_reference(S, D, with_segments):
     jseg = None if seg is None else SegmentIds(q=jnp.asarray(seg), kv=jnp.asarray(seg))
     tseg = None if seg is None else torch.tensor(seg)
 
-    want = np.asarray(mha_reference(q, k, v, None, segment_ids=jseg, causal=True, sm_scale=scale))
-    _, vjp = jax.vjp(lambda q, k, v: mha_reference_no_custom_vjp(
+    want, vjp = jax.vjp(lambda q, k, v: mha_reference_no_custom_vjp(
         q, k, v, None, segment_ids=jseg, causal=True, sm_scale=scale), q, k, v)
+    want = np.asarray(want)
     want_grads = vjp(jnp.asarray(do))
 
     tq, tk, tv = (_bhsd_to_port(x).requires_grad_() for x in (q, k, v))

@@ -25,15 +25,18 @@ import torch
 
 import accelerate_tpu_torch as T
 from accelerate_tpu_torch import optim
-from chip_smoke import tile_rel_err
+from chip_smoke import PAGED_DECODE_ROW_REL, engine_forwards, row_rel_err, tile_rel_err
 from accelerate_tpu_torch.ops import registry
 from accelerate_tpu_torch.ops.attention import flash_attention_reference
 from accelerate_tpu_torch.ops.kernels import _build
 from accelerate_tpu_torch.ops.fused_update import leaf_update, plan_fused_update
+from accelerate_tpu_torch.ops.int8 import int8_matmul_reference
 from accelerate_tpu_torch.ops.kernels.flash_attention import flash_attention_cuda
 from accelerate_tpu_torch.ops.kernels.fused_update import fused_update_cuda
+from accelerate_tpu_torch.ops.kernels.int8_matmul import int8_matmul_cuda
+from accelerate_tpu_torch.ops.kernels.paged_decode import paged_decode_cuda
 from accelerate_tpu_torch.ops.kernels.paged_gather import paged_gather
-from accelerate_tpu_torch.ops.paged_attention import gather_block_view
+from accelerate_tpu_torch.ops.paged_attention import gather_block_view, paged_attention_plain
 
 torch.set_num_threads(2)
 
@@ -107,8 +110,14 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_counts_nothing():
     p, one = torch.zeros(8), torch.ones(())
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused_update_cuda(p, p.clone(), (p.clone(), p.clone()), one, one, one, plan=plan)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        int8_matmul_cuda(torch.zeros((2, 8)), torch.zeros((8, 4)))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        paged_decode_cuda(torch.zeros((2, 1, 4, 16)), pool[0], pool[0], tables,
+                          q_positions=torch.zeros((1,), dtype=torch.int32))
     assert registry.launch_counts == {}
-    assert registry.known_ops() == ("flash_attention", "fused_update", "paged_gather")
+    assert registry.known_ops() == ("flash_attention", "fused_update", "int8_matmul",
+                                    "paged_decode", "paged_gather")
     with pytest.raises(KeyError):
         registry.dispatch("no_such_op", pool)
 
@@ -117,7 +126,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    assert _build.sources() == ["flash_attention", "fused_update", "paged_gather"]
+    assert _build.sources() == ["flash_attention", "fused_update", "int8_matmul", "paged_decode",
+                                "paged_gather"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
 
@@ -125,7 +135,6 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 @pytest.mark.parametrize("option,match", [
     (dict(speculative_k=2), "speculative"),
     (dict(draft_model=object()), "speculative"),
-    (dict(matmul_precision="int8"), "int8"),
     (dict(slo=object()), "slo"),
     (dict(paged=False), "paged=False"),
     (dict(trace_requests=True), "tracer"),
@@ -138,8 +147,7 @@ def test_unported_engine_options_raise(option, match):
                             device="cpu", **option)
 
 
-@pytest.mark.parametrize("option", [dict(num_beams=2), dict(assistant_model=object()),
-                                    dict(matmul_precision="int8")])
+@pytest.mark.parametrize("option", [dict(num_beams=2), dict(assistant_model=object())])
 def test_unported_generate_options_raise(option):
     model = T.Llama(T.LlamaConfig.tiny(), device="cpu")
     model.init_params(0)
@@ -274,3 +282,114 @@ def test_train_step_on_the_card_matches_kernels_off():
         else:
             assert registry.launch_counts == {}
     np.testing.assert_allclose(losses[None], losses["off"], atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,N", [
+    ((2, 17, 33), torch.float32, 29), ((8, 16), torch.bfloat16, 29),
+    ((300, 64), torch.float32, 300), ((16, 256, 384), torch.bfloat16, 160),
+    ((8, 4096), torch.bfloat16, 1024),  # one decode step's wk projection at Llama-3-8B width
+], ids=["odd-3d-f32", "bf16", "tiles-f32", "chunk-bf16", "llama-wk-bf16"])
+def test_int8_matmul_kernel_bitwise_equals_plain_version_on_the_card(shape, dtype, N):
+    """Bitwise: the integer contraction is exact, and the scale, rounding and
+    rescale are the same correctly rounded f32 operations in one order."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    w = torch.randn((shape[-1], N), generator=g, device="cuda").to(dtype)
+    x[..., 1, :] = 0  # an all-zero row: scale 1
+    registry.reset_launch_counts()
+    got = int8_matmul_cuda(x, w)
+    ref = int8_matmul_reference(x, w)
+    torch.cuda.synchronize()
+    assert registry.launch_counts == {"int8_matmul": 1}
+    assert got.dtype == ref.dtype == dtype and got.shape == ref.shape
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), ref.view(bits))
+
+
+def _paged_case(quant, dtype, S=1, seed=0):
+    """A pool with ragged chains, trash-block tails, mask holes and two
+    inactive slots (1 and 4), made on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, N, bs, Hkv, H, D, M = 6, 40, 16, 2, 8, 128, 5
+    rng = np.random.default_rng(seed)
+    tables = np.zeros((B, M), np.int32)
+    free = rng.permutation(np.arange(1, N))
+    pos = np.zeros((B, S), np.int32)
+    for b, n in enumerate((5, 0, 3, 1, 0, 4)):
+        tables[b, :n], free = free[:n], free[n:]
+        pos[b] = max(n * bs - S, 0) + np.arange(S)
+    mask = (rng.random((N, bs)) > 0.2).astype(np.int32)
+    mask[0] = 0
+    if quant:
+        k, v = (torch.randint(-127, 128, (N, bs, Hkv, D), generator=g, device="cuda",
+                              dtype=torch.int8) for _ in range(2))
+        scales = dict(k_scale=torch.rand((N, bs), generator=g, device="cuda") * 0.05,
+                      v_scale=torch.rand((N, bs), generator=g, device="cuda") * 0.05)
+    else:
+        k, v = (torch.randn((N, bs, Hkv, D), generator=g, device="cuda").to(dtype)
+                for _ in range(2))
+        scales = {}
+    q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
+    active = torch.tensor([1, 0, 1, 1, 0, 1], dtype=torch.bool, device="cuda")
+    kw = dict(q_positions=torch.tensor(pos, device="cuda"), active=active,
+              pool_mask=torch.tensor(mask, device="cuda"), **scales)
+    return (q, k, v, torch.tensor(tables, device="cuda")), kw, active
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bf16", "int8-pool", "f32", "bf16-window-softcap",
+                                  "int8-window-chunk", "no-mask"])
+def test_paged_decode_kernel_matches_plain_version_on_the_card(case):
+    """Per (slot, query, head) row, the relative L2 error against the plain
+    version is at most 1e-2 (the kernel sums in another order; chip_smoke.py
+    holds the Llama-3-8B geometry to the same pin); inactive slots are
+    exact zeros."""
+    _needs_card()
+    quant = case.startswith("int8")
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    args, kw, active = _paged_case(quant, dtype, S=3 if "chunk" in case else 1)
+    if "window" in case:
+        kw.update(window=20, softcap=30.0)
+    if case == "no-mask":
+        kw["pool_mask"] = None
+    registry.reset_launch_counts()
+    got = paged_decode_cuda(*args, **kw)
+    ref = paged_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert registry.launch_counts == {"paged_decode": 1}
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert row_rel_err(got, ref, active) <= PAGED_DECODE_ROW_REL
+    assert bool((got[~active] == 0).all())
+
+
+@pytest.mark.cuda
+def test_int8_engine_on_the_card_matches_kernels_off():
+    """Int8 weights and an int8 pool on a small bf16 model: every block
+    projection launches the int8 kernel, and the tokens equal the plain
+    arm's (both kernels on the path are bitwise)."""
+    _needs_card()
+    model = T.Llama(T.LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                                       num_key_value_heads=2))
+    model.init_params(0, dtype=torch.bfloat16)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 256, (n,)).astype(np.int32) for n in (20, 5, 9)]
+    outs = {}
+    for spec in (None, "off"):
+        engine = T.ContinuousBatcher(model, batch_slots=2, max_new_tokens=6, max_cache_len=256,
+                                     bucket_sizes=(8, 16), sync_every=2, block_size=16,
+                                     max_tokens_per_request=64, kv_quant="int8",
+                                     matmul_precision="int8", kernels=spec)
+        rids = [engine.submit(p) for p in prompts]
+        registry.reset_launch_counts()
+        out = engine.run()
+        outs[spec] = [out[r] for r in rids]
+        if spec is None:
+            L = model.config.num_hidden_layers
+            assert registry.launch_counts["int8_matmul"] == 7 * L * engine_forwards(engine)
+            assert registry.launch_counts["paged_gather_dequant"] > 0
+        else:
+            assert registry.launch_counts == {}
+    for a, b in zip(outs[None], outs["off"]):
+        np.testing.assert_array_equal(a, b)
