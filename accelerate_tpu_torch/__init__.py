@@ -13,7 +13,11 @@ and the paged KV gather kernel; the fused training step
 ``optim.py``, causal flash attention (forward and backward) and the fused
 optimizer update as kernels; int8-weight serving (``matmul_precision="int8"``)
 with the int8 matmul kernel, and the fused paged decode attention
-(``ops.paged_attention.paged_attention``). ROADMAP.md lists what comes next.
+(``ops.paged_attention.paged_attention``); Gemma-2 training through the
+splash attention kernel (local window, logit softcap, query scale; forward
+and backward) with the vocab-chunked fused loss, and the Hugging Face
+config converters of ``models/convert.py`` (Llama, Mistral, Gemma, Gemma-2,
+Qwen2, Qwen3). ROADMAP.md lists what comes next.
 
 Entry points run on the card by default and raise without one unless the
 caller passes ``device="cpu"``.
@@ -22,7 +26,17 @@ caller passes ``device="cpu"``.
 from . import optim
 from .accelerator import Accelerator
 from .generation import generate
-from .models import Llama, LlamaConfig, llama_params_from_numpy, optax_state_from_numpy
+from .models import (
+    Llama,
+    LlamaConfig,
+    gemma2_config_from_hf,
+    gemma_config_from_hf,
+    llama_config_from_hf,
+    llama_params_from_numpy,
+    optax_state_from_numpy,
+    qwen2_config_from_hf,
+    qwen3_config_from_hf,
+)
 from .ops.paged_attention import init_kv_pool
 from .optim import adam, adamw, sgd
 from .serving import ContinuousBatcher
@@ -39,11 +53,16 @@ __all__ = [
     "LlamaConfig",
     "adam",
     "adamw",
+    "gemma2_config_from_hf",
+    "gemma_config_from_hf",
     "generate",
     "init_kv_pool",
+    "llama_config_from_hf",
     "llama_params_from_numpy",
     "optax_state_from_numpy",
     "optim",
+    "qwen2_config_from_hf",
+    "qwen3_config_from_hf",
     "resolve_device",
     "set_seed",
     "sgd",

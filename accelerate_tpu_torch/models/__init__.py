@@ -1,4 +1,13 @@
+from .convert import (
+    gemma2_config_from_hf,
+    gemma_config_from_hf,
+    llama_config_from_hf,
+    qwen2_config_from_hf,
+    qwen3_config_from_hf,
+)
 from .from_jax import llama_params_from_numpy, optax_state_from_numpy
 from .llama import Llama, LlamaConfig
 
-__all__ = ["Llama", "LlamaConfig", "llama_params_from_numpy", "optax_state_from_numpy"]
+__all__ = ["Llama", "LlamaConfig", "gemma2_config_from_hf", "gemma_config_from_hf",
+           "llama_config_from_hf", "llama_params_from_numpy", "optax_state_from_numpy",
+           "qwen2_config_from_hf", "qwen3_config_from_hf"]

@@ -14,16 +14,26 @@ loop over layer indices, and the per-layer window of mixed-regime models
 (``layer_windows``) is read per layer instead of per scan segment.
 
 With ``labels`` the head adds the shifted-label cross-entropy
-(``ops/losses.py``), which is what the training step differentiates.
+(``ops/losses.py``), which is what the training step differentiates. With
+``fused_loss=True`` it computes that loss by the vocab-chunked streaming
+logsumexp straight from the hidden states (``fused_cross_entropy_loss``,
+with Gemma-2's final softcap per chunk and the tied (V, h) table read in
+place) and returns the loss without logits. Its knobs are the config's
+``fused_loss_*`` fields; the JAX package's ``ACCELERATE_FUSED_LOSS_*``
+environment overrides are not ported (the port reads no environment
+variable).
+
+The uncached forward's attention goes through ``ops/attention.attention``:
+Gemma-2's windowed, softcapped and scaled layers resolve to the splash
+kernel on the card, plain causal layers to flash.
 
 ``matmul_precision="int8"`` sends the seven block projections (wq, wk, wv,
 wo, gate, up, down) through ``ops/int8.matmul``, whose forward is the int8
 matmul kernel on the card; the embedding and the LM head stay exact, as in
 the JAX package.
 
-Left out so far, and raising when set: remat, the pipeline schedule, the
-fused (vocab-chunked) loss, MoE, the ring/ulysses attention impls, and the
-``yarn``/``dynamic`` rope types.
+Left out so far, and raising when set: remat, the pipeline schedule, MoE,
+the ring/ulysses attention impls, and the ``yarn``/``dynamic`` rope types.
 """
 
 from __future__ import annotations
@@ -40,7 +50,7 @@ from ..ops.attention import attention as _attention
 from ..ops.attention import cached_attention, softcap_scores
 from ..ops.int8 import PRECISIONS
 from ..ops.int8 import matmul as _precision_matmul
-from ..ops.losses import cross_entropy_loss
+from ..ops.losses import cross_entropy_loss, fused_cross_entropy_loss
 from ..utils.device import host_to_device, resolve_device
 
 
@@ -58,7 +68,7 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     remat: bool = False
     remat_policy: str = "nothing_saveable"
-    attention_impl: str = "auto"  # 'auto' | 'dense' | 'flash' | 'ring' | 'ulysses'
+    attention_impl: str = "auto"  # 'auto' | 'dense' | 'flash' | 'splash' | 'ring' | 'ulysses'
     matmul_precision: str = "default"  # 'default' | 'int8'
     # QKV projection biases (the Qwen2 recipe; Llama proper is bias-free).
     attention_bias: bool = False
@@ -84,8 +94,11 @@ class LlamaConfig:
     query_pre_attn_scalar: float | None = None
     # Gemma-2 sandwich norms (four norms per layer instead of two).
     sandwich_norms: bool = False
-    # Training-loss knobs of the JAX package, kept so configs carry across;
-    # fused_loss=True raises in this port (the fused loss is not ported yet).
+    # Compute the training loss by vocab-chunked streaming logsumexp straight
+    # from hidden states (ops/losses.fused_cross_entropy_loss); outputs carry
+    # the loss and no logits when it engages. fused_loss_unroll (the JAX
+    # chunk scan's unroll) is validated here and has no effect in eager
+    # PyTorch, where the chunk loop is a Python loop.
     fused_loss: bool = False
     fused_loss_chunk: int = 8192
     fused_loss_dtype: str = "fp32"
@@ -228,7 +241,6 @@ class Llama(Module):
     def __init__(self, config: LlamaConfig, device=None):
         unported = {
             "remat": config.remat,
-            "fused_loss": config.fused_loss,
             "attention_impl in (ring, ulysses)": config.attention_impl in ("ring", "ulysses"),
         }
         for name, engaged in unported.items():
@@ -411,13 +423,24 @@ class Llama(Module):
 
     def head(self, params, x, labels=None, attention_mask=None):
         """Final norm + LM head (+ shifted-label loss with ``labels``). The
-        tied head reads the embed table in its native (V, h) layout."""
+        tied head reads the embed table in its native (V, h) layout; with
+        ``fused_loss`` and labels, the loss comes straight from the hidden
+        states and the output carries no logits."""
         cfg = self.config
         x = rms_norm(x, params["final_norm"]["weight"], cfg.rms_norm_eps)
         if cfg.tie_word_embeddings:
-            logits = x @ params["embed"]["weight"].to(x.dtype).T
+            head_w = params["embed"]["weight"].to(x.dtype)  # (V, h)
         else:
-            logits = x @ params["lm_head"]["weight"]
+            head_w = params["lm_head"]["weight"]  # (h, V)
+        if labels is not None and cfg.fused_loss:
+            loss = fused_cross_entropy_loss(
+                x, head_w, self._shift_labels(labels, attention_mask),
+                logit_cap=cfg.final_logit_softcap, head_transposed=cfg.tie_word_embeddings,
+                vocab_chunk=cfg.fused_loss_chunk, chunk_dtype=cfg.fused_loss_dtype,
+                custom_backward=cfg.fused_loss_backward == "custom",
+            )
+            return ModelOutput(loss=loss)
+        logits = x @ head_w.T if cfg.tie_word_embeddings else x @ head_w
         if cfg.final_logit_softcap is not None:
             logits = softcap_scores(logits.float(), cfg.final_logit_softcap)
         out = ModelOutput(logits=logits)
@@ -447,7 +470,7 @@ class Llama(Module):
     def apply(self, params, input_ids=None, labels=None, attention_mask=None,
               positions=None, cache=None, kernels=None, **kwargs):
         """Forward. ``kernels`` is the registry spec for the kernels the
-        forward runs: the uncached attention's flash op and, with
+        forward runs: the uncached attention's flash or splash op and, with
         ``matmul_precision="int8"``, the int8 matmul (``None``: the CUDA
         kernels for CUDA tensors; ``"off"``: their plain versions)."""
         if kwargs.get("pipeline") is not None:

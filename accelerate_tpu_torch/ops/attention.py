@@ -1,17 +1,20 @@
 """Attention — the counterpart of ``accelerate_tpu/ops/attention.py``.
 
 Layout (B, S, H, D) throughout, as in the JAX package. Ported: the dense
-path, the cached (decode) path the paged serving engine runs, and causal
-flash attention (op ``flash_attention``: the hand-written CUDA kernel of
+path, the cached (decode) path the paged serving engine runs, causal flash
+attention (op ``flash_attention``: the hand-written CUDA kernel of
 ``csrc/flash_attention.cu`` for CUDA tensors, :func:`flash_attention_reference`
-for CPU tensors or ``kernels="off"``). Splash attention and the
-sequence-parallel paths are later slices (ROADMAP.md, kernel queue) and raise
-when asked for.
+for CPU tensors or ``kernels="off"``) and splash attention, the block-sparse
+variant with a local window, a tanh logit softcap and a query scale, which
+the Mistral, Gemma-2 and Qwen2 recipes need (op ``splash_attention``:
+``csrc/splash_attention.cu``, plain version :func:`splash_attention_reference`).
+The sequence-parallel paths (ring, ulysses) are a later slice (ROADMAP.md,
+kernel queue) and raise when asked for.
 
-``impl="auto"`` resolves by :func:`resolve_auto_impl`: flash for a bf16
-CUDA tensor at flash-friendly shapes from :data:`FLASH_MIN_SEQ` tokens on
-and head widths the kernel takes (bf16, D of 64 or 128), dense otherwise
-and always dense for a CPU tensor. The crossover is a
+``impl="auto"`` resolves by :func:`resolve_auto_impl`, for a CUDA tensor at
+kernel-friendly shapes from :data:`FLASH_MIN_SEQ` tokens on: splash for a
+windowed, softcapped or scaled recipe, flash for plain causal attention;
+dense otherwise, and always dense for a CPU tensor. The crossover is a
 constant: the port reads no environment variable.
 """
 
@@ -23,12 +26,15 @@ import torch
 
 from .kernels.flash_attention import HEAD_DIMS as KERNEL_HEAD_DIMS
 from .kernels.flash_attention import flash_attention_cuda
+from .kernels.splash_attention import HEAD_DIMS as SPLASH_HEAD_DIMS
+from .kernels.splash_attention import splash_attention_cuda
 from .registry import dispatch, register_op
 
 # Dense/flash crossover: the JAX package's default for a device without an
 # entry of its own (``_DEFAULT_FLASH_MIN_SEQ``).
 FLASH_MIN_SEQ = 1024
-# The library flash kernel's DEFAULT_MASK_VALUE, added to masked logits.
+# The library kernels' DEFAULT_MASK_VALUE: added to masked logits by flash,
+# put in their place by splash.
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 
@@ -166,57 +172,129 @@ def flash_attention(q, k, v, *, causal=True, mask=None, kernels=None):
                     sm_scale=1.0 / math.sqrt(q.shape[-1]), kernels=kernels)
 
 
+def splash_attention_reference(q, k, v, segment_ids=None, window=None, softcap=None):
+    """Plain version of the splash kernel, with the semantics of the
+    library's ``attention_reference`` and ``_apply_mask_and_soft_cap``
+    (``jax/experimental/pallas/ops/tpu/splash_attention/
+    splash_attention_kernel.py``) in this package's (B, S, H, D) layout, equal
+    head counts: f32 logits ``q·kᵀ`` with no scale (q arrives pre-scaled);
+    the softcap ``tanh(l / cap) · cap``; then masked logits are *replaced* by
+    ``MASK_VALUE``, where the mask is causal (``0 <= q - k``, and ``q - k <
+    window`` with a window) AND segment-id equality; a max-subtracted f32
+    softmax; P·V in f32 with V cast to f32 (splash does not round P); the
+    output in q's dtype. The weights are normalized after P·V, as the kernel
+    does, which keeps one (B, H, S, S) tensor fewer for autograd than
+    dividing P first. Its gradient comes from autograd, which equals the
+    library's custom backward (softcap factor ``1 - tanh²``)."""
+    S = q.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
+    rows = torch.arange(S, device=q.device)[:, None]
+    cols = torch.arange(S, device=q.device)[None, :]
+    keep = cols <= rows
+    if window is not None:
+        keep = keep & (rows - cols < window)
+    keep = keep[None, None]
+    if segment_ids is not None:
+        keep = keep & (segment_ids[:, :, None] == segment_ids[:, None, :])[:, None]
+    logits = torch.where(keep, logits, MASK_VALUE)
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    unnormalized = torch.exp(logits - m)
+    total = unnormalized.sum(dim=-1)  # (B, H, S)
+    out = torch.einsum("bhqk,bkhd->bqhd", unnormalized, v.float())
+    return (out / total.transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def splash_attention(q, k, v, *, causal=True, mask=None, window=None, softcap=None,
+                     scale=None, kernels=None):
+    """Splash attention, layout (B, S, H, D); the counterpart of the JAX
+    package's ``splash_attention`` (``ops/attention.py:180``), step for step:
+    causal only, equal q and kv lengths; GQA KV heads repeated; q pre-scaled
+    in its own dtype (``scale`` defaults to 1/sqrt(D); Gemma-2 passes
+    ``query_pre_attn_scalar ** -0.5``); the window as the local mask ``0 <= q
+    - k < window``; padding (``mask`` (B, S), 1 = real) as segment ids, real
+    tokens 2 and pads 1. Then op ``splash_attention`` through the registry."""
+    if not causal:
+        raise ValueError("splash_attention is causal-only (the mask is built causal)")
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(
+            f"splash_attention needs equal q/kv lengths, got {q.shape[1]} vs "
+            f"{k.shape[1]}; use impl='dense' for cross-length attention."
+        )
+    B, S, H, D = q.shape
+    k, v = repeat_kv(k, v, H // k.shape[2])
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    # The scale rounded to q's dtype, as jnp.asarray(scale, q.dtype).
+    q = (q * torch.tensor(scale, dtype=q.dtype).item()).to(q.dtype)
+    segment_ids = None
+    if mask is not None:
+        segment_ids = torch.where(mask.bool(), 2, 1).to(torch.int32).contiguous()
+    return dispatch("splash_attention", q.contiguous(), k.contiguous(), v.contiguous(),
+                    segment_ids=segment_ids, window=window, softcap=softcap, kernels=kernels)
+
+
 def resolve_auto_impl(seq_len: int, head_dim: int, *, kv_len: int | None = None,
-                      window=None, softcap=None, scale=None, device=None, dtype=None) -> str:
+                      causal: bool = True, window=None, softcap=None, scale=None, device=None,
+                      dtype=None) -> str:
     """What ``impl='auto'`` resolves to for this shape, recipe, device and
-    dtype — the single source of the dispatch predicate. Windowed,
-    softcapped or scaled recipes resolve to dense (splash is not ported).
-    Plain attention resolves to flash where the CUDA kernel takes it: a CUDA
-    device, a bf16 (or unstated) dtype, equal query and key lengths, a
-    sequence that is a multiple of 128 from :data:`FLASH_MIN_SEQ` tokens on,
-    and a head width in :data:`KERNEL_HEAD_DIMS` (the JAX predicate also
-    admits 96 and 256, which wait for a later kernel). Everything else, and
-    every CPU tensor, resolves to dense."""
+    dtype — the single source of the dispatch predicate. A kernel needs a
+    CUDA device, a bf16 (or unstated) dtype, equal query and key lengths and
+    a sequence that is a multiple of 128 from :data:`FLASH_MIN_SEQ` tokens
+    on. Windowed, softcapped or scaled recipes resolve to splash where it is
+    also causal and the head width is in :data:`SPLASH_HEAD_DIMS`; plain
+    attention resolves to flash at a head width in :data:`KERNEL_HEAD_DIMS`
+    (the JAX predicate also admits 96, and 256 for flash, which wait for a
+    later kernel). Everything else, and every CPU tensor, resolves to
+    dense."""
     kv_len = seq_len if kv_len is None else kv_len
-    if window is not None or softcap is not None or scale is not None:
-        return "dense"
     on_card = device is not None and torch.device(device).type == "cuda"
     dtype_ok = dtype is None or dtype == torch.bfloat16
-    if (on_card and dtype_ok and kv_len == seq_len and seq_len % 128 == 0
-            and seq_len >= FLASH_MIN_SEQ and head_dim in KERNEL_HEAD_DIMS):
-        return "flash"
-    return "dense"
+    kernel_ok = (on_card and dtype_ok and kv_len == seq_len and seq_len % 128 == 0
+                 and seq_len >= FLASH_MIN_SEQ)
+    if window is not None or softcap is not None or scale is not None:
+        return "splash" if kernel_ok and causal and head_dim in SPLASH_HEAD_DIMS else "dense"
+    return "flash" if kernel_ok and head_dim in KERNEL_HEAD_DIMS else "dense"
 
 
 def attention(q, k, v, *, causal=True, mask=None, impl: str = "auto", window=None,
               softcap=None, scale=None, kernels=None):
     """Entry used by the model zoo for the uncached forward.
-    ``impl``: auto | dense | flash. ``window``, ``softcap`` and ``scale``
-    need the dense path here (splash is not ported). ``kernels`` is the
-    registry spec handed to the flash op (``"off"`` runs its plain
-    version)."""
-    if impl in ("splash", "ring", "ulysses"):
+    ``impl``: auto | dense | flash | splash. ``window``, ``softcap`` and
+    ``scale`` take the dense or splash path (``auto`` picks by
+    :func:`resolve_auto_impl`); flash cannot apply them. As in the JAX
+    package, ``impl="splash"`` without any of the three runs dense.
+    ``kernels`` is the registry spec handed to the flash and splash ops
+    (``"off"`` runs their plain versions)."""
+    if impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attention impl={impl!r} is not ported yet (ROADMAP.md, kernel "
-            "queue: splash attention, ring attention)"
+            "queue: ring attention)"
         )
-    if window is not None or softcap is not None or scale is not None:
-        if impl not in ("auto", "dense"):
-            raise ValueError(
-                f"window/softcap/scale attention options need the dense path; "
-                f"impl={impl!r} cannot apply them."
-            )
-        return dense_attention(q, k, v, causal=causal, mask=mask, window=window,
-                               softcap=softcap, scale=scale)
+    shaped = window is not None or softcap is not None or scale is not None
+    if shaped and impl not in ("auto", "dense", "splash"):
+        raise ValueError(
+            f"window/softcap/scale attention options need the dense path or splash; "
+            f"impl={impl!r} cannot apply them."
+        )
     if impl == "auto":
-        impl = resolve_auto_impl(q.shape[1], q.shape[3], kv_len=k.shape[1], device=q.device,
+        impl = resolve_auto_impl(q.shape[1], q.shape[3], kv_len=k.shape[1], causal=causal,
+                                 window=window, softcap=softcap, scale=scale, device=q.device,
                                  dtype=q.dtype)
+    if impl == "splash" and shaped:
+        return splash_attention(q, k, v, causal=causal, mask=mask, window=window,
+                                softcap=softcap, scale=scale, kernels=kernels)
     if impl == "flash":
         return flash_attention(q, k, v, causal=causal, mask=mask, kernels=kernels)
-    if impl != "dense":
+    if impl not in ("dense", "splash"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    return dense_attention(q, k, v, causal=causal, mask=mask)
+    return dense_attention(q, k, v, causal=causal, mask=mask, window=window, softcap=softcap,
+                           scale=scale)
 
 
 # Causal flash attention, forward and backward (one autograd.Function).
 register_op("flash_attention", flash_attention_reference, flash_attention_cuda)
+# Causal splash attention with window, softcap and segment ids on pre-scaled
+# q, forward and backward (one autograd.Function).
+register_op("splash_attention", splash_attention_reference, splash_attention_cuda)

@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # what the checks need; a few minutes
     python3 chip_smoke.py --profile  # adds torch.profiler passes over one
-                                     # serving wave and one training step
+                                     # serving wave, one Llama and one
+                                     # Gemma-2 training step
 
 Phases, in order; any failure exits non-zero and nothing is caught:
 
@@ -60,6 +61,24 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    with the kernel arm's; and an accumulation-2 build whose update launches
    only at the 2 boundaries of 4 micro-steps. Prints step time, tokens/s,
    MFU against 989 TFLOP/s and each arm's peak memory.
+8. Splash-kernel op phase: causal splash attention (window, logit softcap,
+   pre-scaled q, segment ids; forward, and backward through autograd)
+   against its plain version at Gemma-2-9B's local layer (B1, S8192, H16,
+   D256, window 4096, softcap 50, scale 1/16), its global layer, the local
+   layer with right padding, Mistral-7B-v0.1's attention (32 heads over 8 KV
+   heads of 128, window 4096), S=1024 (the crossover) and the padded local
+   layer on logits of standard deviation 16, which reach the cap, under
+   flash's pins; on that last case the kernel without the softcap and the
+   plain version without the cap's derivative must both miss the pins. Times for kernel, plain version and the library call
+   (``flex_attention`` with a sliding-window block mask and a softcap
+   ``score_mod``) beside the bound.
+9. Gemma-2 training: ``gemma2_config_from_hf`` of the published
+   google/gemma-2-9b config cut to 4 layers (two local, two global; 1.710B
+   parameters), ``fused_loss=True``, ``Accelerator(mixed_precision="bf16")``,
+   ``adamw(3e-4)``, batch 1 x 8192, ``clip_norm=1.0``: 2 warm-up and 5 timed
+   steps with finite, falling losses, splash launched 4 + 4 times a step
+   and flash never; then one local and one global layer trained by a
+   kernel arm and a ``kernels="off"`` arm whose first 3 losses agree.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -103,6 +122,17 @@ INT8_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
 TRAIN_LOSS_ATOL = 3e-2
 TRAIN_CUT = dict(num_hidden_layers=4, max_position_embeddings=2048)
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+# google/gemma-2-9b on the Hugging Face hub, config.json: the published
+# widths; only the depth is cut (GEMMA2_LAYERS, and GEMMA2_PAIR_LAYERS for
+# the comparison with kernels="off").
+GEMMA2_9B = dict(vocab_size=256000, hidden_size=3584, intermediate_size=14336,
+                 num_hidden_layers=42, num_attention_heads=16, num_key_value_heads=8,
+                 head_dim=256, max_position_embeddings=8192, rms_norm_eps=1e-6,
+                 rope_theta=10000.0, sliding_window=4096, query_pre_attn_scalar=256,
+                 attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+                 hidden_activation="gelu_pytorch_tanh")
+GEMMA2_LAYERS, GEMMA2_PAIR_LAYERS = 4, 2
+GEMMA2_BATCH, GEMMA2_SEQ = 1, 8192
 T_START = time.perf_counter()
 
 
@@ -823,7 +853,7 @@ def update_op_phase(cfg):
 
 
 def train_arm(cfg, steps: int, kernels=None, accum: int = 1, warmup: int = 0,
-              per_step_counts: bool = False):
+              per_step_counts: bool = False, shape=(TRAIN_BATCH, TRAIN_SEQ)):
     """Build the training step on a fresh model from the seed and run it;
     returns (loss values, wall seconds of the steps after warm-up, launch
     counts of all steps, per-step counts, peak bytes)."""
@@ -839,8 +869,7 @@ def train_arm(cfg, steps: int, kernels=None, accum: int = 1, warmup: int = 0,
     acc = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=accum, kernels=kernels)
     pm, po = acc.prepare(model, adamw(3e-4))
     step = acc.build_train_step(pm, po)
-    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
-                                               (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size, shape).astype(np.int32)
     batch = {"input_ids": ids, "labels": ids}
     registry.reset_launch_counts()
     losses, per_step = [], []
@@ -904,23 +933,21 @@ def train_phase(card):
     return counts
 
 
-def profile_train_step():
+def profile_train_step(cfg, shape, label: str):
     """torch.profiler over one training step: device time by kernel, busy
     share."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from accelerate_tpu_torch import Accelerator, Llama, LlamaConfig, adamw
+    from accelerate_tpu_torch import Accelerator, Llama, adamw
 
-    cfg = LlamaConfig.llama3_8b(**TRAIN_CUT)
     model = Llama(cfg)
     model.init_params(SEED)
     acc = Accelerator(mixed_precision="bf16")
     pm, po = acc.prepare(model, adamw(3e-4))
     step = acc.build_train_step(pm, po)
-    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
-                                               (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size, shape).astype(np.int32)
     batch = {"input_ids": ids, "labels": ids}
     step(batch, clip_norm=1.0)
     torch.cuda.synchronize()
@@ -932,10 +959,12 @@ def profile_train_step():
 
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(device_us(e) for e in events) / 1e3
-    log(f"profile train step: wall {wall * 1e3:.1f} ms, device busy {total:.1f} ms "
+    log(f"profile {label} step: wall {wall * 1e3:.1f} ms, device busy {total:.1f} ms "
         f"({100 * total / (wall * 1e3):.1f}%), {sum(e.count for e in events)} kernel launches")
 
     def group(key):
+        if "splash_" in key:
+            return "splash attention (csrc/splash_attention.cu)"
         if "flash_" in key:
             return "flash attention (csrc/flash_attention.cu)"
         if "fused_update" in key:
@@ -949,11 +978,307 @@ def profile_train_step():
         ms, n = groups.get(group(e.key), (0.0, 0))
         groups[group(e.key)] = (ms + device_us(e) / 1e3, n + e.count)
     for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        log(f"profile train: {ms:9.2f} ms ({100 * ms / total:5.1f}%) {n:5d}x  {name}")
+        log(f"profile {label}: {ms:9.2f} ms ({100 * ms / total:5.1f}%) {n:5d}x  {name}")
     for e in sorted(events, key=lambda e: -device_us(e))[:20]:
-        log(f"profile train:   {device_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
+        log(f"profile {label}:   {device_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
     del model, acc, pm, po, step
     free_cuda()
+
+
+def gemma2_config(layers: int):
+    """The published Gemma-2-9B config through the port's converter, cut to
+    ``layers`` (layer 0 local, then alternating), with the fused loss."""
+    import dataclasses
+
+    from accelerate_tpu_torch import gemma2_config_from_hf
+
+    cfg = gemma2_config_from_hf(dict(GEMMA2_9B, num_hidden_layers=layers))
+    return dataclasses.replace(cfg, fused_loss=True)
+
+
+_FLEX = None
+
+
+def library_attention(q, k, v, seg, window, softcap):
+    """One PyTorch call computing the splash function on (B, S, H, D)
+    inputs (q pre-scaled): compiled ``flex_attention`` with a block mask
+    (causal, the window, segment ids) and a softcap ``score_mod``. Returns
+    (call, leaves): ``call()`` runs it on the leaves, (B, H, S, D) views
+    that require grad. A yardstick only, never used by the port."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    global _FLEX
+    if _FLEX is None:
+        # The backward is timed on one retained graph: compiled backwards
+        # donate their buffers unless told not to.
+        torch._functorch.config.donated_buffer = False
+        _FLEX = torch.compile(flex_attention, dynamic=False)
+    B, S = q.shape[:2]
+    leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+
+    def mask_mod(b, h, qi, ki):
+        keep = qi >= ki
+        if window:
+            keep = keep & (qi - ki < window)
+        if seg is not None:
+            keep = keep & (seg[b, qi] == seg[b, ki])
+        return keep
+
+    def score_mod(score, b, h, qi, ki):
+        return torch.tanh(score / softcap) * softcap
+
+    block_mask = create_block_mask(mask_mod, B if seg is not None else None, None, S, S,
+                                   device="cuda")
+    return (lambda: _FLEX(*leaves, score_mod=score_mod if softcap else None,
+                          block_mask=block_mask, scale=1.0)), leaves
+
+
+def splash_case(B, S, H, Hkv, D, scale, padded: bool, q_std: float = 1.0):
+    """Inputs of one splash case, made on the card from the seed: q of
+    standard deviation ``q_std`` scaled in bf16 as the wrapper scales it
+    (the logits' standard deviation is ``q_std * scale * sqrt(D)``), GQA
+    heads repeated as the wrapper repeats them, right padding on the last
+    quarter of row 0."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn((B, S, H, D), generator=g, device="cuda", dtype=torch.bfloat16) * q_std
+    q = (q * torch.tensor(scale, dtype=torch.bfloat16).item()).to(torch.bfloat16)
+    k, v = (torch.randn((B, S, Hkv, D), generator=g, device="cuda", dtype=torch.bfloat16)
+            .repeat_interleave(H // Hkv, dim=2).contiguous() for _ in range(2))
+    do = torch.randn((B, S, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+    seg = None
+    if padded:
+        seg = torch.full((B, S), 2, dtype=torch.int32, device="cuda")
+        seg[0, -S // 4:] = 1
+    return q, k, v, do, seg
+
+
+def plain_without_cap_derivative(q, k, v, **kw):
+    """The splash plain version with the softcap's derivative left out of
+    its backward (``tanh`` passes its cotangent through unchanged; the
+    forward is the same): the gradients of a backward that dropped the
+    factor ``1 - tanh^2``. A control only, never used by the port."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    from accelerate_tpu_torch.ops.attention import splash_attention_reference
+
+    class TanhWithoutDerivative(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.tanh:
+                x = args[0]
+                return x + (torch.tanh(x) - x).detach()
+            return func(*args, **(kwargs or {}))
+
+    with TanhWithoutDerivative():
+        return splash_attention_reference(q, k, v, **kw)
+
+
+def splash_grad_rel(leaves, ref_leaves) -> dict:
+    """``||grad - ref grad||_F / ||ref grad||_F`` for q, k and v."""
+    return {f"d{n}": float((a.grad.float() - b.grad.float()).norm() / b.grad.float().norm())
+            for n, a, b in zip("qkv", leaves, ref_leaves)}
+
+
+def softcap_controls(q, k, v, do, out_ref, ref_leaves, kw, real, label):
+    """On a case whose logits reach the cap: the kernel run without the
+    softcap, and the plain version without the cap's derivative, must each
+    miss the capped plain version by more than the pins. The phase fails
+    if they do not (its inputs could then not tell a kernel that drops the
+    cap, or its backward factor, from a right one)."""
+    from accelerate_tpu_torch.ops.kernels import splash_attention as sk
+
+    uncapped = dict(kw, softcap=None)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = sk.splash_attention_cuda(*leaves, **uncapped)
+    out.backward(do)
+    fwd_rel, bwd_rel = tile_rel_err(out.detach(), out_ref, real), splash_grad_rel(leaves, ref_leaves)
+    st_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain_without_cap_derivative(*st_leaves, **kw).backward(do)
+    st_rel = splash_grad_rel(st_leaves, ref_leaves)
+    log(f"op splash {label}: controls against the capped plain version: the kernel "
+        f"without the softcap, fwd rel per query tile {fwd_rel:.3e}, bwd rel "
+        f"{', '.join(f'{n} {e:.3e}' for n, e in bwd_rel.items())}; the plain version "
+        f"without the cap's derivative, bwd rel "
+        f"{', '.join(f'{n} {e:.3e}' for n, e in st_rel.items())} (each must exceed its pin, "
+        f"{FLASH_FWD_TILE_REL} and {FLASH_BWD_REL}; dv does not see the derivative)")
+    if (not fwd_rel > FLASH_FWD_TILE_REL
+            or not all(bwd_rel[g] > FLASH_BWD_REL and st_rel[g] > FLASH_BWD_REL
+                       for g in ("dq", "dk"))):
+        raise SystemExit(f"splash {label}: the inputs do not reach the softcap: a kernel "
+                         f"without it would pass the pins")
+
+
+def visible_pairs(S, window, seg, B) -> int:
+    """(query, key) pairs the mask keeps, summed over the batch: the work
+    this run's data needs."""
+    import torch
+
+    i = torch.arange(S, device="cuda")
+    d = i[:, None] - i[None, :]
+    keep = d >= 0
+    if window:
+        keep = keep & (d < window)
+    if seg is None:
+        return B * int(keep.sum())
+    return int((keep[None] & (seg[:, :, None] == seg[:, None, :])).sum())
+
+
+def splash_op_phase():
+    """Splash kernel vs its plain version; returns the fwd and bwd rows at
+    Gemma-2-9B's local layer (the first case)."""
+    import torch
+
+    from accelerate_tpu_torch.ops.attention import splash_attention_reference
+    from accelerate_tpu_torch.ops.kernels import splash_attention as sk
+
+    gemma = dict(B=1, S=GEMMA2_SEQ, H=16, Hkv=8, D=256, scale=256 ** -0.5, softcap=50.0)
+    cases = [("gemma2-9b local", dict(gemma, window=4096, padded=False)),
+             ("gemma2-9b global", dict(gemma, window=None, padded=False)),
+             ("gemma2-9b local padded", dict(gemma, window=4096, padded=True)),
+             ("mistral-7b", dict(B=1, S=8192, H=32, Hkv=8, D=128, scale=128 ** -0.5,
+                                 softcap=None, window=4096, padded=False)),
+             ("crossover S1024", dict(gemma, S=1024, window=4096, padded=False)),
+             # Logits of standard deviation 16 against Gemma-2's cap of 50:
+             # with unit logits the cap moves them by about l^3 / (3 cap^2),
+             # below the pins, so only this case sees the softcap.
+             ("gemma2-9b local, logits at the cap", dict(gemma, window=4096, padded=True,
+                                                          q_std=16.0, controls=True))]
+    rows = []
+    for label, c in cases:
+        B, S, H, D, window, softcap = c["B"], c["S"], c["H"], c["D"], c["window"], c["softcap"]
+        q, k, v, do, seg = splash_case(B, S, H, c["Hkv"], D, c["scale"], c["padded"],
+                                       c.get("q_std", 1.0))
+        kw = dict(segment_ids=seg, window=window, softcap=softcap)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = sk.splash_attention_cuda(*leaves, **kw)
+        out.backward(do)
+        ref = splash_attention_reference(*ref_leaves, **kw)
+        ref.backward(do)
+        torch.cuda.synchronize()
+        out, ref = out.detach(), ref.detach()
+        real = torch.ones((B, S), dtype=torch.bool, device="cuda") if seg is None else seg == 2
+        fwd_err = float((out.float() - ref.float())[real].abs().max())
+        fwd_rel = tile_rel_err(out, ref, real)
+        if not math.isfinite(fwd_rel) or fwd_rel > FLASH_FWD_TILE_REL:
+            raise SystemExit(f"splash {label}: forward relative error of a query tile "
+                             f"{fwd_rel} > {FLASH_FWD_TILE_REL}")
+        bwd_rel = splash_grad_rel(leaves, ref_leaves)
+        for name, rel in bwd_rel.items():
+            if not math.isfinite(rel) or rel > FLASH_BWD_REL:
+                raise SystemExit(f"splash {label}: {name} relative error {rel} > {FLASH_BWD_REL}")
+        bwd_err = float(max((a.grad.float() - b.grad.float()).abs().max()
+                            for a, b in zip(leaves, ref_leaves)))
+        if c.get("controls"):  # checked, not timed
+            log(f"op splash {label} (B{B} S{S} H{H} D{D}, window {window}, softcap {softcap}, "
+                f"{'padded' if seg is not None else 'unpadded'}, logit std "
+                f"{c['q_std'] * c['scale'] * math.sqrt(D):g}): fwd rel per query tile "
+                f"{fwd_rel:.3e} (pin {FLASH_FWD_TILE_REL}; max|err| {fwd_err:.3e}), bwd rel "
+                f"{', '.join(f'{n} {e:.3e}' for n, e in bwd_rel.items())} (pin {FLASH_BWD_REL})")
+            del leaves
+            free_cuda()
+            softcap_controls(q, k, v, do, ref, ref_leaves, kw, real, label)
+            del q, k, v, do, seg, out, ref, ref_leaves
+            free_cuda()
+            continue
+        del leaves, ref_leaves, ref
+        free_cuda()
+
+        pairs = H * visible_pairs(S, window, seg, B)
+        fwd_flops, bwd_flops = 4 * D * pairs, 10 * D * pairs
+        el = 2  # bf16 bytes
+        fwd_bytes = 4 * B * S * H * D * el + B * H * S * 4          # q,k,v in; o, lse out
+        bwd_bytes = 8 * B * S * H * D * el + 2 * B * H * S * 4      # q,k,v,o,dO in; dq,dk,dv out
+        win = 0 if window is None else min(window, S)
+        cap = 0.0 if softcap is None else softcap
+        with torch.no_grad():
+            t_fwd = cuda_ms(lambda: sk._forward(q, k, v, seg, win, cap), 20)
+            dev_fwd = profiled_ms(lambda: sk._forward(q, k, v, seg, win, cap))
+            t_plain_fwd = cuda_ms(lambda: splash_attention_reference(q, k, v, **kw), 3)
+        o, lse = sk._forward(q, k, v, seg, win, cap)
+        t_bwd = cuda_ms(lambda: sk._backward(q, k, v, seg, o, lse, do, win, cap), 20)
+        dev_bwd = profiled_ms(lambda: sk._backward(q, k, v, seg, o, lse, do, win, cap))
+        plain_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        plain_out = splash_attention_reference(*plain_leaves, **kw)
+        t_plain_bwd = cuda_ms(lambda: torch.autograd.grad(plain_out, plain_leaves, do,
+                                                          retain_graph=True), 3)
+        del plain_out, plain_leaves
+        free_cuda()
+        call, lib_leaves = library_attention(q, k, v, seg, window, softcap)
+        t_lib_fwd = cuda_ms(call, 10)  # with grad on, as compiled: no second compile
+        lib_out = call()
+        do_t = do.transpose(1, 2)
+        t_lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, do_t,
+                                                        retain_graph=True), 10)
+        fb, fby = bound_row(fwd_flops, fwd_bytes)
+        bb, bby = bound_row(bwd_flops, bwd_bytes)
+        log(f"op splash {label} (B{B} S{S} H{H} D{D}, window {window}, softcap {softcap}, "
+            f"{'padded' if seg is not None else 'unpadded'}): fwd rel per query tile "
+            f"{fwd_rel:.3e} (pin {FLASH_FWD_TILE_REL}; max|err| {fwd_err:.3e}), bwd rel "
+            f"{', '.join(f'{n} {e:.3e}' for n, e in bwd_rel.items())} (pin {FLASH_BWD_REL}); "
+            f"fwd kernel {t_fwd:.4f} ms (profiler sum {dev_fwd:.4f} ms, unreliable: it "
+            f"loses kernel records here), plain "
+            f"{t_plain_fwd:.4f}, library {t_lib_fwd:.4f}, bound {fb:.4f} ({fby}, "
+            f"{fwd_flops / 1e9:.1f} GFLOP, {pairs / H / 1e6:.2f}M visible pairs a head, "
+            f"{fwd_flops / t_fwd / 1e9:.1f} TFLOP/s); bwd kernel {t_bwd:.4f} ms (profiler sum "
+            f"{dev_bwd:.4f}, unreliable), plain {t_plain_bwd:.4f}, library {t_lib_bwd:.4f}, bound {bb:.4f} "
+            f"({bby}, {bwd_flops / t_bwd / 1e9:.1f} TFLOP/s); library: compiled "
+            f"flex_attention, block mask and softcap score_mod")
+        if not rows:  # Gemma-2-9B's local layer: the rows of the kernel table
+            base = {"route": "cuda", "source": "accelerate_tpu_torch/csrc/splash_attention.cu",
+                    "replaces": "accelerate_tpu/ops/attention.py:180", "launches": 0}
+            rows = [dict(base, name="splash_attention_fwd", max_abs_err=fwd_err, ms=t_fwd,
+                         plain_ms=t_plain_fwd, bound_ms=fb, bound_by=fby, library_ms=t_lib_fwd),
+                    dict(base, name="splash_attention_bwd", max_abs_err=bwd_err, ms=t_bwd,
+                         plain_ms=t_plain_bwd, bound_ms=bb, bound_by=bby, library_ms=t_lib_bwd)]
+        del q, k, v, do, seg, out, o, lse, lib_out, lib_leaves, call
+        free_cuda()
+    return rows
+
+
+def gemma2_train_phase(card):
+    """Phase 9; returns the kernel arm's launch counts."""
+    from accelerate_tpu_torch import Llama
+
+    cfg = gemma2_config(GEMMA2_LAYERS)
+    probe = Llama(cfg, device="cpu")
+    n_params, fpt = probe.num_params(), probe.flops_per_token()
+    layers, shape = cfg.num_hidden_layers, (GEMMA2_BATCH, GEMMA2_SEQ)
+    tokens = GEMMA2_BATCH * GEMMA2_SEQ
+    losses, wall, counts, _, peak = train_arm(cfg, steps=7, warmup=2, shape=shape)
+    want = {"splash_attention_fwd": 7 * layers, "splash_attention_bwd": 7 * layers,
+            "fused_adamw_update": 7 * 13}
+    if counts != want:
+        raise SystemExit(f"gemma2 train: launch counts {counts}, expected {want} (no flash)")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"gemma2 train: losses not finite and falling: {losses}")
+    step_s = wall / 5
+    mfu = fpt * tokens / step_s / BF16_OPS_PER_S
+    log(f"gemma2 train: Gemma-2-9B widths, {layers} layers (windows {cfg.layer_windows}), "
+        f"{n_params / 1e9:.3f}B params, bf16 compute on f32 masters, fused loss (chunk "
+        f"{cfg.fused_loss_chunk}), adamw(3e-4), clip 1.0, batch {GEMMA2_BATCH}x{GEMMA2_SEQ}; "
+        f"losses {[round(x, 4) for x in losses]}; step {step_s * 1e3:.1f} ms, "
+        f"{tokens / step_s:.0f} tokens/s, MFU {100 * mfu:.2f}% of 989 TFLOP/s "
+        f"({fpt:.4g} FLOP/token); launches over 7 steps {counts}; peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    pair = gemma2_config(GEMMA2_PAIR_LAYERS)
+    kern, _, kern_counts, _, kern_peak = train_arm(pair, steps=3, shape=shape)
+    off, _, off_counts, _, off_peak = train_arm(pair, steps=3, kernels="off", shape=shape)
+    diff = max(abs(a - b) for a, b in zip(off, kern))
+    want = {"splash_attention_fwd": 3 * GEMMA2_PAIR_LAYERS,
+            "splash_attention_bwd": 3 * GEMMA2_PAIR_LAYERS, "fused_adamw_update": 3 * 13}
+    if kern_counts != want or off_counts or diff > TRAIN_LOSS_ATOL:
+        raise SystemExit(f"gemma2 train, {GEMMA2_PAIR_LAYERS} layers: kernel arm {kern} "
+                         f"(launches {kern_counts}), kernels='off' arm {off} (launches "
+                         f"{off_counts}); max |diff| {diff}, pin {TRAIN_LOSS_ATOL}")
+    log(f"gemma2 train, {GEMMA2_PAIR_LAYERS} layers (windows {pair.layer_windows}): kernel arm "
+        f"losses {[round(x, 4) for x in kern]}, kernels='off' arm {[round(x, 4) for x in off]}, "
+        f"max |diff| {diff:.3e} (pin {TRAIN_LOSS_ATOL}); peak memory {kern_peak / 2**30:.2f} "
+        f"GiB and {off_peak / 2**30:.2f} GiB")
+    return counts
 
 
 def main(argv) -> int:
@@ -1012,7 +1337,16 @@ def main(argv) -> int:
         row["launches"] = counts.get(row["name"], 0)
     rows += train_rows
     if "--profile" in argv:
-        profile_train_step()
+        profile_train_step(LlamaConfig.llama3_8b(**TRAIN_CUT), (TRAIN_BATCH, TRAIN_SEQ), "train")
+    free_cuda()
+
+    splash_rows = splash_op_phase()
+    counts = gemma2_train_phase(card)
+    for row in splash_rows:
+        row["launches"] = counts.get(row["name"], 0)
+    rows += splash_rows
+    if "--profile" in argv:
+        profile_train_step(gemma2_config(GEMMA2_LAYERS), (GEMMA2_BATCH, GEMMA2_SEQ), "gemma2")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

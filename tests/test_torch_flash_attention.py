@@ -158,7 +158,8 @@ def test_auto_resolution_and_dispatch():
         assert resolve_auto_impl(S, D, device="cuda") == want, (S, D)
         assert resolve_auto_impl(S, D, device="cpu") == "dense"
     assert resolve_auto_impl(2048, 128, kv_len=1024, device="cuda") == "dense"
-    assert resolve_auto_impl(2048, 128, window=64, device="cuda") == "dense"
+    assert resolve_auto_impl(2048, 128, window=64, device="cuda",
+                             dtype=torch.bfloat16) == "splash"
     assert resolve_auto_impl(2048, 128, device="cuda", dtype=torch.bfloat16) == "flash"
     assert resolve_auto_impl(2048, 128, device="cuda", dtype=torch.float32) == "dense"
     # impl="flash" on the CPU runs the plain version through the registry
@@ -169,7 +170,7 @@ def test_auto_resolution_and_dispatch():
     assert registry.launch_counts == {}
     torch.testing.assert_close(out, flash_attention_reference(x, x, x, causal=True,
                                                               sm_scale=1 / 8.0))
-    for impl in ("splash", "ring", "ulysses"):
+    for impl in ("ring", "ulysses"):
         with pytest.raises(NotImplementedError):
             attention(x, x, x, impl=impl)
     with pytest.raises(ValueError, match="dense path"):

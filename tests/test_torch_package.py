@@ -25,9 +25,21 @@ import torch
 
 import accelerate_tpu_torch as T
 from accelerate_tpu_torch import optim
-from chip_smoke import PAGED_DECODE_ROW_REL, engine_forwards, row_rel_err, tile_rel_err
+from chip_smoke import (
+    FLASH_BWD_REL,
+    FLASH_FWD_TILE_REL,
+    PAGED_DECODE_ROW_REL,
+    engine_forwards,
+    plain_without_cap_derivative,
+    row_rel_err,
+    splash_grad_rel,
+    tile_rel_err,
+)
 from accelerate_tpu_torch.ops import registry
-from accelerate_tpu_torch.ops.attention import flash_attention_reference
+from accelerate_tpu_torch.ops.attention import (
+    flash_attention_reference,
+    splash_attention_reference,
+)
 from accelerate_tpu_torch.ops.kernels import _build
 from accelerate_tpu_torch.ops.fused_update import leaf_update, plan_fused_update
 from accelerate_tpu_torch.ops.int8 import int8_matmul_reference
@@ -36,6 +48,7 @@ from accelerate_tpu_torch.ops.kernels.fused_update import fused_update_cuda
 from accelerate_tpu_torch.ops.kernels.int8_matmul import int8_matmul_cuda
 from accelerate_tpu_torch.ops.kernels.paged_decode import paged_decode_cuda
 from accelerate_tpu_torch.ops.kernels.paged_gather import paged_gather
+from accelerate_tpu_torch.ops.kernels.splash_attention import splash_attention_cuda
 from accelerate_tpu_torch.ops.paged_attention import gather_block_view, paged_attention_plain
 
 torch.set_num_threads(2)
@@ -117,9 +130,19 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_counts_nothing():
                           q_positions=torch.zeros((1,), dtype=torch.int32))
     assert registry.launch_counts == {}
     assert registry.known_ops() == ("flash_attention", "fused_update", "int8_matmul",
-                                    "paged_decode", "paged_gather")
+                                    "paged_decode", "paged_gather", "splash_attention")
     with pytest.raises(KeyError):
         registry.dispatch("no_such_op", pool)
+
+
+def test_splash_wrapper_refuses_cpu_tensors_and_counts_nothing():
+    """The registry routes CPU tensors to the plain version; the wrapper
+    itself refuses them."""
+    registry.reset_launch_counts()
+    q = torch.zeros((1, 128, 2, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        splash_attention_cuda(q, q, q, window=32, softcap=5.0)
+    assert registry.launch_counts == {}
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -127,7 +150,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     assert _build.sources() == ["flash_attention", "fused_update", "int8_matmul", "paged_decode",
-                                "paged_gather"]
+                                "paged_gather", "splash_attention"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
 
@@ -393,3 +416,143 @@ def test_int8_engine_on_the_card_matches_kernels_off():
             assert registry.launch_counts == {}
     for a, b in zip(outs[None], outs["off"]):
         np.testing.assert_array_equal(a, b)
+
+
+def _splash_card_case(D, S, window, softcap, padded, logit_std=1.0):
+    """bf16 inputs on the card from a seed, q pre-scaled so that the logits
+    have standard deviation ``logit_std``; right padding on row 1."""
+    B, H = 2, 4
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+                   for _ in range(4))
+    q = (q * (logit_std * D ** -0.5)).to(torch.bfloat16)
+    seg = None
+    if padded:
+        seg = torch.full((B, S), 2, dtype=torch.int32, device="cuda")
+        seg[1, -70:] = 1
+    real = torch.ones((B, S), dtype=torch.bool, device="cuda") if seg is None else seg == 2
+    return (q, k, v, do), dict(segment_ids=seg, window=window, softcap=softcap), real
+
+
+def _splash_run(fn, q, k, v, do, kw):
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves, **kw)
+    out.backward(do)
+    return out.detach(), leaves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,S,window,softcap,padded,logit_std", [
+    (256, 512, 128, 50.0, False, 1.0),
+    (256, 512, None, 50.0, True, 1.0),
+    (256, 320, 100, 30.0, True, 1.0),
+    (128, 512, 64, None, True, 1.0),
+    (128, 320, 100, 20.0, False, 1.0),
+    (64, 256, None, None, False, 1.0),
+    (256, 512, 128, 50.0, True, 16.0),
+    (128, 320, 100, 5.0, False, 1.0),
+], ids=["d256-window-softcap", "d256-global-padded", "d256-first-tile-masked-padded",
+        "d128-window-padded", "d128-first-tile-masked", "d64-causal",
+        "d256-logits-at-the-cap-padded", "d128-softcap-5"])
+def test_splash_kernel_matches_plain_version_on_the_card(D, S, window, softcap, padded,
+                                                         logit_std):
+    """bf16 in and out, q pre-scaled. The kernel rounds P and dS to bf16 for
+    the tensor cores and the plain version does not; the pins are flash's:
+    relative Frobenius error <= 1e-2 in every (batch, head, 64-row query
+    tile) block of real-token rows, gradients' <= 2e-2 (chip_smoke.py holds
+    the Gemma-2-9B shapes to the same pins). A window of 100 makes rows whose
+    first visited KV tile is wholly masked for them. Unit logits barely
+    reach a cap of 20-50, so two cases make the cap bite: logits of standard
+    deviation 16 against 50, and unit logits against 5."""
+    _needs_card()
+    (q, k, v, do), kw, real = _splash_card_case(D, S, window, softcap, padded, logit_std)
+    registry.reset_launch_counts()
+    out, leaves = _splash_run(splash_attention_cuda, q, k, v, do, kw)
+    ref, ref_leaves = _splash_run(splash_attention_reference, q, k, v, do, kw)
+    torch.cuda.synchronize()
+    assert registry.launch_counts == {"splash_attention_fwd": 1, "splash_attention_bwd": 1}
+    fwd_rel = tile_rel_err(out, ref, real)
+    assert fwd_rel <= FLASH_FWD_TILE_REL, fwd_rel
+    for name, rel in splash_grad_rel(leaves, ref_leaves).items():
+        assert rel <= FLASH_BWD_REL, (name, rel)
+
+
+def test_plain_without_cap_derivative_drops_only_the_cap_derivative():
+    """The control the softcap cases use, on the CPU: the same forward as
+    the plain version, the same dv, and dq/dk that differ from its own
+    exactly where the cap bends the logits (a cap far above the logits
+    leaves them alike)."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn((1, 256, 2, 64), generator=g) for _ in range(4))
+    for softcap, bent in ((5.0, True), (1e4, False)):
+        kw = dict(segment_ids=None, window=64, softcap=softcap)
+        ref, ref_leaves = _splash_run(splash_attention_reference, q, k, v, do, kw)
+        out, leaves = _splash_run(plain_without_cap_derivative, q, k, v, do, kw)
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+        rel = splash_grad_rel(leaves, ref_leaves)
+        assert rel["dv"] < 1e-5
+        assert (min(rel["dq"], rel["dk"]) > 0.1) if bent else (max(rel["dq"], rel["dk"]) < 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,S,window,softcap,padded,logit_std", [
+    (256, 512, 128, 50.0, True, 16.0),
+    (128, 320, 100, 5.0, False, 1.0),
+], ids=["d256-logits-at-the-cap-padded", "d128-softcap-5"])
+def test_splash_softcap_cases_tell_a_kernel_without_the_cap(D, S, window, softcap, padded,
+                                                           logit_std):
+    """The controls of the cases above whose logits reach the cap: the
+    kernel run without the softcap misses the capped plain version beyond
+    the forward and gradient pins, and so does the plain version with the
+    cap's derivative left out of its backward (a backward without the
+    factor 1 - tanh^2) on dq and dk. So those cases would fail a kernel
+    that dropped either."""
+    _needs_card()
+    (q, k, v, do), kw, real = _splash_card_case(D, S, window, softcap, padded, logit_std)
+    ref, ref_leaves = _splash_run(splash_attention_reference, q, k, v, do, kw)
+    out, leaves = _splash_run(splash_attention_cuda, q, k, v, do, dict(kw, softcap=None))
+    assert tile_rel_err(out, ref, real) > FLASH_FWD_TILE_REL
+    rel = splash_grad_rel(leaves, ref_leaves)
+    assert rel["dq"] > FLASH_BWD_REL and rel["dk"] > FLASH_BWD_REL, rel
+    _, st_leaves = _splash_run(plain_without_cap_derivative, q, k, v, do, kw)
+    rel = splash_grad_rel(st_leaves, ref_leaves)
+    assert rel["dq"] > FLASH_BWD_REL and rel["dk"] > FLASH_BWD_REL, rel
+
+
+@pytest.mark.cuda
+def test_gemma2_train_step_on_the_card_matches_kernels_off():
+    """A small Gemma-2 (one local and one global layer, head_dim 256,
+    softcaps, query scale, the fused loss) trained in bf16 with
+    ``attention_impl="splash"``: the kernel arm launches splash fwd/bwd
+    once per layer per step, no flash, and the fused adamw update once per
+    leaf (13); its losses agree with the plain arm's to 2e-2 (bf16 compute,
+    losses about 7)."""
+    _needs_card()
+    hf = dict(vocab_size=1000, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+              num_attention_heads=4, num_key_value_heads=2, head_dim=256,
+              max_position_embeddings=512, rms_norm_eps=1e-6, sliding_window=128,
+              query_pre_attn_scalar=256, attn_logit_softcapping=50.0,
+              final_logit_softcapping=30.0)
+    cfg = T.gemma2_config_from_hf(hf)
+    cfg.attention_impl, cfg.fused_loss, cfg.fused_loss_chunk = "splash", True, 384
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(3):
+        ids = rng.integers(0, 1000, (2, 512)).astype(np.int32)
+        batches.append({"input_ids": ids, "labels": ids})
+    losses = {}
+    for spec in (None, "off"):
+        model = T.Llama(cfg)
+        model.init_params(0)
+        acc = T.Accelerator(mixed_precision="bf16", kernels=spec)
+        pm, po = acc.prepare(model, T.adamw(3e-4))
+        step = acc.build_train_step(pm, po)
+        registry.reset_launch_counts()
+        losses[spec] = [float(step(b, clip_norm=1.0)) for b in batches]
+        if spec is None:
+            assert registry.launch_counts == {"splash_attention_fwd": 6,
+                                              "splash_attention_bwd": 6,
+                                              "fused_adamw_update": 3 * 13}
+        else:
+            assert registry.launch_counts == {}
+    np.testing.assert_allclose(losses[None], losses["off"], atol=2e-2)
