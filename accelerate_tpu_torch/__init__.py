@@ -17,7 +17,10 @@ with the int8 matmul kernel, and the fused paged decode attention
 splash attention kernel (local window, logit softcap, query scale; forward
 and backward) with the vocab-chunked fused loss, and the Hugging Face
 config converters of ``models/convert.py`` (Llama, Mistral, Gemma, Gemma-2,
-Qwen2, Qwen3). ROADMAP.md lists what comes next.
+Qwen2, Qwen3); sequence-parallel training with ring attention over
+``torch.distributed`` (``Accelerator(sp_plugin=SequenceParallelPlugin(...))``,
+``parallel/ring.py``) with the ring's per-block flash forward and backward
+as kernels. ROADMAP.md lists what comes next.
 
 Entry points run on the card by default and raise without one unless the
 caller passes ``device="cpu"``.
@@ -26,6 +29,7 @@ caller passes ``device="cpu"``.
 from . import optim
 from .accelerator import Accelerator
 from .generation import generate
+from .launchers import debug_launcher
 from .models import (
     Llama,
     LlamaConfig,
@@ -39,8 +43,11 @@ from .models import (
 )
 from .ops.paged_attention import init_kv_pool
 from .optim import adam, adamw, sgd
+from .parallel.mesh import ParallelismConfig
+from .parallel.ring import LoopbackRing, ring_attention
 from .serving import ContinuousBatcher
-from .state import AcceleratorState, GradientState
+from .state import AcceleratorState, GradientState, PartialState
+from .utils.dataclasses import SequenceParallelPlugin
 from .utils.device import resolve_device
 from .utils.random import set_seed
 
@@ -51,8 +58,13 @@ __all__ = [
     "GradientState",
     "Llama",
     "LlamaConfig",
+    "LoopbackRing",
+    "ParallelismConfig",
+    "PartialState",
+    "SequenceParallelPlugin",
     "adam",
     "adamw",
+    "debug_launcher",
     "gemma2_config_from_hf",
     "gemma_config_from_hf",
     "generate",
@@ -64,6 +76,7 @@ __all__ = [
     "qwen2_config_from_hf",
     "qwen3_config_from_hf",
     "resolve_device",
+    "ring_attention",
     "set_seed",
     "sgd",
 ]

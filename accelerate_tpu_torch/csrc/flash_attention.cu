@@ -34,123 +34,74 @@
 // double-buffered with cp.async: the next tile's copy is in flight while
 // the tensor cores work on the current one. Causal tiles above the diagonal
 // are skipped, and the forward and dQ walk query tiles heaviest first.
-// wgmma and TMA wait for a later change.
+// wgmma and TMA wait for a later change. The mma, ldmatrix and cp.async
+// helpers are those of attn_common.cuh, shared with splash_attention.cu.
+//
+// Ring-attention blocks (ring_block_fwd_launch / ring_block_bwd_launch).
+// They replace the library flash calls of the JAX package's ring,
+// accelerate_tpu/parallel/ring.py: _flash_block_fwd (:93, library
+// _flash_attention with save_residuals at :112) and _flash_block_bwd (:209,
+// _flash_attention_bwd_dq / _bwd_dkv at :228 / :234). One visiting KV block
+// of a rank's sequence shard runs the same mainloops as above, with:
+//   - separate q and kv segment ids: the ring passes q all "real" (2) and
+//     the travelling KV block's padding as kv segments (1 = pad), so pads
+//     are masked for every query;
+//   - causal = 1 for the diagonal block (mode 0 of the ring) and 0 for a
+//     fully visible one (mode 1); a skipped block (mode 2) launches nothing;
+//   - the forward writes the block-normalised o (bf16) and the row stats
+//     l and m (f32) instead of the log-sum-exp. A row that sees no key of
+//     the block ends with its running max at MASK level; it writes o = 0,
+//     l = 0 and m = -1e30, never NaN;
+//   - the backward reads the GLOBAL log-sum-exp of the rank's rows (+inf
+//     mapped to 1e30 by the caller, so P = 0 there) and a delta computed
+//     once per rank by the caller, launches no delta kernel, and ADDS dq,
+//     dk and dv into the ring's f32 accumulators in its epilogue (one
+//     writer per element, so no atomics).
+// Bound: operations; a full 8192-key block at 32 heads of 128 is 1.10 TFLOP
+// forward, 1.112 ms at 989 TFLOP/s, and about 2.5 times that backward.
 //
 // Interface: plain C functions bound with ctypes
-// (accelerate_tpu_torch/ops/kernels/flash_attention.py). Each launches on the
-// caller's stream, allocates nothing, and returns cudaGetLastError().
+// (accelerate_tpu_torch/ops/kernels/flash_attention.py and ring_block.py).
+// Each launches on the caller's stream, allocates nothing, and returns
+// cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_common.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace attn;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 64;      // rows of a query tile (forward, dQ) and of a KV tile
 constexpr int kBwdQTile = 32;  // query rows per step of the dK/dV kernel
-constexpr float kMaskValue = static_cast<float>(-0.7 * 3.4028234663852886e38);
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// c += a . b for one m16n8k16 tile (bf16 inputs, f32 accumulators).
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8, and register i receives matrix i in the
-// fragment layout (lane t: row t / 4, columns 2(t % 4) and 2(t % 4) + 1, or
-// the transpose with .trans).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// A operand (16 x 16, row-major) of rows r0.., columns k0..: matrices
-// (rows +0, cols +0), (+8, +0), (+0, +8), (+8, +8) are a0..a3 (PTX ISA,
-// mma.m16n8k16 fragment layout).
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int r0, int k0,
-                                       int lane) {
-  ldsm_x4(a, s + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + k0 + (lane >> 4) * 8);
-}
-
-// B operands of two n8 tiles, n0 and n0 + 8, at depth k0.., where
-// B[k][n] = T[n][k]: T's rows are B's columns (K in Q.K^T). Registers:
-// b0, b1 of tile n0, then b0, b1 of tile n0 + 8.
-template <int LD>
-__device__ __forceinline__ void load_b_rows(uint32_t (&b)[4], const bf16* s, int n0, int k0,
-                                            int lane) {
-  ldsm_x4(b, s + (n0 + (lane & 7) + (lane >> 4) * 8) * LD + k0 + ((lane >> 3) & 1) * 8);
-}
-
-// The same with B[k][n] = T[k][n]: T row-major along k (V in P.V), read
-// transposed.
-template <int LD>
-__device__ __forceinline__ void load_b_cols(uint32_t (&b)[4], const bf16* s, int n0, int k0,
-                                            int lane) {
-  ldsm_x4_trans(b, s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 + (lane >> 4) * 8);
-}
-
-// rows x D tile from global (row stride `stride` elements) into shared
-// memory (row stride D + 8), 16 bytes per cp.async; the caller commits.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, long long stride, int rows) {
-  constexpr int kVecs = D / 8;
-  for (int i = threadIdx.x; i < rows * kVecs; i += kThreads) {
-    const int r = i / kVecs, c = (i % kVecs) * 8;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(s + r * (D + 8) + c)),
-                 "l"(g + r * stride + c));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
+constexpr float kNoKeyMax = -1e30f;  // the ring's running max of a row with no visible key
 
 // Scaled, masked logit: the library's s * sm_scale + where(keep, 0, MASK).
+// seg_kv_row: the kv segment ids of the batch row (null: no segments);
+// seg_q: the query's segment id.
 __device__ __forceinline__ float masked_logit(float dot, float scale, int query, int key,
-                                              int causal, const int* seg_row, int seg_q) {
+                                              int causal, const int* seg_kv_row, int seg_q) {
   float s = dot * scale;
-  const bool keep = (!causal || key <= query) && (seg_row == nullptr || seg_row[key] == seg_q);
+  const bool keep =
+      (!causal || key <= query) && (seg_kv_row == nullptr || seg_kv_row[key] == seg_q);
   return keep ? s : s + kMaskValue;
+}
+
+// Two adjacent output elements: bf16 outputs are stored, f32 outputs (the
+// ring's gradient accumulators) are added to.
+__device__ __forceinline__ void emit2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+__device__ __forceinline__ void emit2(float* p, float a, float b) {
+  float2 acc = *reinterpret_cast<float2*>(p);
+  acc.x += a;
+  acc.y += b;
+  *reinterpret_cast<float2*>(p) = acc;
 }
 
 template <int D>
@@ -159,12 +110,15 @@ __host__ __device__ constexpr int tile_elems() {
 }
 
 // ------------------------------------------------------------------ forward
-// Shared memory: K and V tiles, two stages each.
+// Shared memory: K and V tiles, two stages each. Writes the log-sum-exp to
+// `lse` (flash), or, with lse null, the row stats to `l_out` and `m_out` (a
+// ring block; see the header).
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-              const int* __restrict__ seg, bf16* __restrict__ o, float* __restrict__ lse, int S,
-              int H, int causal, float scale) {
+              const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
+              bf16* __restrict__ o, float* __restrict__ lse, float* __restrict__ l_out,
+              float* __restrict__ m_out, int S, int H, int causal, float scale) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);  // [2][kTile * LD]
@@ -177,10 +131,11 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = qt * kTile;
-  const int* seg_row = seg == nullptr ? nullptr : seg + static_cast<long long>(b) * S;
+  const int* seg_row = seg_kv == nullptr ? nullptr : seg_kv + static_cast<long long>(b) * S;
+  const int* seg_q_row = seg_q == nullptr ? nullptr : seg_q + static_cast<long long>(b) * S;
 
   // Stage the Q tile through sK; each warp keeps its 16 rows as A fragments.
-  load_tile<D>(sK, q + base + q0 * stride, stride, kTile);
+  load_tile<D, kThreads>(sK, q + base + q0 * stride, stride, kTile);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -190,16 +145,16 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
-  const int seg_a = seg_row == nullptr ? 0 : seg_row[row_a];
-  const int seg_b = seg_row == nullptr ? 0 : seg_row[row_b];
+  const int seg_a = seg_q_row == nullptr ? 0 : seg_q_row[row_a];
+  const int seg_b = seg_q_row == nullptr ? 0 : seg_q_row[row_b];
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
   float acc[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
   const int n_kv = causal ? qt + 1 : n_tiles;
-  load_tile<D>(sK, k + base, stride, kTile);
-  load_tile<D>(sV, v + base, stride, kTile);
+  load_tile<D, kThreads>(sK, k + base, stride, kTile);
+  load_tile<D, kThreads>(sV, v + base, stride, kTile);
   cp_async_commit();
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0 = kt * kTile;
@@ -207,8 +162,8 @@ __global__ void __launch_bounds__(kThreads)
     const bf16* cV = sV + (kt & 1) * tile_elems<D>();
     if (kt + 1 < n_kv) {  // prefetch the next tile into the other stage
       const long long next = static_cast<long long>(k0 + kTile) * stride;
-      load_tile<D>(sK + ((kt + 1) & 1) * tile_elems<D>(), k + base + next, stride, kTile);
-      load_tile<D>(sV + ((kt + 1) & 1) * tile_elems<D>(), v + base + next, stride, kTile);
+      load_tile<D, kThreads>(sK + ((kt + 1) & 1) * tile_elems<D>(), k + base + next, stride, kTile);
+      load_tile<D, kThreads>(sV + ((kt + 1) & 1) * tile_elems<D>(), v + base + next, stride, kTile);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -284,18 +239,30 @@ __global__ void __launch_bounds__(kThreads)
 
   l_a = quad_sum(l_a);
   l_b = quad_sum(l_b);
-  const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
+  // A ring block's row that saw no key: every logit carried MASK, so its
+  // running max sits near MASK, far below any unmasked logit.
+  const bool ring = lse == nullptr;
+  const bool none_a = ring && m_a < 0.5f * kMaskValue;
+  const bool none_b = ring && m_b < 0.5f * kMaskValue;
+  const float inv_a = none_a ? 0.f : 1.f / l_a, inv_b = none_b ? 0.f : 1.f / l_b;
   bf16* oa = o + base + row_a * stride + t * 2;
   bf16* ob = o + base + row_b * stride + t * 2;
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
-    *reinterpret_cast<uint32_t*>(oa + i * 8) = pack_bf16(acc[i][0] * inv_a, acc[i][1] * inv_a);
-    *reinterpret_cast<uint32_t*>(ob + i * 8) = pack_bf16(acc[i][2] * inv_b, acc[i][3] * inv_b);
+    emit2(oa + i * 8, acc[i][0] * inv_a, acc[i][1] * inv_a);
+    emit2(ob + i * 8, acc[i][2] * inv_b, acc[i][3] * inv_b);
   }
   if (t == 0) {
-    float* lrow = lse + static_cast<long long>(bh) * S;
-    lrow[row_a] = m_a + logf(l_a);
-    lrow[row_b] = m_b + logf(l_b);
+    const long long row0 = static_cast<long long>(bh) * S;
+    if (!ring) {
+      lse[row0 + row_a] = m_a + logf(l_a);
+      lse[row0 + row_b] = m_b + logf(l_b);
+    } else {
+      l_out[row0 + row_a] = none_a ? 0.f : l_a;
+      l_out[row0 + row_b] = none_b ? 0.f : l_b;
+      m_out[row0 + row_a] = none_a ? kNoKeyMax : m_a;
+      m_out[row0 + row_b] = none_b ? kNoKeyMax : m_b;
+    }
   }
 }
 
@@ -328,13 +295,16 @@ __global__ void __launch_bounds__(256)
 //   P^T = exp(S^T - lse), dV += P^T dO, dP^T = V dO^T,
 //   dS^T = P^T (dP^T - delta) * scale, dK += dS^T Q.
 // Shared memory: the K and V tiles, and two stages of the Q and dO tiles.
-template <int D>
+// OutT: bf16 (flash: dk, dv stored) or float (a ring block: added to the
+// ring's accumulators).
+template <int D, typename OutT>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const int* __restrict__ seg,
-                   const bf16* __restrict__ dout, const float* __restrict__ lse,
-                   const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                   int S, int H, int causal, float scale) {
+                   const bf16* __restrict__ v, const int* __restrict__ seg_q,
+                   const int* __restrict__ seg_kv, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   OutT* __restrict__ dk, OutT* __restrict__ dv, int S, int H, int causal,
+                   float scale) {
   constexpr int LD = D + 8;
   constexpr int kQElems = kBwdQTile * LD;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -350,15 +320,16 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int k0 = kt * kTile;
-  const int* seg_row = seg == nullptr ? nullptr : seg + static_cast<long long>(b) * S;
+  const int* seg_row = seg_kv == nullptr ? nullptr : seg_kv + static_cast<long long>(b) * S;
+  const int* seg_q_row = seg_q == nullptr ? nullptr : seg_q + static_cast<long long>(b) * S;
   const float* lse_row = lse + static_cast<long long>(bh) * S;
   const float* delta_row = delta + static_cast<long long>(bh) * S;
 
   const int q_first = causal ? k0 : 0;
-  load_tile<D>(sK, k + base + k0 * stride, stride, kTile);
-  load_tile<D>(sV, v + base + k0 * stride, stride, kTile);
-  load_tile<D>(sQ, q + base + q_first * stride, stride, kBwdQTile);
-  load_tile<D>(sdO, dout + base + q_first * stride, stride, kBwdQTile);
+  load_tile<D, kThreads>(sK, k + base + k0 * stride, stride, kTile);
+  load_tile<D, kThreads>(sV, v + base + k0 * stride, stride, kTile);
+  load_tile<D, kThreads>(sQ, q + base + q_first * stride, stride, kBwdQTile);
+  load_tile<D, kThreads>(sdO, dout + base + q_first * stride, stride, kBwdQTile);
   cp_async_commit();
 
   const int key_a = k0 + warp * 16 + g, key_b = key_a + 8;
@@ -376,8 +347,8 @@ __global__ void __launch_bounds__(kThreads)
     const bf16* cdO = sdO + (step & 1) * kQElems;
     if (q0 + kBwdQTile < S) {  // prefetch the next query step into the other stage
       const long long next = static_cast<long long>(q0 + kBwdQTile) * stride;
-      load_tile<D>(sQ + ((step + 1) & 1) * kQElems, q + base + next, stride, kBwdQTile);
-      load_tile<D>(sdO + ((step + 1) & 1) * kQElems, dout + base + next, stride, kBwdQTile);
+      load_tile<D, kThreads>(sQ + ((step + 1) & 1) * kQElems, q + base + next, stride, kBwdQTile);
+      load_tile<D, kThreads>(sdO + ((step + 1) & 1) * kQElems, dout + base + next, stride, kBwdQTile);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -407,10 +378,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int query = q0 + n * 8 + t * 2 + j;
-        const int seg_q = seg_row == nullptr ? 0 : seg_row[query];
+        const int seg_qv = seg_q_row == nullptr ? 0 : seg_q_row[query];
         const float ls = lse_row[query];
-        const bool keep_a = (!causal || key_a <= query) && (seg_row == nullptr || seg_ka == seg_q);
-        const bool keep_b = (!causal || key_b <= query) && (seg_row == nullptr || seg_kb == seg_q);
+        const bool keep_a = (!causal || key_a <= query) && (seg_row == nullptr || seg_ka == seg_qv);
+        const bool keep_b = (!causal || key_b <= query) && (seg_row == nullptr || seg_kb == seg_qv);
         const float sa = st[n][j] * scale, sb = st[n][2 + j] * scale;
         st[n][j] = __expf((keep_a ? sa : sa + kMaskValue) - ls);
         st[n][2 + j] = __expf((keep_b ? sb : sb + kMaskValue) - ls);
@@ -474,16 +445,16 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the next prefetch overwrites this stage
   }
 
-  bf16* dka = dk + base + key_a * stride + t * 2;
-  bf16* dkb = dk + base + key_b * stride + t * 2;
-  bf16* dva = dv + base + key_a * stride + t * 2;
-  bf16* dvb = dv + base + key_b * stride + t * 2;
+  OutT* dka = dk + base + key_a * stride + t * 2;
+  OutT* dkb = dk + base + key_b * stride + t * 2;
+  OutT* dva = dv + base + key_a * stride + t * 2;
+  OutT* dvb = dv + base + key_b * stride + t * 2;
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
-    *reinterpret_cast<uint32_t*>(dka + i * 8) = pack_bf16(dk_acc[i][0], dk_acc[i][1]);
-    *reinterpret_cast<uint32_t*>(dkb + i * 8) = pack_bf16(dk_acc[i][2], dk_acc[i][3]);
-    *reinterpret_cast<uint32_t*>(dva + i * 8) = pack_bf16(dv_acc[i][0], dv_acc[i][1]);
-    *reinterpret_cast<uint32_t*>(dvb + i * 8) = pack_bf16(dv_acc[i][2], dv_acc[i][3]);
+    emit2(dka + i * 8, dk_acc[i][0], dk_acc[i][1]);
+    emit2(dkb + i * 8, dk_acc[i][2], dk_acc[i][3]);
+    emit2(dva + i * 8, dv_acc[i][0], dv_acc[i][1]);
+    emit2(dvb + i * 8, dv_acc[i][2], dv_acc[i][3]);
   }
 }
 
@@ -491,14 +462,14 @@ __global__ void __launch_bounds__(kThreads)
 // Grid (query tiles, B*H). Each warp owns 16 queries and walks the KV tiles
 // they can see: P = exp(S - lse), dP = dO V^T, dS = P (dP - delta) * scale,
 // dQ += dS K. Shared memory: the Q and dO tiles, and two stages of the K and
-// V tiles.
-template <int D>
+// V tiles. OutT as in flash_bwd_dkdv.
+template <int D, typename OutT>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const int* __restrict__ seg,
-                 const bf16* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dq, int S, int H, int causal,
-                 float scale) {
+                 const bf16* __restrict__ v, const int* __restrict__ seg_q,
+                 const int* __restrict__ seg_kv, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 OutT* __restrict__ dq, int S, int H, int causal, float scale) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -514,16 +485,17 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = qt * kTile;
-  const int* seg_row = seg == nullptr ? nullptr : seg + static_cast<long long>(b) * S;
+  const int* seg_row = seg_kv == nullptr ? nullptr : seg_kv + static_cast<long long>(b) * S;
+  const int* seg_q_row = seg_q == nullptr ? nullptr : seg_q + static_cast<long long>(b) * S;
 
-  load_tile<D>(sQ, q + base + q0 * stride, stride, kTile);
-  load_tile<D>(sdO, dout + base + q0 * stride, stride, kTile);
-  load_tile<D>(sK, k + base, stride, kTile);
-  load_tile<D>(sV, v + base, stride, kTile);
+  load_tile<D, kThreads>(sQ, q + base + q0 * stride, stride, kTile);
+  load_tile<D, kThreads>(sdO, dout + base + q0 * stride, stride, kTile);
+  load_tile<D, kThreads>(sK, k + base, stride, kTile);
+  load_tile<D, kThreads>(sV, v + base, stride, kTile);
   cp_async_commit();
   const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
-  const int seg_a = seg_row == nullptr ? 0 : seg_row[row_a];
-  const int seg_b = seg_row == nullptr ? 0 : seg_row[row_b];
+  const int seg_a = seg_q_row == nullptr ? 0 : seg_q_row[row_a];
+  const int seg_b = seg_q_row == nullptr ? 0 : seg_q_row[row_b];
   const float lse_a = lse[static_cast<long long>(bh) * S + row_a];
   const float lse_b = lse[static_cast<long long>(bh) * S + row_b];
   const float dl_a = delta[static_cast<long long>(bh) * S + row_a];
@@ -539,8 +511,8 @@ __global__ void __launch_bounds__(kThreads)
     const bf16* cV = sV + (kt & 1) * tile_elems<D>();
     if (kt + 1 < n_kv) {  // prefetch the next tile into the other stage
       const long long next = static_cast<long long>(k0 + kTile) * stride;
-      load_tile<D>(sK + ((kt + 1) & 1) * tile_elems<D>(), k + base + next, stride, kTile);
-      load_tile<D>(sV + ((kt + 1) & 1) * tile_elems<D>(), v + base + next, stride, kTile);
+      load_tile<D, kThreads>(sK + ((kt + 1) & 1) * tile_elems<D>(), k + base + next, stride, kTile);
+      load_tile<D, kThreads>(sV + ((kt + 1) & 1) * tile_elems<D>(), v + base + next, stride, kTile);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -598,12 +570,12 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the next prefetch overwrites this stage
   }
 
-  bf16* da_ = dq + base + row_a * stride + t * 2;
-  bf16* db_ = dq + base + row_b * stride + t * 2;
+  OutT* da_ = dq + base + row_a * stride + t * 2;
+  OutT* db_ = dq + base + row_b * stride + t * 2;
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
-    *reinterpret_cast<uint32_t*>(da_ + i * 8) = pack_bf16(dq_acc[i][0], dq_acc[i][1]);
-    *reinterpret_cast<uint32_t*>(db_ + i * 8) = pack_bf16(dq_acc[i][2], dq_acc[i][3]);
+    emit2(da_ + i * 8, dq_acc[i][0], dq_acc[i][1]);
+    emit2(db_ + i * 8, dq_acc[i][2], dq_acc[i][3]);
   }
 }
 
@@ -623,14 +595,39 @@ constexpr int dq_smem_bytes() {
 }
 
 template <int D>
-int fwd_launch(const bf16* q, const bf16* k, const bf16* v, const int* seg, bf16* o, float* lse,
-               int B, int S, int H, int causal, float scale, cudaStream_t stream) {
+int fwd_launch(const bf16* q, const bf16* k, const bf16* v, const int* seg_q, const int* seg_kv,
+               bf16* o, float* lse, float* l_out, float* m_out, int B, int S, int H, int causal,
+               float scale, cudaStream_t stream) {
   constexpr int kSmem = fwd_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd<D><<<dim3(S / kTile, B * H), kThreads, kSmem, stream>>>(q, k, v, seg, o, lse, S, H,
-                                                                    causal, scale);
+  flash_fwd<D><<<dim3(S / kTile, B * H), kThreads, kSmem, stream>>>(
+      q, k, v, seg_q, seg_kv, o, lse, l_out, m_out, S, H, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dK/dV and dQ kernels; delta must be ready on the stream.
+template <int D, typename OutT>
+int bwd_main_launch(const bf16* q, const bf16* k, const bf16* v, const int* seg_q,
+                    const int* seg_kv, const bf16* dout, const float* lse, const float* delta,
+                    OutT* dq, OutT* dk, OutT* dv, int B, int S, int H, int causal, float scale,
+                    cudaStream_t stream) {
+  constexpr int kDkdvSmem = dkdv_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdvSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv<D, OutT><<<dim3(S / kTile, B * H), kThreads, kDkdvSmem, stream>>>(
+      q, k, v, seg_q, seg_kv, dout, lse, delta, dk, dv, S, H, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  constexpr int kDqSmem = dq_smem_bytes<D>();
+  err = cudaFuncSetAttribute(flash_bwd_dq<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kDqSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq<D, OutT><<<dim3(S / kTile, B * H), kThreads, kDqSmem, stream>>>(
+      q, k, v, seg_q, seg_kv, dout, lse, delta, dq, S, H, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -643,23 +640,8 @@ int bwd_launch(const bf16* q, const bf16* k, const bf16* v, const int* seg, cons
       o, dout, delta, S, H, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  constexpr int kDkdvSmem = dkdv_smem_bytes<D>();
-  err = cudaFuncSetAttribute(flash_bwd_dkdv<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kDkdvSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv<D><<<dim3(S / kTile, B * H), kThreads, kDkdvSmem, stream>>>(
-      q, k, v, seg, dout, lse, delta, dk, dv, S, H, causal, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  constexpr int kDqSmem = dq_smem_bytes<D>();
-  err = cudaFuncSetAttribute(flash_bwd_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kDqSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq<D><<<dim3(S / kTile, B * H), kThreads, kDqSmem, stream>>>(
-      q, k, v, seg, dout, lse, delta, dq, S, H, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  return bwd_main_launch<D, bf16>(q, k, v, seg, seg, dout, lse, delta, dq, dk, dv, B, S, H,
+                                  causal, scale, stream);
 }
 
 }  // namespace
@@ -676,12 +658,14 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v, cons
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   const int* sp = static_cast<const int*>(seg);
+  bf16* op = static_cast<bf16*>(o);
+  float* lp = static_cast<float*>(lse);
   if (D == 128)
-    return fwd_launch<128>(qp, kp, vp, sp, static_cast<bf16*>(o), static_cast<float*>(lse), B, S,
-                           H, causal, scale, s);
+    return fwd_launch<128>(qp, kp, vp, sp, sp, op, lp, nullptr, nullptr, B, S, H, causal, scale,
+                           s);
   if (D == 64)
-    return fwd_launch<64>(qp, kp, vp, sp, static_cast<bf16*>(o), static_cast<float*>(lse), B, S,
-                          H, causal, scale, s);
+    return fwd_launch<64>(qp, kp, vp, sp, sp, op, lp, nullptr, nullptr, B, S, H, causal, scale,
+                          s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -707,6 +691,56 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
     return bwd_launch<64>(qp, kp, vp, sp, op, dp, lp, dl, static_cast<bf16*>(dq),
                           static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, S, H, causal, scale,
                           s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One ring block, forward. q, k, v, o: (B, S, H, D) bf16, contiguous, S the
+// rank's shard; seg_q, seg_kv: (B, S) int32, both or neither; l, m: (B, H, S)
+// f32 outputs. causal: 1 for the diagonal block, 0 for a fully visible one.
+int ring_block_fwd_launch(const void* q, const void* k, const void* v, const void* seg_q,
+                          const void* seg_kv, void* o, void* l, void* m, int B, int S, int H,
+                          int D, int causal, float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const int* sq = static_cast<const int*>(seg_q);
+  const int* skv = static_cast<const int*>(seg_kv);
+  bf16* op = static_cast<bf16*>(o);
+  float* lp = static_cast<float*>(l);
+  float* mp = static_cast<float*>(m);
+  if (D == 128)
+    return fwd_launch<128>(qp, kp, vp, sq, skv, op, nullptr, lp, mp, B, S, H, causal, scale, s);
+  if (D == 64)
+    return fwd_launch<64>(qp, kp, vp, sq, skv, op, nullptr, lp, mp, B, S, H, causal, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One ring block, backward. lse: (B, H, S) f32, the rank's GLOBAL
+// log-sum-exp with +inf mapped to 1e30; delta: (B, H, S) f32, rowsum(dO * O)
+// of the rank's rows; dq, dk, dv: (B, S, H, D) f32 accumulators, added to.
+int ring_block_bwd_launch(const void* q, const void* k, const void* v, const void* seg_q,
+                          const void* seg_kv, const void* dout, const void* lse,
+                          const void* delta, void* dq, void* dk, void* dv, int B, int S, int H,
+                          int D, int causal, float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const int* sq = static_cast<const int*>(seg_q);
+  const int* skv = static_cast<const int*>(seg_kv);
+  const bf16* dp = static_cast<const bf16*>(dout);
+  const float* lp = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  float* dqp = static_cast<float*>(dq);
+  float* dkp = static_cast<float*>(dk);
+  float* dvp = static_cast<float*>(dv);
+  if (D == 128)
+    return bwd_main_launch<128, float>(qp, kp, vp, sq, skv, dp, lp, dl, dqp, dkp, dvp, B, S, H,
+                                       causal, scale, s);
+  if (D == 64)
+    return bwd_main_launch<64, float>(qp, kp, vp, sq, skv, dp, lp, dl, dqp, dkp, dvp, B, S, H,
+                                      causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

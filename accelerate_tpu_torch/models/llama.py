@@ -27,13 +27,21 @@ The uncached forward's attention goes through ``ops/attention.attention``:
 Gemma-2's windowed, softcapped and scaled layers resolve to the splash
 kernel on the card, plain causal layers to flash.
 
+Sequence parallelism (``attention_impl="ring"``, which the ``Accelerator``
+sets under an ``sp`` axis): ``apply`` takes this rank's shard of the
+sequence with its GLOBAL ``positions`` (rope), the sp process group
+(``sp_group``, handed to ring attention), ``targets`` (the labels already
+shifted on the global sequence, ``utils/transfer.shard_batch``) in place of
+``labels``, and ``loss_normalizer``, the valid-target count over every rank,
+so each rank's loss is its share of the global mean.
+
 ``matmul_precision="int8"`` sends the seven block projections (wq, wk, wv,
 wo, gate, up, down) through ``ops/int8.matmul``, whose forward is the int8
 matmul kernel on the card; the embedding and the LM head stay exact, as in
 the JAX package.
 
 Left out so far, and raising when set: remat, the pipeline schedule, MoE,
-the ring/ulysses attention impls, and the ``yarn``/``dynamic`` rope types.
+the ulysses attention impl, and the ``yarn``/``dynamic`` rope types.
 """
 
 from __future__ import annotations
@@ -241,7 +249,7 @@ class Llama(Module):
     def __init__(self, config: LlamaConfig, device=None):
         unported = {
             "remat": config.remat,
-            "attention_impl in (ring, ulysses)": config.attention_impl in ("ring", "ulysses"),
+            "attention_impl=ulysses": config.attention_impl == "ulysses",
         }
         for name, engaged in unported.items():
             if engaged:
@@ -379,6 +387,7 @@ class Llama(Module):
                 q, k, v, causal=True, mask=ctx["attention_mask"],
                 impl=cfg.attention_impl, window=window,
                 softcap=cfg.attn_logit_softcap, scale=scale, kernels=ctx.get("kernels"),
+                group=ctx.get("sp_group"),
             )
         attn_out = self._mm(attn_out.reshape(B, S, nh * hd), a["wo"], ctx)
         if cfg.sandwich_norms:
@@ -421,31 +430,38 @@ class Llama(Module):
             shifted = torch.where(valid, shifted, torch.full_like(shifted, -100))
         return shifted
 
-    def head(self, params, x, labels=None, attention_mask=None):
-        """Final norm + LM head (+ shifted-label loss with ``labels``). The
-        tied head reads the embed table in its native (V, h) layout; with
-        ``fused_loss`` and labels, the loss comes straight from the hidden
-        states and the output carries no logits."""
+    def head(self, params, x, labels=None, attention_mask=None, targets=None,
+             loss_normalizer=None):
+        """Final norm + LM head (+ shifted-label loss with ``labels``, or the
+        loss of ``targets``, labels already shifted). The tied head reads the
+        embed table in its native (V, h) layout; with ``fused_loss`` and a
+        loss to compute, the loss comes straight from the hidden states and
+        the output carries no logits. ``loss_normalizer``: the loss's
+        denominator in place of this call's valid-target count."""
+        if labels is not None and targets is not None:
+            raise ValueError("pass labels (shifted here) or targets (already shifted), not both")
+        if labels is not None:
+            targets = self._shift_labels(labels, attention_mask)
         cfg = self.config
         x = rms_norm(x, params["final_norm"]["weight"], cfg.rms_norm_eps)
         if cfg.tie_word_embeddings:
             head_w = params["embed"]["weight"].to(x.dtype)  # (V, h)
         else:
             head_w = params["lm_head"]["weight"]  # (h, V)
-        if labels is not None and cfg.fused_loss:
+        if targets is not None and cfg.fused_loss:
             loss = fused_cross_entropy_loss(
-                x, head_w, self._shift_labels(labels, attention_mask),
+                x, head_w, targets,
                 logit_cap=cfg.final_logit_softcap, head_transposed=cfg.tie_word_embeddings,
                 vocab_chunk=cfg.fused_loss_chunk, chunk_dtype=cfg.fused_loss_dtype,
-                custom_backward=cfg.fused_loss_backward == "custom",
+                custom_backward=cfg.fused_loss_backward == "custom", normalizer=loss_normalizer,
             )
             return ModelOutput(loss=loss)
         logits = x @ head_w.T if cfg.tie_word_embeddings else x @ head_w
         if cfg.final_logit_softcap is not None:
             logits = softcap_scores(logits.float(), cfg.final_logit_softcap)
         out = ModelOutput(logits=logits)
-        if labels is not None:
-            out["loss"] = cross_entropy_loss(logits, self._shift_labels(labels, attention_mask))
+        if targets is not None:
+            out["loss"] = cross_entropy_loss(logits, targets, normalizer=loss_normalizer)
         return out
 
     # ------------------------------------------------------------------ cache
@@ -468,11 +484,14 @@ class Llama(Module):
         return cfg.sliding_window if cfg.layer_windows is None else cfg.layer_windows[i]
 
     def apply(self, params, input_ids=None, labels=None, attention_mask=None,
-              positions=None, cache=None, kernels=None, **kwargs):
+              positions=None, cache=None, kernels=None, targets=None, loss_normalizer=None,
+              sp_group=None, **kwargs):
         """Forward. ``kernels`` is the registry spec for the kernels the
-        forward runs: the uncached attention's flash or splash op and, with
-        ``matmul_precision="int8"``, the int8 matmul (``None``: the CUDA
-        kernels for CUDA tensors; ``"off"``: their plain versions)."""
+        forward runs: the uncached attention's flash, splash or ring-block
+        ops and, with ``matmul_precision="int8"``, the int8 matmul
+        (``None``: the CUDA kernels for CUDA tensors; ``"off"``: their plain
+        versions). ``targets``, ``loss_normalizer`` and ``sp_group`` serve a
+        sequence shard (module docstring)."""
         if kwargs.get("pipeline") is not None:
             raise NotImplementedError("pipeline schedules are not ported yet (ROADMAP.md)")
         if cache is not None:
@@ -480,10 +499,12 @@ class Llama(Module):
                                       labels=labels, positions=positions, kernels=kernels)
         x, ctx = self.embed(params, input_ids, positions, attention_mask)
         ctx["kernels"] = kernels
+        ctx["sp_group"] = sp_group
         for i in range(self.config.num_hidden_layers):
             x = self.block(_index_tree(params["layers"], i), x, ctx,
                            window=self._layer_window(i))
-        return self.head(params, x, labels=labels, attention_mask=attention_mask)
+        return self.head(params, x, labels=labels, attention_mask=attention_mask,
+                         targets=targets, loss_normalizer=loss_normalizer)
 
     def _apply_cached(self, params, input_ids, attention_mask, cache, labels=None,
                       positions=None, kernels=None):

@@ -8,8 +8,9 @@ for CPU tensors or ``kernels="off"``) and splash attention, the block-sparse
 variant with a local window, a tanh logit softcap and a query scale, which
 the Mistral, Gemma-2 and Qwen2 recipes need (op ``splash_attention``:
 ``csrc/splash_attention.cu``, plain version :func:`splash_attention_reference`).
-The sequence-parallel paths (ring, ulysses) are a later slice (ROADMAP.md,
-kernel queue) and raise when asked for.
+``impl="ring"`` is sequence-parallel ring attention over a process group
+(``parallel/ring.py``, whose blocks are the ring-block kernels of
+``csrc/flash_attention.cu``); ``"ulysses"`` is not ported yet and raises.
 
 ``impl="auto"`` resolves by :func:`resolve_auto_impl`, for a CUDA tensor at
 kernel-friendly shapes from :data:`FLASH_MIN_SEQ` tokens on: splash for a
@@ -259,20 +260,29 @@ def resolve_auto_impl(seq_len: int, head_dim: int, *, kv_len: int | None = None,
 
 
 def attention(q, k, v, *, causal=True, mask=None, impl: str = "auto", window=None,
-              softcap=None, scale=None, kernels=None):
+              softcap=None, scale=None, kernels=None, group=None):
     """Entry used by the model zoo for the uncached forward.
-    ``impl``: auto | dense | flash | splash. ``window``, ``softcap`` and
-    ``scale`` take the dense or splash path (``auto`` picks by
-    :func:`resolve_auto_impl`); flash cannot apply them. As in the JAX
-    package, ``impl="splash"`` without any of the three runs dense.
-    ``kernels`` is the registry spec handed to the flash and splash ops
-    (``"off"`` runs their plain versions)."""
-    if impl in ("ring", "ulysses"):
+    ``impl``: auto | dense | flash | splash | ring. ``window``, ``softcap``
+    and ``scale`` take the dense or splash path (``auto`` picks by
+    :func:`resolve_auto_impl`); flash and ring cannot apply them. As in the
+    JAX package, ``impl="splash"`` without any of the three runs dense.
+    ``impl="ring"``: q, k, v and ``mask`` are this rank's sequence shards
+    and ``group`` the sp process group (``parallel/ring.ring_attention``;
+    dense attention without one). ``kernels`` is the registry spec handed to
+    the flash, splash and ring-block ops (``"off"`` runs their plain
+    versions)."""
+    if impl == "ulysses":
         raise NotImplementedError(
-            f"attention impl={impl!r} is not ported yet (ROADMAP.md, kernel "
-            "queue: ring attention)"
+            "attention impl='ulysses' is not ported yet (ROADMAP.md, module queue: "
+            "Ulysses sequence parallelism)"
         )
     shaped = window is not None or softcap is not None or scale is not None
+    if impl == "ring":
+        if shaped:
+            raise ValueError("ring attention cannot apply window/softcap/scale options")
+        from ..parallel.ring import ring_attention  # parallel.ring imports this module
+
+        return ring_attention(q, k, v, causal=causal, mask=mask, group=group, kernels=kernels)
     if shaped and impl not in ("auto", "dense", "splash"):
         raise ValueError(
             f"window/softcap/scale attention options need the dense path or splash; "

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` holds kernels with a plain C interface (no PyTorch
 headers), compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``accelerate_tpu_torch/_build/`` at first use and loaded with ``ctypes``: a
 build of seconds, where one that includes ``torch/extension.h`` takes
-minutes. The library's file name carries a hash of its source and flags, so
-a stale build is never loaded. Nothing here runs at import time.
+minutes. The library's file name carries a hash of its source, the shared
+headers (``csrc/*.cuh``) and the flags, so a stale build is never loaded.
+Nothing here runs at import time.
 
 A build or load failure raises; no caller catches it.
 """
@@ -47,9 +48,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of its source,
+    every shared header (``csrc/*.cuh``, in name order) and the flags: a
+    change to a header a source includes never loads a stale build."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=None, ptxas_info: bool = False) -> dict[str, str]:

@@ -2,7 +2,11 @@
 
 Cross-entropy is computed from logits in fp32 whatever the compute dtype
 (bf16 logits lose too much precision in the logsumexp), with an ignore index
-for padded positions and the mean taken over valid positions only.
+for padded positions and the mean taken over valid positions only. Under
+sequence or data parallelism a rank holds part of the tokens, and the mean is
+the global one: both losses take an explicit ``normalizer`` (the valid-token
+count summed over every rank), and each rank's loss is then its own sum over
+that count, which the ranks' gradients add up to.
 
 :func:`fused_cross_entropy_loss` computes the same loss straight from the
 hidden states, streaming the LM head's vocab dimension in chunks with running
@@ -24,11 +28,13 @@ from torch.utils.checkpoint import checkpoint
 
 
 def cross_entropy_loss(logits, labels, ignore_index: int = -100, z_loss: float = 0.0,
-                       label_smoothing: float = 0.0):
+                       label_smoothing: float = 0.0, normalizer=None):
     """Mean token cross-entropy over non-ignored positions.
 
     logits: (..., V) float; labels: (...) int. Ignored positions contribute
-    zero and are excluded from the mean's denominator."""
+    zero and are excluded from the mean's denominator, which is the count of
+    valid positions, or ``normalizer`` (a count, e.g. over every rank) when
+    given."""
     logits = logits.float()
     valid = labels != ignore_index
     safe_labels = torch.where(valid, labels, torch.zeros_like(labels)).long()
@@ -41,8 +47,11 @@ def cross_entropy_loss(logits, labels, ignore_index: int = -100, z_loss: float =
     if z_loss > 0.0:
         nll = nll + z_loss * logz.square()
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    denom = valid.sum().clamp(min=1)
-    return nll.sum() / denom
+    return nll.sum() / _denominator(valid, normalizer)
+
+
+def _denominator(valid, normalizer):
+    return valid.sum().clamp(min=1) if normalizer is None else normalizer
 
 
 # --------------------------------------------------------------------- fused CE
@@ -171,7 +180,7 @@ class _StreamingStats(torch.autograd.Function):
 def fused_cross_entropy_loss(hidden, head_weight, labels, *, ignore_index: int = -100,
                              z_loss: float = 0.0, vocab_chunk: int = 8192, logit_cap=None,
                              chunk_dtype: str = "fp32", head_transposed: bool = False,
-                             custom_backward: bool = True):
+                             custom_backward: bool = True, normalizer=None):
     """Cross-entropy straight from hidden states; the full logits never exist.
 
     hidden: (B, S, h), any float dtype. labels: (B, S) int with
@@ -183,7 +192,7 @@ def fused_cross_entropy_loss(hidden, head_weight, labels, *, ignore_index: int =
     per chunk. The JAX package's scan ``unroll`` has no counterpart: the
     chunk loop is a Python loop (``LlamaConfig`` validates
     ``fused_loss_unroll`` and nothing reads it). Returns the mean NLL over
-    non-ignored positions (+ z-loss)."""
+    non-ignored positions (+ z-loss), over ``normalizer`` when given."""
     if chunk_dtype not in ("fp32", "bf16"):
         raise ValueError(f"chunk_dtype must be fp32|bf16, got {chunk_dtype!r}")
     if vocab_chunk <= 0:
@@ -205,5 +214,4 @@ def fused_cross_entropy_loss(hidden, head_weight, labels, *, ignore_index: int =
     if z_loss > 0.0:
         nll = nll + z_loss * logz.square()
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    denom = valid.sum().clamp(min=1)
-    return nll.sum() / denom
+    return nll.sum() / _denominator(valid, normalizer)

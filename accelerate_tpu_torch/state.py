@@ -1,23 +1,84 @@
 """Run state — the counterpart of ``accelerate_tpu/state.py``.
 
-The JAX package keeps ``AcceleratorState`` and ``GradientState`` as
-process-wide singletons over a device mesh. The port runs one process on one
-device for now, so both are plain objects that the ``Accelerator`` creates
-and owns; nothing is shared between two accelerators of one process.
+The JAX package keeps ``PartialState``, ``AcceleratorState`` and
+``GradientState`` as process-wide singletons over a device mesh. The port
+runs one process per rank, so they are plain objects that the
+``Accelerator`` creates and owns; only the ``torch.distributed`` process
+group is process-wide, as torch keeps it.
+
+:class:`PartialState` joins the job (the counterpart of the JAX package's
+``PartialState``, ``state.py:113``). Rank and world size come from the
+launcher's ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` (``torchrun`` sets them),
+or from a process group the launcher already initialised; the rendezvous is
+``init_method`` (default ``env://``, torchrun's address). A world of one rank
+is today's single process: no process group, nothing initialised. Otherwise
+card ``LOCAL_RANK`` becomes the current CUDA device (set before
+``init_process_group``), so the port's ``"cuda"`` defaults (the model, the
+optimizer transforms) land on the rank's card, with the NCCL backend; or,
+for ``device="cpu"``, the CPU with gloo: the backend
+follows the device, never an environment variable. A process group that a
+launcher already initialised (``launchers.debug_launcher``) is joined as it
+is.
 """
 
 from __future__ import annotations
 
-import torch
+import os
 
+import torch
+import torch.distributed as dist
+
+from .parallel.mesh import ParallelismConfig
 from .utils.dataclasses import UNPORTED_PRECISIONS, PrecisionType
 from .utils.device import resolve_device
 
+BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+
+
+def _env_int(name: str, default: int) -> int:
+    value = os.environ.get(name, "").strip()
+    return int(value) if value else default
+
+
+class PartialState:
+    """This process's rank of the job: ``process_index``, ``num_processes``,
+    ``local_process_index`` and ``device``."""
+
+    def __init__(self, device=None, *, init_method: str | None = None):
+        dev = resolve_device(device)
+        if dist.is_initialized():
+            rank, world_size = dist.get_rank(), dist.get_world_size()
+        else:
+            rank, world_size = _env_int("RANK", 0), _env_int("WORLD_SIZE", 1)
+        self.process_index, self.num_processes = rank, world_size
+        self.local_process_index = _env_int("LOCAL_RANK", rank)
+        if world_size == 1 and not dist.is_initialized():
+            self.device = dev
+            return
+        if dev.type == "cuda":
+            torch.cuda.set_device(self.local_process_index)
+        self.device = dev
+        backend = BACKENDS[dev.type]
+        if not dist.is_initialized():
+            dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
+                                    world_size=world_size)
+        elif dist.get_backend() != backend:
+            raise ValueError(f"the process group runs {dist.get_backend()!r}; a {dev.type} "
+                             f"device needs {backend!r}")
+
+    @property
+    def distributed(self) -> bool:
+        return self.num_processes > 1
+
 
 class AcceleratorState:
-    """Single process, one device, and the mixed-precision mode."""
+    """The job's rank (:class:`PartialState`), its ``dp`` x ``sp`` mesh (None
+    for a single process without sequence parallelism) and the
+    mixed-precision mode."""
 
-    def __init__(self, mixed_precision: str | None = None, device=None):
+    def __init__(self, mixed_precision: str | None = None, device=None,
+                 parallelism_config: ParallelismConfig | None = None,
+                 init_method: str | None = None):
         mode = "no" if mixed_precision is None else str(mixed_precision).lower()
         if mode in UNPORTED_PRECISIONS:
             raise NotImplementedError(
@@ -27,11 +88,21 @@ class AcceleratorState:
             raise ValueError(f"Unknown mixed_precision mode: {mixed_precision!r}; "
                              f"choose from {[p.value for p in PrecisionType]}")
         self.mixed_precision = mode
-        self.device = resolve_device(device)
+        self.partial = PartialState(device, init_method=init_method)
+        self.device = self.partial.device
+        cfg = parallelism_config or ParallelismConfig()
+        self.parallelism_config = cfg
+        self.mesh = None
+        if self.partial.distributed or cfg.sp_size > 1:
+            self.mesh = cfg.build_mesh(self.partial.num_processes, self.device.type)
 
     @property
     def compute_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.mixed_precision == "bf16" else torch.float32
+
+    @property
+    def sp_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh["sp"].size()
 
 
 class GradientState:

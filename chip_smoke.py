@@ -79,6 +79,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    steps with finite, falling losses, splash launched 4 + 4 times a step
    and flash never; then one local and one global layer trained by a
    kernel arm and a ``kernels="off"`` arm whose first 3 losses agree.
+10. Ring attention (sequence parallelism) at Llama-3-8B's attention widths
+   (32 query heads over 8 KV heads of 128, the KV heads repeated to 32
+   before the ring as the model does), B1, a 32768-token sequence over
+   sp = 4 ranks (8192 tokens a shard), bf16, all four ranks driven in this
+   process by ``parallel.ring.LoopbackRing(4)``, through the same block
+   calls a ring of four cards makes. Each ring-block kernel (forward and
+   backward) against its plain twin at a shard of 8192 in modes 0
+   (diagonal), 1 (full), 1 with right padding in the KV block and 2
+   (skipped: no launch); the whole ring, forward and backward (10 + 10
+   launches), against single-card ``flash_attention_cuda`` of the
+   unsharded sequence (which phase 6 holds to its plain version); and the
+   whole ring at S=4096 against ``kernels="off"`` with padding in a KV
+   shard other than the query's own and a left-padded row (rows that see
+   no key come out 0). Times for each block kernel, its twin and
+   ``scaled_dot_product_attention`` on the same block, and for the whole
+   ring against single-card flash, beside the bounds.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -109,6 +125,10 @@ SEED = 0
 FLASH_FWD_TILE_REL = 1e-2  # forward: max over (batch, head, 64-row tile) of
                            # ||kernel - plain||_F / ||plain||_F, real-token rows
 FLASH_BWD_REL = 2e-2       # dq, dk, dv: ||kernel - plain||_F / ||plain||_F
+# Ring-block row stats vs the plain twin: both are f32 maxima and sums of the
+# same bf16 products, summed in another order (and the kernel's exp is
+# __expf), so l is held relative to max(l, 1) and m absolutely.
+RING_STATS_ATOL = 1e-3
 # Paged decode attention vs its plain version: the kernel sums the scores,
 # the softmax and P.V in another order (f32), rounding the bf16 dot and the
 # probabilities as the plain version does, so the pin is the largest
@@ -133,6 +153,9 @@ GEMMA2_9B = dict(vocab_size=256000, hidden_size=3584, intermediate_size=14336,
                  hidden_activation="gelu_pytorch_tanh")
 GEMMA2_LAYERS, GEMMA2_PAIR_LAYERS = 4, 2
 GEMMA2_BATCH, GEMMA2_SEQ = 1, 8192
+# Phase 10: Llama-3-8B attention widths over a 4-rank ring.
+RING_RANKS, RING_SEQ, RING_SMALL_SEQ = 4, 32768, 4096
+RING_HEADS, RING_KV_HEADS, RING_HEAD_DIM = 32, 8, 128
 T_START = time.perf_counter()
 
 
@@ -1281,6 +1304,261 @@ def gemma2_train_phase(card):
     return counts
 
 
+def ring_case(B: int, S: int, seed: int = SEED):
+    """q, k, v (KV heads repeated to the query heads, as the Llama block
+    does before the ring) and dO, (B, S, 32, 128) bf16, made on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(heads):
+        return torch.randn((B, S, heads, RING_HEAD_DIM), generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+
+    q = randn(RING_HEADS)
+    k, v = (randn(RING_KV_HEADS).repeat_interleave(RING_HEADS // RING_KV_HEADS, dim=2)
+            for _ in range(2))
+    return q, k, v, randn(RING_HEADS)
+
+
+def rel_fro(got, ref) -> float:
+    return float((got.float() - ref.float()).norm() / ref.float().norm())
+
+
+def check_ring_block(label, q, k, v, do, mask, mode):
+    """One block kernel, forward and backward, against its plain twin at
+    the cell's shard; returns (forward max|err|, backward max|err|)."""
+    import torch
+
+    from accelerate_tpu_torch.ops import registry
+    from accelerate_tpu_torch.ops.kernels import ring_block as rk
+    from accelerate_tpu_torch.parallel import ring
+
+    registry.reset_launch_counts()
+    o, l, m = rk.ring_block_fwd_cuda(q, k, v, mask, mode)
+    torch.cuda.synchronize()
+    o_ref, l_ref, m_ref = ring.ring_block_fwd_reference(q, k, v, mask, mode)
+    seen = l_ref > 0
+    errs = {}
+    if bool(((l > 0) != seen).any()) or not bool((m[~seen] == ring.NEG_INF).all()):
+        raise SystemExit(f"ring block {label}: rows with no visible key differ from the twin's")
+    if mode != ring.SKIP:
+        errs["o tile"] = tile_rel_err(o, o_ref, seen[:, 0])
+        errs["l"] = float(((l - l_ref).abs() / l_ref.clamp(min=1))[seen].max())
+        errs["m"] = float((m - m_ref)[seen].abs().max())
+    fwd_err = float((o.float() - o_ref.float()).abs().max())
+    lse = ring._lse_to_m(torch.where(seen, m_ref + torch.log(l_ref.clamp(min=1e-30)),
+                                     torch.inf))
+    delta = (o_ref.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    del o, l, m, o_ref, l_ref, m_ref
+    free_cuda()
+    got = [torch.zeros(q.shape, device="cuda") for _ in range(3)]
+    rk.ring_block_bwd_cuda(q, k, v, mask, mode, lse, do, delta, *got)
+    torch.cuda.synchronize()
+    want = [torch.zeros(q.shape, device="cuda") for _ in range(3)]
+    ring.ring_block_bwd_reference(q, k, v, mask, mode, lse, do, delta, *want)
+    counts = dict(registry.launch_counts)
+    expect = {} if mode == ring.SKIP else {"ring_block_fwd": 1, "ring_block_bwd": 1}
+    if counts != expect:
+        raise SystemExit(f"ring block {label}: launches {counts}, expected {expect}")
+    bwd_err = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        bwd_err = max(bwd_err, float((a - b).abs().max()))
+        errs[name] = 0.0 if float(b.norm()) == 0 and float(a.norm()) == 0 else rel_fro(a, b)
+    for name, err in errs.items():
+        pin = (FLASH_FWD_TILE_REL if name == "o tile" else
+               RING_STATS_ATOL if name in ("l", "m") else FLASH_BWD_REL)
+        if not math.isfinite(err) or err > pin:
+            raise SystemExit(f"ring block {label}: {name} error {err} > {pin}")
+    log(f"op ring block {label}: " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (pins: o per query tile {FLASH_FWD_TILE_REL}, l/m {RING_STATS_ATOL}, "
+        f"gradients {FLASH_BWD_REL}); launches {counts}")
+    del got, want, lse, delta
+    free_cuda()
+    return fwd_err, bwd_err
+
+
+def time_ring_block(q, k, v, do, mode: int):
+    """(kernel, twin, sdpa) ms forward and backward on one block."""
+    import torch
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops.kernels import ring_block as rk
+    from accelerate_tpu_torch.parallel import ring
+
+    o, l, m = rk.ring_block_fwd_cuda(q, k, v, None, mode)
+    lse = ring._lse_to_m(m + torch.log(l))
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    acc = [torch.zeros(q.shape, device="cuda") for _ in range(3)]
+    t = {"fwd": cuda_ms(lambda: rk.ring_block_fwd_cuda(q, k, v, None, mode), 10),
+         "bwd": cuda_ms(lambda: rk.ring_block_bwd_cuda(q, k, v, None, mode, lse, do, delta,
+                                                       *acc), 10),
+         "plain_fwd": cuda_ms(lambda: ring.ring_block_fwd_reference(q, k, v, None, mode), 3, 1),
+         "plain_bwd": cuda_ms(lambda: ring.ring_block_bwd_reference(q, k, v, None, mode, lse, do,
+                                                                    delta, *acc), 3, 1)}
+    del acc, o, l, m
+    free_cuda()
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    causal = mode == ring.DIAGONAL
+    with torch.no_grad():
+        t["library_fwd"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            *leaves, is_causal=causal), 10)
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    t["library_bwd"] = cuda_ms(lambda: torch.autograd.grad(out, leaves, do.transpose(1, 2),
+                                                           retain_graph=True), 10)
+    del out, leaves
+    free_cuda()
+    return t
+
+
+def ring_shards(x, n=RING_RANKS):
+    return list(x.chunk(n, dim=1))
+
+
+def ring_phase():
+    """Phase 10; returns the rows of the two ring-block kernels."""
+    import torch
+
+    from accelerate_tpu_torch.ops import registry
+    from accelerate_tpu_torch.ops.kernels.flash_attention import flash_attention_cuda
+    from accelerate_tpu_torch.parallel.ring import LoopbackRing, ring_attention
+
+    n, S, H, D = RING_RANKS, RING_SEQ, RING_HEADS, RING_HEAD_DIM
+    s_loc = S // n
+    q, k, v, do = ring_case(1, S)
+    qs, ks, vs, dos = (ring_shards(x) for x in (q, k, v, do))
+    # Each block kernel against its twin: rank 3's queries against its own
+    # block (diagonal), rank 1's block (full), rank 1's with right padding,
+    # and a skipped block.
+    pad = torch.ones((1, s_loc), dtype=torch.int32, device="cuda")
+    pad[:, -1000:] = 0
+    errs = {}
+    torch.cuda.reset_peak_memory_stats()
+    for label, kv, mask, mode in (("diagonal", 3, None, 0), ("full", 1, None, 1),
+                                  ("full, right-padded KV", 1, pad, 1), ("skipped", 3, None, 2)):
+        errs[label] = check_ring_block(f"{label} (s_loc {s_loc}, mode {mode})", qs[3], ks[kv],
+                                       vs[kv], dos[3], mask, mode)
+    peak_blocks = torch.cuda.max_memory_allocated() / 2**30
+    times = {label: time_ring_block(qs[3], ks[kv], vs[kv], dos[3], mode)
+             for label, kv, mode in (("full", 1, 1), ("diagonal", 3, 0))}
+
+    # The main path: the whole ring, forward and backward, counted.
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launch_counts()
+    outs = ring_attention(*(ring_shards(x) for x in leaves), causal=True, group=LoopbackRing(n))
+    torch.autograd.backward(outs, dos)
+    torch.cuda.synchronize()
+    counts = dict(registry.launch_counts)
+    peak_ring = torch.cuda.max_memory_allocated() / 2**30
+    want = {"ring_block_fwd": n * (n + 1) // 2, "ring_block_bwd": n * (n + 1) // 2}
+    if counts != want:
+        raise SystemExit(f"ring S{S}: launches {counts}, expected {want}")
+    out = torch.cat(outs, 1).detach()
+    del outs
+    ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = flash_attention_cuda(*ref_leaves, causal=True)
+    ref.backward(do)
+    torch.cuda.synchronize()
+    real = torch.ones((1, S), dtype=torch.bool, device="cuda")
+    ring_errs = {"o tile": tile_rel_err(out, ref.detach(), real)}
+    ring_errs.update({f"d{x}": rel_fro(a.grad, b.grad)
+                      for x, a, b in zip("qkv", leaves, ref_leaves)})
+    for name, err in ring_errs.items():
+        pin = FLASH_FWD_TILE_REL if name == "o tile" else FLASH_BWD_REL
+        if not math.isfinite(err) or err > pin:
+            raise SystemExit(f"ring S{S} vs single-card flash: {name} error {err} > {pin}")
+    del ref, ref_leaves, out
+    free_cuda()
+    t_ring_fwd = cuda_ms(lambda: ring_attention(*(ring_shards(x) for x in (q, k, v)),
+                                                causal=True, group=LoopbackRing(n)), 3, 1)
+    outs = ring_attention(*(ring_shards(x) for x in leaves), causal=True, group=LoopbackRing(n))
+    t_ring_bwd = cuda_ms(lambda: torch.autograd.grad(outs, leaves, dos, retain_graph=True), 3, 1)
+    del outs, leaves
+    free_cuda()
+    t_flash_fwd = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True), 3, 1)
+    flash_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    flash_out = flash_attention_cuda(*flash_leaves, causal=True)
+    t_flash_bwd = cuda_ms(lambda: torch.autograd.grad(flash_out, flash_leaves, do,
+                                                      retain_graph=True), 3, 1)
+    del flash_out, flash_leaves, q, k, v, do, qs, ks, vs, dos
+    free_cuda()
+
+    # The ring at S=4096 against kernels="off": right padding in row 0 that
+    # sits in KV shards 2-3, a left-padded row 1 whose first 1500 queries
+    # see no key at all (the -1e30 start, and zero rows out).
+    small = RING_SMALL_SEQ
+    q, k, v, do = ring_case(2, small, seed=SEED + 1)
+    mask = torch.ones((2, small), dtype=torch.int32, device="cuda")
+    mask[0, 2500:] = 0
+    mask[1, :1500] = 0
+    arms = []
+    for kernels in (None, "off"):
+        arm_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        registry.reset_launch_counts()
+        outs = ring_attention(*(ring_shards(x) for x in arm_leaves), causal=True,
+                              mask=ring_shards(mask), group=LoopbackRing(n), kernels=kernels)
+        torch.autograd.backward(outs, ring_shards(do))
+        torch.cuda.synchronize()
+        arms.append((torch.cat(outs, 1).detach(), [x.grad for x in arm_leaves],
+                     dict(registry.launch_counts)))
+    (o_k, g_k, c_k), (o_off, g_off, c_off) = arms
+    sees = mask.cumsum(1) > 0
+    small_errs = {"o tile": tile_rel_err(o_k, o_off, sees)}
+    small_errs.update({f"d{x}": rel_fro(a, b) for x, a, b in zip("qkv", g_k, g_off)})
+    if c_k != want or c_off != {}:
+        raise SystemExit(f"ring S{small} padded: launches {c_k} / {c_off}")
+    if not (bool((o_k[~sees] == 0).all()) and bool((o_off[~sees] == 0).all())):
+        raise SystemExit(f"ring S{small} padded: rows that see no key are not 0")
+    for name, err in small_errs.items():
+        pin = FLASH_FWD_TILE_REL if name == "o tile" else FLASH_BWD_REL
+        if not math.isfinite(err) or err > pin:
+            raise SystemExit(f"ring S{small} padded vs kernels='off': {name} error {err} > {pin}")
+    del arms, o_k, o_off, g_k, g_off, q, k, v, do
+    free_cuda()
+
+    # Bounds: a full block is 4 s_loc^2 H D flops forward and 2.5 times that
+    # backward (five products, as rows 5b and 6b); the whole causal ring is
+    # causal attention at S.
+    el = 2
+    full_fwd = 4 * s_loc * s_loc * H * D
+    block_bytes_fwd = 4 * s_loc * H * D * el + 2 * H * s_loc * 4     # q,k,v in; o, l, m out
+    block_bytes_bwd = (4 * s_loc * H * D * el + 2 * H * s_loc * 4    # q,k,v,dO, lse, delta in
+                       + 2 * 3 * s_loc * H * D * 4)                  # dq,dk,dv f32 read + written
+    fb, fby = bound_row(full_fwd, block_bytes_fwd)
+    bb, bby = bound_row(2.5 * full_fwd, block_bytes_bwd)
+    db, _ = bound_row(full_fwd * (s_loc + 1) / (2 * s_loc), block_bytes_fwd)
+    causal_fwd = 4 * D * H * S * (S + 1) / 2
+    rb, _ = bound_row(causal_fwd, 4 * S * H * D * el)
+    rbb, _ = bound_row(2.5 * causal_fwd, 8 * S * H * D * el)
+    for label, t in times.items():
+        log(f"op ring block {label} (B1 s_loc {s_loc} H{H} D{D}): fwd kernel {t['fwd']:.4f} ms, "
+            f"plain {t['plain_fwd']:.4f}, sdpa {t['library_fwd']:.4f}, bound "
+            f"{fb if label == 'full' else db:.4f}; bwd kernel {t['bwd']:.4f} ms, plain "
+            f"{t['plain_bwd']:.4f}, sdpa {t['library_bwd']:.4f}, bound "
+            f"{bb if label == 'full' else bb * (s_loc + 1) / (2 * s_loc):.4f} "
+            f"({full_fwd / t['fwd'] / 1e9 * (1 if label == 'full' else 0.5):.1f} TFLOP/s fwd)")
+    log(f"ring S{S} over {n} ranks (LoopbackRing): launches {counts}; vs single-card flash "
+        + ", ".join(f"{name} {e:.3e}" for name, e in ring_errs.items())
+        + f"; S{small} padded vs kernels='off' "
+        + ", ".join(f"{name} {e:.3e}" for name, e in small_errs.items())
+        + f"; ring fwd {t_ring_fwd:.3f} ms, bwd {t_ring_bwd:.3f} ms (bounds {rb:.3f} / "
+        f"{rbb:.3f}); single-card flash fwd {t_flash_fwd:.3f} ms, bwd {t_flash_bwd:.3f} ms; "
+        f"peak memory {peak_blocks:.2f} GiB in the block checks, {peak_ring:.2f} GiB in the "
+        f"ring's forward and backward")
+    full = times["full"]
+    base = {"route": "cuda", "source": "accelerate_tpu_torch/csrc/flash_attention.cu"}
+    return [dict(base, name="ring_block_fwd", replaces="accelerate_tpu/parallel/ring.py:93",
+                 launches=counts["ring_block_fwd"], max_abs_err=errs["full"][0], ms=full["fwd"],
+                 plain_ms=full["plain_fwd"], bound_ms=fb, bound_by=fby,
+                 library_ms=full["library_fwd"]),
+            dict(base, name="ring_block_bwd", replaces="accelerate_tpu/parallel/ring.py:209",
+                 launches=counts["ring_block_bwd"], max_abs_err=errs["full"][1], ms=full["bwd"],
+                 plain_ms=full["plain_bwd"], bound_ms=bb, bound_by=bby,
+                 library_ms=full["library_bwd"])]
+
+
 def main(argv) -> int:
     import torch
 
@@ -1347,6 +1625,9 @@ def main(argv) -> int:
     rows += splash_rows
     if "--profile" in argv:
         profile_train_step(gemma2_config(GEMMA2_LAYERS), (GEMMA2_BATCH, GEMMA2_SEQ), "gemma2")
+    free_cuda()
+
+    rows += ring_phase()
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -46,6 +46,7 @@ from accelerate_tpu_torch.ops import registry
 from accelerate_tpu_torch.ops.attention import (
     FLASH_MIN_SEQ,
     attention,
+    dense_attention,
     flash_attention,
     flash_attention_reference,
     resolve_auto_impl,
@@ -170,9 +171,12 @@ def test_auto_resolution_and_dispatch():
     assert registry.launch_counts == {}
     torch.testing.assert_close(out, flash_attention_reference(x, x, x, causal=True,
                                                               sm_scale=1 / 8.0))
-    for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError):
-            attention(x, x, x, impl=impl)
+    # impl="ring" without a process group is dense attention (the JAX
+    # package's ring on a mesh without an sp axis); ulysses is not ported.
+    torch.testing.assert_close(attention(x, x, x, impl="ring"),
+                               dense_attention(x, x, x, causal=True), rtol=0, atol=0)
+    with pytest.raises(NotImplementedError):
+        attention(x, x, x, impl="ulysses")
     with pytest.raises(ValueError, match="dense path"):
         attention(x, x, x, impl="flash", window=8)
 

@@ -184,7 +184,7 @@ def test_unported_rope_types_and_model_options_raise():
     for rope_type in ("yarn", "dynamic"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             rope_tables(pos, 16, 1e4, {"rope_type": rope_type, "factor": 2.0})
-    for kw in (dict(remat=True), dict(attention_impl="ring")):
+    for kw in (dict(remat=True), dict(attention_impl="ulysses")):
         with pytest.raises(NotImplementedError):
             Llama(LlamaConfig.tiny(**kw), device="cpu")
     # Labels are ported now: the head adds the shifted-label loss.

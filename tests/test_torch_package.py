@@ -48,6 +48,7 @@ from accelerate_tpu_torch.ops.kernels.fused_update import fused_update_cuda
 from accelerate_tpu_torch.ops.kernels.int8_matmul import int8_matmul_cuda
 from accelerate_tpu_torch.ops.kernels.paged_decode import paged_decode_cuda
 from accelerate_tpu_torch.ops.kernels.paged_gather import paged_gather
+from accelerate_tpu_torch.ops.kernels.ring_block import ring_block_bwd_cuda, ring_block_fwd_cuda
 from accelerate_tpu_torch.ops.kernels.splash_attention import splash_attention_cuda
 from accelerate_tpu_torch.ops.paged_attention import gather_block_view, paged_attention_plain
 
@@ -128,9 +129,16 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_counts_nothing():
     with pytest.raises(ValueError, match="CUDA tensors"):
         paged_decode_cuda(torch.zeros((2, 1, 4, 16)), pool[0], pool[0], tables,
                           q_positions=torch.zeros((1,), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ring_block_fwd_cuda(q, q, q, None, 0)
+    f32 = torch.zeros((1, 2, 128))
+    acc = torch.zeros((1, 128, 2, 64))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ring_block_bwd_cuda(q, q, q, None, 1, f32, q, f32, acc, acc, acc)
     assert registry.launch_counts == {}
     assert registry.known_ops() == ("flash_attention", "fused_update", "int8_matmul",
-                                    "paged_decode", "paged_gather", "splash_attention")
+                                    "paged_decode", "paged_gather", "ring_block_bwd",
+                                    "ring_block_fwd", "splash_attention")
     with pytest.raises(KeyError):
         registry.dispatch("no_such_op", pool)
 
@@ -153,6 +161,22 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
                                 "paged_gather", "splash_attention"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+def test_library_name_hashes_the_shared_headers(monkeypatch, tmp_path):
+    """A source's library name changes with any ``csrc/*.cuh``, so a header
+    edit never loads a stale build; both attention sources include the
+    shared header."""
+    for name in ("flash_attention", "splash_attention"):
+        assert '#include "attn_common.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build.library_path("k") != first
+    assert _build.sources() == ["k"]
 
 
 @pytest.mark.parametrize("option,match", [
