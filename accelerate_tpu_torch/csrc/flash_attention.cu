@@ -22,20 +22,42 @@
 // against 67 MB of bytes (0.02 ms at 3.35 TB/s); the backward needs about
 // 2.5 times the forward's products.
 //
-// Design: tensor cores through mma.sync.m16n8k16 (bf16 in, f32 accumulate),
-// four warps per CTA, each warp owning 16 rows of the 64-row tile it works
-// on. The accumulator of S = Q.K^T has the register layout of the A operand
-// of P.V, so P never leaves registers; row max and row sum are reduced over
-// the four lanes that share a row with two shuffles. Operand fragments come
-// from shared memory through ldmatrix (.trans for the operands stored
-// k-major, V in P.V and Q/dO in the backward's products), four 8x8 matrices
-// per instruction. Tiles are staged with rows padded by 8 elements, so each
-// ldmatrix phase hits 32 distinct banks, and the tiles a loop walks are
-// double-buffered with cp.async: the next tile's copy is in flight while
-// the tensor cores work on the current one. Causal tiles above the diagonal
-// are skipped, and the forward and dQ walk query tiles heaviest first.
-// wgmma and TMA wait for a later change. The mma, ldmatrix and cp.async
-// helpers are those of attn_common.cuh, shared with splash_attention.cu.
+// Design (the Hopper helpers are those of hopper_common.cuh). Each CTA has
+// three warpgroups: warpgroup 0 is the producer, whose first thread issues
+// every load by TMA into 128-byte-swizzled shared memory and signals it on
+// mbarriers, then gives its registers up (setmaxnreg 24); warpgroups 1 and 2
+// are consumers (setmaxnreg 240). All products are wgmma m64nNk16 with f32
+// accumulators: scores and dP from shared memory on both sides (SS), with no
+// ldmatrix; the products whose A is a probability or a dS take it from
+// registers (RS), where the score accumulator already has the A fragment's
+// layout, and read their B operand (V, dO, Q or K) MN-major from the same
+// swizzled tile through the descriptor. Streamed tiles go through a ring of
+// stages with full and empty mbarriers, so the next tile's copy runs under
+// the current tile's math, and the two consumer warpgroups overlap each
+// other's softmax with their products. Causal tiles above the diagonal are
+// skipped, only tiles on the diagonal, at the ragged end or under segment
+// ids evaluate the mask, and the forward and dQ walk query tiles heaviest
+// first.
+//   - forward: 128 query rows a CTA (Q loaded once), 64 a consumer, K/V
+//     tiles of 128 keys in three stages. S = Q.K^T (SS), online softmax in
+//     registers (exp2 of logits in log2 units), O += P.V (RS, V MN-major).
+//     Issuing the next tile's S before this tile's softmax (two score
+//     buffers) spilled: the consumers' code stays within 168 registers.
+//   - dK/dV: 64 keys a CTA (K, V loaded once), Q/dO tiles of 64 rows in
+//     three stages with their log-sum-exp and delta rows (and query segment
+//     ids) brought in by bulk copies beside them. The consumers split the
+//     work by output: one computes S^T = K.Q^T (SS), P^T, and dV += P^T.dO
+//     (RS, dO MN-major); the other computes dP^T = V.dO^T (SS), reads P^T
+//     (f32) from the first through shared memory under named barriers, and
+//     accumulates dK += dS^T.Q (RS, Q MN-major). Each holds one 64 x D
+//     accumulator: with both accumulators in one warpgroup, D = 128 spills.
+//   - dQ: 128 query rows a CTA (Q, dO loaded once), 64 a consumer, K/V
+//     tiles of 64 keys in two stages. S = Q.K^T and dP = dO.V^T (SS),
+//     dQ += dS.K (RS, K MN-major).
+// S only needs to be a multiple of 64: the 128-row tiles' second half past
+// S reads zeros from TMA, keys past S get -inf logits, and no row past S is
+// written. The ping-pong schedule of the two consumers (named barriers
+// ordering one's softmax against the other's products) is not in.
 //
 // Ring-attention blocks (ring_block_fwd_launch / ring_block_bwd_launch).
 // They replace the library flash calls of the JAX package's ring,
@@ -62,33 +84,74 @@
 //
 // Interface: plain C functions bound with ctypes
 // (accelerate_tpu_torch/ops/kernels/flash_attention.py and ring_block.py).
-// Each launches on the caller's stream, allocates nothing, and returns
-// cudaGetLastError().
+// Each builds its TMA tensor maps on the host, launches on the caller's
+// stream, allocates nothing, and returns a cudaError_t code.
 
 #include <math.h>
 #include <stdint.h>
 
 #include "attn_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace attn;
+using namespace hopper;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;      // rows of a query tile (forward, dQ) and of a KV tile
-constexpr int kBwdQTile = 32;  // query rows per step of the dK/dV kernel
+constexpr int kThreads = 384;        // producer warpgroup + two consumer warpgroups
+constexpr int kConsumers = 256;      // arrivals that release a stage
+constexpr int kRows = 128;           // query rows of a forward or dQ CTA
+constexpr int kStream = 64;          // keys of a dK/dV CTA; rows of a streamed backward tile
+constexpr int kStages = 2;           // depth of the dQ kernel's ring of K/V tiles
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 constexpr float kNoKeyMax = -1e30f;  // the ring's running max of a row with no visible key
 
-// Scaled, masked logit: the library's s * sm_scale + where(keep, 0, MASK).
-// seg_kv_row: the kv segment ids of the batch row (null: no segments);
-// seg_q: the query's segment id.
-__device__ __forceinline__ float masked_logit(float dot, float scale, int query, int key,
-                                              int causal, const int* seg_kv_row, int seg_q) {
-  float s = dot * scale;
-  const bool keep =
-      (!causal || key <= query) && (seg_kv_row == nullptr || seg_kv_row[key] == seg_q);
-  return keep ? s : s + kMaskValue;
+// Bytes of a rows x D bf16 tile, and of one of its 64-column panels.
+template <int D>
+__host__ __device__ constexpr int tile_bytes(int rows) {
+  return rows * D * 2;
+}
+
+__host__ __device__ constexpr int panel_bytes(int rows) { return rows * 128; }
+
+// Descriptor of the k-th 16-element step of a K-major operand whose rows
+// start at `base` in a tile of `rows`-row panels.
+__device__ __forceinline__ uint64_t kstep(uint32_t base, int rows, int kk) {
+  return desc_kmajor(opaque(base) + (kk >> 2) * panel_bytes(rows) + (kk & 3) * 32);
+}
+
+// Descriptor of the k-th 16-row step of an MN-major operand (a tile of
+// `rows`-row panels read with its rows as the contraction).
+__device__ __forceinline__ uint64_t mnstep(uint32_t base, int rows, int kk) {
+  return desc_mnmajor(opaque(base) + kk * 16 * 128, panel_bytes(rows));
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// One load of a rows x D tile: D / 64 TMA boxes at sequence position s0.
+template <int D>
+__device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int rows, int h, int s0, int b) {
+#pragma unroll
+  for (int p = 0; p < D / 64; ++p)
+    tma_load_4d(dst + p * panel_bytes(rows), map, bar, p * 64, h, s0, b);
+}
+
+// The bf16 A fragments of an f32 accumulator of N columns (the layout of
+// Wgmma's d): 16-column step kc is a[4kc..4kc+3].
+template <int N>
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[N / 4], const float (&d)[N / 2]) {
+#pragma unroll
+  for (int kc = 0; kc < N / 16; ++kc) {
+    a[4 * kc + 0] = pack_bf16(d[8 * kc + 0], d[8 * kc + 1]);
+    a[4 * kc + 1] = pack_bf16(d[8 * kc + 2], d[8 * kc + 3]);
+    a[4 * kc + 2] = pack_bf16(d[8 * kc + 4], d[8 * kc + 5]);
+    a[4 * kc + 3] = pack_bf16(d[8 * kc + 6], d[8 * kc + 7]);
+  }
 }
 
 // Two adjacent output elements: bf16 outputs are stored, f32 outputs (the
@@ -104,137 +167,207 @@ __device__ __forceinline__ void emit2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = acc;
 }
 
-template <int D>
-__host__ __device__ constexpr int tile_elems() {
-  return kTile * (D + 8);
+// A row of an accumulator (its 8-column steps at d[4j + half*2 ..]) to
+// global memory at `dst`, column 2(t%4) of each step.
+template <int D, typename OutT>
+__device__ __forceinline__ void emit_row(OutT* dst, const float (&d)[D / 2], int half, float mul) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+    emit2(dst + j * 8, d[4 * j + 2 * half] * mul, d[4 * j + 2 * half + 1] * mul);
 }
 
 // ------------------------------------------------------------------ forward
-// Shared memory: K and V tiles, two stages each. Writes the log-sum-exp to
-// `lse` (flash), or, with lse null, the row stats to `l_out` and `m_out` (a
-// ring block; see the header).
+constexpr int kFwdStages = 3;  // depth of the forward's ring of K/V tiles
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S = Q_w . K^T (64 rows x 128 keys), issued and committed.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-              const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
-              bf16* __restrict__ o, float* __restrict__ lse, float* __restrict__ l_out,
-              float* __restrict__ m_out, int S, int H, int causal, float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);  // [2][kTile * LD]
-  bf16* sV = sK + 2 * tile_elems<D>();       // [2][kTile * LD]
-  const int n_tiles = S / kTile;
-  const int qt = n_tiles - 1 - blockIdx.x;  // heaviest causal tiles first
+__device__ __forceinline__ void issue_scores(float (&s)[kRows / 2], uint32_t q_base,
+                                             uint32_t k_base) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    Wgmma<kRows>::ss(s, kstep(q_base, kRows, kk), kstep(k_base, kRows, kk), kk > 0);
+  wgmma_commit();
+}
+
+template <int D>
+struct FwdSmem {
+  static constexpr int kTile = tile_bytes<D>(kRows);
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTile;                  // [kFwdStages]
+  static constexpr int kV = kK + kFwdStages * kTile;      // [kFwdStages]
+  static constexpr int kSeg = kV + kFwdStages * kTile;    // int [kFwdStages][kRows]
+  static constexpr int kBar = kSeg + kFwdStages * kRows * 4;
+  static constexpr int kBars = 1 + 3 * kFwdStages;        // q, full_k, full_v, empty
+  static constexpr int kBytes = kBar + 8 * kBars + 1024;  // + alignment slack
+};
+
+// Grid (ceil(S / 128), B*H). Writes the log-sum-exp to `lse` (flash), or,
+// with lse null, the row stats to `l_out` and `m_out` (a ring block).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ seg_q,
+              const int* __restrict__ seg_kv, bf16* __restrict__ o, float* __restrict__ lse,
+              float* __restrict__ l_out, float* __restrict__ m_out, int S, int H, int causal,
+              float scale) {
+  using L = FwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + kFwdStages;
+  uint64_t* empty = full_v + kFwdStages;
+  const int* sseg = reinterpret_cast<const int*>(smem + L::kSeg);
+
+  const int n_qt = (S + kRows - 1) / kRows;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kRows;  // heaviest causal tiles first
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const long long stride = static_cast<long long>(H) * D;
-  const long long base = static_cast<long long>(b) * S * stride + static_cast<long long>(h) * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kTile;
-  const int* seg_row = seg_kv == nullptr ? nullptr : seg_kv + static_cast<long long>(b) * S;
-  const int* seg_q_row = seg_q == nullptr ? nullptr : seg_q + static_cast<long long>(b) * S;
+  const int kv_end = causal ? min(S, q0 + kRows) : S;
+  const int n_kv = (kv_end + kRows - 1) / kRows;
 
-  // Stage the Q tile through sK; each warp keeps its 16 rows as A fragments.
-  load_tile<D, kThreads>(sK, q + base + q0 * stride, stride, kTile);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a<LD>(qa[kk], sK, warp * 16, kk * 16, lane);
-  __syncthreads();
-
-  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
-  const int seg_a = seg_q_row == nullptr ? 0 : seg_q_row[row_a];
-  const int seg_b = seg_q_row == nullptr ? 0 : seg_q_row[row_b];
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  const int n_kv = causal ? qt + 1 : n_tiles;
-  load_tile<D, kThreads>(sK, k + base, stride, kTile);
-  load_tile<D, kThreads>(sV, v + base, stride, kTile);
-  cp_async_commit();
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * kTile;
-    const bf16* cK = sK + (kt & 1) * tile_elems<D>();
-    const bf16* cV = sV + (kt & 1) * tile_elems<D>();
-    if (kt + 1 < n_kv) {  // prefetch the next tile into the other stage
-      const long long next = static_cast<long long>(k0 + kTile) * stride;
-      load_tile<D, kThreads>(sK + ((kt + 1) & 1) * tile_elems<D>(), k + base + next, stride, kTile);
-      load_tile<D, kThreads>(sV + ((kt + 1) & 1) * tile_elems<D>(), v + base + next, stride, kTile);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], kConsumers);
     }
-    __syncthreads();
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    float s[kTile / 8][4];
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kTile / 8; n += 2) {
-        uint32_t bb[4];
-        load_b_rows<LD>(bb, cK, n * 8, kk * 16, lane);
-        mma(s[n], qa[kk], bb[0], bb[1]);
-        mma(s[n + 1], qa[kk], bb[2], bb[3]);
+  // The warpgroup index, read from lane 0 so the compiler knows it is
+  // uniform: the role branch is then uniform, and the consumers' code gets
+  // the registers setmaxnreg gives them.
+  const int role = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (role == 0) {  // producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(bar_q, L::kTile);
+      tma_tile<D>(smem + L::kQ, &tm_q, bar_q, kRows, h, q0, b);
+      for (int kt = 0; kt < n_kv; ++kt) {
+        const int st = kt % kFwdStages, k0 = kt * kRows;
+        if (kt >= kFwdStages) mbar_wait(&empty[st], ((kt / kFwdStages) - 1) & 1);
+        const int seg_bytes = seg_kv == nullptr ? 0 : min(kRows, S - k0) * 4;
+        mbar_arrive_expect_tx(&full_k[st], L::kTile + seg_bytes);
+        tma_tile<D>(smem + L::kK + st * L::kTile, &tm_k, &full_k[st], kRows, h, k0, b);
+        if (seg_bytes)
+          bulk_load(smem + L::kSeg + st * kRows * 4, seg_kv + static_cast<long long>(b) * S + k0,
+                    seg_bytes, &full_k[st]);
+        mbar_arrive_expect_tx(&full_v[st], L::kTile);
+        tma_tile<D>(smem + L::kV + st * L::kTile, &tm_v, &full_v[st], kRows, h, k0, b);
       }
     }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int ct = threadIdx.x - 128, wg = role - 1;
+  const int warp = (ct >> 5) & 3, lane = ct & 31, g = lane >> 2, t = lane & 3;
+  const int row_a = q0 + wg * 64 + warp * 16 + g, row_b = row_a + 8;
+  const int* seg_q_row = seg_q == nullptr ? nullptr : seg_q + static_cast<long long>(b) * S;
+  const int seg_a = (seg_q_row != nullptr && row_a < S) ? seg_q_row[row_a] : 0;
+  const int seg_b = (seg_q_row != nullptr && row_b < S) ? seg_q_row[row_b] : 0;
+  const uint32_t q_base = smem_u32(smem + L::kQ) + wg * 64 * 128;
+
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  const float scale2 = scale * kLog2e;  // logits in log2 units: exp2 is one instruction
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int st = kt % kFwdStages, k0 = kt * kRows;
+    const uint32_t ph = (kt / kFwdStages) & 1;
+
+    // S = Q . K^T: 64 rows x 128 keys.
+    float s[kRows / 2];
+    mbar_wait(&full_k[st], ph);
+    issue_scores<D>(s, q_base, smem_u32(smem + L::kK + st * L::kTile));
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    const bool masked = (causal && k0 + kRows > q0) || k0 + kRows > S || seg_kv != nullptr;
+    if (masked) {
+      const int* seg_k = seg_kv == nullptr ? nullptr : sseg + st * kRows;
+#pragma unroll
+      for (int j = 0; j < kRows / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int kidx = j * 8 + t * 2 + c, key = k0 + kidx;
+          float sa = s[4 * j + c] * scale2, sb = s[4 * j + 2 + c] * scale2;
+          if (key >= S) {
+            sa = sb = -INFINITY;
+          } else {
+            const int sk = seg_k == nullptr ? 0 : seg_k[kidx];
+            if ((causal && key > row_a) || sk != seg_a) sa += kMaskValue;
+            if ((causal && key > row_b) || sk != seg_b) sb += kMaskValue;
+          }
+          s[4 * j + c] = sa;
+          s[4 * j + 2 + c] = sb;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kRows / 2; ++i) s[i] *= scale2;
+    }
+
     float mx_a = m_a, mx_b = m_b;
 #pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key = k0 + n * 8 + t * 2 + j;
-        s[n][j] = masked_logit(s[n][j], scale, row_a, key, causal, seg_row, seg_a);
-        s[n][2 + j] = masked_logit(s[n][2 + j], scale, row_b, key, causal, seg_row, seg_b);
-        mx_a = fmaxf(mx_a, s[n][j]);
-        mx_b = fmaxf(mx_b, s[n][2 + j]);
-      }
+    for (int j = 0; j < kRows / 8; ++j) {
+      mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
     mx_a = quad_max(mx_a);
     mx_b = quad_max(mx_b);
-    const float alpha_a = __expf(m_a - mx_a), alpha_b = __expf(m_b - mx_b);
+    const float alpha_a = fast_exp2(m_a - mx_a), alpha_b = fast_exp2(m_b - mx_b);
     m_a = mx_a;
     m_b = mx_b;
     float rs_a = 0.f, rs_b = 0.f;
 #pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-      s[n][0] = __expf(s[n][0] - m_a);
-      s[n][1] = __expf(s[n][1] - m_a);
-      s[n][2] = __expf(s[n][2] - m_b);
-      s[n][3] = __expf(s[n][3] - m_b);
-      rs_a += s[n][0] + s[n][1];
-      rs_b += s[n][2] + s[n][3];
+    for (int j = 0; j < kRows / 8; ++j) {
+      s[4 * j + 0] = fast_exp2(s[4 * j + 0] - m_a);
+      s[4 * j + 1] = fast_exp2(s[4 * j + 1] - m_a);
+      s[4 * j + 2] = fast_exp2(s[4 * j + 2] - m_b);
+      s[4 * j + 3] = fast_exp2(s[4 * j + 3] - m_b);
+      rs_a += s[4 * j] + s[4 * j + 1];
+      rs_b += s[4 * j + 2] + s[4 * j + 3];
     }
     l_a = l_a * alpha_a + rs_a;  // per-lane partial sums; reduced over the quad at the end
     l_b = l_b * alpha_b + rs_b;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      acc[i][0] *= alpha_a;
-      acc[i][1] *= alpha_a;
-      acc[i][2] *= alpha_b;
-      acc[i][3] *= alpha_b;
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j + 0] *= alpha_a;
+      acc[4 * j + 1] *= alpha_a;
+      acc[4 * j + 2] *= alpha_b;
+      acc[4 * j + 3] *= alpha_b;
     }
+    uint32_t p[kRows / 4];
+    to_a_frags<kRows>(p, s);
+
+    // O += P . V: V read MN-major (its rows are the contraction).
+    const uint32_t v_base = smem_u32(smem + L::kV + st * L::kTile);
+    mbar_wait(&full_v[st], ph);
+    fence_regs(acc);
+    fence_regs(p);
+    wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int i = 0; i < D / 8; i += 2) {
-        uint32_t bb[4];
-        load_b_cols<LD>(bb, cV, i * 8, kc * 16, lane);
-        mma(acc[i], pa, bb[0], bb[1]);
-        mma(acc[i + 1], pa, bb[2], bb[3]);
-      }
-    }
-    __syncthreads();  // the next prefetch overwrites this stage
+    for (int kc = 0; kc < kRows / 16; ++kc)
+      Wgmma<D>::rs_mn(acc, &p[4 * kc], mnstep(v_base, kRows, kc), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[st]);
   }
 
   l_a = quad_sum(l_a);
@@ -244,24 +377,31 @@ __global__ void __launch_bounds__(kThreads)
   const bool ring = lse == nullptr;
   const bool none_a = ring && m_a < 0.5f * kMaskValue;
   const bool none_b = ring && m_b < 0.5f * kMaskValue;
-  const float inv_a = none_a ? 0.f : 1.f / l_a, inv_b = none_b ? 0.f : 1.f / l_b;
-  bf16* oa = o + base + row_a * stride + t * 2;
-  bf16* ob = o + base + row_b * stride + t * 2;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    emit2(oa + i * 8, acc[i][0] * inv_a, acc[i][1] * inv_a);
-    emit2(ob + i * 8, acc[i][2] * inv_b, acc[i][3] * inv_b);
+  m_a *= kLn2;  // back to natural-log units
+  m_b *= kLn2;
+  const long long stride = static_cast<long long>(H) * D;
+  const long long base = static_cast<long long>(b) * S * stride + static_cast<long long>(h) * D;
+  const long long row0 = static_cast<long long>(bh) * S;
+  if (row_a < S) {
+    emit_row<D>(o + base + row_a * stride + t * 2, acc, 0, none_a ? 0.f : 1.f / l_a);
+    if (t == 0) {
+      if (!ring) {
+        lse[row0 + row_a] = m_a + logf(l_a);
+      } else {
+        l_out[row0 + row_a] = none_a ? 0.f : l_a;
+        m_out[row0 + row_a] = none_a ? kNoKeyMax : m_a;
+      }
+    }
   }
-  if (t == 0) {
-    const long long row0 = static_cast<long long>(bh) * S;
-    if (!ring) {
-      lse[row0 + row_a] = m_a + logf(l_a);
-      lse[row0 + row_b] = m_b + logf(l_b);
-    } else {
-      l_out[row0 + row_a] = none_a ? 0.f : l_a;
-      l_out[row0 + row_b] = none_b ? 0.f : l_b;
-      m_out[row0 + row_a] = none_a ? kNoKeyMax : m_a;
-      m_out[row0 + row_b] = none_b ? kNoKeyMax : m_b;
+  if (row_b < S) {
+    emit_row<D>(o + base + row_b * stride + t * 2, acc, 1, none_b ? 0.f : 1.f / l_b);
+    if (t == 0) {
+      if (!ring) {
+        lse[row0 + row_b] = m_b + logf(l_b);
+      } else {
+        l_out[row0 + row_b] = none_b ? 0.f : l_b;
+        m_out[row0 + row_b] = none_b ? kNoKeyMax : m_b;
+      }
     }
   }
 }
@@ -290,320 +430,419 @@ __global__ void __launch_bounds__(256)
 }
 
 // ------------------------------------------------------------ backward: dK, dV
-// Grid (KV tiles, B*H). Each warp owns 16 keys of the CTA's 64-key tile and
-// walks the query tiles that can see them, 32 queries at a time:
-//   P^T = exp(S^T - lse), dV += P^T dO, dP^T = V dO^T,
-//   dS^T = P^T (dP^T - delta) * scale, dK += dS^T Q.
-// Shared memory: the K and V tiles, and two stages of the Q and dO tiles.
+// The two consumer warpgroups split the work by output, not by keys: both
+// hold the CTA's 64 keys, the dV warpgroup computes P^T and accumulates dV,
+// the dK warpgroup computes dP^T, takes P^T from the dV warpgroup through
+// shared memory (f32, two buffers, named barriers), and accumulates dK.
+// Each holds one 64 x D accumulator, so neither spills, and each runs two
+// products a step.
+constexpr int kDkdvStages = 3;
+constexpr int kBarPReady = 1;     // named barriers kBarPReady + buffer: P^T written
+constexpr int kBarPConsumed = 3;  // kBarPConsumed + buffer: P^T read
+
+template <int D>
+struct DkdvSmem {
+  static constexpr int kOwn = tile_bytes<D>(kStream);    // K, V: 64 keys
+  static constexpr int kTile = tile_bytes<D>(kStream);   // Q, dO: 64 queries
+  static constexpr int kP = kStream * kStream * 4;       // P^T, f32, one buffer
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kOwn;
+  static constexpr int kQ = kV + kOwn;                   // [kDkdvStages]
+  static constexpr int kDo = kQ + kDkdvStages * kTile;   // [kDkdvStages]
+  static constexpr int kPt = kDo + kDkdvStages * kTile;  // [2]
+  static constexpr int kLse = kPt + 2 * kP;              // float [kDkdvStages][64]
+  static constexpr int kDelta = kLse + kDkdvStages * kStream * 4;
+  static constexpr int kSeg = kDelta + kDkdvStages * kStream * 4;  // int [kDkdvStages][64]
+  static constexpr int kBar = kSeg + kDkdvStages * kStream * 4;
+  static constexpr int kBars = 1 + 2 * kDkdvStages;      // kv, full, empty
+  static constexpr int kBytes = kBar + 8 * kBars + 1024;
+};
+
+// Grid (S / 64, B*H). The CTA owns 64 keys and walks the 64-row query tiles
+// that can see them:
+//   dV warpgroup: P^T = exp(S^T - lse) with S^T = K Q^T, dV += P^T dO;
+//   dK warpgroup: dP^T = V dO^T, dS^T = P^T (dP^T - delta) * scale,
+//                 dK += dS^T Q.
 // OutT: bf16 (flash: dk, dv stored) or float (a ring block: added to the
 // ring's accumulators).
 template <int D, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const int* __restrict__ seg_q,
-                   const int* __restrict__ seg_kv, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   OutT* __restrict__ dk, OutT* __restrict__ dv, int S, int H, int causal,
-                   float scale) {
-  constexpr int LD = D + 8;
-  constexpr int kQElems = kBwdQTile * LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + tile_elems<D>();
-  bf16* sQ = sV + tile_elems<D>();  // [2][kQElems]
-  bf16* sdO = sQ + 2 * kQElems;     // [2][kQElems]
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do, const int* __restrict__ seg_q,
+                   const int* __restrict__ seg_kv, const float* __restrict__ lse,
+                   const float* __restrict__ delta, OutT* __restrict__ dk,
+                   OutT* __restrict__ dv, int S, int H, int causal, float scale) {
+  using L = DkdvSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + kDkdvStages;
 
-  const int kt = blockIdx.x;
+  const int k0 = blockIdx.x * kStream;  // the longest causal walks first
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q_first = causal ? k0 : 0;
+  const int n_q = (S - q_first) / kStream;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kDkdvStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // The warpgroup index, read from lane 0 so the compiler knows it is
+  // uniform and the role branches are uniform.
+  const int role = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (role == 0) {  // producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(bar_kv, 2 * L::kOwn);
+      tma_tile<D>(smem + L::kK, &tm_k, bar_kv, kStream, h, k0, b);
+      tma_tile<D>(smem + L::kV, &tm_v, bar_kv, kStream, h, k0, b);
+      const long long row0 = static_cast<long long>(bh) * S;
+      for (int i = 0; i < n_q; ++i) {
+        const int st = i % kDkdvStages, q0 = q_first + i * kStream;
+        if (i >= kDkdvStages) mbar_wait(&empty[st], ((i / kDkdvStages) - 1) & 1);
+        const int vec = kStream * 4;
+        mbar_arrive_expect_tx(&full[st], 2 * L::kTile + 2 * vec + (seg_q == nullptr ? 0 : vec));
+        tma_tile<D>(smem + L::kQ + st * L::kTile, &tm_q, &full[st], kStream, h, q0, b);
+        tma_tile<D>(smem + L::kDo + st * L::kTile, &tm_do, &full[st], kStream, h, q0, b);
+        bulk_load(smem + L::kLse + st * vec, lse + row0 + q0, vec, &full[st]);
+        bulk_load(smem + L::kDelta + st * vec, delta + row0 + q0, vec, &full[st]);
+        if (seg_q != nullptr)
+          bulk_load(smem + L::kSeg + st * vec, seg_q + static_cast<long long>(b) * S + q0, vec,
+                    &full[st]);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int ct = (threadIdx.x - 128) & 127;
+  const int warp = ct >> 5, lane = ct & 31, g = lane >> 2, t = lane & 3;
+  const int key_a = k0 + warp * 16 + g, key_b = key_a + 8;
+  const bool dv_group = role == 1;
+  float acc[D / 2];  // dV (dV warpgroup) or dK (dK warpgroup)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // P^T in fragment order: buffer [i & 1], value j of thread ct at j * 128 + ct.
+  float* p_buf = reinterpret_cast<float*>(smem + L::kPt);
+
+  mbar_wait(bar_kv, 0);
+  if (dv_group) {
+    const int* seg_kv_row = seg_kv == nullptr ? nullptr : seg_kv + static_cast<long long>(b) * S;
+    const int seg_ka = seg_kv_row == nullptr ? 0 : seg_kv_row[key_a];
+    const int seg_kb = seg_kv_row == nullptr ? 0 : seg_kv_row[key_b];
+    const uint32_t k_base = smem_u32(smem + L::kK);
+    for (int i = 0; i < n_q; ++i) {
+      const int st = i % kDkdvStages, q0 = q_first + i * kStream;
+      const uint32_t q_base = smem_u32(smem + L::kQ + st * L::kTile);
+      const uint32_t do_base = smem_u32(smem + L::kDo + st * L::kTile);
+      const float* s_lse = reinterpret_cast<const float*>(smem + L::kLse) + st * kStream;
+      const int* s_seg = seg_q == nullptr
+                             ? nullptr
+                             : reinterpret_cast<const int*>(smem + L::kSeg) + st * kStream;
+      mbar_wait(&full[st], (i / kDkdvStages) & 1);
+
+      // S^T = K . Q^T: 64 keys x 64 queries.
+      float sp[kStream / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<kStream>::ss(sp, kstep(k_base, kStream, kk), kstep(q_base, kStream, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sp);
+
+      // P^T = exp(masked logit - lse[query]).
+      const bool masked = (causal && q0 < k0 + kStream) || s_seg != nullptr;
+#pragma unroll
+      for (int j = 0; j < kStream / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qi = j * 8 + t * 2 + c, query = q0 + qi;
+          float sa = sp[4 * j + c] * scale, sb = sp[4 * j + 2 + c] * scale;
+          if (masked) {
+            const int sq = s_seg == nullptr ? 0 : s_seg[qi];
+            if ((causal && key_a > query) || sq != seg_ka) sa += kMaskValue;
+            if ((causal && key_b > query) || sq != seg_kb) sb += kMaskValue;
+          }
+          const float ls = s_lse[qi];
+          sp[4 * j + c] = __expf(sa - ls);
+          sp[4 * j + 2 + c] = __expf(sb - ls);
+        }
+      }
+      // Hand P^T to the dK warpgroup once it has read this buffer's last use.
+      float* pb = p_buf + (i & 1) * (kStream * kStream);
+      if (i >= 2) named_bar_sync(kBarPConsumed + (i & 1), kConsumers);
+#pragma unroll
+      for (int j = 0; j < kStream / 2; ++j) pb[j * 128 + ct] = sp[j];
+      named_bar_arrive(kBarPReady + (i & 1), kConsumers);
+
+      // dV += P^T . dO (dO read MN-major).
+      uint32_t pa[kStream / 4];
+      to_a_frags<kStream>(pa, sp);
+      fence_regs(pa);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kStream / 16; ++kc)
+        Wgmma<D>::rs_mn(acc, &pa[4 * kc], mnstep(do_base, kStream, kc), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[st]);
+    }
+    // Balance the dK warpgroup's last two arrivals on the consumed barriers.
+    for (int i = max(n_q, 2); i < n_q + 2; ++i)
+      named_bar_sync(kBarPConsumed + (i & 1), kConsumers);
+  } else {
+    const uint32_t v_base = smem_u32(smem + L::kV);
+    for (int i = 0; i < n_q; ++i) {
+      const int st = i % kDkdvStages;
+      const uint32_t q_base = smem_u32(smem + L::kQ + st * L::kTile);
+      const uint32_t do_base = smem_u32(smem + L::kDo + st * L::kTile);
+      const float* s_delta = reinterpret_cast<const float*>(smem + L::kDelta) + st * kStream;
+      mbar_wait(&full[st], (i / kDkdvStages) & 1);
+
+      // dP^T = V . dO^T: 64 keys x 64 queries.
+      float dpt[kStream / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<kStream>::ss(dpt, kstep(v_base, kStream, kk), kstep(do_base, kStream, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dpt);
+
+      // dS^T = P^T (dP^T - delta[query]) * scale.
+      const float* pb = p_buf + (i & 1) * (kStream * kStream);
+      named_bar_sync(kBarPReady + (i & 1), kConsumers);
+#pragma unroll
+      for (int j = 0; j < kStream / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float dl = s_delta[j * 8 + t * 2 + c];
+          dpt[4 * j + c] = pb[(4 * j + c) * 128 + ct] * (dpt[4 * j + c] - dl) * scale;
+          dpt[4 * j + 2 + c] =
+              pb[(4 * j + 2 + c) * 128 + ct] * (dpt[4 * j + 2 + c] - dl) * scale;
+        }
+      }
+      named_bar_arrive(kBarPConsumed + (i & 1), kConsumers);
+
+      // dK += dS^T . Q (Q read MN-major).
+      uint32_t da[kStream / 4];
+      to_a_frags<kStream>(da, dpt);
+      fence_regs(da);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kStream / 16; ++kc)
+        Wgmma<D>::rs_mn(acc, &da[4 * kc], mnstep(q_base, kStream, kc), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[st]);
+    }
+  }
+
+  OutT* out = dv_group ? dv : dk;
   const long long stride = static_cast<long long>(H) * D;
   const long long base = static_cast<long long>(b) * S * stride + static_cast<long long>(h) * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = kt * kTile;
-  const int* seg_row = seg_kv == nullptr ? nullptr : seg_kv + static_cast<long long>(b) * S;
-  const int* seg_q_row = seg_q == nullptr ? nullptr : seg_q + static_cast<long long>(b) * S;
-  const float* lse_row = lse + static_cast<long long>(bh) * S;
-  const float* delta_row = delta + static_cast<long long>(bh) * S;
-
-  const int q_first = causal ? k0 : 0;
-  load_tile<D, kThreads>(sK, k + base + k0 * stride, stride, kTile);
-  load_tile<D, kThreads>(sV, v + base + k0 * stride, stride, kTile);
-  load_tile<D, kThreads>(sQ, q + base + q_first * stride, stride, kBwdQTile);
-  load_tile<D, kThreads>(sdO, dout + base + q_first * stride, stride, kBwdQTile);
-  cp_async_commit();
-
-  const int key_a = k0 + warp * 16 + g, key_b = key_a + 8;
-  const int seg_ka = seg_row == nullptr ? 0 : seg_row[key_a];
-  const int seg_kb = seg_row == nullptr ? 0 : seg_row[key_b];
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    dk_acc[i][0] = dk_acc[i][1] = dk_acc[i][2] = dk_acc[i][3] = 0.f;
-    dv_acc[i][0] = dv_acc[i][1] = dv_acc[i][2] = dv_acc[i][3] = 0.f;
-  }
-
-  for (int q0 = q_first, step = 0; q0 < S; q0 += kBwdQTile, ++step) {
-    const bf16* cQ = sQ + (step & 1) * kQElems;
-    const bf16* cdO = sdO + (step & 1) * kQElems;
-    if (q0 + kBwdQTile < S) {  // prefetch the next query step into the other stage
-      const long long next = static_cast<long long>(q0 + kBwdQTile) * stride;
-      load_tile<D, kThreads>(sQ + ((step + 1) & 1) * kQElems, q + base + next, stride, kBwdQTile);
-      load_tile<D, kThreads>(sdO + ((step + 1) & 1) * kQElems, dout + base + next, stride, kBwdQTile);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // S^T = K_w Q^T: 16 keys x 32 queries.
-    float st[kBwdQTile / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBwdQTile / 8; ++n) st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4];
-      load_a<LD>(ka, sK, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int n = 0; n < kBwdQTile / 8; n += 2) {
-        uint32_t bb[4];
-        load_b_rows<LD>(bb, cQ, n * 8, kk * 16, lane);
-        mma(st[n], ka, bb[0], bb[1]);
-        mma(st[n + 1], ka, bb[2], bb[3]);
-      }
-    }
-    // P^T = exp(masked logit - lse[query]).
-#pragma unroll
-    for (int n = 0; n < kBwdQTile / 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int query = q0 + n * 8 + t * 2 + j;
-        const int seg_qv = seg_q_row == nullptr ? 0 : seg_q_row[query];
-        const float ls = lse_row[query];
-        const bool keep_a = (!causal || key_a <= query) && (seg_row == nullptr || seg_ka == seg_qv);
-        const bool keep_b = (!causal || key_b <= query) && (seg_row == nullptr || seg_kb == seg_qv);
-        const float sa = st[n][j] * scale, sb = st[n][2 + j] * scale;
-        st[n][j] = __expf((keep_a ? sa : sa + kMaskValue) - ls);
-        st[n][2 + j] = __expf((keep_b ? sb : sb + kMaskValue) - ls);
-      }
-    }
-    // dV += P^T dO: 16 keys x D over 32 queries.
-#pragma unroll
-    for (int kc = 0; kc < kBwdQTile / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(st[2 * kc][0], st[2 * kc][1]),
-                              pack_bf16(st[2 * kc][2], st[2 * kc][3]),
-                              pack_bf16(st[2 * kc + 1][0], st[2 * kc + 1][1]),
-                              pack_bf16(st[2 * kc + 1][2], st[2 * kc + 1][3])};
-#pragma unroll
-      for (int i = 0; i < D / 8; i += 2) {
-        uint32_t bb[4];
-        load_b_cols<LD>(bb, cdO, i * 8, kc * 16, lane);
-        mma(dv_acc[i], pa, bb[0], bb[1]);
-        mma(dv_acc[i + 1], pa, bb[2], bb[3]);
-      }
-    }
-    // dP^T = V_w dO^T: 16 keys x 32 queries.
-    float dpt[kBwdQTile / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBwdQTile / 8; ++n) dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t va[4];
-      load_a<LD>(va, sV, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int n = 0; n < kBwdQTile / 8; n += 2) {
-        uint32_t bb[4];
-        load_b_rows<LD>(bb, cdO, n * 8, kk * 16, lane);
-        mma(dpt[n], va, bb[0], bb[1]);
-        mma(dpt[n + 1], va, bb[2], bb[3]);
-      }
-    }
-    // dS^T = P^T (dP^T - delta[query]) * scale, then dK += dS^T Q.
-#pragma unroll
-    for (int n = 0; n < kBwdQTile / 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float dl = delta_row[q0 + n * 8 + t * 2 + j];
-        st[n][j] = st[n][j] * (dpt[n][j] - dl) * scale;
-        st[n][2 + j] = st[n][2 + j] * (dpt[n][2 + j] - dl) * scale;
-      }
-    }
-#pragma unroll
-    for (int kc = 0; kc < kBwdQTile / 16; ++kc) {
-      const uint32_t da[4] = {pack_bf16(st[2 * kc][0], st[2 * kc][1]),
-                              pack_bf16(st[2 * kc][2], st[2 * kc][3]),
-                              pack_bf16(st[2 * kc + 1][0], st[2 * kc + 1][1]),
-                              pack_bf16(st[2 * kc + 1][2], st[2 * kc + 1][3])};
-#pragma unroll
-      for (int i = 0; i < D / 8; i += 2) {
-        uint32_t bb[4];
-        load_b_cols<LD>(bb, cQ, i * 8, kc * 16, lane);
-        mma(dk_acc[i], da, bb[0], bb[1]);
-        mma(dk_acc[i + 1], da, bb[2], bb[3]);
-      }
-    }
-    __syncthreads();  // the next prefetch overwrites this stage
-  }
-
-  OutT* dka = dk + base + key_a * stride + t * 2;
-  OutT* dkb = dk + base + key_b * stride + t * 2;
-  OutT* dva = dv + base + key_a * stride + t * 2;
-  OutT* dvb = dv + base + key_b * stride + t * 2;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    emit2(dka + i * 8, dk_acc[i][0], dk_acc[i][1]);
-    emit2(dkb + i * 8, dk_acc[i][2], dk_acc[i][3]);
-    emit2(dva + i * 8, dv_acc[i][0], dv_acc[i][1]);
-    emit2(dvb + i * 8, dv_acc[i][2], dv_acc[i][3]);
-  }
+  emit_row<D>(out + base + key_a * stride + t * 2, acc, 0, 1.f);
+  emit_row<D>(out + base + key_b * stride + t * 2, acc, 1, 1.f);
 }
 
 // ------------------------------------------------------------ backward: dQ
-// Grid (query tiles, B*H). Each warp owns 16 queries and walks the KV tiles
-// they can see: P = exp(S - lse), dP = dO V^T, dS = P (dP - delta) * scale,
-// dQ += dS K. Shared memory: the Q and dO tiles, and two stages of the K and
-// V tiles. OutT as in flash_bwd_dkdv.
-template <int D, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const int* __restrict__ seg_q,
-                 const int* __restrict__ seg_kv, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 OutT* __restrict__ dq, int S, int H, int causal, float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + tile_elems<D>();
-  bf16* sK = sdO + tile_elems<D>();      // [2][kTile * LD]
-  bf16* sV = sK + 2 * tile_elems<D>();  // [2][kTile * LD]
+template <int D>
+struct DqSmem {
+  static constexpr int kOwn = tile_bytes<D>(kRows);      // Q, dO: 128 queries
+  static constexpr int kTile = tile_bytes<D>(kStream);   // K, V: 64 keys
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQ + kOwn;
+  static constexpr int kK = kDo + kOwn;                  // [kStages]
+  static constexpr int kV = kK + kStages * kTile;        // [kStages]
+  static constexpr int kSeg = kV + kStages * kTile;      // int [kStages][64]
+  static constexpr int kBar = kSeg + kStages * kStream * 4;
+  static constexpr int kBars = 1 + 2 * kStages;          // q, full, empty
+  static constexpr int kBytes = kBar + 8 * kBars + 1024;
+};
 
-  const int n_tiles = S / kTile;
-  const int qt = n_tiles - 1 - blockIdx.x;  // heaviest causal tiles first
+// Grid (ceil(S / 128), B*H). Each consumer warpgroup owns 64 of the CTA's
+// 128 queries and walks the 64-key tiles they can see: P = exp(S - lse),
+// dP = dO V^T, dS = P (dP - delta) * scale, dQ += dS K. OutT as in
+// flash_bwd_dkdv.
+template <int D, typename OutT>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_do, const int* __restrict__ seg_q,
+                 const int* __restrict__ seg_kv, const float* __restrict__ lse,
+                 const float* __restrict__ delta, OutT* __restrict__ dq, int S, int H,
+                 int causal, float scale) {
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + kStages;
+
+  const int n_qt = (S + kRows - 1) / kRows;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kRows;  // heaviest causal tiles first
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int n_kv = (causal ? min(S, q0 + kRows) : S) / kStream;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // The warpgroup index, read from lane 0 so the compiler knows it is
+  // uniform: the role branch is then uniform, and the consumers' code gets
+  // the registers setmaxnreg gives them.
+  const int role = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (role == 0) {  // producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(bar_q, 2 * L::kOwn);
+      tma_tile<D>(smem + L::kQ, &tm_q, bar_q, kRows, h, q0, b);
+      tma_tile<D>(smem + L::kDo, &tm_do, bar_q, kRows, h, q0, b);
+      for (int kt = 0; kt < n_kv; ++kt) {
+        const int st = kt % kStages, k0 = kt * kStream;
+        if (kt >= kStages) mbar_wait(&empty[st], ((kt / kStages) - 1) & 1);
+        const int vec = kStream * 4;
+        mbar_arrive_expect_tx(&full[st], 2 * L::kTile + (seg_kv == nullptr ? 0 : vec));
+        tma_tile<D>(smem + L::kK + st * L::kTile, &tm_k, &full[st], kStream, h, k0, b);
+        tma_tile<D>(smem + L::kV + st * L::kTile, &tm_v, &full[st], kStream, h, k0, b);
+        if (seg_kv != nullptr)
+          bulk_load(smem + L::kSeg + st * vec, seg_kv + static_cast<long long>(b) * S + k0, vec,
+                    &full[st]);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int ct = threadIdx.x - 128, wg = role - 1;
+  const int warp = (ct >> 5) & 3, lane = ct & 31, g = lane >> 2, t = lane & 3;
+  const int row_a = q0 + wg * 64 + warp * 16 + g, row_b = row_a + 8;
+  const long long row0 = static_cast<long long>(bh) * S;
+  const int* seg_q_row = seg_q == nullptr ? nullptr : seg_q + static_cast<long long>(b) * S;
+  const bool in_a = row_a < S, in_b = row_b < S;
+  const int seg_a = (seg_q_row != nullptr && in_a) ? seg_q_row[row_a] : 0;
+  const int seg_b = (seg_q_row != nullptr && in_b) ? seg_q_row[row_b] : 0;
+  const float lse_a = in_a ? lse[row0 + row_a] : 0.f, lse_b = in_b ? lse[row0 + row_b] : 0.f;
+  const float dl_a = in_a ? delta[row0 + row_a] : 0.f, dl_b = in_b ? delta[row0 + row_b] : 0.f;
+  const uint32_t q_base = smem_u32(smem + L::kQ) + wg * 64 * 128;
+  const uint32_t do_base = smem_u32(smem + L::kDo) + wg * 64 * 128;
+
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int st = kt % kStages, k0 = kt * kStream;
+    const uint32_t k_base = smem_u32(smem + L::kK + st * L::kTile);
+    const uint32_t v_base = smem_u32(smem + L::kV + st * L::kTile);
+    const int* s_seg =
+        seg_kv == nullptr ? nullptr : reinterpret_cast<const int*>(smem + L::kSeg) + st * kStream;
+    mbar_wait(&full[st], (kt / kStages) & 1);
+
+    // S = Q_w . K^T and dP = dO_w . V^T: 64 rows x 64 keys each, one group.
+    float s[kStream / 2], dp[kStream / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<kStream>::ss(s, kstep(q_base, kRows, kk), kstep(k_base, kStream, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<kStream>::ss(dp, kstep(do_base, kRows, kk), kstep(v_base, kStream, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const bool masked = (causal && k0 + kStream > q0) || s_seg != nullptr;
+#pragma unroll
+    for (int j = 0; j < kStream / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int kidx = j * 8 + t * 2 + c, key = k0 + kidx;
+        float sa = s[4 * j + c] * scale, sb = s[4 * j + 2 + c] * scale;
+        if (masked) {
+          const int sk = s_seg == nullptr ? 0 : s_seg[kidx];
+          if ((causal && key > row_a) || sk != seg_a) sa += kMaskValue;
+          if ((causal && key > row_b) || sk != seg_b) sb += kMaskValue;
+        }
+        s[4 * j + c] = __expf(sa - lse_a) * (dp[4 * j + c] - dl_a) * scale;
+        s[4 * j + 2 + c] = __expf(sb - lse_b) * (dp[4 * j + 2 + c] - dl_b) * scale;
+      }
+    }
+    uint32_t da[kStream / 4];
+    to_a_frags<kStream>(da, s);
+
+    // dQ += dS . K (K read MN-major).
+    fence_regs(da);
+    fence_regs(dq_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kStream / 16; ++kc)
+      Wgmma<D>::rs_mn(dq_acc, &da[4 * kc], mnstep(k_base, kStream, kc), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    mbar_arrive(&empty[st]);
+  }
+
   const long long stride = static_cast<long long>(H) * D;
   const long long base = static_cast<long long>(b) * S * stride + static_cast<long long>(h) * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kTile;
-  const int* seg_row = seg_kv == nullptr ? nullptr : seg_kv + static_cast<long long>(b) * S;
-  const int* seg_q_row = seg_q == nullptr ? nullptr : seg_q + static_cast<long long>(b) * S;
-
-  load_tile<D, kThreads>(sQ, q + base + q0 * stride, stride, kTile);
-  load_tile<D, kThreads>(sdO, dout + base + q0 * stride, stride, kTile);
-  load_tile<D, kThreads>(sK, k + base, stride, kTile);
-  load_tile<D, kThreads>(sV, v + base, stride, kTile);
-  cp_async_commit();
-  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
-  const int seg_a = seg_q_row == nullptr ? 0 : seg_q_row[row_a];
-  const int seg_b = seg_q_row == nullptr ? 0 : seg_q_row[row_b];
-  const float lse_a = lse[static_cast<long long>(bh) * S + row_a];
-  const float lse_b = lse[static_cast<long long>(bh) * S + row_b];
-  const float dl_a = delta[static_cast<long long>(bh) * S + row_a];
-  const float dl_b = delta[static_cast<long long>(bh) * S + row_b];
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) dq_acc[i][0] = dq_acc[i][1] = dq_acc[i][2] = dq_acc[i][3] = 0.f;
-
-  const int n_kv = causal ? qt + 1 : n_tiles;
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * kTile;
-    const bf16* cK = sK + (kt & 1) * tile_elems<D>();
-    const bf16* cV = sV + (kt & 1) * tile_elems<D>();
-    if (kt + 1 < n_kv) {  // prefetch the next tile into the other stage
-      const long long next = static_cast<long long>(k0 + kTile) * stride;
-      load_tile<D, kThreads>(sK + ((kt + 1) & 1) * tile_elems<D>(), k + base + next, stride, kTile);
-      load_tile<D, kThreads>(sV + ((kt + 1) & 1) * tile_elems<D>(), v + base + next, stride, kTile);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    float s[kTile / 8][4], dp[kTile / 8][4];
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a<LD>(qa, sQ, warp * 16, kk * 16, lane);
-      load_a<LD>(da, sdO, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int n = 0; n < kTile / 8; n += 2) {
-        uint32_t bb[4];
-        load_b_rows<LD>(bb, cK, n * 8, kk * 16, lane);
-        mma(s[n], qa, bb[0], bb[1]);
-        mma(s[n + 1], qa, bb[2], bb[3]);
-        load_b_rows<LD>(bb, cV, n * 8, kk * 16, lane);
-        mma(dp[n], da, bb[0], bb[1]);
-        mma(dp[n + 1], da, bb[2], bb[3]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key = k0 + n * 8 + t * 2 + j;
-        const float pa = __expf(masked_logit(s[n][j], scale, row_a, key, causal, seg_row, seg_a) - lse_a);
-        const float pb = __expf(masked_logit(s[n][2 + j], scale, row_b, key, causal, seg_row, seg_b) - lse_b);
-        s[n][j] = pa * (dp[n][j] - dl_a) * scale;
-        s[n][2 + j] = pb * (dp[n][2 + j] - dl_b) * scale;
-      }
-    }
-#pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {
-      const uint32_t dsa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                               pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                               pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                               pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int i = 0; i < D / 8; i += 2) {
-        uint32_t bb[4];
-        load_b_cols<LD>(bb, cK, i * 8, kc * 16, lane);
-        mma(dq_acc[i], dsa, bb[0], bb[1]);
-        mma(dq_acc[i + 1], dsa, bb[2], bb[3]);
-      }
-    }
-    __syncthreads();  // the next prefetch overwrites this stage
-  }
-
-  OutT* da_ = dq + base + row_a * stride + t * 2;
-  OutT* db_ = dq + base + row_b * stride + t * 2;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    emit2(da_ + i * 8, dq_acc[i][0], dq_acc[i][1]);
-    emit2(db_ + i * 8, dq_acc[i][2], dq_acc[i][3]);
-  }
+  if (in_a) emit_row<D>(dq + base + row_a * stride + t * 2, dq_acc, 0, 1.f);
+  if (in_b) emit_row<D>(dq + base + row_b * stride + t * 2, dq_acc, 1, 1.f);
 }
 
-template <int D>
-constexpr int fwd_smem_bytes() {
-  return 4 * tile_elems<D>() * 2;
-}
+// Tensor maps of q, k, v (and dO) with the box rows each kernel streams.
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
 
 template <int D>
-constexpr int dkdv_smem_bytes() {
-  return (2 * kTile + 4 * kBwdQTile) * (D + 8) * 2;
+int make_maps(Maps* m, const bf16* q, const bf16* k, const bf16* v, const bf16* dout, int B,
+              int S, int H, int q_rows, int kv_rows) {
+  int err = encode_bshd_map(&m->q, q, B, S, H, D, q_rows);
+  if (err == 0) err = encode_bshd_map(&m->k, k, B, S, H, D, kv_rows);
+  if (err == 0) err = encode_bshd_map(&m->v, v, B, S, H, D, kv_rows);
+  if (err == 0 && dout != nullptr) err = encode_bshd_map(&m->dout, dout, B, S, H, D, q_rows);
+  return err;
 }
 
-template <int D>
-constexpr int dq_smem_bytes() {
-  return 6 * tile_elems<D>() * 2;
+template <typename Kernel>
+int set_smem(Kernel kernel, int bytes) {
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
 template <int D>
 int fwd_launch(const bf16* q, const bf16* k, const bf16* v, const int* seg_q, const int* seg_kv,
                bf16* o, float* lse, float* l_out, float* m_out, int B, int S, int H, int causal,
                float scale, cudaStream_t stream) {
-  constexpr int kSmem = fwd_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd<D><<<dim3(S / kTile, B * H), kThreads, kSmem, stream>>>(
-      q, k, v, seg_q, seg_kv, o, lse, l_out, m_out, S, H, causal, scale);
+  Maps m;
+  int err = make_maps<D>(&m, q, k, v, nullptr, B, S, H, kRows, kRows);
+  if (err == 0) err = set_smem(flash_fwd<D>, FwdSmem<D>::kBytes);
+  if (err != 0) return err;
+  flash_fwd<D><<<dim3((S + kRows - 1) / kRows, B * H), kThreads, FwdSmem<D>::kBytes, stream>>>(
+      m.q, m.k, m.v, seg_q, seg_kv, o, lse, l_out, m_out, S, H, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -613,21 +852,19 @@ int bwd_main_launch(const bf16* q, const bf16* k, const bf16* v, const int* seg_
                     const int* seg_kv, const bf16* dout, const float* lse, const float* delta,
                     OutT* dq, OutT* dk, OutT* dv, int B, int S, int H, int causal, float scale,
                     cudaStream_t stream) {
-  constexpr int kDkdvSmem = dkdv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdvSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv<D, OutT><<<dim3(S / kTile, B * H), kThreads, kDkdvSmem, stream>>>(
-      q, k, v, seg_q, seg_kv, dout, lse, delta, dk, dv, S, H, causal, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  constexpr int kDqSmem = dq_smem_bytes<D>();
-  err = cudaFuncSetAttribute(flash_bwd_dq<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kDqSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq<D, OutT><<<dim3(S / kTile, B * H), kThreads, kDqSmem, stream>>>(
-      q, k, v, seg_q, seg_kv, dout, lse, delta, dq, S, H, causal, scale);
+  Maps m;
+  int err = make_maps<D>(&m, q, k, v, dout, B, S, H, kStream, kStream);
+  if (err == 0) err = set_smem(flash_bwd_dkdv<D, OutT>, DkdvSmem<D>::kBytes);
+  if (err != 0) return err;
+  flash_bwd_dkdv<D, OutT><<<dim3(S / kStream, B * H), kThreads, DkdvSmem<D>::kBytes, stream>>>(
+      m.q, m.k, m.v, m.dout, seg_q, seg_kv, lse, delta, dk, dv, S, H, causal, scale);
+  err = static_cast<int>(cudaGetLastError());
+  if (err == 0) err = make_maps<D>(&m, q, k, v, dout, B, S, H, kRows, kStream);
+  if (err == 0) err = set_smem(flash_bwd_dq<D, OutT>, DqSmem<D>::kBytes);
+  if (err != 0) return err;
+  flash_bwd_dq<D, OutT><<<dim3((S + kRows - 1) / kRows, B * H), kThreads, DqSmem<D>::kBytes,
+                          stream>>>(
+      m.q, m.k, m.v, m.dout, seg_q, seg_kv, lse, delta, dq, S, H, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,7 +9,8 @@
 Phases, in order; any failure exits non-zero and nothing is caught:
 
 1. Build every CUDA source of ``accelerate_tpu_torch/csrc`` with nvcc for
-   sm_90a (one nvcc per source, all started together), and print the card's
+   sm_90a (one nvcc per source, all started together), log each flash
+   kernel's registers and spills (``-Xptxas -v``), and print the card's
    name and power limit.
 2. Op phase at the engine's shapes: the paged gather kernel, bf16 and
    int8-dequant-to-bf16, against its plain PyTorch version (bitwise on
@@ -46,8 +47,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    finite with the expected shape. The 16 GB serving model is then freed.
 6. Training-kernel op phase: causal flash attention (forward, and backward
    through autograd) against its plain version at the training shape
-   (B2, S2048, H32, D128, bf16), with a right-padding mask, and at S=1024
-   (the crossover), held to pinned tolerances; the fused optimizer update,
+   (B2, S2048, H32, D128, bf16), with a right-padding mask, at S=1024
+   (the crossover), at a ragged S=1088 (an odd multiple of 64, so the last
+   128-row tile is half past the end) with padding, and at D=64, held to
+   pinned tolerances; the fused optimizer update,
    every family, bitwise against its plain version on the largest leaf of
    the training cell (the embedding or LM head, 128256 x 4096 = 525M f32)
    and on 1- and 0-element leaves. Times for kernel, plain version and the library call
@@ -170,6 +173,30 @@ def card_info() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(text: str) -> list:
+    """One line per kernel entry of an ``nvcc -Xptxas -v`` log: its
+    (mangled) name, registers, static shared memory and spills."""
+    import re
+
+    out, entry, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            continue
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and entry is not None:
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            out.append(f"{entry}: {m.group(1)} registers, static shared memory "
+                       f"{smem.group(1) if smem else 0} B, {spill}")
+            entry, spill = None, ""
+    return out
 
 
 def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
@@ -677,6 +704,13 @@ def bound_row(flops: float, moved: float):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def speed_note(flops: float, ms: float, library_ms: float, bound_ms: float) -> str:
+    """A kernel row's rate, its time over the library call's and its share
+    of the bound (bound time over kernel time)."""
+    return (f"{flops / ms / 1e9:.1f} TFLOP/s, {ms / library_ms:.2f}x the library call, "
+            f"{bound_ms / ms:.1%} of the bound")
+
+
 def tile_rel_err(got, ref, real, tile: int = 64) -> float:
     """Largest ``||got - ref||_F / ||ref||_F`` over the (batch, head,
     ``tile``-row query tile) blocks of (B, S, H, D) outputs, on the rows
@@ -713,7 +747,8 @@ def flash_op_phase():
     from accelerate_tpu_torch.ops.kernels import flash_attention as fk
 
     cases = [("causal S2048", 2, 2048, 32, 128, False), ("padded S2048", 2, 2048, 32, 128, True),
-             ("crossover S1024", 2, 1024, 32, 128, False)]
+             ("crossover S1024", 2, 1024, 32, 128, False), ("ragged S1088", 2, 1088, 32, 128, True),
+             ("D64 S2048", 2, 2048, 32, 64, False)]
     rows = []
     for label, B, S, H, D, padded in cases:
         q, k, v, do, seg = flash_case(B, S, H, D, padded)
@@ -779,14 +814,14 @@ def flash_op_phase():
                                                         retain_graph=True), 20)
         fb, fby = bound_row(fwd_flops, fwd_bytes)
         bb, bby = bound_row(bwd_flops, bwd_bytes)
-        log(f"op flash {label}: fwd rel per query tile {fwd_rel:.3e} (pin {FLASH_FWD_TILE_REL}; "
-            f"max|err| {fwd_err:.3e}), bwd rel "
+        log(f"op flash {label} (B{B} S{S} H{H} D{D}): fwd rel per query tile {fwd_rel:.3e} "
+            f"(pin {FLASH_FWD_TILE_REL}; max|err| {fwd_err:.3e}), bwd rel "
             f"{', '.join(f'{n} {e:.3e}' for n, e in bwd_err.items())} (pin {FLASH_BWD_REL}); "
             f"fwd kernel {t_fwd:.4f} ms, plain {t_plain_fwd:.4f}, library {t_lib_fwd:.4f}, "
-            f"bound {fb:.4f} ({fby}, {fwd_flops / 1e9:.1f} GFLOP, "
-            f"{fwd_flops / t_fwd / 1e9:.1f} TFLOP/s); bwd kernel {t_bwd:.4f} ms, plain "
-            f"{t_plain_bwd:.4f}, library {t_lib_bwd:.4f}, bound {bb:.4f} ({bby}, "
-            f"{bwd_flops / t_bwd / 1e9:.1f} TFLOP/s)")
+            f"bound {fb:.4f} ({fby}, {fwd_flops / 1e9:.1f} GFLOP); "
+            f"{speed_note(fwd_flops, t_fwd, t_lib_fwd, fb)}; bwd kernel {t_bwd:.4f} ms, plain "
+            f"{t_plain_bwd:.4f}, library {t_lib_bwd:.4f}, bound {bb:.4f} ({bby}); "
+            f"{speed_note(bwd_flops, t_bwd, t_lib_bwd, bb)}")
         if not rows:  # the training shape: the rows of the kernel table
             base = {"route": "cuda", "source": "accelerate_tpu_torch/csrc/flash_attention.cu",
                     "replaces": "accelerate_tpu/ops/attention.py:144", "launches": 0}
@@ -1533,12 +1568,15 @@ def ring_phase():
     rb, _ = bound_row(causal_fwd, 4 * S * H * D * el)
     rbb, _ = bound_row(2.5 * causal_fwd, 8 * S * H * D * el)
     for label, t in times.items():
+        part = 1.0 if label == "full" else (s_loc + 1) / (2 * s_loc)  # kept pairs
+        f_bound = fb if label == "full" else db
+        b_bound = bb * part
+        fwd_note = speed_note(full_fwd * part, t["fwd"], t["library_fwd"], f_bound)
+        bwd_note = speed_note(2.5 * full_fwd * part, t["bwd"], t["library_bwd"], b_bound)
         log(f"op ring block {label} (B1 s_loc {s_loc} H{H} D{D}): fwd kernel {t['fwd']:.4f} ms, "
-            f"plain {t['plain_fwd']:.4f}, sdpa {t['library_fwd']:.4f}, bound "
-            f"{fb if label == 'full' else db:.4f}; bwd kernel {t['bwd']:.4f} ms, plain "
-            f"{t['plain_bwd']:.4f}, sdpa {t['library_bwd']:.4f}, bound "
-            f"{bb if label == 'full' else bb * (s_loc + 1) / (2 * s_loc):.4f} "
-            f"({full_fwd / t['fwd'] / 1e9 * (1 if label == 'full' else 0.5):.1f} TFLOP/s fwd)")
+            f"plain {t['plain_fwd']:.4f}, sdpa {t['library_fwd']:.4f}, bound {f_bound:.4f}; "
+            f"{fwd_note}; bwd kernel {t['bwd']:.4f} ms, plain {t['plain_bwd']:.4f}, sdpa "
+            f"{t['library_bwd']:.4f}, bound {b_bound:.4f}; {bwd_note}")
     log(f"ring S{S} over {n} ranks (LoopbackRing): launches {counts}; vs single-card flash "
         + ", ".join(f"{name} {e:.3e}" for name, e in ring_errs.items())
         + f"; S{small} padded vs kernels='off' "
@@ -1576,6 +1614,8 @@ def main(argv) -> int:
     for name, text in logs.items():
         for line in text.strip().splitlines():
             log(f"build[{name}]: {line}")
+    for line in ptxas_summary(logs.get("flash_attention", "")):
+        log(f"build[flash_attention] summary: {line}")
     card = card_info()
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
 

@@ -62,9 +62,35 @@ GRAD_ATOL = 1e-4
 @pytest.fixture(autouse=True)
 def _f32_jax_matmuls():
     """Full f32 products in every JAX reference of a test (thread-local,
-    undone after the test)."""
-    with jax.default_matmul_precision("float32"):
-        yield
+    undone after the test), compiled in this test: the worker's persistent
+    compilation cache and its in-memory executables are set aside for the
+    test and restored after it, and torch's f32 matmuls are pinned to full
+    precision.
+
+    Under the suite's xdist run a worker that has built an ``Accelerator``
+    earlier routes every XLA compile through the persistent cache that all
+    workers and their launched subprocesses share (``tests/conftest.py``
+    sets ``ACCELERATE_COMPILE_CACHE_DIR``, ``AcceleratorState`` turns it on
+    with a minimum compile time of 0), and the cache stays on for the rest
+    of that worker's life. The first case here then failed in one such run
+    and passed alone; with no executable loaded from the shared cache or
+    left from an earlier test's config, each reference is what this test
+    compiles under its own precision."""
+    from jax._src import compilation_cache
+
+    cache_dir = jax.config.jax_compilation_cache_dir
+    torch_precision = torch.get_float32_matmul_precision()
+    compilation_cache.reset_cache()
+    jax.config.update("jax_compilation_cache_dir", None)
+    jax.clear_caches()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with jax.default_matmul_precision("float32"):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(torch_precision)
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
+        compilation_cache.reset_cache()
 
 
 def _seg(B, S):

@@ -233,10 +233,35 @@ def _needs_card():
         pytest.skip("needs an NVIDIA GPU; chip_smoke.py runs this comparison on the card")
 
 
+# Flash cases on the card: (S, pads of batch row 1 as slices, or None).
+# The kernels work in 128-row tiles over S that is a multiple of 64: an odd
+# multiple leaves the last tile half past the end, and padding may start or
+# stop inside a tile.
+FLASH_CARD_CASES = {
+    "causal": (256, None),
+    "padded": (256, [slice(-50, None)]),
+    "ragged-192": (192, None),
+    "ragged-1088": (1088, [slice(-300, None)]),
+    "pads-inside-tiles": (320, [slice(0, 100), slice(270, None)]),
+}
+
+
+def _flash_card_inputs(S, pads, D, B=2, H=4, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
+                   for _ in range(4))
+    seg = None
+    if pads is not None:
+        seg = torch.full((B, S), 2, dtype=torch.int32, device="cuda")
+        for pad in pads:
+            seg[1, pad] = 1
+    return q, k, v, do, seg
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("with_mask", [False, True], ids=["causal", "padded"])
+@pytest.mark.parametrize("case", list(FLASH_CARD_CASES))
 @pytest.mark.parametrize("D", [64, 128])
-def test_flash_kernel_matches_plain_version_on_the_card(with_mask, D):
+def test_flash_kernel_matches_plain_version_on_the_card(case, D):
     """bf16 in and out; the kernel rounds P to bf16 before P.V and the
     plain version does not, and both round the output to bf16, each a
     relative error of about 2^-9 an element. Outputs shrink along a causal
@@ -245,14 +270,9 @@ def test_flash_kernel_matches_plain_version_on_the_card(with_mask, D):
     relative Frobenius error <= 2e-2 (chip_smoke.py holds the 8B shapes to
     the same pins)."""
     _needs_card()
-    B, S, H = 2, 256, 4
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
-                   for _ in range(4))
-    seg = None
-    if with_mask:
-        seg = torch.full((B, S), 2, dtype=torch.int32, device="cuda")
-        seg[1, -50:] = 1
+    B = 2
+    S, pads = FLASH_CARD_CASES[case]
+    q, k, v, do, seg = _flash_card_inputs(S, pads, D, B=B)
     scale = 1.0 / math.sqrt(D)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -268,6 +288,35 @@ def test_flash_kernel_matches_plain_version_on_the_card(with_mask, D):
     for a, b in zip(leaves, ref_leaves):
         rel = float((a.grad.float() - b.grad.float()).norm() / b.grad.float().norm())
         assert rel <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["flash", "ring_block"])
+def test_flash_backward_is_deterministic_on_the_card(op):
+    """The backward has one writer per output element and no atomics, so
+    two runs on the same inputs agree bit for bit (the four-card ring's
+    bitwise check against the loopback ring rests on this)."""
+    _needs_card()
+    from accelerate_tpu_torch.ops.kernels import flash_attention as fk
+
+    S, pads = FLASH_CARD_CASES["ragged-1088"]
+    q, k, v, do, seg = _flash_card_inputs(S, pads, 128)
+    runs = []
+    for _ in range(2):
+        if op == "flash":
+            o, lse = fk._forward(q, k, v, seg, True, 1.0 / math.sqrt(128))
+            runs.append(fk._backward(q, k, v, seg, o, lse, do, True, 1.0 / math.sqrt(128)))
+        else:
+            mask = None if seg is None else (seg == 2).to(torch.int32)
+            o, l, m = ring_block_fwd_cuda(q, k, v, mask, 1)
+            lse = (m + torch.log(l.clamp(min=1e-30))).contiguous()
+            delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+            acc = [torch.zeros(q.shape, device="cuda") for _ in range(3)]
+            ring_block_bwd_cuda(q, k, v, mask, 1, lse, do, delta, *acc)
+            runs.append(acc)
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -238,17 +238,23 @@ def _card_block(S=256, H=4, D=64, seed=0, pad=None):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("mode,pad", [(0, None), (1, None), (1, slice(-80, None)),
-                                      (1, slice(None, None)), (2, None)],
-                         ids=["diagonal", "full", "full-padded", "full-all-pads", "skip"])
-def test_ring_block_kernels_match_twins_on_the_card(mode, pad, D):
+@pytest.mark.parametrize("mode,pad,S", [(0, None, 256), (1, None, 256), (1, slice(-80, None), 256),
+                                        (1, slice(None, None), 256), (2, None, 256),
+                                        (0, None, 192), (1, slice(100, 150), 320),
+                                        (0, slice(0, 100), 192)],
+                         ids=["diagonal", "full", "full-padded", "full-all-pads", "skip",
+                              "diagonal-ragged-192", "full-pads-inside-tiles-320",
+                              "diagonal-rows-see-no-key-192"])
+def test_ring_block_kernels_match_twins_on_the_card(mode, pad, S, D):
     """Forward: o per 64-row query tile within FLASH_FWD_TILE_REL of the
     twin on rows that see a key, l and m within RING_STATS_ATOL relative,
     and rows with no visible key exactly (0, 0, -1e30). Backward from a
     global lse and delta: dq, dk, dv within FLASH_BWD_REL (relative
-    Frobenius), accumulated into nonzero f32 buffers."""
+    Frobenius), accumulated into nonzero f32 buffers. A shard of 192 or 320
+    leaves the kernels' last 128-row tile half past the end; left pads on
+    the diagonal block leave the first 100 rows with no key at all."""
     _needs_card()
-    q, k, v, do, mask = _card_block(D=D, pad=pad)
+    q, k, v, do, mask = _card_block(S=S, D=D, pad=pad)
     registry.reset_launch_counts()
     o, l, m = registry.dispatch("ring_block_fwd", q, k, v, mask, mode)
     o_ref, l_ref, m_ref = ring_block_fwd_reference(q, k, v, mask, mode)
