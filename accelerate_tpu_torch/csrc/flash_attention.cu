@@ -107,85 +107,8 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr float kNoKeyMax = -1e30f;  // the ring's running max of a row with no visible key
 
-// Bytes of a rows x D bf16 tile, and of one of its 64-column panels.
-template <int D>
-__host__ __device__ constexpr int tile_bytes(int rows) {
-  return rows * D * 2;
-}
-
-__host__ __device__ constexpr int panel_bytes(int rows) { return rows * 128; }
-
-// Descriptor of the k-th 16-element step of a K-major operand whose rows
-// start at `base` in a tile of `rows`-row panels.
-__device__ __forceinline__ uint64_t kstep(uint32_t base, int rows, int kk) {
-  return desc_kmajor(opaque(base) + (kk >> 2) * panel_bytes(rows) + (kk & 3) * 32);
-}
-
-// Descriptor of the k-th 16-row step of an MN-major operand (a tile of
-// `rows`-row panels read with its rows as the contraction).
-__device__ __forceinline__ uint64_t mnstep(uint32_t base, int rows, int kk) {
-  return desc_mnmajor(opaque(base) + kk * 16 * 128, panel_bytes(rows));
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = smem_u32(p);
-  return p + ((1024 - (a & 1023)) & 1023);
-}
-
-// One load of a rows x D tile: D / 64 TMA boxes at sequence position s0.
-template <int D>
-__device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int rows, int h, int s0, int b) {
-#pragma unroll
-  for (int p = 0; p < D / 64; ++p)
-    tma_load_4d(dst + p * panel_bytes(rows), map, bar, p * 64, h, s0, b);
-}
-
-// The bf16 A fragments of an f32 accumulator of N columns (the layout of
-// Wgmma's d): 16-column step kc is a[4kc..4kc+3].
-template <int N>
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[N / 4], const float (&d)[N / 2]) {
-#pragma unroll
-  for (int kc = 0; kc < N / 16; ++kc) {
-    a[4 * kc + 0] = pack_bf16(d[8 * kc + 0], d[8 * kc + 1]);
-    a[4 * kc + 1] = pack_bf16(d[8 * kc + 2], d[8 * kc + 3]);
-    a[4 * kc + 2] = pack_bf16(d[8 * kc + 4], d[8 * kc + 5]);
-    a[4 * kc + 3] = pack_bf16(d[8 * kc + 6], d[8 * kc + 7]);
-  }
-}
-
-// Two adjacent output elements: bf16 outputs are stored, f32 outputs (the
-// ring's gradient accumulators) are added to.
-__device__ __forceinline__ void emit2(bf16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
-}
-
-__device__ __forceinline__ void emit2(float* p, float a, float b) {
-  float2 acc = *reinterpret_cast<float2*>(p);
-  acc.x += a;
-  acc.y += b;
-  *reinterpret_cast<float2*>(p) = acc;
-}
-
-// A row of an accumulator (its 8-column steps at d[4j + half*2 ..]) to
-// global memory at `dst`, column 2(t%4) of each step.
-template <int D, typename OutT>
-__device__ __forceinline__ void emit_row(OutT* dst, const float (&d)[D / 2], int half, float mul) {
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-    emit2(dst + j * 8, d[4 * j + 2 * half] * mul, d[4 * j + 2 * half + 1] * mul);
-}
-
 // ------------------------------------------------------------------ forward
 constexpr int kFwdStages = 3;  // depth of the forward's ring of K/V tiles
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // S = Q_w . K^T (64 rows x 128 keys), issued and committed.
 template <int D>

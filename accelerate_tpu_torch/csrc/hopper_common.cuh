@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks for the attention kernels: mbarriers and
 // named barriers, TMA tile loads into 128-byte-swizzled shared memory, wgmma shared-memory
 // descriptors and the asynchronous warpgroup products (SS: both operands in
-// shared memory; RS: A in registers), and setmaxnreg. Raw PTX, no CUTLASS,
-// so a source that includes this builds in seconds.
+// shared memory; RS: A in registers), setmaxnreg, and the tile helpers the
+// attention kernels share (descriptors of a k step, TMA loads of a whole
+// tile, accumulators to A fragments). Raw PTX, no CUTLASS, so a source that
+// includes this builds in seconds.
 //
 // Shared-memory tiles. A (B, S, H, D) bf16 tensor is read by TMA through a
 // 4-D tensor map (encode_bshd_map) as boxes of `rows` sequence positions by
@@ -30,6 +32,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attn_common.cuh"
 
 namespace hopper {
 
@@ -60,12 +64,17 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 
 // Spins until the barrier's phase differs from `parity` (a barrier starts in
 // phase 0 and flips each time its arrivals and bytes are complete). A wait
-// that never ends (a load that was never issued) traps after kSpinLimit
-// polls, seconds past any real wait, so the launch fails with an error
-// instead of holding the card.
+// that never ends (a load that was never issued) fails the launch after
+// kSpinLimit polls, seconds past any real wait, instead of holding the card:
+// mbar_wait by a trap; mbar_wait_fault by a store to address 0, an illegal
+// address. ptxas keeps every value that is live across a trap within the
+// launch bound's registers (168 at 384 threads), so code that holds more
+// after setmaxnreg_inc, as splash's D = 256 consumers do, spills around
+// every wait that can trap; a store does not bind it.
 constexpr uint32_t kSpinLimit = 1u << 28;
 
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+template <bool kFault>
+__device__ __forceinline__ void mbar_spin(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   for (uint32_t n = 0;; ++n) {
     uint32_t done;
@@ -77,8 +86,21 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
     if (done) return;
-    if (n == kSpinLimit) __trap();
+    if (n == kSpinLimit) {
+      if (kFault)
+        asm volatile("st.global.u32 [%0], %1;\n" ::"l"(0ull), "r"(0u) : "memory");
+      else
+        __trap();
+    }
   }
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_spin<false>(bar, parity);
+}
+
+__device__ __forceinline__ void mbar_wait_fault(uint64_t* bar, uint32_t parity) {
+  mbar_spin<true>(bar, parity);
 }
 
 // Named barrier `id` (1-15; 0 is __syncthreads) over `count` threads: sync
@@ -269,6 +291,46 @@ __device__ __forceinline__ void Wgmma<128>::rs_mn(float (&d)[64], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// N = 256 (a D = 256 accumulator: O += P.V, dV, dK and dQ at Gemma-2's head
+// width), RS only; B spans four 64-column panels, `panel_bytes` apart.
+template <>
+__device__ __forceinline__ void Wgmma<256>::rs_mn(float (&d)[128], const uint32_t* a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 // ------------------------------------------------------------------ registers
 // Moves the warpgroup's register budget (a multiple of 8 in [24, 256]); all
 // four warps execute it. Producers give registers up, consumers take them.
@@ -280,6 +342,77 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// -------------------------------------------------------------- tile helpers
+// Bytes of a rows x D bf16 tile, and of one of its 64-column panels.
+template <int D>
+__host__ __device__ constexpr int tile_bytes(int rows) {
+  return rows * D * 2;
+}
+
+__host__ __device__ constexpr int panel_bytes(int rows) { return rows * 128; }
+
+// Descriptor of the k-th 16-element step of a K-major operand whose rows
+// start at `base` in a tile of `rows`-row panels (D / 16 steps cross D / 64
+// panels).
+__device__ __forceinline__ uint64_t kstep(uint32_t base, int rows, int kk) {
+  return desc_kmajor(opaque(base) + (kk >> 2) * panel_bytes(rows) + (kk & 3) * 32);
+}
+
+// Descriptor of the k-th 16-row step of an MN-major operand (a tile of
+// `rows`-row panels read with its rows as the contraction).
+__device__ __forceinline__ uint64_t mnstep(uint32_t base, int rows, int kk) {
+  return desc_mnmajor(opaque(base) + kk * 16 * 128, panel_bytes(rows));
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// One load of a rows x D tile: D / 64 TMA boxes at sequence position s0.
+template <int D>
+__device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int rows, int h, int s0, int b) {
+#pragma unroll
+  for (int p = 0; p < D / 64; ++p)
+    tma_load_4d(dst + p * panel_bytes(rows), map, bar, p * 64, h, s0, b);
+}
+
+// The bf16 A fragments of an f32 accumulator of N columns (the layout of
+// Wgmma's d): 16-column step kc is a[4kc..4kc+3].
+template <int N>
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[N / 4], const float (&d)[N / 2]) {
+#pragma unroll
+  for (int kc = 0; kc < N / 16; ++kc) {
+    a[4 * kc + 0] = attn::pack_bf16(d[8 * kc + 0], d[8 * kc + 1]);
+    a[4 * kc + 1] = attn::pack_bf16(d[8 * kc + 2], d[8 * kc + 3]);
+    a[4 * kc + 2] = attn::pack_bf16(d[8 * kc + 4], d[8 * kc + 5]);
+    a[4 * kc + 3] = attn::pack_bf16(d[8 * kc + 6], d[8 * kc + 7]);
+  }
+}
+
+// Two adjacent output elements: bf16 outputs are stored, f32 outputs
+// (gradient accumulators, as a ring block's) are added to.
+__device__ __forceinline__ void emit2(attn::bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = attn::pack_bf16(a, b);
+}
+
+__device__ __forceinline__ void emit2(float* p, float a, float b) {
+  float2 acc = *reinterpret_cast<float2*>(p);
+  acc.x += a;
+  acc.y += b;
+  *reinterpret_cast<float2*>(p) = acc;
+}
+
+// A row of an accumulator (its 8-column steps at d[4j + half*2 ..]) to
+// global memory at `dst`, column 2(t%4) of each step.
+template <int D, typename OutT>
+__device__ __forceinline__ void emit_row(OutT* dst, const float (&d)[D / 2], int half, float mul) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+    emit2(dst + j * 8, d[4 * j + 2 * half] * mul, d[4 * j + 2 * half + 1] * mul);
 }
 
 // ----------------------------------------------------------------- host side

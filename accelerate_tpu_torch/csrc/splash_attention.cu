@@ -31,64 +31,90 @@
 // Block sparsity, the point of splash: a query tile [q0, q1] visits only the
 // KV tiles from max(0, q0 - window + 1) to its diagonal; in dK/dV a KV tile
 // [k0, k1] visits only the query steps from its diagonal to
-// min(S - 1, k1 + window - 1). The mask is evaluated only on tiles that the
-// diagonal, the window's edge or segment ids cut. A row whose first visited
-// tile is wholly masked for it (a row past the window's edge, inside a query
-// tile whose earlier rows need that tile) starts its running max at MASK;
-// the first visible key rescales everything before it by exp(MASK - m) = 0,
-// so the row ends as the plain version's. Every row sees at least itself.
+// min(S - 1, k1 + window - 1). Each consumer warpgroup of a 128-row query
+// tile skips the tiles its own 64 rows cannot see (the first rows' last
+// tile is past their diagonal, the last rows' first tile may be past their
+// window). The mask is evaluated only on tiles that the diagonal, the
+// window's edge or segment ids cut. A row whose first visited tile is
+// wholly masked for it starts its running max at MASK; the first visible
+// key rescales everything before it by exp(MASK - m) = 0, so the row ends
+// as the plain version's. Every row sees at least itself.
 //
 // Bound: operations. Forward 4 * D * H * (visible pairs); at Gemma-2-9B's
 // global layer (B1, S8192, H16, D256) 549.8 GFLOP, 0.556 ms at 989 TFLOP/s,
 // and its local layer (window 4096) 412.4 GFLOP, 0.417 ms. The backward does
 // five products of the same size (S, dP, dV, dK, dQ), about 2.5 times the
-// forward's operations; the dK/dV kernel recomputes S once more (below).
+// forward's operations; the dQ kernel recomputes S and dP (seven products in
+// all, the price of no atomics).
 //
-// Design: tensor cores through mma.sync.m16n8k16 (bf16 in, f32 accumulate),
-// operands from shared memory through ldmatrix (.trans for the operands
-// stored k-major), rows padded by 8 elements so each ldmatrix phase hits 32
-// distinct banks, and the tiles a loop walks double-buffered with cp.async.
-// The S accumulator has the register layout of the A operand of P.V, so P
-// never leaves registers. Head widths 64, 128 and 256 are template
-// instances. D = 256 is what shapes the kernels: a warp's 16 x 256 f32
-// accumulator is 128 registers a lane, so
-//   - Q (and dO) fragments are read from shared memory at every k-step
-//     instead of being held in registers;
-//   - the forward and dQ kernels walk 32-key KV tiles at D = 256 (64 below),
-//     which keeps the S and dP accumulators at 16 registers and the forward's
-//     shared memory at 99 KB, two CTAs an SM;
-//   - the dK/dV kernel runs 8 warps: warps 0-3 accumulate dV and warps 4-7
-//     dK for the same 64 keys, 16 keys a warp, each group recomputing S; one
-//     warp holding both accumulators would need 256 registers a lane.
-// Dynamic shared memory above 48 KB is opted into with
-// cudaFuncSetAttribute. wgmma and TMA wait for a later change. The mma,
-// ldmatrix and cp.async helpers are those of attn_common.cuh, shared with
-// flash_attention.cu.
+// Design, as flash_attention.cu's (the Hopper helpers are those of
+// hopper_common.cuh): each CTA has three warpgroups; warpgroup 0 is the
+// producer, whose first thread issues every load by TMA into 128-byte-
+// swizzled shared memory and signals it on mbarriers, then gives its
+// registers up (setmaxnreg 24); warpgroups 1 and 2 are consumers
+// (setmaxnreg 240). Every product is a wgmma m64nNk16 with f32 accumulators:
+// scores and dP from shared memory on both sides (SS, N = 64 keys or
+// queries, D / 16 k steps crossing D / 64 panels); the products whose A is
+// a probability or a dS take it from registers (RS), where the score
+// accumulator already has the A fragment's layout, with B (V, dO, Q or K)
+// read MN-major from the same swizzled tile, N = D (m64n256k16 at D = 256).
+// Head widths 64, 128 and 256 are instances of the same templates. D = 256
+// is what sizes them: a 64 x 256 f32 accumulator is 128 registers a
+// consumer thread, and a 64-row tile 32 KB of shared memory. Every
+// mbarrier wait is mbar_wait_fault: with a trap in its timeout, ptxas holds
+// the consumers to 168 registers and the D = 256 accumulators spill.
+//   - forward: 128 query rows a CTA (Q loaded once, 64 KB at D = 256), 64 a
+//     consumer; K/V tiles of 64 keys in two stages (three below D = 256):
+//     192 KB. S = Q.K^T (SS), the softcap and the mask on S in registers,
+//     online softmax (exp2 of logits in log2 units), O += P.V (RS).
+//   - dK/dV: 64 keys a CTA (K, V loaded once), Q/dO steps of 64 rows in two
+//     stages (three below D = 256) with their log-sum-exp, delta and
+//     segment rows brought in by bulk copies beside them. The consumers
+//     split the work by output, since two 64 x 256 accumulators do not fit
+//     one warpgroup: one computes S^T = K.Q^T (SS), P^T, and dV += P^T.dO
+//     (RS); the other computes dP^T = V.dO^T (SS), reads P^T times the
+//     softcap's factor (f32) from the first through shared memory (two
+//     buffers under named barriers), and accumulates dK += dS^T.Q (RS).
+//     At D = 256: 64 + 128 + 32 KB and the row vectors, 226.5 KB of 227.
+//   - dQ: 128 query rows a CTA (Q, dO loaded once, 128 KB at D = 256), 64 a
+//     consumer; K tiles of 64 keys in two stages and V tiles in one (two
+//     below D = 256), on separate barriers: V is released once dP is read,
+//     K after dQ += dS.K. S = Q.K^T (SS) becomes P (1 - tanh^2) in its own
+//     registers before dP = dO.V^T (SS) is issued, so the softcap's
+//     temporaries and dP are never live together beside the 64 x 256 dQ
+//     accumulator; then dQ += dS.K (RS, K MN-major). 224 KB at D = 256.
+// S only needs to be a multiple of 64: KV tiles and query steps of 64 never
+// pass S, the second half of a 128-row tile past S reads zeros from TMA and
+// its consumer skips every tile, and no row past S is written.
 //
 // Interface: plain C functions bound with ctypes
-// (accelerate_tpu_torch/ops/kernels/splash_attention.py). Each launches on
-// the caller's stream, allocates nothing, and returns cudaGetLastError().
-// window 0 means no window, softcap 0 no softcap.
+// (accelerate_tpu_torch/ops/kernels/splash_attention.py). Each builds its
+// TMA tensor maps on the host, launches on the caller's stream, allocates
+// nothing, and returns a cudaError_t code. window 0 means no window,
+// softcap 0 no softcap.
 
 #include <math.h>
 #include <stdint.h>
 
 #include "attn_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace attn;
+using namespace hopper;
 
-constexpr int kThreads = 128;       // forward and dQ: 4 warps, 16 query rows each
-constexpr int kDkdvThreads = 256;   // dK/dV: 8 warps, two groups of 4
-constexpr int kQTile = 64;          // query rows of a forward or dQ CTA
-constexpr int kKvTileBwd = 64;      // keys of a dK/dV CTA
-constexpr int kBwdQStep = 32;       // query rows per step of the dK/dV kernel
+constexpr int kThreads = 384;    // producer warpgroup + two consumer warpgroups
+constexpr int kConsumers = 256;  // arrivals that release a stage
+constexpr int kRows = 128;       // query rows of a forward or dQ CTA, 64 a consumer
+constexpr int kTile = 64;        // keys of a KV tile or a dK/dV CTA; rows of a query step
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 
-// Keys of a KV tile in the forward and dQ kernels.
+// Depth of a streamed ring: shared memory holds two stages at D = 256.
 template <int D>
-__host__ __device__ constexpr int kv_tile() {
-  return D == 256 ? 32 : 64;
+__host__ __device__ constexpr int stages() {
+  return D == 256 ? 2 : 3;
 }
 
 // Does a query see a key? d = query - key.
@@ -96,179 +122,235 @@ __device__ __forceinline__ bool visible(int d, int window, bool same_segment) {
   return d >= 0 && (window == 0 || d < window) && same_segment;
 }
 
-// Must the mask be evaluated on the block of queries [q0, q0 + q_rows) and
-// keys [k0, k0 + k_rows)? Not where every key is at or below the diagonal and
-// inside the window for every query, and there are no segment ids.
-__device__ __forceinline__ bool block_needs_mask(int q0, int q_rows, int k0, int k_rows,
-                                                 int window, bool segments) {
-  const bool below_diagonal = k0 + k_rows - 1 <= q0;
-  const bool inside_window = window == 0 || (q0 + q_rows - 1) - k0 < window;
+// Must the mask be evaluated on the 64 x 64 block of queries from q0 and keys
+// from k0? Not where every key is at or below the diagonal and inside the
+// window for every query, and there are no segment ids.
+__device__ __forceinline__ bool block_needs_mask(int q0, int k0, int window, bool segments) {
+  const bool below_diagonal = k0 + kTile - 1 <= q0;
+  const bool inside_window = window == 0 || (q0 + kTile - 1) - k0 < window;
   return segments || !(below_diagonal && inside_window);
 }
 
-// The softcap of an uncapped logit l; `th` receives tanh(l / cap) (0 without
-// a softcap), which the backward's factor 1 - th^2 reuses.
-__device__ __forceinline__ float soft_cap(float l, float softcap, float& th) {
+// First KV tile that queries from q0 on can see.
+__device__ __forceinline__ int first_kv_tile(int q0, int window) {
+  return window > 0 ? max(0, q0 - window + 1) / kTile : 0;
+}
+
+// The softcap of an uncapped logit l (inv_cap = 1 / cap); `th` receives
+// tanh(l / cap) (0 without a softcap), which the backward's factor
+// 1 - th^2 reuses.
+__device__ __forceinline__ float soft_cap(float l, float softcap, float inv_cap, float& th) {
   if (softcap > 0.f) {
-    th = tanhf(l / softcap);
+    th = tanhf(l * inv_cap);
     return th * softcap;
   }
   th = 0.f;
   return l;
 }
 
-// First and last KV tile (of `tile` keys) that queries [q0, q0 + q_rows) can see.
-__device__ __forceinline__ int first_kv_tile(int q0, int window, int tile) {
-  return window > 0 ? max(0, q0 - window + 1) / tile : 0;
+// The warpgroup index, read from lane 0 so the compiler knows it is uniform:
+// the role branches are then uniform, and the consumers' code gets the
+// registers setmaxnreg gives them.
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
 }
 
 // ------------------------------------------------------------------ forward
-// Grid (query tiles, B*H). Shared memory: the Q tile, and two stages of the
-// K and V tiles.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    splash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-               const int* __restrict__ seg, bf16* __restrict__ o, float* __restrict__ lse, int S,
-               int H, int window, float softcap) {
-  constexpr int LD = D + 8;
-  constexpr int BK = kv_tile<D>();
-  constexpr int kKvElems = BK * LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [kQTile * LD]
-  bf16* sK = sQ + kQTile * LD;               // [2][kKvElems]
-  bf16* sV = sK + 2 * kKvElems;              // [2][kKvElems]
-  const int qt = S / kQTile - 1 - blockIdx.x;  // heaviest causal tiles first
+struct FwdSmem {
+  static constexpr int kStages = stages<D>();
+  static constexpr int kQTile = tile_bytes<D>(kRows);
+  static constexpr int kKvTile = tile_bytes<D>(kTile);
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQTile;                // [kStages]
+  static constexpr int kV = kK + kStages * kKvTile;     // [kStages]
+  static constexpr int kSeg = kV + kStages * kKvTile;   // int [kStages][kTile]
+  static constexpr int kBar = kSeg + kStages * kTile * 4;
+  static constexpr int kBars = 1 + 3 * kStages;         // q, full_k, full_v, empty
+  static constexpr int kBytes = kBar + 8 * kBars + 1024;  // + alignment slack
+};
+
+// Grid (ceil(S / 128), B*H).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    splash_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ seg,
+               bf16* __restrict__ o, float* __restrict__ lse, int S, int H, int window,
+               float softcap) {
+  using L = FwdSmem<D>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty = full_v + kStages;
+  const int* sseg = reinterpret_cast<const int*>(smem + L::kSeg);
+
+  const int n_qt = (S + kRows - 1) / kRows;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kRows;  // heaviest causal tiles first
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const long long stride = static_cast<long long>(H) * D;
-  const long long base = static_cast<long long>(b) * S * stride + static_cast<long long>(h) * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kQTile;
-  const int* seg_row = seg == nullptr ? nullptr : seg + static_cast<long long>(b) * S;
+  // KV tiles some row of the CTA sees: from the first row's window edge to
+  // the last real row's diagonal.
+  const int kt_lo = first_kv_tile(q0, window);
+  const int n_kv = (min(q0 + kRows, S) - 1) / kTile - kt_lo + 1;
 
-  const int kt_lo = first_kv_tile(q0, window, BK), kt_hi = (q0 + kQTile - 1) / BK;
-  load_tile<D, kThreads>(sQ, q + base + q0 * stride, stride, kQTile);
-  load_tile<D, kThreads>(sK, k + base + kt_lo * BK * stride, stride, BK);
-  load_tile<D, kThreads>(sV, v + base + kt_lo * BK * stride, stride, BK);
-  cp_async_commit();
-
-  const int wq0 = q0 + warp * 16;  // this warp's first query row
-  const int row_a = wq0 + g, row_b = row_a + 8;
-  const int seg_a = seg_row == nullptr ? 0 : seg_row[row_a];
-  const int seg_b = seg_row == nullptr ? 0 : seg_row[row_b];
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * BK, stage = (kt - kt_lo) & 1;
-    const bf16* cK = sK + stage * kKvElems;
-    const bf16* cV = sV + stage * kKvElems;
-    if (kt < kt_hi) {  // prefetch the next tile into the other stage
-      const long long next = static_cast<long long>(k0 + BK) * stride;
-      load_tile<D, kThreads>(sK + (stage ^ 1) * kKvElems, k + base + next, stride, BK);
-      load_tile<D, kThreads>(sV + (stage ^ 1) * kKvElems, v + base + next, stride, BK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], kConsumers);
     }
-    __syncthreads();
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4];
-      load_a<LD>(qa, sQ, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int n = 0; n < BK / 8; n += 2) {
-        uint32_t bb[4];
-        load_b_rows<LD>(bb, cK, n * 8, kk * 16, lane);
-        mma(s[n], qa, bb[0], bb[1]);
-        mma(s[n + 1], qa, bb[2], bb[3]);
+  const int role = warpgroup();
+  if (role == 0) {  // producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(bar_q, L::kQTile);
+      tma_tile<D>(smem + L::kQ, &tm_q, bar_q, kRows, h, q0, b);
+      const int seg_bytes = seg == nullptr ? 0 : kTile * 4;
+      for (int i = 0; i < n_kv; ++i) {
+        const int st = i % kStages, k0 = (kt_lo + i) * kTile;
+        if (i >= kStages) mbar_wait_fault(&empty[st], ((i / kStages) - 1) & 1);
+        mbar_arrive_expect_tx(&full_k[st], L::kKvTile + seg_bytes);
+        tma_tile<D>(smem + L::kK + st * L::kKvTile, &tm_k, &full_k[st], kTile, h, k0, b);
+        if (seg_bytes)
+          bulk_load(smem + L::kSeg + st * kTile * 4, seg + static_cast<long long>(b) * S + k0,
+                    seg_bytes, &full_k[st]);
+        mbar_arrive_expect_tx(&full_v[st], L::kKvTile);
+        tma_tile<D>(smem + L::kV + st * L::kKvTile, &tm_v, &full_v[st], kTile, h, k0, b);
       }
     }
-    const bool masked = block_needs_mask(wq0, 16, k0, BK, window, seg_row != nullptr);
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int ct = threadIdx.x - 128, wg = role - 1;
+  const int warp = (ct >> 5) & 3, lane = ct & 31, g = lane >> 2, t = lane & 3;
+  const int qw0 = q0 + wg * 64;  // the consumer's first row
+  const int row_a = qw0 + warp * 16 + g, row_b = row_a + 8;
+  // The consumer's own KV tiles; none for rows past S.
+  const int kt_first = first_kv_tile(qw0, window), kt_last = qw0 < S ? qw0 / kTile : -1;
+  const int* seg_row = seg == nullptr ? nullptr : seg + static_cast<long long>(b) * S;
+  const int seg_a = (seg_row != nullptr && qw0 < S) ? seg_row[row_a] : 0;
+  const int seg_b = (seg_row != nullptr && qw0 < S) ? seg_row[row_b] : 0;
+  const uint32_t q_base = smem_u32(smem + L::kQ) + wg * 64 * 128;
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
+
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait_fault(bar_q, 0);
+  for (int i = 0; i < n_kv; ++i) {
+    const int st = i % kStages, kt = kt_lo + i, k0 = kt * kTile;
+    const uint32_t ph = (i / kStages) & 1;
+    mbar_wait_fault(&full_k[st], ph);
+    if (kt < kt_first || kt > kt_last) {  // a tile only the other consumer's rows see
+      mbar_wait_fault(&full_v[st], ph);
+      mbar_arrive(&empty[st]);
+      continue;
+    }
+
+    // S = Q_w . K^T: 64 rows x 64 keys, uncapped.
+    float s[kTile / 2];
+    const uint32_t k_base = smem_u32(smem + L::kK + st * L::kKvTile);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<kTile>::ss(s, kstep(q_base, kRows, kk), kstep(k_base, kTile, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // Cap, then replace masked logits by MASK; logits in log2 units (MASK
+    // stays as it is: it only has to sit far below every real logit).
+    const bool masked = block_needs_mask(qw0, k0, window, seg != nullptr);
+    const int* seg_k = seg == nullptr ? nullptr : sseg + st * kTile;
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int kidx = j * 8 + t * 2 + c, key = k0 + kidx;
+        float th;
+        float sa = soft_cap(s[4 * j + c], softcap, inv_cap, th) * kLog2e;
+        float sb = soft_cap(s[4 * j + 2 + c], softcap, inv_cap, th) * kLog2e;
+        if (masked) {
+          const int sk = seg_k == nullptr ? 0 : seg_k[kidx];
+          if (!visible(row_a - key, window, sk == seg_a)) sa = kMaskValue;
+          if (!visible(row_b - key, window, sk == seg_b)) sb = kMaskValue;
+        }
+        s[4 * j + c] = sa;
+        s[4 * j + 2 + c] = sb;
+      }
+    }
+
     float mx_a = m_a, mx_b = m_b;
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key = k0 + n * 8 + t * 2 + j;
-        float th;
-        float ca = soft_cap(s[n][j], softcap, th);
-        float cb = soft_cap(s[n][2 + j], softcap, th);
-        if (masked) {
-          const int seg_k = seg_row == nullptr ? 0 : seg_row[key];
-          if (!visible(row_a - key, window, seg_k == seg_a)) ca = kMaskValue;
-          if (!visible(row_b - key, window, seg_k == seg_b)) cb = kMaskValue;
-        }
-        s[n][j] = ca;
-        s[n][2 + j] = cb;
-        mx_a = fmaxf(mx_a, ca);
-        mx_b = fmaxf(mx_b, cb);
-      }
+    for (int j = 0; j < kTile / 8; ++j) {
+      mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
     mx_a = quad_max(mx_a);
     mx_b = quad_max(mx_b);
     // exp(MASK - m) is 0 once a row has seen a visible key, and 1 while its
     // running max is still MASK: the first visible key rescales the rest away.
-    const float alpha_a = __expf(m_a - mx_a), alpha_b = __expf(m_b - mx_b);
+    const float alpha_a = fast_exp2(m_a - mx_a), alpha_b = fast_exp2(m_b - mx_b);
     m_a = mx_a;
     m_b = mx_b;
     float rs_a = 0.f, rs_b = 0.f;
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = __expf(s[n][0] - m_a);
-      s[n][1] = __expf(s[n][1] - m_a);
-      s[n][2] = __expf(s[n][2] - m_b);
-      s[n][3] = __expf(s[n][3] - m_b);
-      rs_a += s[n][0] + s[n][1];
-      rs_b += s[n][2] + s[n][3];
+    for (int j = 0; j < kTile / 8; ++j) {
+      s[4 * j + 0] = fast_exp2(s[4 * j + 0] - m_a);
+      s[4 * j + 1] = fast_exp2(s[4 * j + 1] - m_a);
+      s[4 * j + 2] = fast_exp2(s[4 * j + 2] - m_b);
+      s[4 * j + 3] = fast_exp2(s[4 * j + 3] - m_b);
+      rs_a += s[4 * j] + s[4 * j + 1];
+      rs_b += s[4 * j + 2] + s[4 * j + 3];
     }
     l_a = l_a * alpha_a + rs_a;  // per-lane partial sums; reduced over the quad at the end
     l_b = l_b * alpha_b + rs_b;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      acc[i][0] *= alpha_a;
-      acc[i][1] *= alpha_a;
-      acc[i][2] *= alpha_b;
-      acc[i][3] *= alpha_b;
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j + 0] *= alpha_a;
+      acc[4 * j + 1] *= alpha_a;
+      acc[4 * j + 2] *= alpha_b;
+      acc[4 * j + 3] *= alpha_b;
     }
+    uint32_t p[kTile / 4];
+    to_a_frags<kTile>(p, s);
+
+    // O += P . V: V read MN-major (its rows are the contraction).
+    const uint32_t v_base = smem_u32(smem + L::kV + st * L::kKvTile);
+    mbar_wait_fault(&full_v[st], ph);
+    fence_regs(acc);
+    fence_regs(p);
+    wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int i = 0; i < D / 8; i += 2) {
-        uint32_t bb[4];
-        load_b_cols<LD>(bb, cV, i * 8, kc * 16, lane);
-        mma(acc[i], pa, bb[0], bb[1]);
-        mma(acc[i + 1], pa, bb[2], bb[3]);
-      }
-    }
-    __syncthreads();  // the next prefetch overwrites this stage
+    for (int kc = 0; kc < kTile / 16; ++kc)
+      Wgmma<D>::rs_mn(acc, &p[4 * kc], mnstep(v_base, kTile, kc), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[st]);
   }
 
+  if (qw0 >= S) return;
   l_a = quad_sum(l_a);
   l_b = quad_sum(l_b);
-  const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
-  bf16* oa = o + base + row_a * stride + t * 2;
-  bf16* ob = o + base + row_b * stride + t * 2;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    *reinterpret_cast<uint32_t*>(oa + i * 8) = pack_bf16(acc[i][0] * inv_a, acc[i][1] * inv_a);
-    *reinterpret_cast<uint32_t*>(ob + i * 8) = pack_bf16(acc[i][2] * inv_b, acc[i][3] * inv_b);
-  }
+  const long long stride = static_cast<long long>(H) * D;
+  const long long base = static_cast<long long>(b) * S * stride + static_cast<long long>(h) * D;
+  emit_row<D>(o + base + row_a * stride + t * 2, acc, 0, 1.f / l_a);
+  emit_row<D>(o + base + row_b * stride + t * 2, acc, 1, 1.f / l_b);
   if (t == 0) {
     float* lrow = lse + static_cast<long long>(bh) * S;
-    lrow[row_a] = m_a + logf(l_a);
-    lrow[row_b] = m_b + logf(l_b);
+    lrow[row_a] = m_a * kLn2 + logf(l_a);  // m back to natural-log units
+    lrow[row_b] = m_b * kLn2 + logf(l_b);
   }
 }
 
@@ -296,327 +378,450 @@ __global__ void __launch_bounds__(256)
 }
 
 // ------------------------------------------------------------ backward: dK, dV
-// Grid (KV tiles of 64 keys, B*H), 8 warps. Warp w owns keys 16 (w % 4).. of
-// the tile; warps 0-3 accumulate dV, warps 4-7 dK. Both walk the query steps
-// that can see the tile, 32 queries at a time:
-//   P^T = exp(cap(K Q^T) - lse), dV += P^T dO           (warps 0-3)
-//   dP^T = V dO^T, dS^T = P^T (dP^T - delta) (1 - tanh^2), dK += dS^T Q
-//                                                        (warps 4-7)
-// Shared memory: the K and V tiles, and two stages of the Q and dO steps.
-template <int D>
-__global__ void __launch_bounds__(kDkdvThreads)
-    splash_bwd_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const int* __restrict__ seg,
-                    const bf16* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, int S, int H, int window, float softcap) {
-  constexpr int LD = D + 8;
-  constexpr int kQElems = kBwdQStep * LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);  // [kKvTileBwd * LD]
-  bf16* sV = sK + kKvTileBwd * LD;           // [kKvTileBwd * LD]
-  bf16* sQ = sV + kKvTileBwd * LD;           // [2][kQElems]
-  bf16* sdO = sQ + 2 * kQElems;              // [2][kQElems]
+constexpr int kBarPReady = 1;     // named barriers kBarPReady + buffer: P^T written
+constexpr int kBarPConsumed = 3;  // kBarPConsumed + buffer: P^T read
 
+template <int D>
+struct DkdvSmem {
+  static constexpr int kStages = stages<D>();
+  static constexpr int kTileB = tile_bytes<D>(kTile);   // K, V; a Q or dO step
+  static constexpr int kP = kTile * kTile * 4;          // P^T (times the cap's factor), f32
+  static constexpr int kVec = kTile * 4;                // a step's f32 or int32 row vector
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kTileB;
+  static constexpr int kQ = kV + kTileB;                // [kStages]
+  static constexpr int kDo = kQ + kStages * kTileB;     // [kStages]
+  static constexpr int kPt = kDo + kStages * kTileB;    // [2]
+  static constexpr int kLse = kPt + 2 * kP;             // [kStages]
+  static constexpr int kDelta = kLse + kStages * kVec;  // [kStages]
+  static constexpr int kSeg = kDelta + kStages * kVec;  // [kStages]
+  static constexpr int kBar = kSeg + kStages * kVec;
+  static constexpr int kBars = 1 + 2 * kStages;         // kv, full, empty
+  static constexpr int kBytes = kBar + 8 * kBars + 1024;
+};
+
+// Grid (S / 64, B*H). The CTA owns 64 keys and walks the 64-row query steps
+// that can see them, from its diagonal to the window's end:
+//   dV warpgroup: P^T = exp(cap(K Q^T) - lse) (masked: 0), dV += P^T dO;
+//   dK warpgroup: dP^T = V dO^T, dS^T = P^T (1 - tanh^2) (dP^T - delta),
+//                 dK += dS^T Q.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    splash_bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do, const int* __restrict__ seg,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int window,
+                    float softcap) {
+  using L = DkdvSmem<D>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + kStages;
+
+  const int k0 = blockIdx.x * kTile;  // the longest causal walks first
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q_end = window > 0 ? min(S, k0 + kTile - 1 + window) : S;
+  const int n_q = (q_end - k0 + kTile - 1) / kTile;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int role = warpgroup();
+  if (role == 0) {  // producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(bar_kv, 2 * L::kTileB);
+      tma_tile<D>(smem + L::kK, &tm_k, bar_kv, kTile, h, k0, b);
+      tma_tile<D>(smem + L::kV, &tm_v, bar_kv, kTile, h, k0, b);
+      const long long row0 = static_cast<long long>(bh) * S;
+      for (int i = 0; i < n_q; ++i) {
+        const int st = i % kStages, q0 = k0 + i * kTile;
+        if (i >= kStages) mbar_wait_fault(&empty[st], ((i / kStages) - 1) & 1);
+        mbar_arrive_expect_tx(&full[st],
+                              2 * L::kTileB + 2 * L::kVec + (seg == nullptr ? 0 : L::kVec));
+        tma_tile<D>(smem + L::kQ + st * L::kTileB, &tm_q, &full[st], kTile, h, q0, b);
+        tma_tile<D>(smem + L::kDo + st * L::kTileB, &tm_do, &full[st], kTile, h, q0, b);
+        bulk_load(smem + L::kLse + st * L::kVec, lse + row0 + q0, L::kVec, &full[st]);
+        bulk_load(smem + L::kDelta + st * L::kVec, delta + row0 + q0, L::kVec, &full[st]);
+        if (seg != nullptr)
+          bulk_load(smem + L::kSeg + st * L::kVec, seg + static_cast<long long>(b) * S + q0,
+                    L::kVec, &full[st]);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int ct = (threadIdx.x - 128) & 127;
+  const int warp = ct >> 5, lane = ct & 31, g = lane >> 2, t = lane & 3;
+  const int key_a = k0 + warp * 16 + g, key_b = key_a + 8;
+  const bool dv_group = role == 1;
+  float acc[D / 2];  // dV (dV warpgroup) or dK (dK warpgroup)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // P^T in fragment order: buffer [i & 1], value j of thread ct at j * 128 + ct.
+  float* p_buf = reinterpret_cast<float*>(smem + L::kPt);
+
+  mbar_wait_fault(bar_kv, 0);
+  if (dv_group) {
+    const int* seg_row = seg == nullptr ? nullptr : seg + static_cast<long long>(b) * S;
+    const int seg_ka = seg_row == nullptr ? 0 : seg_row[key_a];
+    const int seg_kb = seg_row == nullptr ? 0 : seg_row[key_b];
+    const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
+    const uint32_t k_base = smem_u32(smem + L::kK);
+    for (int i = 0; i < n_q; ++i) {
+      const int st = i % kStages, q0 = k0 + i * kTile;
+      const uint32_t q_base = smem_u32(smem + L::kQ + st * L::kTileB);
+      const uint32_t do_base = smem_u32(smem + L::kDo + st * L::kTileB);
+      const float* s_lse = reinterpret_cast<const float*>(smem + L::kLse) + st * kTile;
+      const int* s_seg =
+          seg == nullptr ? nullptr : reinterpret_cast<const int*>(smem + L::kSeg) + st * kTile;
+      mbar_wait_fault(&full[st], (i / kStages) & 1);
+
+      // S^T = K . Q^T: 64 keys x 64 queries, uncapped.
+      float sp[kTile / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<kTile>::ss(sp, kstep(k_base, kTile, kk), kstep(q_base, kTile, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sp);
+
+      // P^T = exp(cap(S^T) - lse[query]), 0 where masked; the dK warpgroup
+      // gets P^T (1 - tanh^2) once it has read this buffer's last use.
+      float* pt = p_buf + (i & 1) * (kTile * kTile);
+      if (i >= 2) named_bar_sync(kBarPConsumed + (i & 1), kConsumers);
+      const bool masked = block_needs_mask(q0, k0, window, s_seg != nullptr);
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qi = j * 8 + t * 2 + c, query = q0 + qi;
+          float th_a, th_b;
+          const float ca = soft_cap(sp[4 * j + c], softcap, inv_cap, th_a);
+          const float cb = soft_cap(sp[4 * j + 2 + c], softcap, inv_cap, th_b);
+          bool keep_a = true, keep_b = true;
+          if (masked) {
+            const int sq = s_seg == nullptr ? 0 : s_seg[qi];
+            keep_a = visible(query - key_a, window, sq == seg_ka);
+            keep_b = visible(query - key_b, window, sq == seg_kb);
+          }
+          const float ls = s_lse[qi];
+          const float p_a = keep_a ? __expf(ca - ls) : 0.f;
+          const float p_b = keep_b ? __expf(cb - ls) : 0.f;
+          pt[(4 * j + c) * 128 + ct] = p_a * (1.f - th_a * th_a);
+          pt[(4 * j + 2 + c) * 128 + ct] = p_b * (1.f - th_b * th_b);
+          sp[4 * j + c] = p_a;
+          sp[4 * j + 2 + c] = p_b;
+        }
+      }
+      named_bar_arrive(kBarPReady + (i & 1), kConsumers);
+
+      // dV += P^T . dO (dO read MN-major).
+      uint32_t pf[kTile / 4];
+      to_a_frags<kTile>(pf, sp);
+      fence_regs(pf);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kTile / 16; ++kc)
+        Wgmma<D>::rs_mn(acc, &pf[4 * kc], mnstep(do_base, kTile, kc), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[st]);
+    }
+    // Balance the dK warpgroup's last two arrivals on the consumed barriers.
+    for (int i = max(n_q, 2); i < n_q + 2; ++i)
+      named_bar_sync(kBarPConsumed + (i & 1), kConsumers);
+  } else {
+    const uint32_t v_base = smem_u32(smem + L::kV);
+    for (int i = 0; i < n_q; ++i) {
+      const int st = i % kStages;
+      const uint32_t q_base = smem_u32(smem + L::kQ + st * L::kTileB);
+      const uint32_t do_base = smem_u32(smem + L::kDo + st * L::kTileB);
+      const float* s_delta = reinterpret_cast<const float*>(smem + L::kDelta) + st * kTile;
+      mbar_wait_fault(&full[st], (i / kStages) & 1);
+
+      // dP^T = V . dO^T: 64 keys x 64 queries.
+      float dpt[kTile / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<kTile>::ss(dpt, kstep(v_base, kTile, kk), kstep(do_base, kTile, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dpt);
+
+      // dS^T = P^T (1 - tanh^2) (dP^T - delta[query]).
+      const float* pt = p_buf + (i & 1) * (kTile * kTile);
+      named_bar_sync(kBarPReady + (i & 1), kConsumers);
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float dl = s_delta[j * 8 + t * 2 + c];
+          dpt[4 * j + c] = pt[(4 * j + c) * 128 + ct] * (dpt[4 * j + c] - dl);
+          dpt[4 * j + 2 + c] = pt[(4 * j + 2 + c) * 128 + ct] * (dpt[4 * j + 2 + c] - dl);
+        }
+      }
+      named_bar_arrive(kBarPConsumed + (i & 1), kConsumers);
+
+      // dK += dS^T . Q (Q read MN-major).
+      uint32_t da[kTile / 4];
+      to_a_frags<kTile>(da, dpt);
+      fence_regs(da);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kTile / 16; ++kc)
+        Wgmma<D>::rs_mn(acc, &da[4 * kc], mnstep(q_base, kTile, kc), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[st]);
+    }
+  }
+
+  bf16* out = dv_group ? dv : dk;
   const long long stride = static_cast<long long>(H) * D;
   const long long base = static_cast<long long>(b) * S * stride + static_cast<long long>(h) * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bool dk_group = warp >= 4;
-  const int wk = (warp & 3) * 16;  // this warp's first key within the tile
-  const int k0 = blockIdx.x * kKvTileBwd;
-  const int* seg_row = seg == nullptr ? nullptr : seg + static_cast<long long>(b) * S;
-  const float* lse_row = lse + static_cast<long long>(bh) * S;
-  const float* delta_row = delta + static_cast<long long>(bh) * S;
-
-  // Queries that can see the tile: from its diagonal to the last one whose
-  // window still reaches its last key.
-  const int q_first = k0;
-  const int q_end = window > 0 ? min(S, k0 + kKvTileBwd - 1 + window) : S;
-  load_tile<D, kDkdvThreads>(sK, k + base + k0 * stride, stride, kKvTileBwd);
-  load_tile<D, kDkdvThreads>(sV, v + base + k0 * stride, stride, kKvTileBwd);
-  load_tile<D, kDkdvThreads>(sQ, q + base + q_first * stride, stride, kBwdQStep);
-  load_tile<D, kDkdvThreads>(sdO, dout + base + q_first * stride, stride, kBwdQStep);
-  cp_async_commit();
-
-  const int key_a = k0 + wk + g, key_b = key_a + 8;
-  const int seg_ka = seg_row == nullptr ? 0 : seg_row[key_a];
-  const int seg_kb = seg_row == nullptr ? 0 : seg_row[key_b];
-  float acc[D / 8][4];  // dK or dV of this warp's 16 keys
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int q0 = q_first, step = 0; q0 < q_end; q0 += kBwdQStep, ++step) {
-    const bf16* cQ = sQ + (step & 1) * kQElems;
-    const bf16* cdO = sdO + (step & 1) * kQElems;
-    if (q0 + kBwdQStep < q_end) {  // prefetch the next query step into the other stage
-      const long long next = static_cast<long long>(q0 + kBwdQStep) * stride;
-      load_tile<D, kDkdvThreads>(sQ + ((step + 1) & 1) * kQElems, q + base + next, stride,
-                                 kBwdQStep);
-      load_tile<D, kDkdvThreads>(sdO + ((step + 1) & 1) * kQElems, dout + base + next, stride,
-                                 kBwdQStep);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // S^T = K_w Q^T: 16 keys x 32 queries, uncapped.
-    float st[kBwdQStep / 8][4], dpt[kBwdQStep / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBwdQStep / 8; ++n) {
-      st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
-      dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4];
-      load_a<LD>(ka, sK, wk, kk * 16, lane);
-#pragma unroll
-      for (int n = 0; n < kBwdQStep / 8; n += 2) {
-        uint32_t bb[4];
-        load_b_rows<LD>(bb, cQ, n * 8, kk * 16, lane);
-        mma(st[n], ka, bb[0], bb[1]);
-        mma(st[n + 1], ka, bb[2], bb[3]);
-      }
-    }
-    if (dk_group) {  // dP^T = V_w dO^T: 16 keys x 32 queries.
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t va[4];
-        load_a<LD>(va, sV, wk, kk * 16, lane);
-#pragma unroll
-        for (int n = 0; n < kBwdQStep / 8; n += 2) {
-          uint32_t bb[4];
-          load_b_rows<LD>(bb, cdO, n * 8, kk * 16, lane);
-          mma(dpt[n], va, bb[0], bb[1]);
-          mma(dpt[n + 1], va, bb[2], bb[3]);
-        }
-      }
-    }
-    // P^T, or dS^T = P^T (dP^T - delta[query]) (1 - tanh^2).
-    const bool masked = block_needs_mask(q0, kBwdQStep, k0 + wk, 16, window, seg_row != nullptr);
-#pragma unroll
-    for (int n = 0; n < kBwdQStep / 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int query = q0 + n * 8 + t * 2 + j;
-        const float ls = lse_row[query];
-        float th_a, th_b;
-        const float ca = soft_cap(st[n][j], softcap, th_a);
-        const float cb = soft_cap(st[n][2 + j], softcap, th_b);
-        bool keep_a = true, keep_b = true;
-        if (masked) {
-          const int seg_q = seg_row == nullptr ? 0 : seg_row[query];
-          keep_a = visible(query - key_a, window, seg_ka == seg_q);
-          keep_b = visible(query - key_b, window, seg_kb == seg_q);
-        }
-        float pa = keep_a ? __expf(ca - ls) : 0.f;
-        float pb = keep_b ? __expf(cb - ls) : 0.f;
-        if (dk_group) {
-          const float dl = delta_row[query];
-          pa *= dpt[n][j] - dl;
-          pb *= dpt[n][2 + j] - dl;
-          if (softcap > 0.f) {
-            pa *= 1.f - th_a * th_a;
-            pb *= 1.f - th_b * th_b;
-          }
-        }
-        st[n][j] = pa;
-        st[n][2 + j] = pb;
-      }
-    }
-    // dV += P^T dO, or dK += dS^T Q: 16 keys x D over 32 queries.
-    const bf16* rhs = dk_group ? cQ : cdO;
-#pragma unroll
-    for (int kc = 0; kc < kBwdQStep / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(st[2 * kc][0], st[2 * kc][1]),
-                              pack_bf16(st[2 * kc][2], st[2 * kc][3]),
-                              pack_bf16(st[2 * kc + 1][0], st[2 * kc + 1][1]),
-                              pack_bf16(st[2 * kc + 1][2], st[2 * kc + 1][3])};
-#pragma unroll
-      for (int i = 0; i < D / 8; i += 2) {
-        uint32_t bb[4];
-        load_b_cols<LD>(bb, rhs, i * 8, kc * 16, lane);
-        mma(acc[i], pa, bb[0], bb[1]);
-        mma(acc[i + 1], pa, bb[2], bb[3]);
-      }
-    }
-    __syncthreads();  // the next prefetch overwrites this stage
-  }
-
-  bf16* out = dk_group ? dk : dv;
-  bf16* pa_ = out + base + key_a * stride + t * 2;
-  bf16* pb_ = out + base + key_b * stride + t * 2;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    *reinterpret_cast<uint32_t*>(pa_ + i * 8) = pack_bf16(acc[i][0], acc[i][1]);
-    *reinterpret_cast<uint32_t*>(pb_ + i * 8) = pack_bf16(acc[i][2], acc[i][3]);
-  }
+  emit_row<D>(out + base + key_a * stride + t * 2, acc, 0, 1.f);
+  emit_row<D>(out + base + key_b * stride + t * 2, acc, 1, 1.f);
 }
 
 // ------------------------------------------------------------ backward: dQ
-// Grid (query tiles, B*H). Each warp owns 16 queries and walks the KV tiles
-// they can see: P = exp(cap(Q K^T) - lse), dP = dO V^T,
-// dS = P (dP - delta) (1 - tanh^2), dQ += dS K. Shared memory: the Q and dO
-// tiles, and two stages of the K and V tiles.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    splash_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const int* __restrict__ seg,
-                  const bf16* __restrict__ dout, const float* __restrict__ lse,
-                  const float* __restrict__ delta, bf16* __restrict__ dq, int S, int H,
-                  int window, float softcap) {
-  constexpr int LD = D + 8;
-  constexpr int BK = kv_tile<D>();
-  constexpr int kKvElems = BK * LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [kQTile * LD]
-  bf16* sdO = sQ + kQTile * LD;              // [kQTile * LD]
-  bf16* sK = sdO + kQTile * LD;              // [2][kKvElems]
-  bf16* sV = sK + 2 * kKvElems;              // [2][kKvElems]
+struct DqSmem {
+  static constexpr int kKStages = 2;
+  static constexpr int kVStages = D == 256 ? 1 : 2;     // shared memory holds one at D = 256
+  static constexpr int kOwn = tile_bytes<D>(kRows);     // Q, dO: 128 queries
+  static constexpr int kTileB = tile_bytes<D>(kTile);   // K, V: 64 keys
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQ + kOwn;
+  static constexpr int kK = kDo + kOwn;                 // [kKStages]
+  static constexpr int kV = kK + kKStages * kTileB;     // [kVStages]
+  static constexpr int kSeg = kV + kVStages * kTileB;   // int [kKStages][kTile]
+  static constexpr int kBar = kSeg + kKStages * kTile * 4;
+  static constexpr int kBars = 1 + 2 * kKStages + 2 * kVStages;  // q, full/empty K, V
+  static constexpr int kBytes = kBar + 8 * kBars + 1024;
+};
 
-  const int qt = S / kQTile - 1 - blockIdx.x;  // heaviest causal tiles first
+// Grid (ceil(S / 128), B*H). Each consumer warpgroup owns 64 of the CTA's
+// 128 queries and walks the 64-key tiles they can see: P = exp(cap(Q K^T) -
+// lse), dP = dO V^T, dS = P (dP - delta) (1 - tanh^2), dQ += dS K.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    splash_bwd_dq(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_do, const int* __restrict__ seg,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  bf16* __restrict__ dq, int S, int H, int window, float softcap) {
+  using L = DqSmem<D>;
+  constexpr int kKStages = L::kKStages, kVStages = L::kVStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* empty_k = full_k + kKStages;
+  uint64_t* full_v = empty_k + kKStages;
+  uint64_t* empty_v = full_v + kVStages;
+
+  const int n_qt = (S + kRows - 1) / kRows;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kRows;  // heaviest causal tiles first
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const long long stride = static_cast<long long>(H) * D;
-  const long long base = static_cast<long long>(b) * S * stride + static_cast<long long>(h) * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kQTile;
-  const int* seg_row = seg == nullptr ? nullptr : seg + static_cast<long long>(b) * S;
+  const int kt_lo = first_kv_tile(q0, window);
+  const int n_kv = (min(q0 + kRows, S) - 1) / kTile - kt_lo + 1;
 
-  const int kt_lo = first_kv_tile(q0, window, BK), kt_hi = (q0 + kQTile - 1) / BK;
-  load_tile<D, kThreads>(sQ, q + base + q0 * stride, stride, kQTile);
-  load_tile<D, kThreads>(sdO, dout + base + q0 * stride, stride, kQTile);
-  load_tile<D, kThreads>(sK, k + base + kt_lo * BK * stride, stride, BK);
-  load_tile<D, kThreads>(sV, v + base + kt_lo * BK * stride, stride, BK);
-  cp_async_commit();
-  const int wq0 = q0 + warp * 16;
-  const int row_a = wq0 + g, row_b = row_a + 8;
-  const int seg_a = seg_row == nullptr ? 0 : seg_row[row_a];
-  const int seg_b = seg_row == nullptr ? 0 : seg_row[row_b];
-  const float lse_a = lse[static_cast<long long>(bh) * S + row_a];
-  const float lse_b = lse[static_cast<long long>(bh) * S + row_b];
-  const float dl_a = delta[static_cast<long long>(bh) * S + row_a];
-  const float dl_b = delta[static_cast<long long>(bh) * S + row_b];
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) dq_acc[i][0] = dq_acc[i][1] = dq_acc[i][2] = dq_acc[i][3] = 0.f;
-
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * BK, stage = (kt - kt_lo) & 1;
-    const bf16* cK = sK + stage * kKvElems;
-    const bf16* cV = sV + stage * kKvElems;
-    if (kt < kt_hi) {  // prefetch the next tile into the other stage
-      const long long next = static_cast<long long>(k0 + BK) * stride;
-      load_tile<D, kThreads>(sK + (stage ^ 1) * kKvElems, k + base + next, stride, BK);
-      load_tile<D, kThreads>(sV + (stage ^ 1) * kKvElems, v + base + next, stride, BK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kKStages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&empty_k[s], kConsumers);
     }
-    __syncthreads();
-
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+    for (int s = 0; s < kVStages; ++s) {
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_v[s], kConsumers);
     }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a<LD>(qa, sQ, warp * 16, kk * 16, lane);
-      load_a<LD>(da, sdO, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int n = 0; n < BK / 8; n += 2) {
-        uint32_t bb[4];
-        load_b_rows<LD>(bb, cK, n * 8, kk * 16, lane);
-        mma(s[n], qa, bb[0], bb[1]);
-        mma(s[n + 1], qa, bb[2], bb[3]);
-        load_b_rows<LD>(bb, cV, n * 8, kk * 16, lane);
-        mma(dp[n], da, bb[0], bb[1]);
-        mma(dp[n + 1], da, bb[2], bb[3]);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int role = warpgroup();
+  if (role == 0) {  // producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(bar_q, 2 * L::kOwn);
+      tma_tile<D>(smem + L::kQ, &tm_q, bar_q, kRows, h, q0, b);
+      tma_tile<D>(smem + L::kDo, &tm_do, bar_q, kRows, h, q0, b);
+      const int seg_bytes = seg == nullptr ? 0 : kTile * 4;
+      for (int i = 0; i < n_kv; ++i) {
+        const int sk = i % kKStages, sv = i % kVStages, k0 = (kt_lo + i) * kTile;
+        if (i >= kKStages) mbar_wait_fault(&empty_k[sk], ((i / kKStages) - 1) & 1);
+        mbar_arrive_expect_tx(&full_k[sk], L::kTileB + seg_bytes);
+        tma_tile<D>(smem + L::kK + sk * L::kTileB, &tm_k, &full_k[sk], kTile, h, k0, b);
+        if (seg_bytes)
+          bulk_load(smem + L::kSeg + sk * kTile * 4, seg + static_cast<long long>(b) * S + k0,
+                    seg_bytes, &full_k[sk]);
+        if (i >= kVStages) mbar_wait_fault(&empty_v[sv], ((i / kVStages) - 1) & 1);
+        mbar_arrive_expect_tx(&full_v[sv], L::kTileB);
+        tma_tile<D>(smem + L::kV + sv * L::kTileB, &tm_v, &full_v[sv], kTile, h, k0, b);
       }
     }
-    const bool masked = block_needs_mask(wq0, 16, k0, BK, window, seg_row != nullptr);
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int ct = threadIdx.x - 128, wg = role - 1;
+  const int warp = (ct >> 5) & 3, lane = ct & 31, g = lane >> 2, t = lane & 3;
+  const int qw0 = q0 + wg * 64;
+  const int row_a = qw0 + warp * 16 + g, row_b = row_a + 8;
+  const int kt_first = first_kv_tile(qw0, window), kt_last = qw0 < S ? qw0 / kTile : -1;
+  const bool real = qw0 < S;
+  const long long row0 = static_cast<long long>(bh) * S;
+  const int* seg_row = seg == nullptr ? nullptr : seg + static_cast<long long>(b) * S;
+  const int seg_a = (seg_row != nullptr && real) ? seg_row[row_a] : 0;
+  const int seg_b = (seg_row != nullptr && real) ? seg_row[row_b] : 0;
+  const float lse_a = real ? lse[row0 + row_a] : 0.f, lse_b = real ? lse[row0 + row_b] : 0.f;
+  const float dl_a = real ? delta[row0 + row_a] : 0.f, dl_b = real ? delta[row0 + row_b] : 0.f;
+  const uint32_t q_base = smem_u32(smem + L::kQ) + wg * 64 * 128;
+  const uint32_t do_base = smem_u32(smem + L::kDo) + wg * 64 * 128;
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
+
+  float dq_acc[D / 2];
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+
+  mbar_wait_fault(bar_q, 0);
+  for (int i = 0; i < n_kv; ++i) {
+    const int sk = i % kKStages, sv = i % kVStages, kt = kt_lo + i, k0 = kt * kTile;
+    const uint32_t phk = (i / kKStages) & 1, phv = (i / kVStages) & 1;
+    mbar_wait_fault(&full_k[sk], phk);
+    if (kt < kt_first || kt > kt_last) {  // a tile only the other consumer's rows see
+      mbar_wait_fault(&full_v[sv], phv);
+      mbar_arrive(&empty_v[sv]);
+      mbar_arrive(&empty_k[sk]);
+      continue;
+    }
+    const uint32_t k_base = smem_u32(smem + L::kK + sk * L::kTileB);
+    const uint32_t v_base = smem_u32(smem + L::kV + sv * L::kTileB);
+
+    // S = Q_w . K^T: 64 rows x 64 keys; P (1 - tanh^2) in its registers.
+    float s[kTile / 2];
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key = k0 + n * 8 + t * 2 + j;
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<kTile>::ss(s, kstep(q_base, kRows, kk), kstep(k_base, kTile, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    const bool masked = block_needs_mask(qw0, k0, window, seg != nullptr);
+    const int* s_seg =
+        seg == nullptr ? nullptr : reinterpret_cast<const int*>(smem + L::kSeg) + sk * kTile;
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int kidx = j * 8 + t * 2 + c, key = k0 + kidx;
         float th_a, th_b;
-        const float ca = soft_cap(s[n][j], softcap, th_a);
-        const float cb = soft_cap(s[n][2 + j], softcap, th_b);
+        const float ca = soft_cap(s[4 * j + c], softcap, inv_cap, th_a);
+        const float cb = soft_cap(s[4 * j + 2 + c], softcap, inv_cap, th_b);
         bool keep_a = true, keep_b = true;
         if (masked) {
-          const int seg_k = seg_row == nullptr ? 0 : seg_row[key];
-          keep_a = visible(row_a - key, window, seg_k == seg_a);
-          keep_b = visible(row_b - key, window, seg_k == seg_b);
+          const int skey = s_seg == nullptr ? 0 : s_seg[kidx];
+          keep_a = visible(row_a - key, window, skey == seg_a);
+          keep_b = visible(row_b - key, window, skey == seg_b);
         }
-        float da = keep_a ? __expf(ca - lse_a) * (dp[n][j] - dl_a) : 0.f;
-        float db = keep_b ? __expf(cb - lse_b) * (dp[n][2 + j] - dl_b) : 0.f;
-        if (softcap > 0.f) {
-          da *= 1.f - th_a * th_a;
-          db *= 1.f - th_b * th_b;
-        }
-        s[n][j] = da;
-        s[n][2 + j] = db;
+        s[4 * j + c] = keep_a ? __expf(ca - lse_a) * (1.f - th_a * th_a) : 0.f;
+        s[4 * j + 2 + c] = keep_b ? __expf(cb - lse_b) * (1.f - th_b * th_b) : 0.f;
       }
     }
+
+    // dP = dO_w . V^T, then dS = P (1 - tanh^2) (dP - delta).
+    float dp[kTile / 2];
+    mbar_wait_fault(&full_v[sv], phv);
+    wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      const uint32_t dsa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                               pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                               pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                               pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<kTile>::ss(dp, kstep(do_base, kRows, kk), kstep(v_base, kTile, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dp);
+    mbar_arrive(&empty_v[sv]);
 #pragma unroll
-      for (int i = 0; i < D / 8; i += 2) {
-        uint32_t bb[4];
-        load_b_cols<LD>(bb, cK, i * 8, kc * 16, lane);
-        mma(dq_acc[i], dsa, bb[0], bb[1]);
-        mma(dq_acc[i + 1], dsa, bb[2], bb[3]);
-      }
+    for (int j = 0; j < kTile / 8; ++j) {
+      s[4 * j + 0] *= dp[4 * j + 0] - dl_a;
+      s[4 * j + 1] *= dp[4 * j + 1] - dl_a;
+      s[4 * j + 2] *= dp[4 * j + 2] - dl_b;
+      s[4 * j + 3] *= dp[4 * j + 3] - dl_b;
     }
-    __syncthreads();  // the next prefetch overwrites this stage
-  }
+    uint32_t da[kTile / 4];
+    to_a_frags<kTile>(da, s);
 
-  bf16* da_ = dq + base + row_a * stride + t * 2;
-  bf16* db_ = dq + base + row_b * stride + t * 2;
+    // dQ += dS . K (K read MN-major).
+    fence_regs(da);
+    fence_regs(dq_acc);
+    wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    *reinterpret_cast<uint32_t*>(da_ + i * 8) = pack_bf16(dq_acc[i][0], dq_acc[i][1]);
-    *reinterpret_cast<uint32_t*>(db_ + i * 8) = pack_bf16(dq_acc[i][2], dq_acc[i][3]);
+    for (int kc = 0; kc < kTile / 16; ++kc)
+      Wgmma<D>::rs_mn(dq_acc, &da[4 * kc], mnstep(k_base, kTile, kc), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    mbar_arrive(&empty_k[sk]);
   }
+
+  if (!real) return;
+  const long long stride = static_cast<long long>(H) * D;
+  const long long base = static_cast<long long>(b) * S * stride + static_cast<long long>(h) * D;
+  emit_row<D>(dq + base + row_a * stride + t * 2, dq_acc, 0, 1.f);
+  emit_row<D>(dq + base + row_b * stride + t * 2, dq_acc, 1, 1.f);
 }
 
-template <int D>
-constexpr int fwd_smem_bytes() {
-  return (kQTile + 4 * kv_tile<D>()) * (D + 8) * 2;
-}
+// Tensor maps of q and dO (boxes of `q_rows` positions) and of k and v
+// (boxes of 64 keys).
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
 
 template <int D>
-constexpr int dkdv_smem_bytes() {
-  return (2 * kKvTileBwd + 4 * kBwdQStep) * (D + 8) * 2;
+int make_maps(Maps* m, const bf16* q, const bf16* k, const bf16* v, const bf16* dout, int B,
+              int S, int H, int q_rows) {
+  int err = encode_bshd_map(&m->q, q, B, S, H, D, q_rows);
+  if (err == 0) err = encode_bshd_map(&m->k, k, B, S, H, D, kTile);
+  if (err == 0) err = encode_bshd_map(&m->v, v, B, S, H, D, kTile);
+  if (err == 0 && dout != nullptr) err = encode_bshd_map(&m->dout, dout, B, S, H, D, q_rows);
+  return err;
 }
 
-template <int D>
-constexpr int dq_smem_bytes() {
-  return (2 * kQTile + 4 * kv_tile<D>()) * (D + 8) * 2;
+template <typename Kernel>
+int set_smem(Kernel kernel, int bytes) {
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
 template <int D>
 int fwd_launch(const bf16* q, const bf16* k, const bf16* v, const int* seg, bf16* o, float* lse,
                int B, int S, int H, int window, float softcap, cudaStream_t stream) {
-  constexpr int kSmem = fwd_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(splash_fwd<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  splash_fwd<D><<<dim3(S / kQTile, B * H), kThreads, kSmem, stream>>>(q, k, v, seg, o, lse, S, H,
-                                                                      window, softcap);
+  Maps m;
+  int err = make_maps<D>(&m, q, k, v, nullptr, B, S, H, kRows);
+  if (err == 0) err = set_smem(splash_fwd<D>, FwdSmem<D>::kBytes);
+  if (err != 0) return err;
+  splash_fwd<D><<<dim3((S + kRows - 1) / kRows, B * H), kThreads, FwdSmem<D>::kBytes, stream>>>(
+      m.q, m.k, m.v, seg, o, lse, S, H, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -627,24 +832,21 @@ int bwd_launch(const bf16* q, const bf16* k, const bf16* v, const int* seg, cons
   const long long rows = static_cast<long long>(B) * S * H;
   splash_bwd_delta<D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
       o, dout, delta, S, H, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
 
-  constexpr int kDkdvSmem = dkdv_smem_bytes<D>();
-  err = cudaFuncSetAttribute(splash_bwd_dkdv<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kDkdvSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  splash_bwd_dkdv<D><<<dim3(S / kKvTileBwd, B * H), kDkdvThreads, kDkdvSmem, stream>>>(
-      q, k, v, seg, dout, lse, delta, dk, dv, S, H, window, softcap);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  constexpr int kDqSmem = dq_smem_bytes<D>();
-  err = cudaFuncSetAttribute(splash_bwd_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kDqSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  splash_bwd_dq<D><<<dim3(S / kQTile, B * H), kThreads, kDqSmem, stream>>>(
-      q, k, v, seg, dout, lse, delta, dq, S, H, window, softcap);
+  Maps m;
+  err = make_maps<D>(&m, q, k, v, dout, B, S, H, kTile);
+  if (err == 0) err = set_smem(splash_bwd_dkdv<D>, DkdvSmem<D>::kBytes);
+  if (err != 0) return err;
+  splash_bwd_dkdv<D><<<dim3(S / kTile, B * H), kThreads, DkdvSmem<D>::kBytes, stream>>>(
+      m.q, m.k, m.v, m.dout, seg, lse, delta, dk, dv, S, H, window, softcap);
+  err = static_cast<int>(cudaGetLastError());
+  if (err == 0) err = make_maps<D>(&m, q, k, v, dout, B, S, H, kRows);
+  if (err == 0) err = set_smem(splash_bwd_dq<D>, DqSmem<D>::kBytes);
+  if (err != 0) return err;
+  splash_bwd_dq<D><<<dim3((S + kRows - 1) / kRows, B * H), kThreads, DqSmem<D>::kBytes,
+                     stream>>>(m.q, m.k, m.v, m.dout, seg, lse, delta, dq, S, H, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,13 +5,19 @@
     python3 chip_smoke.py --profile  # adds torch.profiler passes over one
                                      # serving wave, one Llama and one
                                      # Gemma-2 training step
+    python3 chip_smoke.py --splash-times  # only the splash kernels' times at
+                                     # Gemma-2-9B's layers (to set two trees
+                                     # side by side in one run: copy this
+                                     # script beside the other tree's package)
 
 Phases, in order; any failure exits non-zero and nothing is caught:
 
 1. Build every CUDA source of ``accelerate_tpu_torch/csrc`` with nvcc for
-   sm_90a (one nvcc per source, all started together), log each flash
-   kernel's registers and spills (``-Xptxas -v``), and print the card's
-   name and power limit.
+   sm_90a (one nvcc per source, all started together), log each flash and
+   splash kernel's registers and spills (``-Xptxas -v``; any spill fails
+   the phase) and the highest register each uses (``cuobjdump -sass``: the
+   consumers' share under ``setmaxnreg``), and print the card's name and
+   power limit.
 2. Op phase at the engine's shapes: the paged gather kernel, bf16 and
    int8-dequant-to-bf16, against its plain PyTorch version (bitwise on
    active slots, zeros on inactive ones), with times for the kernel, the
@@ -69,7 +75,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    against its plain version at Gemma-2-9B's local layer (B1, S8192, H16,
    D256, window 4096, softcap 50, scale 1/16), its global layer, the local
    layer with right padding, Mistral-7B-v0.1's attention (32 heads over 8 KV
-   heads of 128, window 4096), S=1024 (the crossover) and the padded local
+   heads of 128, window 4096), S=1024 (the crossover), a ragged S=1088
+   (an odd multiple of 64: the last 128-row query tile is half past the
+   end) padded with a window of 300, and the padded local
    layer on logits of standard deviation 16, which reach the cap, under
    flash's pins; on that last case the kernel without the softcap and the
    plain version without the cap's derivative must both miss the pins. Times for kernel, plain version and the library call
@@ -156,6 +164,9 @@ GEMMA2_9B = dict(vocab_size=256000, hidden_size=3584, intermediate_size=14336,
                  hidden_activation="gelu_pytorch_tanh")
 GEMMA2_LAYERS, GEMMA2_PAIR_LAYERS = 4, 2
 GEMMA2_BATCH, GEMMA2_SEQ = 1, 8192
+# Phase 8: the attention of one Gemma-2-9B layer at the training shape.
+GEMMA2_ATTENTION = dict(B=GEMMA2_BATCH, S=GEMMA2_SEQ, H=16, Hkv=8, D=256, scale=256 ** -0.5,
+                        softcap=50.0)
 # Phase 10: Llama-3-8B attention widths over a 4-rank ring.
 RING_RANKS, RING_SEQ, RING_SMALL_SEQ = 4, 32768, 4096
 RING_HEADS, RING_KV_HEADS, RING_HEAD_DIM = 32, 8, 128
@@ -196,6 +207,37 @@ def ptxas_summary(text: str) -> list:
             out.append(f"{entry}: {m.group(1)} registers, static shared memory "
                        f"{smem.group(1) if smem else 0} B, {spill}")
             entry, spill = None, ""
+    return out
+
+
+def check_no_spills(summary: list, name: str) -> None:
+    """Fails the run if ptxas spilled in any kernel of ``name``."""
+    for line in summary:
+        if "spill" in line and not line.endswith("spill stores 0 B, loads 0 B"):
+            raise SystemExit(f"build[{name}]: a kernel spills registers: {line}")
+
+
+def sass_registers(path) -> dict:
+    """The highest register each kernel of a built library uses, from
+    ``cuobjdump -sass`` (``Used N registers`` from ptxas is the launch
+    bound's share; code after ``setmaxnreg`` may use more)."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = -1
+            continue
+        if fn is not None:
+            for r in re.findall(r"\bR(\d+)\b", line):
+                out[fn] = max(out[fn], int(r))
     return out
 
 
@@ -1192,18 +1234,22 @@ def splash_op_phase():
     from accelerate_tpu_torch.ops.attention import splash_attention_reference
     from accelerate_tpu_torch.ops.kernels import splash_attention as sk
 
-    gemma = dict(B=1, S=GEMMA2_SEQ, H=16, Hkv=8, D=256, scale=256 ** -0.5, softcap=50.0)
+    gemma = GEMMA2_ATTENTION
     cases = [("gemma2-9b local", dict(gemma, window=4096, padded=False)),
              ("gemma2-9b global", dict(gemma, window=None, padded=False)),
              ("gemma2-9b local padded", dict(gemma, window=4096, padded=True)),
              ("mistral-7b", dict(B=1, S=8192, H=32, Hkv=8, D=128, scale=128 ** -0.5,
                                  softcap=None, window=4096, padded=False)),
              ("crossover S1024", dict(gemma, S=1024, window=4096, padded=False)),
+             # An odd multiple of 64: the last 128-row query tile is half
+             # past the end; a window that cuts tiles, and padding.
+             ("ragged S1088", dict(gemma, S=1088, window=300, padded=True, timed=False)),
              # Logits of standard deviation 16 against Gemma-2's cap of 50:
              # with unit logits the cap moves them by about l^3 / (3 cap^2),
              # below the pins, so only this case sees the softcap.
              ("gemma2-9b local, logits at the cap", dict(gemma, window=4096, padded=True,
-                                                          q_std=16.0, controls=True))]
+                                                          q_std=16.0, controls=True,
+                                                          timed=False))]
     rows = []
     for label, c in cases:
         B, S, H, D, window, softcap = c["B"], c["S"], c["H"], c["D"], c["window"], c["softcap"]
@@ -1230,15 +1276,16 @@ def splash_op_phase():
                 raise SystemExit(f"splash {label}: {name} relative error {rel} > {FLASH_BWD_REL}")
         bwd_err = float(max((a.grad.float() - b.grad.float()).abs().max()
                             for a, b in zip(leaves, ref_leaves)))
-        if c.get("controls"):  # checked, not timed
+        if not c.get("timed", True):  # checked, not timed
             log(f"op splash {label} (B{B} S{S} H{H} D{D}, window {window}, softcap {softcap}, "
                 f"{'padded' if seg is not None else 'unpadded'}, logit std "
-                f"{c['q_std'] * c['scale'] * math.sqrt(D):g}): fwd rel per query tile "
+                f"{c.get('q_std', 1.0) * c['scale'] * math.sqrt(D):g}): fwd rel per query tile "
                 f"{fwd_rel:.3e} (pin {FLASH_FWD_TILE_REL}; max|err| {fwd_err:.3e}), bwd rel "
                 f"{', '.join(f'{n} {e:.3e}' for n, e in bwd_rel.items())} (pin {FLASH_BWD_REL})")
             del leaves
             free_cuda()
-            softcap_controls(q, k, v, do, ref, ref_leaves, kw, real, label)
+            if c.get("controls"):
+                softcap_controls(q, k, v, do, ref, ref_leaves, kw, real, label)
             del q, k, v, do, seg, out, ref, ref_leaves
             free_cuda()
             continue
@@ -1277,12 +1324,11 @@ def splash_op_phase():
             f"{'padded' if seg is not None else 'unpadded'}): fwd rel per query tile "
             f"{fwd_rel:.3e} (pin {FLASH_FWD_TILE_REL}; max|err| {fwd_err:.3e}), bwd rel "
             f"{', '.join(f'{n} {e:.3e}' for n, e in bwd_rel.items())} (pin {FLASH_BWD_REL}); "
-            f"fwd kernel {t_fwd:.4f} ms (profiler sum {dev_fwd:.4f} ms, unreliable: it "
-            f"loses kernel records here), plain "
+            f"fwd kernel {t_fwd:.4f} ms (profiler sum {dev_fwd:.4f} ms), plain "
             f"{t_plain_fwd:.4f}, library {t_lib_fwd:.4f}, bound {fb:.4f} ({fby}, "
             f"{fwd_flops / 1e9:.1f} GFLOP, {pairs / H / 1e6:.2f}M visible pairs a head, "
             f"{fwd_flops / t_fwd / 1e9:.1f} TFLOP/s); bwd kernel {t_bwd:.4f} ms (profiler sum "
-            f"{dev_bwd:.4f}, unreliable), plain {t_plain_bwd:.4f}, library {t_lib_bwd:.4f}, bound {bb:.4f} "
+            f"{dev_bwd:.4f}), plain {t_plain_bwd:.4f}, library {t_lib_bwd:.4f}, bound {bb:.4f} "
             f"({bby}, {bwd_flops / t_bwd / 1e9:.1f} TFLOP/s); library: compiled "
             f"flex_attention, block mask and softcap score_mod")
         if not rows:  # Gemma-2-9B's local layer: the rows of the kernel table
@@ -1295,6 +1341,30 @@ def splash_op_phase():
         del q, k, v, do, seg, out, o, lse, lib_out, lib_leaves, call
         free_cuda()
     return rows
+
+
+def splash_times() -> dict:
+    """``--splash-times``: the splash kernels' forward and backward times
+    (CUDA events, 20 calls) at Gemma-2-9B's local and global layers, from
+    phase 8's inputs, and nothing else."""
+    import torch
+
+    from accelerate_tpu_torch.ops.kernels import splash_attention as sk
+
+    c = GEMMA2_ATTENTION
+    times = {}
+    for label, window in (("local", 4096), ("global", 0)):
+        q, k, v, do, _ = splash_case(c["B"], c["S"], c["H"], c["Hkv"], c["D"], c["scale"], False)
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: sk._forward(q, k, v, None, window, c["softcap"]), 20)
+        o, lse = sk._forward(q, k, v, None, window, c["softcap"])
+        bwd = cuda_ms(lambda: sk._backward(q, k, v, None, o, lse, do, window, c["softcap"]), 20)
+        times[label] = {"fwd_ms": fwd, "bwd_ms": bwd}
+        log(f"splash times {label} (B{c['B']} S{c['S']} H{c['H']} D{c['D']}, window "
+            f"{window or None}, softcap {c['softcap']}): fwd {fwd:.4f} ms, bwd {bwd:.4f} ms")
+        del q, k, v, do, o, lse
+        free_cuda()
+    return times
 
 
 def gemma2_train_phase(card):
@@ -1609,13 +1679,24 @@ def main(argv) -> int:
 
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
+    if "--splash-times" in argv:
+        _build.build(["splash_attention"])
+        card = card_info()
+        log(f"build: splash_attention in {time.perf_counter() - t0:.1f} s; device: {card}")
+        print(json.dumps({"splash_times": splash_times(), "card": card}))
+        return 0
     logs = _build.build(ptxas_info=True)
     log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.strip().splitlines():
             log(f"build[{name}]: {line}")
-    for line in ptxas_summary(logs.get("flash_attention", "")):
-        log(f"build[flash_attention] summary: {line}")
+    for name in ("flash_attention", "splash_attention"):
+        summary = ptxas_summary(logs.get(name, ""))
+        for line in summary:
+            log(f"build[{name}] summary: {line}")
+        check_no_spills(summary, name)
+        for fn, reg in sass_registers(_build.library_path(name)).items():
+            log(f"build[{name}] sass: {fn}: highest register R{reg}")
     card = card_info()
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
 

@@ -166,9 +166,11 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_library_name_hashes_the_shared_headers(monkeypatch, tmp_path):
     """A source's library name changes with any ``csrc/*.cuh``, so a header
     edit never loads a stale build; both attention sources include the
-    shared header."""
+    shared headers they use (the common helpers and the Hopper ones)."""
     for name in ("flash_attention", "splash_attention"):
-        assert '#include "attn_common.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "attn_common.cuh"' in text
+        assert '#include "hopper_common.cuh"' in text
     (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
     (tmp_path / "h.cuh").write_text("// one\n")
     monkeypatch.setattr(_build, "CSRC", tmp_path)
@@ -524,9 +526,10 @@ def _splash_run(fn, q, k, v, do, kw):
     (64, 256, None, None, False, 1.0),
     (256, 512, 128, 50.0, True, 16.0),
     (128, 320, 100, 5.0, False, 1.0),
+    (256, 1088, 300, 50.0, True, 1.0),
 ], ids=["d256-window-softcap", "d256-global-padded", "d256-first-tile-masked-padded",
         "d128-window-padded", "d128-first-tile-masked", "d64-causal",
-        "d256-logits-at-the-cap-padded", "d128-softcap-5"])
+        "d256-logits-at-the-cap-padded", "d128-softcap-5", "d256-ragged-1088-padded"])
 def test_splash_kernel_matches_plain_version_on_the_card(D, S, window, softcap, padded,
                                                          logit_std):
     """bf16 in and out, q pre-scaled. The kernel rounds P and dS to bf16 for
@@ -534,7 +537,8 @@ def test_splash_kernel_matches_plain_version_on_the_card(D, S, window, softcap, 
     relative Frobenius error <= 1e-2 in every (batch, head, 64-row query
     tile) block of real-token rows, gradients' <= 2e-2 (chip_smoke.py holds
     the Gemma-2-9B shapes to the same pins). A window of 100 makes rows whose
-    first visited KV tile is wholly masked for them. Unit logits barely
+    first visited KV tile is wholly masked for them; S=1088, an odd multiple
+    of 64, leaves the last 128-row query tile half past the end. Unit logits barely
     reach a cap of 20-50, so two cases make the cap bite: logits of standard
     deviation 16 against 50, and unit logits against 5."""
     _needs_card()
@@ -548,6 +552,24 @@ def test_splash_kernel_matches_plain_version_on_the_card(D, S, window, softcap, 
     assert fwd_rel <= FLASH_FWD_TILE_REL, fwd_rel
     for name, rel in splash_grad_rel(leaves, ref_leaves).items():
         assert rel <= FLASH_BWD_REL, (name, rel)
+
+
+@pytest.mark.cuda
+def test_splash_backward_is_deterministic_on_the_card():
+    """The splash backward has one writer per output element and no
+    atomics, so two runs on the same inputs agree bit for bit (ragged S,
+    padding, window and softcap at D=256)."""
+    _needs_card()
+    from accelerate_tpu_torch.ops.kernels import splash_attention as sk
+
+    (q, k, v, do), kw, _ = _splash_card_case(256, 1088, 300, 50.0, True)
+    runs = []
+    for _ in range(2):
+        o, lse = sk._forward(q, k, v, kw["segment_ids"], 300, 50.0)
+        runs.append((o, lse) + sk._backward(q, k, v, kw["segment_ids"], o, lse, do, 300, 50.0))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_plain_without_cap_derivative_drops_only_the_cap_derivative():
