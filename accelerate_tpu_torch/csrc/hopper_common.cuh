@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks for the attention kernels: mbarriers and
+// Hopper (sm_90a) building blocks for the attention kernels and the int8 matmul: mbarriers and
 // named barriers, TMA tile loads into 128-byte-swizzled shared memory, wgmma shared-memory
 // descriptors and the asynchronous warpgroup products (SS: both operands in
 // shared memory; RS: A in registers), setmaxnreg, and the tile helpers the
@@ -24,7 +24,11 @@
 // The host part, encode_bshd_map, reaches the driver's
 // cuTensorMapEncodeTiled through cudaGetDriverEntryPoint (ByVersion from
 // CUDA 12.5), so the libraries link against the runtime alone and need no
-// -lcuda.
+// -lcuda. encode_2d_map does the same for a row-major matrix.
+//
+// Thread block clusters (the int8 matmul): cluster_rank, the cluster-wide
+// barrier (cluster_sync), and loads from a peer CTA's shared memory
+// (cluster_ld_u32 at the address cluster_map gives).
 
 #pragma once
 
@@ -125,6 +129,50 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// One box of a 2-D tensor map (c0 the inner coordinate) into shared memory.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory accesses before later
+// async-proxy ones (TMA writes, wgmma reads) behind a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------------ clusters
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster arrives and waits: shared-memory
+// writes before it (local or remote) are visible to all of them after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of this CTA's shared address `addr` in the
+// CTA of rank `rank`.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_ld_u32(uint32_t cluster_addr) {
+  uint32_t v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(v) : "r"(cluster_addr) : "memory");
+  return v;
 }
 
 // A contiguous run of `bytes` (a multiple of 16, both ends 16-byte aligned)
@@ -457,6 +505,24 @@ inline int encode_bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int 
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Tensor map of a row-major (rows, cols) matrix of `type` with rows
+// `row_bytes` apart (a multiple of 16), read in boxes of box_cols x box_rows;
+// coordinates (col, row). Boxes past the edges read zeros.
+inline int encode_2d_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                         long long rows, long long cols, long long row_bytes, int box_cols,
+                         int box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

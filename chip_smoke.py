@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py            # what the checks need; a few minutes
-    python3 chip_smoke.py --profile  # adds torch.profiler passes over one
-                                     # serving wave, one Llama and one
-                                     # Gemma-2 training step
+    python3 chip_smoke.py --profile  # adds torch.profiler passes over a
+                                     # serving wave with bf16 weights and
+                                     # one with int8 weights, one Llama and
+                                     # one Gemma-2 training step
     python3 chip_smoke.py --splash-times  # only the splash kernels' times at
                                      # Gemma-2-9B's layers (to set two trees
                                      # side by side in one run: copy this
@@ -13,11 +14,11 @@
 Phases, in order; any failure exits non-zero and nothing is caught:
 
 1. Build every CUDA source of ``accelerate_tpu_torch/csrc`` with nvcc for
-   sm_90a (one nvcc per source, all started together), log each flash and
-   splash kernel's registers and spills (``-Xptxas -v``; any spill fails
-   the phase) and the highest register each uses (``cuobjdump -sass``: the
-   consumers' share under ``setmaxnreg``), and print the card's name and
-   power limit.
+   sm_90a (one nvcc per source, all started together), log each flash,
+   splash and int8 matmul kernel's registers and spills (``-Xptxas -v``; any
+   spill fails the phase) and the highest register each uses (``cuobjdump
+   -sass``: the consumers' share under ``setmaxnreg``), and print the card's
+   name and power limit.
 2. Op phase at the engine's shapes: the paged gather kernel, bf16 and
    int8-dequant-to-bf16, against its plain PyTorch version (bitwise on
    active slots, zeros on inactive ones), with times for the kernel, the
@@ -25,9 +26,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 2a. Op phase of the int8 matmul at the 7 Llama-3-8B projection shapes
    ((K, N) of 4096x4096, 4096x1024, 4096x14336, 14336x4096) for M = 8
    (a decode step over 8 slots) and M = 128 (a prefill chunk), bf16:
-   bitwise against its plain version; times for the kernel, the plain
-   version and ``torch._int_mm`` on pre-quantized operands (the
-   contraction only), beside the bound.
+   bitwise against its plain version; times for the kernel (CUDA events,
+   and device time from the profiler's raw records), the plain version,
+   ``torch._int_mm`` on pre-quantized operands (the contraction only) and
+   the bf16 ``x @ w`` (cuBLAS, which reads the same weight bytes), beside
+   the bound, with each cell's partition.
 2b. Op phase of the fused paged decode attention at the engine's geometry
    (8 slots, block 16, 32 heads over 8 KV heads of 128, M = 26 blocks a
    slot) and on 4096-token chains (M = 256): bf16 and int8 pools, ragged
@@ -263,23 +266,87 @@ def device_us(event) -> float:
             or getattr(event, "self_cuda_time_total", 0))
 
 
-def profiled_ms(fn, iters: int = 10) -> float:
-    """Device time of the CUDA kernels ``fn()`` launches, per call, summed
-    from ``torch.profiler``. ``cuda_ms`` times back-to-back calls between two
-    events, so for a kernel of tens of microseconds it counts the gaps in
-    which the card waits for the host's per-call work; this leaves them
-    out."""
+def device_records(prof) -> list:
+    """The profiler's raw device records, ``(name, kind, us)`` with kind
+    "kernel" or "copy" (memcpy, memset): what CUPTI reported, one record a
+    launch, before ``key_averages`` nests events into a tree and subtracts
+    the time of an event's children from its self time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
+    return [(e.name(), "copy" if e.name().startswith(("Memcpy", "Memset")) else "kernel",
+             e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()]
+
+
+def profile_calls(fn, iters: int = 10, warmup: bool = True) -> list:
+    """The raw device records (``device_records``) of ``iters`` calls of
+    ``fn`` (after one outside) under ``torch.profiler``. With ``warmup``
+    the profiler first traces one call in a cycle it discards
+    (``torch.profiler.schedule``), so the measured calls run under a trace
+    that is already recording."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    got = []
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=int(warmup), active=1),
+                 on_trace_ready=lambda prof: got.append(device_records(prof))) as prof:
+        if warmup:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(device_us(e) for e in events) / 1e3 / iters
+        prof.step()
+    return got[0]
+
+
+def profiled_ms(fn, kernels: int, iters: int = 10, label: str = "") -> float:
+    """Device time of the CUDA kernels ``fn()`` launches, per call, summed
+    from the raw records of ``torch.profiler`` over ``iters`` calls.
+    ``cuda_ms`` times back-to-back calls between two events, so for a kernel
+    of tens of microseconds it counts the gaps in which the card waits for
+    the host's per-call work; this leaves them out. ``kernels`` is the
+    number of kernels one call launches: fewer kernel records than
+    ``iters * kernels`` raise, so a lost record never passes as a shorter
+    time."""
+    records = profile_calls(fn, iters)
+    n_kernels = sum(a == "kernel" for _, a, _ in records)
+    if n_kernels < iters * kernels:
+        names = sorted({n[:60] for n, a, _ in records if a == "kernel"})
+        raise SystemExit(f"profiled_ms{' ' + label if label else ''}: {n_kernels} kernel records "
+                         f"for {iters} calls of {kernels} kernels each ({names})")
+    ms = sum(us for _, _, us in records) / 1e3 / iters
+    per_kernel = {}
+    for name, _, us in records:
+        per_kernel[name[:60]] = per_kernel.get(name[:60], 0.0) + us / 1e3 / iters
+    log(f"profiled_ms {label}: {n_kernels} kernel records, {ms:.4f} ms a call ("
+        + ", ".join(f"{n} {t:.4f}" for n, t in sorted(per_kernel.items(), key=lambda kv: -kv[1]))
+        + ")")
+    return ms
+
+
+def synced_ms(fn, iters: int = 10) -> float:
+    """Mean CUDA-event time of single calls of ``fn``, each between two
+    synchronizes: the card's time for a call, its launch included, with no
+    other work queued around it."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
 
 
 def engine_kwargs():
@@ -520,10 +587,23 @@ def int8_op_phase():
     import torch
 
     from accelerate_tpu_torch.ops.int8 import int8_matmul_reference, quantize_rowwise
-    from accelerate_tpu_torch.ops.kernels.int8_matmul import int8_matmul_cuda
+    from accelerate_tpu_torch.ops.kernels.int8_matmul import (
+        int8_matmul_cuda,
+        plan,
+        quotient_disagreements,
+    )
 
+    t0 = time.perf_counter()
+    bad, pairs = quotient_disagreements(stride=1)
+    if bad or pairs != (1 << 23) * 11 * 128:
+        raise SystemExit(f"int8_matmul self-check: the bf16 division disagrees with __fdiv_rn "
+                         f"for {bad} of {pairs} pairs")
+    log(f"op int8_matmul self-check: the bf16 division equals __fdiv_rn for all {pairs} pairs of "
+        f"a scale significand and a bf16 value with a quotient in [2^-3, 2^7] "
+        f"({time.perf_counter() - t0:.2f} s)")
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    row = None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    row, cells = None, []
     for M in (8, 128):
         for K, N in INT8_SHAPES:
             x = torch.randn((M, K), generator=g, device="cuda", dtype=torch.bfloat16)
@@ -542,19 +622,29 @@ def int8_op_phase():
             qa = qx if M > 16 else torch.cat([qx, qx.new_zeros((32 - M, K))])
             qb = qw.t().contiguous().t()
             t_kernel = cuda_ms(lambda: int8_matmul_cuda(x, w), 20)
-            t_device = profiled_ms(lambda: int8_matmul_cuda(x, w))
+            t_device = profiled_ms(lambda: int8_matmul_cuda(x, w), kernels=2,
+                                   label=f"int8_matmul M={M} K={K} N={N}")
             t_plain = cuda_ms(lambda: int8_matmul_reference(x, w), 5)
             t_lib = cuda_ms(lambda: torch._int_mm(qa, qb), 20)
+            t_bf16 = cuda_ms(lambda: x @ w, 20)  # cuBLAS: reads the same weight bytes
             moved = 2 * (M * K + K * N + M * N)  # bf16 x and w in, bf16 out
             t_bytes = moved / HBM_BYTES_PER_S * 1e3
             t_ops = 2 * M * N * K / INT8_OPS_PER_S * 1e3
             bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+            pl = plan(M, N, K, 2, sms)
             log(f"op int8_matmul M={M} K={K} N={N} bf16: bitwise equal; kernel "
                 f"{t_kernel:.4f} ms ({t_device:.4f} ms of device time, profiler), plain "
                 f"{t_plain:.4f} ms, library {t_lib:.4f} ms "
                 f"(torch._int_mm on pre-quantized operands{'' if M > 16 else ', 32 rows'}: the "
-                f"contraction only), bound {bound:.4f} ms ({by}, {moved / 1e6:.1f} MB, "
-                f"{moved / t_kernel / 1e9:.2f} TB/s achieved)")
+                f"contraction only), bf16 x @ w (cuBLAS) {t_bf16:.4f} ms, bound {bound:.4f} ms "
+                f"({by}, {moved / 1e6:.1f} MB, {moved / t_kernel / 1e9:.2f} TB/s achieved, "
+                f"{bound / t_kernel:.1%} of the bound); panels of {pl.nt} columns, clusters of "
+                f"{pl.cluster} CTAs x {pl.per} k blocks, tiles of {pl.mt} rows, {pl.ctas} CTAs "
+                f"of {pl.smem} B shared memory")
+            cells.append(dict(M=M, K=K, N=N, ms=round(t_kernel, 4), device_ms=round(t_device, 4),
+                              bound_ms=round(bound, 4), tb_s=round(moved / t_kernel / 1e9, 3),
+                              int_mm_ms=round(t_lib, 4), bf16_ms=round(t_bf16, 4),
+                              plain_ms=round(t_plain, 4)))
             if (M, K, N) == (8, 4096, 14336):
                 row = {"name": "int8_matmul", "route": "cuda",
                        "source": "accelerate_tpu_torch/csrc/int8_matmul.cu",
@@ -562,6 +652,7 @@ def int8_op_phase():
                        "max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
                        "bound_ms": bound, "bound_by": by, "library_ms": t_lib}
             del x, w, got, ref, qx, qw, qa, qb
+    log(f"op int8_matmul cells: {json.dumps(cells)}")
     free_cuda()
     return row
 
@@ -676,7 +767,8 @@ def paged_decode_phase(model_cfg, kw, engine_blocks: int, max_blocks: int):
             qt, kt, vt = c["q"].transpose(1, 2), k_view.transpose(1, 2), v_view.transpose(1, 2)
             attn_mask = keep[:, None, None, :]
             t_kernel = cuda_ms(lambda: paged_decode_cuda(*args, **kwargs), 20)
-            t_device = profiled_ms(lambda: paged_decode_cuda(*args, **kwargs))
+            t_device = profiled_ms(lambda: paged_decode_cuda(*args, **kwargs), kernels=1,
+                                   label=f"{name} {label}")
             t_plain = cuda_ms(lambda: paged_attention_plain(*args, **kwargs), 5)
             t_status = cuda_ms(lambda: paged_attention_reference(*args, **kwargs), 10)
             t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -708,28 +800,39 @@ def paged_decode_phase(model_cfg, kw, engine_blocks: int, max_blocks: int):
     return rows
 
 
-def profile_wave(model):
-    """torch.profiler over one wave: device time by kernel and busy share."""
+def profile_wave(model, label: str, **engine_kw):
+    """torch.profiler over one wave: device time by kernel, busy share, and
+    the int8 matmul's kernels a forward (from the raw device records)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from accelerate_tpu_torch import ContinuousBatcher
 
     prefix, suffixes = make_traffic(model.config.vocab_size)
-    engine = ContinuousBatcher(model, **engine_kwargs())
+    engine = ContinuousBatcher(model, **dict(engine_kwargs(), **engine_kw))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = run_wave(engine, prefix, suffixes)
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(device_us(e) for e in events) / 1e3  # ms
-    launches = sum(e.count for e in events)
+    by_name = {}
+    for name, _, us in device_records(prof):
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + us / 1e3, n + 1)
+    total = sum(ms for ms, _ in by_name.values())
+    launches = sum(n for _, n in by_name.values())
     forwards = engine_forwards(engine)
-    log(f"profile: wave wall {wall * 1e3:.1f} ms, device busy {total:.1f} ms "
-        f"({100 * total / (wall * 1e3):.1f}%), {launches} kernel launches over {forwards} "
+    int8_ms = sum(ms for name, (ms, _) in by_name.items()
+                  if "int8_matmul_cluster" in name or "quantize_rows" in name)
+    int8_n = sum(n for name, (_, n) in by_name.items() if "int8_matmul_cluster" in name)
+    log(f"profile {label} wave: wall {wall * 1e3:.1f} ms, device busy {total:.1f} ms "
+        f"({100 * total / (wall * 1e3):.1f}%), {launches} device records over {forwards} "
         f"forwards ({launches / forwards:.0f} per forward, "
-        f"{wall * 1e3 / forwards:.1f} ms wall and {total / forwards:.2f} ms device per forward)")
-    for e in sorted(events, key=lambda e: -device_us(e))[:12]:
-        log(f"profile:   {device_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
+        f"{wall * 1e3 / forwards:.1f} ms wall and {total / forwards:.2f} ms device per forward); "
+        f"int8 matmul kernels {int8_ms:.2f} ms ({int8_n} calls, {int8_ms / forwards:.2f} ms a "
+        f"forward, {100 * int8_ms / max(total, 1e-9):.1f}% of device time)")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"profile {label}:   {ms:9.2f} ms  {n:6d}x  {name[:90]}")
+    del engine
+    free_cuda()
 
 
 def free_cuda():
@@ -1299,13 +1402,32 @@ def splash_op_phase():
         bwd_bytes = 8 * B * S * H * D * el + 2 * B * H * S * 4      # q,k,v,o,dO in; dq,dk,dv out
         win = 0 if window is None else min(window, S)
         cap = 0.0 if softcap is None else softcap
+        # Device times from single synchronised calls: torch.profiler lost
+        # splash's kernel records in this phase (PERF.md section 7); its
+        # record count is logged beside them.
+
+        def fwd_call():
+            return sk._forward(q, k, v, seg, win, cap)
+
         with torch.no_grad():
-            t_fwd = cuda_ms(lambda: sk._forward(q, k, v, seg, win, cap), 20)
-            dev_fwd = profiled_ms(lambda: sk._forward(q, k, v, seg, win, cap))
+            t_fwd = cuda_ms(fwd_call, 20)
+            dev_fwd = synced_ms(fwd_call)
+            prof_fwd = [profile_calls(fwd_call, warmup=w) for w in (False, True)]
             t_plain_fwd = cuda_ms(lambda: splash_attention_reference(q, k, v, **kw), 3)
         o, lse = sk._forward(q, k, v, seg, win, cap)
-        t_bwd = cuda_ms(lambda: sk._backward(q, k, v, seg, o, lse, do, win, cap), 20)
-        dev_bwd = profiled_ms(lambda: sk._backward(q, k, v, seg, o, lse, do, win, cap))
+
+        def bwd_call():
+            return sk._backward(q, k, v, seg, o, lse, do, win, cap)
+
+        t_bwd = cuda_ms(bwd_call, 20)
+        dev_bwd = synced_ms(bwd_call)
+        prof_bwd = [profile_calls(bwd_call, warmup=w) for w in (False, True)]
+        for what, profiles, want in (("forward", prof_fwd, 10), ("backward", prof_bwd, 30)):
+            for records, how in zip(profiles, ("without", "with")):
+                kernels = [us for _, kind, us in records if kind == "kernel"]
+                log(f"op splash {label} {what}: the profiler {how} a warm-up cycle kept "
+                    f"{len(kernels)} of {want} kernel records ({sum(kernels) / 1e3 / 10:.4f} ms a "
+                    f"call from them)")
         plain_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         plain_out = splash_attention_reference(*plain_leaves, **kw)
         t_plain_bwd = cuda_ms(lambda: torch.autograd.grad(plain_out, plain_leaves, do,
@@ -1324,11 +1446,11 @@ def splash_op_phase():
             f"{'padded' if seg is not None else 'unpadded'}): fwd rel per query tile "
             f"{fwd_rel:.3e} (pin {FLASH_FWD_TILE_REL}; max|err| {fwd_err:.3e}), bwd rel "
             f"{', '.join(f'{n} {e:.3e}' for n, e in bwd_rel.items())} (pin {FLASH_BWD_REL}); "
-            f"fwd kernel {t_fwd:.4f} ms (profiler sum {dev_fwd:.4f} ms), plain "
+            f"fwd kernel {t_fwd:.4f} ms ({dev_fwd:.4f} ms a single synchronised call), plain "
             f"{t_plain_fwd:.4f}, library {t_lib_fwd:.4f}, bound {fb:.4f} ({fby}, "
             f"{fwd_flops / 1e9:.1f} GFLOP, {pairs / H / 1e6:.2f}M visible pairs a head, "
-            f"{fwd_flops / t_fwd / 1e9:.1f} TFLOP/s); bwd kernel {t_bwd:.4f} ms (profiler sum "
-            f"{dev_bwd:.4f}), plain {t_plain_bwd:.4f}, library {t_lib_bwd:.4f}, bound {bb:.4f} "
+            f"{fwd_flops / t_fwd / 1e9:.1f} TFLOP/s); bwd kernel {t_bwd:.4f} ms (a single "
+            f"synchronised call {dev_bwd:.4f}), plain {t_plain_bwd:.4f}, library {t_lib_bwd:.4f}, bound {bb:.4f} "
             f"({bby}, {bwd_flops / t_bwd / 1e9:.1f} TFLOP/s); library: compiled "
             f"flex_attention, block mask and softcap score_mod")
         if not rows:  # Gemma-2-9B's local layer: the rows of the kernel table
@@ -1338,7 +1460,7 @@ def splash_op_phase():
                          plain_ms=t_plain_fwd, bound_ms=fb, bound_by=fby, library_ms=t_lib_fwd),
                     dict(base, name="splash_attention_bwd", max_abs_err=bwd_err, ms=t_bwd,
                          plain_ms=t_plain_bwd, bound_ms=bb, bound_by=bby, library_ms=t_lib_bwd)]
-        del q, k, v, do, seg, out, o, lse, lib_out, lib_leaves, call
+        del q, k, v, do, seg, out, o, lse, lib_out, lib_leaves, call, fwd_call, bwd_call
         free_cuda()
     return rows
 
@@ -1360,6 +1482,15 @@ def splash_times() -> dict:
         o, lse = sk._forward(q, k, v, None, window, c["softcap"])
         bwd = cuda_ms(lambda: sk._backward(q, k, v, None, o, lse, do, window, c["softcap"]), 20)
         times[label] = {"fwd_ms": fwd, "bwd_ms": bwd}
+        # The profiler here, early in a process, against phase 8 (PERF.md section 7).
+        with torch.no_grad():
+            kept_fwd = profile_calls(lambda: sk._forward(q, k, v, None, window, c["softcap"]),
+                                     warmup=False)
+        kept_bwd = profile_calls(lambda: sk._backward(q, k, v, None, o, lse, do, window,
+                                                      c["softcap"]), warmup=False)
+        log(f"splash times {label}: the profiler without a warm-up cycle kept "
+            f"{sum(k == 'kernel' for _, k, _ in kept_fwd)} of 10 forward and "
+            f"{sum(k == 'kernel' for _, k, _ in kept_bwd)} of 30 backward kernel records")
         log(f"splash times {label} (B{c['B']} S{c['S']} H{c['H']} D{c['D']}, window "
             f"{window or None}, softcap {c['softcap']}): fwd {fwd:.4f} ms, bwd {bwd:.4f} ms")
         del q, k, v, do, o, lse
@@ -1690,7 +1821,7 @@ def main(argv) -> int:
     for name, text in logs.items():
         for line in text.strip().splitlines():
             log(f"build[{name}]: {line}")
-    for name in ("flash_attention", "splash_attention"):
+    for name in ("flash_attention", "splash_attention", "int8_matmul"):
         summary = ptxas_summary(logs.get(name, ""))
         for line in summary:
             log(f"build[{name}] summary: {line}")
@@ -1726,7 +1857,8 @@ def main(argv) -> int:
     rows.append(int8_row)
     reference_phase(model)
     if "--profile" in argv:
-        profile_wave(model)
+        profile_wave(model, "bf16")
+        profile_wave(model, "int8", kv_quant="int8", matmul_precision="int8")
     del model  # free the 16 GB serving model before training
     free_cuda()
 

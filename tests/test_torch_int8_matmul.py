@@ -42,7 +42,12 @@ from accelerate_tpu_torch.ops.int8 import (
     matmul,
     quantize_rowwise,
 )
-from accelerate_tpu_torch.ops.kernels.int8_matmul import splits_for
+from accelerate_tpu_torch.ops.kernels.int8_matmul import (
+    MAX_CLUSTER,
+    SMEM_LIMIT,
+    plan,
+    smem_bytes,
+)
 
 torch.set_num_threads(2)
 
@@ -142,17 +147,54 @@ def test_matmul_dispatches_by_precision_and_rejects_unknown():
         matmul(x, w, "int8", kernels="pallas")
 
 
+# (K, N) of the Llama-3-8B block projections: wq and wo, wk and wv, w_gate
+# and w_up, w_down.
+LLAMA_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+
+
 @pytest.mark.parametrize("M,N,K", [(8, 1024, 4096), (8, 14336, 4096), (8, 4096, 14336),
                                    (128, 14336, 4096), (34, 29, 33), (1, 8, 1)])
 def test_kernel_k_splits_cover_k_with_no_empty_split(M, N, K):
-    """The wrapper's split-K choice (host arithmetic, no card): at least one
-    split, at most one a 64-deep k tile, every split non-empty, and at least
-    half of the two CTAs a streaming multiprocessor it aims for, where K
-    allows that many."""
-    sms = 132
-    k_tiles = -(-K // 64)
-    tiles = -(-M // 64) * -(-N // 64)
-    splits = splits_for(M, N, K, sms)
-    per = -(-k_tiles // splits)
-    assert 1 <= splits <= k_tiles and (splits - 1) * per < k_tiles
-    assert tiles * splits >= min(2 * sms, tiles * k_tiles) // 2
+    """The wrapper's partition (host arithmetic, no card), for bf16 and f32:
+    the cluster's K slices are non-empty and cover K in order, each CTA's
+    shared memory is within what a block can use, the cluster is portable,
+    the panels cover N, and at the Llama shapes the grid covers the 132 SMs."""
+    for itemsize in (2, 4):
+        p = plan(M, N, K, itemsize, sms=132)
+        slices = p.k_slices()
+        assert len(slices) == p.cluster and 1 <= p.cluster <= MAX_CLUSTER
+        assert all(k1 > k0 for k0, k1 in slices)  # no empty slice
+        assert slices[0][0] == 0 and slices[-1][1] >= K > slices[-1][0]
+        assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+        assert p.smem == smem_bytes(itemsize, p.nt, p.per, p.mt, p.stages) <= SMEM_LIMIT
+        assert p.smem >= p.per * 128 * p.nt * itemsize  # the whole K slice stays resident
+        assert p.nt in (32, 64) and p.panels * p.nt >= N > (p.panels - 1) * p.nt
+        assert M <= p.mt or p.mt == 128
+        assert 1 <= p.stages <= p.per
+        if (K, N) in LLAMA_SHAPES:
+            assert p.ctas >= 132
+
+
+# The kernel rounds a quotient q (|q| < 128) to an int8 without a conversion
+# instruction: the bits of rn(q + 1.5 * 2^23) are 0x4B400000 + rint(q), so
+# their low byte is rint(q) as an int8 (kRound in csrc/int8_matmul.cu).
+ROUND = np.float32(1.5 * 2**23)
+
+
+def test_rounding_by_constant_gives_rint_in_the_low_byte():
+    """Every f32 in [-128, 128] whose 11 low significand bits are zero, and
+    every half-integer there with its two neighbours: the low byte of
+    rn(q + 1.5 * 2^23) equals rint(q) (half to even) as an int8, as
+    ``quantize_rowwise`` rounds."""
+    bits = np.arange(0, 0x43000001 >> 11, dtype=np.uint32) << 11  # +0 .. 128
+    q = bits.view(np.float32)
+    halves = np.arange(-255, 256, dtype=np.float32) / 2
+    q = np.concatenate([q, -q, halves, np.nextafter(halves, np.float32(np.inf)),
+                        np.nextafter(halves, np.float32(-np.inf))])
+    q = q[np.abs(q) <= 127.5]
+    z = q + ROUND  # one f32 addition, rounded to nearest even
+    low_byte = (z.view(np.uint32) & 0xFF).astype(np.uint8).view(np.int8)
+    want = np.rint(q).astype(np.int8)
+    np.testing.assert_array_equal(low_byte, want)
+    assert torch.equal(torch.round(torch.from_numpy(q)).to(torch.int8),
+                       torch.from_numpy(want))

@@ -45,7 +45,10 @@ from accelerate_tpu_torch.ops.fused_update import leaf_update, plan_fused_update
 from accelerate_tpu_torch.ops.int8 import int8_matmul_reference
 from accelerate_tpu_torch.ops.kernels.flash_attention import flash_attention_cuda
 from accelerate_tpu_torch.ops.kernels.fused_update import fused_update_cuda
-from accelerate_tpu_torch.ops.kernels.int8_matmul import int8_matmul_cuda
+from accelerate_tpu_torch.ops.kernels.int8_matmul import (
+    int8_matmul_cuda,
+    quotient_disagreements as int8_matmul_quotient_disagreements,
+)
 from accelerate_tpu_torch.ops.kernels.paged_decode import paged_decode_cuda
 from accelerate_tpu_torch.ops.kernels.paged_gather import paged_gather
 from accelerate_tpu_torch.ops.kernels.ring_block import ring_block_bwd_cuda, ring_block_fwd_cuda
@@ -387,7 +390,14 @@ def test_train_step_on_the_card_matches_kernels_off():
     ((2, 17, 33), torch.float32, 29), ((8, 16), torch.bfloat16, 29),
     ((300, 64), torch.float32, 300), ((16, 256, 384), torch.bfloat16, 160),
     ((8, 4096), torch.bfloat16, 1024),  # one decode step's wk projection at Llama-3-8B width
-], ids=["odd-3d-f32", "bf16", "tiles-f32", "chunk-bf16", "llama-wk-bf16"])
+    # Llama-3-8B's gate (4096 x 14336) and w_down (14336 x 4096) at a decode
+    # step (8 rows) and a prefill chunk (128 rows); rows of 24 (tiles of 32);
+    # K = 4100, not a multiple of the kernel's 128-deep blocks.
+    ((8, 4096), torch.bfloat16, 14336), ((8, 14336), torch.bfloat16, 4096),
+    ((128, 4096), torch.bfloat16, 14336), ((128, 14336), torch.bfloat16, 4096),
+    ((3, 8, 4096), torch.bfloat16, 1024), ((8, 4100), torch.bfloat16, 1024),
+], ids=["odd-3d-f32", "bf16", "tiles-f32", "chunk-bf16", "llama-wk-bf16", "llama-gate-m8",
+        "llama-down-m8", "llama-gate-m128", "llama-down-m128", "rows-24-bf16", "ragged-k-4100"])
 def test_int8_matmul_kernel_bitwise_equals_plain_version_on_the_card(shape, dtype, N):
     """Bitwise: the integer contraction is exact, and the scale, rounding and
     rescale are the same correctly rounded f32 operations in one order."""
@@ -404,6 +414,17 @@ def test_int8_matmul_kernel_bitwise_equals_plain_version_on_the_card(shape, dtyp
     assert got.dtype == ref.dtype == dtype and got.shape == ref.shape
     bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     assert torch.equal(got.view(bits), ref.view(bits))
+
+
+@pytest.mark.cuda
+def test_int8_matmul_division_self_check_on_the_card():
+    """The kernel's bf16 division (``__fdiv_rn``'s fast path with the
+    reciprocal formed once a column) agrees with ``__fdiv_rn`` over every
+    61st significand of the scale and every bf16 value it meets;
+    chip_smoke.py runs all 2^23 significands."""
+    _needs_card()
+    bad, pairs = int8_matmul_quotient_disagreements(stride=61)
+    assert bad == 0 and pairs == -(-(1 << 23) // 61) * 11 * 128
 
 
 def _paged_case(quant, dtype, S=1, seed=0):
