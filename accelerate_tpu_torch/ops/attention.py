@@ -95,6 +95,20 @@ def cached_attention(q, k_cache, v_cache, *, q_positions, kv_mask=None, window=N
     ``-1e30`` biases; sliding windows measure VALID-slot distance when a
     ``kv_mask`` is given, so holes in the cache never stretch a window."""
     B, S, H, D = q.shape
+    scores = cached_scores(q, k_cache, q_positions=q_positions, kv_mask=kv_mask, window=window,
+                           softcap=softcap, scale=scale)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    dt = torch.promote_types(probs.dtype, v_cache.dtype)
+    out = torch.einsum("bhgsk,bkhd->bshgd", probs.to(dt), v_cache.to(dt))
+    return out.reshape(B, S, H, D)
+
+
+def cached_scores(q, k_cache, *, q_positions, kv_mask=None, window=None, softcap=None,
+                  scale=None):
+    """The biased f32 scores of :func:`cached_attention`, ``(B, Hkv, G, S,
+    K)``: scaled (and softcapped) products plus the ``-1e30`` causal, window
+    and validity biases, added as the softmax sees them."""
+    B, S, H, D = q.shape
     K, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
     if scale is None:
@@ -120,10 +134,7 @@ def cached_attention(q, k_cache, v_cache, *, q_positions, kv_mask=None, window=N
     bias = torch.where(keep, 0.0, -1e30)
     if kv_mask is not None:
         bias = bias + torch.where(kv_mask[:, None, None, None, :].bool(), 0.0, -1e30)
-    probs = torch.softmax(scores + bias, dim=-1).to(q.dtype)
-    dt = torch.promote_types(probs.dtype, v_cache.dtype)
-    out = torch.einsum("bhgsk,bkhd->bshgd", probs.to(dt), v_cache.to(dt))
-    return out.reshape(B, S, H, D)
+    return scores + bias
 
 
 def flash_attention_reference(q, k, v, segment_ids=None, causal=True, sm_scale=1.0):

@@ -19,7 +19,9 @@ the hand-written CUDA kernel for CUDA tensors (``ops/kernels/paged_gather``).
 :func:`paged_attention` is the fused decode attention over block chains, op
 ``paged_decode``: the CUDA kernel of ``ops/kernels/paged_decode`` for CUDA
 tensors, :func:`paged_attention_plain` (the plain gather, then
-``cached_attention``) for CPU tensors or ``kernels="off"``. As in the JAX
+``cached_attention``) for CPU tensors or ``kernels="off"``;
+:func:`paged_decode_split_reference` is the kernel's partition and merge
+in plain PyTorch, for the tests. As in the JAX
 package, the serving engine does not call it: the engine assembles views
 with the gather. ``export_chain_blocks``/``import_chain_blocks`` arrive
 with the serving network slice.
@@ -30,8 +32,8 @@ from __future__ import annotations
 import torch
 
 from ..utils.device import resolve_device
-from .attention import cached_attention
-from .kernels.paged_decode import paged_decode_cuda
+from .attention import cached_attention, cached_scores
+from .kernels.paged_decode import CONSUMERS, paged_decode_cuda, plan
 from .kernels.paged_gather import paged_gather
 from .registry import dispatch, register_op
 
@@ -139,6 +141,67 @@ def paged_attention_plain(q, k_pool, v_pool, block_tables, *, q_positions, pool_
     kv_mask = gather_block_mask(pool_mask, block_tables) if pool_mask is not None else None
     return cached_attention(q, k_view, v_view, q_positions=q_positions, kv_mask=kv_mask,
                             window=window, softcap=softcap, scale=scale)
+
+
+def paged_decode_split_reference(q, k_pool, v_pool, block_tables, *, q_positions,
+                                 pool_mask=None, window=None, softcap=None, scale=None,
+                                 active=None, k_scale=None, v_scale=None, split_blocks=None):
+    """The decode kernel's arithmetic order in plain f32 PyTorch, for the
+    tests (never on the path): the chain cut into the splits of
+    :func:`~.kernels.paged_decode.plan` (``split_blocks`` whole blocks, or
+    plan's choice), block ``i`` of a split taken by consumer ``i % 3`` with
+    an online softmax (running max, sum and unnormalised accumulator), the
+    consumers combined in order, then the splits merged in order and
+    normalised. The scores are :func:`~.attention.cached_scores` of the
+    plainly gathered chain (biases included). Inactive slots give zeros,
+    as the kernel's."""
+    B, S, H, D = q.shape
+    N, bs, Hkv, _ = k_pool.shape
+    M = block_tables.shape[1]
+    G = H // Hkv
+    if split_blocks is None:
+        split_blocks = plan(B, S, H, Hkv, D, bs, M, q_dtype=q.dtype, kv_dtype=k_pool.dtype,
+                            has_mask=pool_mask is not None,
+                            use_rank=window is not None and pool_mask is not None)["split_blocks"]
+    k_view = gather_block_view(k_pool, block_tables, scales=k_scale)
+    v_view = gather_block_view(v_pool, block_tables, scales=v_scale).float()
+    kv_mask = gather_block_mask(pool_mask, block_tables) if pool_mask is not None else None
+    scores = cached_scores(q, k_view, q_positions=q_positions, kv_mask=kv_mask, window=window,
+                           softcap=softcap, scale=scale)  # (B, Hkv, G, S, T)
+
+    def state(blocks):
+        """(m, l, o) of one consumer's blocks, walked in order."""
+        m = scores.new_full(scores.shape[:-1], -torch.inf)
+        l = scores.new_zeros(scores.shape[:-1])
+        o = scores.new_zeros(scores.shape[:-1] + (D,))
+        for j in blocks:
+            s = scores[..., j * bs:(j + 1) * bs]
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + torch.einsum("bhgsk,bkhd->bhgsd", p,
+                                                    v_view[:, j * bs:(j + 1) * bs])
+            m = m_new
+        return m, l, o
+
+    def combine(states):
+        """The fixed-order merge of (m, l, o) states."""
+        m = torch.stack([st[0] for st in states]).amax(0)
+        l, o = torch.zeros_like(m), m.new_zeros(m.shape + (D,))
+        for m_i, l_i, o_i in states:
+            e = torch.exp(m_i - m)  # 0 for a state without blocks (m_i = -inf)
+            l, o = l + l_i * e, o + o_i * e[..., None]
+        return m, l, o
+
+    splits = [combine([state(range(j0 + w, j1, CONSUMERS)) for w in range(CONSUMERS)])
+              for j0, j1 in ((j, min(M, j + split_blocks)) for j in range(0, M, split_blocks))]
+    _, l, o = combine(splits)
+    out = (o / l[..., None]).permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+    if active is not None:
+        out = out * (active != 0).reshape(B, 1, 1, 1)
+    out_dt = torch.float32 if k_scale is not None else torch.promote_types(q.dtype, v_pool.dtype)
+    return out.to(out_dt)
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, *, q_positions, pool_mask=None,

@@ -6,6 +6,8 @@
                                      # serving wave with bf16 weights and
                                      # one with int8 weights, one Llama and
                                      # one Gemma-2 training step
+    python3 chip_smoke.py --paged-decode  # only phase 2b, the paged decode
+                                     # kernel's cells (the same use)
     python3 chip_smoke.py --splash-times  # only the splash kernels' times at
                                      # Gemma-2-9B's layers (to set two trees
                                      # side by side in one run: copy this
@@ -15,7 +17,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 
 1. Build every CUDA source of ``accelerate_tpu_torch/csrc`` with nvcc for
    sm_90a (one nvcc per source, all started together), log each flash,
-   splash and int8 matmul kernel's registers and spills (``-Xptxas -v``; any
+   splash, int8 matmul and paged decode kernel's registers and spills (``-Xptxas -v``; any
    spill fails the phase) and the highest register each uses (``cuobjdump
    -sass``: the consumers' share under ``setmaxnreg``), and print the card's
    name and power limit.
@@ -33,13 +35,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    the bound, with each cell's partition.
 2b. Op phase of the fused paged decode attention at the engine's geometry
    (8 slots, block 16, 32 heads over 8 KV heads of 128, M = 26 blocks a
-   slot) and on 4096-token chains (M = 256): bf16 and int8 pools, ragged
-   chains with trash-block tails, holes in the mask, two inactive slots.
-   The op face ``paged_attention`` is driven for one decode step over all
-   32 layers (the launches counted), then the kernel is held to its plain
-   version per (slot, head) row, with times for the kernel, the plain
-   version, the gather kernel plus ``cached_attention`` (what the engine
-   runs), and ``scaled_dot_product_attention`` on the gathered view.
+   slot), on 4096-token chains (M = 256) and for one slot with a 4096-token
+   chain: bf16 and int8 pools, ragged chains with trash-block tails, holes
+   in the mask, two inactive slots (of 8). The op face ``paged_attention``
+   is driven for one decode step over all 32 layers (the launches counted),
+   then the kernel is held to its plain version per (slot, head) row, with
+   the kernel's plan (splits, CTAs, stages, shared memory), its time by CUDA
+   events and its device time (the profiler's records of both of a call's
+   kernels), TB/s and share of the bound, and times for the plain version,
+   the gather kernel plus ``cached_attention`` (what the engine runs), and
+   ``scaled_dot_product_attention`` on the gathered view.
 3. Engine phase: ``ContinuousBatcher(paged=True)`` on Llama-3-8B widths
    (all 32 layers, bf16, random weights from a seed) answers a wave of
    greedy requests behind a shared prefix, with chunked prefill engaged.
@@ -311,15 +316,23 @@ def profiled_ms(fn, kernels: int, iters: int = 10, label: str = "") -> float:
     ``cuda_ms`` times back-to-back calls between two events, so for a kernel
     of tens of microseconds it counts the gaps in which the card waits for
     the host's per-call work; this leaves them out. ``kernels`` is the
-    number of kernels one call launches: fewer kernel records than
-    ``iters * kernels`` raise, so a lost record never passes as a shorter
-    time."""
-    records = profile_calls(fn, iters)
-    n_kernels = sum(a == "kernel" for _, a, _ in records)
-    if n_kernels < iters * kernels:
-        names = sorted({n[:60] for n, a, _ in records if a == "kernel"})
-        raise SystemExit(f"profiled_ms{' ' + label if label else ''}: {n_kernels} kernel records "
-                         f"for {iters} calls of {kernels} kernels each ({names})")
+    number of kernels one call launches. The profiler now and then drops
+    records (PERF.md section 7): a trace with fewer than ``iters * kernels``
+    kernel records is taken again, and after three such traces the time is
+    ``synced_ms``'s (CUDA events around single synchronised calls, launch
+    included: never shorter than the device time), logged as such, so a
+    lost record never passes as a shorter time."""
+    for _ in range(3):
+        records = profile_calls(fn, iters)
+        n_kernels = sum(a == "kernel" for _, a, _ in records)
+        if n_kernels >= iters * kernels:
+            break
+    else:
+        ms = synced_ms(fn, iters)
+        log(f"profiled_ms {label}: the profiler kept {n_kernels} kernel records of "
+            f"{iters * kernels} in three traces; {ms:.4f} ms a call by CUDA events around "
+            f"single synchronised calls instead (an upper bound)")
+        return ms
     ms = sum(us for _, _, us in records) / 1e3 / iters
     per_kernel = {}
     for name, _, us in records:
@@ -347,6 +360,15 @@ def synced_ms(fn, iters: int = 10) -> float:
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def engine_geometry(model):
+    """The pool's blocks and a slot's table length of the serving engine
+    built with ``engine_kwargs()``."""
+    from accelerate_tpu_torch import ContinuousBatcher
+
+    probe = ContinuousBatcher(model, **engine_kwargs())
+    return probe.num_blocks, probe.max_blocks_per_slot
 
 
 def engine_kwargs():
@@ -657,22 +679,24 @@ def int8_op_phase():
     return row
 
 
-def paged_decode_inputs(model_cfg, bs: int, B: int, M: int, N: int, quant: bool, layers=None):
-    """Pools (one layer, or ``layers`` stacked), tables with ragged chains
-    and trash-block tails, a mask with holes, two inactive slots, one query
-    per slot at its chain's last token; made on the card from the seed."""
+def paged_decode_inputs(model_cfg, bs: int, slots: int, M: int, N: int, quant: bool, layers=None):
+    """Pools (one layer, or ``layers`` stacked), tables of ``slots`` slots
+    with ragged chains and trash-block tails, a mask with holes, slots 2 and
+    5 inactive (where there are that many), one query per slot at its
+    chain's last token; made on the card from the seed."""
     import numpy as np
     import torch
 
     Hkv, D, H = model_cfg.num_key_value_heads, model_cfg.head_dim, model_cfg.num_attention_heads
+    B = slots
     rng = np.random.default_rng(SEED + M)
     tables = np.zeros((B, M), np.int32)
     active = np.ones((B,), bool)
-    active[[2, 5]] = False
+    active[[i for i in (2, 5) if i < B]] = False
     free = rng.permutation(np.arange(1, N))
     pos = np.zeros((B, 1), np.int32)
     for b in np.nonzero(active)[0]:
-        n = int(rng.integers(M // 2, M + 1))
+        n = int(rng.integers(M // 2, M + 1)) if B > 1 else M
         tables[b, :n], free = free[:n], free[n:]
         pos[b, 0] = n * bs - 1 - int(rng.integers(0, bs))  # the frontier inside the last block
     mask = (rng.random((N, bs)) > 0.1).astype(np.int32)
@@ -699,12 +723,15 @@ def paged_decode_inputs(model_cfg, bs: int, B: int, M: int, N: int, quant: bool,
 
 def paged_decode_phase(model_cfg, kw, engine_blocks: int, max_blocks: int):
     """Drive the op face over one decode step of all layers at the engine's
-    geometry (launches counted), then hold the kernel to its plain version;
-    returns the kernel-table rows (bf16 and int8 pools, engine geometry)."""
+    geometry (launches counted), then hold the kernel to its plain version
+    at the engine's geometry, on 4096-token chains (M = 256) and for one
+    slot with a 4096-token chain; returns the kernel-table rows (bf16 and
+    int8 pools, engine geometry)."""
     import torch
     import torch.nn.functional as F
 
     from accelerate_tpu_torch.ops import registry
+    from accelerate_tpu_torch.ops.kernels import paged_decode as decode_kernel
     from accelerate_tpu_torch.ops.kernels.paged_decode import paged_decode_cuda
     from accelerate_tpu_torch.ops.paged_attention import (
         gather_block_mask,
@@ -735,14 +762,21 @@ def paged_decode_phase(model_cfg, kw, engine_blocks: int, max_blocks: int):
     log(f"paged_attention driven over one decode step of {L} layers at the engine's geometry "
         f"(B={B}, M={max_blocks}, bs={bs}): launches {launches[False]} (bf16 pool), "
         f"{launches[True]} (int8 pool)")
-    rows = []
-    for label, M, N in (("engine M=%d" % max_blocks, max_blocks, engine_blocks + 1),
-                        ("long M=256", 256, 6 * 256 + 1)):
+    rows, cells = [], []
+    for label, slots, M, N in (("engine M=%d" % max_blocks, B, max_blocks, engine_blocks + 1),
+                               ("long M=256", B, 256, 6 * 256 + 1),
+                               ("one slot M=256", 1, 256, 256 + 1)):
         for quant in (False, True):
-            c = paged_decode_inputs(model_cfg, bs, B, M, N, quant)
+            c = paged_decode_inputs(model_cfg, bs, slots, M, N, quant)
             kwargs = dict(q_positions=c["pos"], pool_mask=c["mask"], active=c["active"],
                           k_scale=c["k_scale"], v_scale=c["v_scale"])
             args = (c["q"], c["k"], c["v"], c["tables"])
+            # (a tree from before the split kernel has no plan(): one kernel a call)
+            part = (decode_kernel.plan(slots, 1, H, Hkv, D, bs, M, q_dtype=c["q"].dtype,
+                                       kv_dtype=c["k"].dtype)
+                    if hasattr(decode_kernel, "plan") else
+                    {"splits": 1, "split_blocks": M, "ctas": slots * H, "stages": 0, "smem": 0,
+                     "launches": 1})
             got, ref = paged_decode_cuda(*args, **kwargs), paged_attention_plain(*args, **kwargs)
             torch.cuda.synchronize()
             act = c["active"]
@@ -767,8 +801,8 @@ def paged_decode_phase(model_cfg, kw, engine_blocks: int, max_blocks: int):
             qt, kt, vt = c["q"].transpose(1, 2), k_view.transpose(1, 2), v_view.transpose(1, 2)
             attn_mask = keep[:, None, None, :]
             t_kernel = cuda_ms(lambda: paged_decode_cuda(*args, **kwargs), 20)
-            t_device = profiled_ms(lambda: paged_decode_cuda(*args, **kwargs), kernels=1,
-                                   label=f"{name} {label}")
+            t_device = profiled_ms(lambda: paged_decode_cuda(*args, **kwargs),
+                                   kernels=part["launches"], label=f"{name} {label}")
             t_plain = cuda_ms(lambda: paged_attention_plain(*args, **kwargs), 5)
             t_status = cuda_ms(lambda: paged_attention_reference(*args, **kwargs), 10)
             t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -782,12 +816,22 @@ def paged_decode_phase(model_cfg, kw, engine_blocks: int, max_blocks: int):
             t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
             bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
             log(f"op {name} {label}: out {tuple(got.shape)} {got.dtype}, row rel err {rel:.3e} "
-                f"(pin {PAGED_DECODE_ROW_REL}), max|err| {err:.3e}, inactive slots zero; "
-                f"kernel {t_kernel:.4f} ms ({t_device:.4f} ms of device time, profiler), plain "
-                f"{t_plain:.4f} ms, gather kernel + "
-                f"cached_attention {t_status:.4f} ms, library {t_lib:.4f} ms "
-                f"(scaled_dot_product_attention on the gathered view: attention only), bound "
-                f"{bound:.4f} ms ({by}, {moved / 1e6:.2f} MB)")
+                f"(pin {PAGED_DECODE_ROW_REL}), max|err| {err:.3e}, inactive slots zero; plan "
+                f"{part['splits']} splits of {part['split_blocks']} blocks, {part['ctas']} CTAs, "
+                f"{part['stages']} stages, {part['smem']} B shared memory, {part['launches']} "
+                f"kernels a call; kernel {t_kernel:.4f} ms ({t_device:.4f} ms of device time, "
+                f"profiler: {moved / t_device / 1e9:.2f} TB/s, {bound / t_device:.1%} of the "
+                f"bound), plain {t_plain:.4f} ms, gather kernel + cached_attention "
+                f"{t_status:.4f} ms, library {t_lib:.4f} ms (scaled_dot_product_attention on "
+                f"the gathered view: attention only), bound {bound:.4f} ms ({by}, "
+                f"{moved / 1e6:.2f} MB)")
+            cells.append({"cell": f"{name} {label}", "slots": slots, "M": M,
+                          "splits": part["splits"], "ctas": part["ctas"],
+                          "stages": part["stages"], "smem": part["smem"], "ms": t_kernel,
+                          "device_ms": t_device, "bound_ms": bound,
+                          "share": bound / t_device, "tb_s": moved / t_device / 1e9,
+                          "plain_ms": t_plain, "library_ms": t_lib, "max_abs_err": err,
+                          "row_rel_err": rel})
             if M == max_blocks:
                 rows.append({"name": name, "route": "cuda",
                              "source": "accelerate_tpu_torch/csrc/paged_decode.cu",
@@ -796,6 +840,7 @@ def paged_decode_phase(model_cfg, kw, engine_blocks: int, max_blocks: int):
                              "ms": t_kernel, "plain_ms": t_plain, "bound_ms": bound,
                              "bound_by": by, "library_ms": t_lib})
             del c, got, ref, k_view, v_view, qt, kt, vt
+    log(f"op paged_decode cells: {json.dumps(cells)}")
     free_cuda()
     return rows
 
@@ -1810,6 +1855,16 @@ def main(argv) -> int:
 
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
+    if "--paged-decode" in argv:
+        _build.build(["paged_decode", "paged_gather"])
+        card = card_info()
+        log(f"build: paged_decode, paged_gather in {time.perf_counter() - t0:.1f} s; device: "
+            f"{card}")
+        probe = Llama(LlamaConfig.tiny(), device="cuda")  # the geometry needs no 8B weights
+        probe.init_params(SEED, dtype=torch.bfloat16)
+        paged_decode_phase(LlamaConfig.llama3_8b(), engine_kwargs(), *engine_geometry(probe))
+        print(card)
+        return 0
     if "--splash-times" in argv:
         _build.build(["splash_attention"])
         card = card_info()
@@ -1821,7 +1876,7 @@ def main(argv) -> int:
     for name, text in logs.items():
         for line in text.strip().splitlines():
             log(f"build[{name}]: {line}")
-    for name in ("flash_attention", "splash_attention", "int8_matmul"):
+    for name in ("flash_attention", "splash_attention", "int8_matmul", "paged_decode"):
         summary = ptxas_summary(logs.get(name, ""))
         for line in summary:
             log(f"build[{name}] summary: {line}")
@@ -1840,11 +1895,7 @@ def main(argv) -> int:
           f"{model.num_params() / 1e9:.2f}B params, random init (seed {SEED}) in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    from accelerate_tpu_torch import ContinuousBatcher
-
-    probe = ContinuousBatcher(model, **engine_kwargs())
-    blocks, max_blocks = probe.num_blocks, probe.max_blocks_per_slot
-    del probe
+    blocks, max_blocks = engine_geometry(model)
     rows = op_phase(cfg, engine_kwargs(), blocks, max_blocks)
     int8_row = int8_op_phase()
     rows += paged_decode_phase(cfg, engine_kwargs(), blocks, max_blocks)

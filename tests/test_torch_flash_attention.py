@@ -99,6 +99,27 @@ def _seg(B, S):
     return seg
 
 
+def _attention_f64(q, k, v, seg, scale):
+    """The same causal attention in float64 numpy, (B, H, S, D)."""
+    q, k, v = (x.astype(np.float64) for x in (q, k, v))
+    S = q.shape[2]
+    logits = np.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    keep = np.tril(np.ones((S, S), bool))[None, None]
+    if seg is not None:
+        keep = keep & (seg[:, None, :, None] == seg[:, None, None, :])
+    logits = np.where(keep, logits, -np.inf)
+    w = np.exp(logits - logits.max(-1, keepdims=True))
+    return np.einsum("bhqk,bhkd->bhqd", w / w.sum(-1, keepdims=True), v)
+
+
+def _drift_report(got, want, q, k, v, seg, scale):
+    """Which side left full f32 precision when the forward values differ:
+    each side's largest distance from the float64 evaluation."""
+    exact = _attention_f64(q, k, v, seg, scale)
+    return (f"max |port - f64| = {np.abs(got - exact).max():.3e}, "
+            f"max |jax - f64| = {np.abs(want - exact).max():.3e}")
+
+
 def _bhsd_to_port(x):
     return torch.tensor(np.asarray(x)).transpose(1, 2).contiguous()
 
@@ -122,7 +143,9 @@ def test_plain_flash_matches_mha_reference(S, D, with_segments):
 
     tq, tk, tv = (_bhsd_to_port(x).requires_grad_() for x in (q, k, v))
     out = flash_attention_reference(tq, tk, tv, segment_ids=tseg, causal=True, sm_scale=scale)
-    np.testing.assert_allclose(out.detach().transpose(1, 2).numpy(), want, atol=VALUE_ATOL, rtol=0)
+    got = out.detach().transpose(1, 2).numpy()
+    np.testing.assert_allclose(got, want, atol=VALUE_ATOL, rtol=0,
+                               err_msg=_drift_report(got, want, q, k, v, seg, scale))
     out.backward(_bhsd_to_port(do))
     for got, ref in zip((tq, tk, tv), want_grads):
         np.testing.assert_allclose(got.grad.transpose(1, 2).numpy(), np.asarray(ref),

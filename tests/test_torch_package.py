@@ -50,6 +50,7 @@ from accelerate_tpu_torch.ops.kernels.int8_matmul import (
     quotient_disagreements as int8_matmul_quotient_disagreements,
 )
 from accelerate_tpu_torch.ops.kernels.paged_decode import paged_decode_cuda
+from accelerate_tpu_torch.ops.kernels.paged_decode import plan as plan_paged_decode
 from accelerate_tpu_torch.ops.kernels.paged_gather import paged_gather
 from accelerate_tpu_torch.ops.kernels.ring_block import ring_block_bwd_cuda, ring_block_fwd_cuda
 from accelerate_tpu_torch.ops.kernels.splash_attention import splash_attention_cuda
@@ -427,16 +428,24 @@ def test_int8_matmul_division_self_check_on_the_card():
     assert bad == 0 and pairs == -(-(1 << 23) // 61) * 11 * 128
 
 
-def _paged_case(quant, dtype, S=1, seed=0):
-    """A pool with ragged chains, trash-block tails, mask holes and two
-    inactive slots (1 and 4), made on the card."""
+PAGED_GEOMETRIES = {  # B, N, Hkv, H, M, chain lengths in blocks (0: inactive)
+    "small": (6, 40, 2, 8, 5, (5, 0, 3, 1, 0, 4)),
+    "llama-m256": (6, 1100, 8, 32, 256, (256, 0, 200, 129, 0, 256)),
+    "one-slot-4096": (1, 300, 8, 32, 256, (256,)),
+}
+
+
+def _paged_case(quant, dtype, S=1, seed=0, geometry="small"):
+    """A pool with ragged chains, trash-block tails, mask holes and the
+    inactive slots the geometry names (chain length 0), made on the card."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    B, N, bs, Hkv, H, D, M = 6, 40, 16, 2, 8, 128, 5
+    B, N, Hkv, H, M, lengths = PAGED_GEOMETRIES[geometry]
+    bs, D = 16, 128
     rng = np.random.default_rng(seed)
     tables = np.zeros((B, M), np.int32)
     free = rng.permutation(np.arange(1, N))
     pos = np.zeros((B, S), np.int32)
-    for b, n in enumerate((5, 0, 3, 1, 0, 4)):
+    for b, n in enumerate(lengths):
         tables[b, :n], free = free[:n], free[n:]
         pos[b] = max(n * bs - S, 0) + np.arange(S)
     mask = (rng.random((N, bs)) > 0.2).astype(np.int32)
@@ -451,7 +460,7 @@ def _paged_case(quant, dtype, S=1, seed=0):
                 for _ in range(2))
         scales = {}
     q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
-    active = torch.tensor([1, 0, 1, 1, 0, 1], dtype=torch.bool, device="cuda")
+    active = torch.tensor([n > 0 for n in lengths], dtype=torch.bool, device="cuda")
     kw = dict(q_positions=torch.tensor(pos, device="cuda"), active=active,
               pool_mask=torch.tensor(mask, device="cuda"), **scales)
     return (q, k, v, torch.tensor(tables, device="cuda")), kw, active
@@ -459,20 +468,37 @@ def _paged_case(quant, dtype, S=1, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["bf16", "int8-pool", "f32", "bf16-window-softcap",
-                                  "int8-window-chunk", "no-mask"])
+                                  "int8-window-chunk", "no-mask", "llama-m256",
+                                  "llama-m256-int8", "one-slot-4096", "split-cuts-window",
+                                  "no-visible-key"])
 def test_paged_decode_kernel_matches_plain_version_on_the_card(case):
     """Per (slot, query, head) row, the relative L2 error against the plain
     version is at most 1e-2 (the kernel sums in another order; chip_smoke.py
     holds the Llama-3-8B geometry to the same pin); inactive slots are
-    exact zeros."""
+    exact zeros. ``llama-m256`` and ``one-slot-4096``: Llama-3-8B's 32/8
+    heads of 128 on 4096-token chains, over several splits; in
+    ``split-cuts-window`` (S = 3, a window of 20 valid slots) every block is
+    a split, so the window's edge crosses a split boundary over the mask's
+    holes; in ``no-visible-key`` slot 0's chain is all holes and slot 2's
+    query sits at -1, so their rows see no key and take the plain version's
+    uniform answer."""
     _needs_card()
-    quant = case.startswith("int8")
+    quant = case.startswith("int8") or case.endswith("int8")
     dtype = torch.float32 if case == "f32" else torch.bfloat16
-    args, kw, active = _paged_case(quant, dtype, S=3 if "chunk" in case else 1)
+    geometry = next((g for g in PAGED_GEOMETRIES if case.startswith(g)), "small")
+    S = 3 if "chunk" in case or case == "split-cuts-window" else 1
+    args, kw, active = _paged_case(quant, dtype, S=S, geometry=geometry)
     if "window" in case:
         kw.update(window=20, softcap=30.0)
+    if case == "split-cuts-window":
+        kw.pop("softcap")
+        assert plan_paged_decode(*args[0].shape[:1], S, 8, 2, 128, 16, 5,
+                                 use_rank=True)["split_blocks"] == 1
     if case == "no-mask":
         kw["pool_mask"] = None
+    if case == "no-visible-key":
+        kw["pool_mask"][args[3][0]] = 0
+        kw["q_positions"][2] = -1
     registry.reset_launch_counts()
     got = paged_decode_cuda(*args, **kw)
     ref = paged_attention_plain(*args, **kw)
@@ -481,6 +507,20 @@ def test_paged_decode_kernel_matches_plain_version_on_the_card(case):
     assert got.dtype == ref.dtype and got.shape == ref.shape
     assert row_rel_err(got, ref, active) <= PAGED_DECODE_ROW_REL
     assert bool((got[~active] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8-pool"])
+def test_paged_decode_kernel_is_bitwise_run_to_run_on_the_card(quant):
+    """The splits are merged in a fixed order and nothing is atomic: two
+    calls on the same inputs give the same bits."""
+    _needs_card()
+    args, kw, _ = _paged_case(quant, torch.bfloat16, geometry="llama-m256")
+    a = paged_decode_cuda(*args, **kw)
+    b = paged_decode_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    bits = torch.int32 if a.dtype == torch.float32 else torch.int16
+    assert torch.equal(a.view(bits), b.view(bits))
 
 
 @pytest.mark.cuda
