@@ -20,7 +20,11 @@ config converters of ``models/convert.py`` (Llama, Mistral, Gemma, Gemma-2,
 Qwen2, Qwen3); sequence-parallel training with ring attention over
 ``torch.distributed`` (``Accelerator(sp_plugin=SequenceParallelPlugin(...))``,
 ``parallel/ring.py``) with the ring's per-block flash forward and backward
-as kernels. ROADMAP.md lists what comes next.
+as kernels; the canonical Accelerate loop of ``examples/nlp_example.py``
+(prepared loaders, ``backward``, the imperative ``optimizer.step()`` through
+the fused update kernel, schedules, ``gather_for_metrics``) on BERT
+(``models/bert.py``; ``python -m accelerate_tpu_torch.examples.nlp_example``).
+ROADMAP.md lists what comes next.
 
 Entry points run on the card by default and raise without one unless the
 caller passes ``device="cpu"``.
@@ -28,11 +32,16 @@ caller passes ``device="cpu"``.
 
 from . import optim
 from .accelerator import Accelerator
+from .data_loader import prepare_data_loader, skip_first_batches
 from .generation import generate
 from .launchers import debug_launcher
 from .models import (
+    BertConfig,
+    BertForSequenceClassification,
     Llama,
     LlamaConfig,
+    bert_config_from_hf,
+    bert_params_from_numpy,
     gemma2_config_from_hf,
     gemma_config_from_hf,
     llama_config_from_hf,
@@ -42,19 +51,34 @@ from .models import (
     qwen3_config_from_hf,
 )
 from .ops.paged_attention import init_kv_pool
-from .optim import adam, adamw, sgd
+from .optim import (
+    adam,
+    adamw,
+    constant_schedule,
+    cosine_decay_schedule,
+    inject_hyperparams,
+    linear_schedule,
+    polynomial_schedule,
+    sgd,
+)
 from .parallel.mesh import ParallelismConfig
 from .parallel.ring import LoopbackRing, ring_attention
 from .serving import ContinuousBatcher
 from .state import AcceleratorState, GradientState, PartialState
-from .utils.dataclasses import SequenceParallelPlugin
+from .utils.dataclasses import DataLoaderConfiguration, SequenceParallelPlugin
 from .utils.device import resolve_device
+from .utils.memory import find_executable_batch_size, release_memory
+from .utils.operations import gather, gather_object, reduce, send_to_device
 from .utils.random import set_seed
+from .utils.tqdm import tqdm
 
 __all__ = [
     "Accelerator",
     "AcceleratorState",
+    "BertConfig",
+    "BertForSequenceClassification",
     "ContinuousBatcher",
+    "DataLoaderConfiguration",
     "GradientState",
     "Llama",
     "LlamaConfig",
@@ -64,19 +88,35 @@ __all__ = [
     "SequenceParallelPlugin",
     "adam",
     "adamw",
+    "bert_config_from_hf",
+    "bert_params_from_numpy",
+    "constant_schedule",
+    "cosine_decay_schedule",
     "debug_launcher",
+    "find_executable_batch_size",
+    "gather",
+    "gather_object",
     "gemma2_config_from_hf",
     "gemma_config_from_hf",
     "generate",
     "init_kv_pool",
+    "inject_hyperparams",
+    "linear_schedule",
     "llama_config_from_hf",
     "llama_params_from_numpy",
     "optax_state_from_numpy",
     "optim",
+    "polynomial_schedule",
+    "prepare_data_loader",
     "qwen2_config_from_hf",
     "qwen3_config_from_hf",
+    "reduce",
+    "release_memory",
     "resolve_device",
     "ring_attention",
+    "send_to_device",
     "set_seed",
     "sgd",
+    "skip_first_batches",
+    "tqdm",
 ]

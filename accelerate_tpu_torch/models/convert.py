@@ -4,8 +4,9 @@ Maps a Hugging Face ``config.json`` (a ``transformers`` config object or a
 plain dict) onto the port's :class:`LlamaConfig`, with the JAX package's
 names and behaviour: the Llama recipe (also Mistral's), Gemma, Gemma-2
 (alternating local and global layers, score and logit softcaps,
-``query_pre_attn_scalar``, sandwich norms), Qwen2 and Qwen3. Features the
-model does not implement raise instead of converting silently.
+``query_pre_attn_scalar``, sandwich norms), Qwen2 and Qwen3; and BERT onto
+:class:`BertConfig`. Features the model does not implement raise instead of
+converting silently.
 
 The state-dict converters (``*_params_from_hf``) are not ported yet
 (ROADMAP.md, module queue); weights come across from the JAX package with
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from .bert import BertConfig
 from .llama import SUPPORTED_ROPE_TYPES, LlamaConfig
 
 # Rope types a config may name. The JAX package's model implements all five;
@@ -181,6 +183,33 @@ def qwen3_config_from_hf(hf_config) -> LlamaConfig:
     )
 
 
+# ---------------------------------------------------------------------- bert
+def bert_config_from_hf(hf_config) -> BertConfig:
+    """Map a ``transformers.BertConfig`` (attributes or dict) onto the
+    config: exact GELU and absolute positions only."""
+    get = _getter(hf_config)
+    act = get("hidden_act", "gelu")
+    if act not in ("gelu", "gelu_python"):
+        raise ValueError(f"hidden_act={act!r} is not supported (zoo BERT uses exact gelu)")
+    pos_type = get("position_embedding_type", "absolute")
+    if pos_type != "absolute":
+        raise ValueError(
+            f"position_embedding_type={pos_type!r} is not supported (zoo BERT uses "
+            "absolute learned positions; relative distance_embedding weights would be dropped)")
+    return BertConfig(
+        vocab_size=get("vocab_size"),
+        hidden_size=get("hidden_size"),
+        intermediate_size=get("intermediate_size"),
+        num_hidden_layers=get("num_hidden_layers"),
+        num_attention_heads=get("num_attention_heads"),
+        max_position_embeddings=get("max_position_embeddings", 512),
+        type_vocab_size=get("type_vocab_size", 2),
+        layer_norm_eps=get("layer_norm_eps", 1e-12),
+        num_labels=get("num_labels", 2) or 2,
+        hidden_dropout_prob=get("hidden_dropout_prob", 0.1),
+    )
+
+
 # ----------------------------------------------------------------- dispatcher
 # model_type -> config converter. Mistral is the Llama recipe with a sliding
 # window, which the Llama converter carries from the config.
@@ -191,4 +220,5 @@ _CONVERTERS = {
     "gemma2": gemma2_config_from_hf,
     "qwen2": qwen2_config_from_hf,
     "qwen3": qwen3_config_from_hf,
+    "bert": bert_config_from_hf,
 }

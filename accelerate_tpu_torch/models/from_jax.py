@@ -1,6 +1,7 @@
 """Carry parameters and optimizer state across from the JAX package.
 
-``llama_params_from_numpy`` takes the JAX package's Llama parameter tree with
+``llama_params_from_numpy`` (and ``bert_params_from_numpy``, for BERT) takes
+the JAX package's parameter tree with
 its leaves already converted to numpy arrays (``jax.tree_util.tree_map(
 np.asarray, params)`` on the JAX side — this module imports no JAX) and
 returns the port's parameter dictionary. The layouts are the same by design
@@ -21,24 +22,21 @@ import torch
 from ..optim import EmptyState, ScaleByAdam, ScaleByAdamState, Trace, TraceState
 from ..utils.device import resolve_device
 from ..utils.tree import tree_map
+from .bert import BertConfig, BertForSequenceClassification
 from .llama import Llama, LlamaConfig
 
 
-def _expected_shapes(config: LlamaConfig) -> dict:
+def _expected_shapes(model_cls, config) -> dict:
     """The parameter tree's shapes, from the port's own initializer run on
     the meta device (no memory, no numbers)."""
-    probe = Llama.__new__(Llama)
+    probe = model_cls.__new__(model_cls)
     probe.config = config
     probe.device = torch.device("meta")
     return probe.init(0)
 
 
-def llama_params_from_numpy(tree, config: LlamaConfig, device=None, dtype=torch.float32):
-    """Numpy Llama parameter tree (the JAX layout) → the port's parameters
-    on ``device`` in ``dtype``. Raises on a missing, extra or mis-shaped
-    leaf instead of loading a partial model."""
+def _params_from_numpy(tree, expected, device, dtype):
     dev = resolve_device(device)
-    expected = _expected_shapes(config)
 
     def convert(src, ref, path):
         if isinstance(ref, dict):
@@ -54,6 +52,22 @@ def llama_params_from_numpy(tree, config: LlamaConfig, device=None, dtype=torch.
         return torch.tensor(arr.astype(np.float32), device=dev, dtype=dtype)
 
     return convert(tree, expected, "")
+
+
+def llama_params_from_numpy(tree, config: LlamaConfig, device=None, dtype=torch.float32):
+    """Numpy Llama parameter tree (the JAX layout) → the port's parameters
+    on ``device`` in ``dtype``. Raises on a missing, extra or mis-shaped
+    leaf instead of loading a partial model."""
+    return _params_from_numpy(tree, _expected_shapes(Llama, config), device, dtype)
+
+
+def bert_params_from_numpy(tree, config: BertConfig, device=None, dtype=torch.float32):
+    """Numpy BERT parameter tree (the JAX package's
+    ``BertForSequenceClassification`` layout) → the port's parameters on
+    ``device`` in ``dtype``, checked leaf by leaf as
+    :func:`llama_params_from_numpy` checks."""
+    return _params_from_numpy(tree, _expected_shapes(BertForSequenceClassification, config),
+                              device, dtype)
 
 
 def optax_state_from_numpy(tx, state, params, device=None):

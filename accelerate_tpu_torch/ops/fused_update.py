@@ -14,8 +14,10 @@ equal on the card.
 
 - :func:`plan_fused_update` reads the family and the hyperparameters from
   the port's own transform objects (``optim.py``): ``sgd`` (with or without
-  momentum), ``adam`` and ``adamw``. Anything else returns None and the
-  caller runs :func:`reference_update_apply`, the optax-order chain.
+  momentum), ``adam`` and ``adamw`` with a constant learning rate. Anything
+  else (a schedule, ``inject_hyperparams``) returns None and the caller runs
+  the optax-order chain (:func:`reference_update_apply`), as the JAX package
+  does.
 - The clip factor and the bias corrections ``1 - b**count`` are f32 device
   scalars computed outside the per-leaf pass, as the JAX package computes
   them outside its kernel; nothing reads them back to the host.
@@ -31,6 +33,7 @@ import torch
 from ..optim import (
     AddDecayedWeights,
     Identity,
+    InjectHyperparams,
     Scale,
     ScaleByAdam,
     Trace,
@@ -76,7 +79,12 @@ class FusedUpdatePlan:
 
 def plan_fused_update(tx) -> FusedUpdatePlan | None:
     """Match ``tx`` (a ``GradientTransformation`` of ``optim.py``) against
-    the supported constructions; None means the reference chain runs."""
+    the supported constructions; None means the reference chain runs. As in
+    the JAX package (``ops/pallas/fused_update.py:103-155``), an
+    ``inject_hyperparams`` transform and a chain with a schedule
+    (``ScaleBySchedule``) get None."""
+    if isinstance(tx, InjectHyperparams):
+        return None
     transforms = getattr(tx, "transforms", None)
     if not transforms:
         return None

@@ -24,6 +24,7 @@ is.
 from __future__ import annotations
 
 import os
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -70,6 +71,24 @@ class PartialState:
     def distributed(self) -> bool:
         return self.num_processes > 1
 
+    @property
+    def is_main_process(self) -> bool:
+        return self.process_index == 0
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.local_process_index == 0
+
+    def wait_for_everyone(self) -> None:
+        """A barrier over the job's ranks; nothing on one rank."""
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
+
+    def print(self, *args, **kwargs) -> None:
+        """``print`` on the main process only."""
+        if self.is_main_process:
+            print(*args, **kwargs)
+
 
 class AcceleratorState:
     """The job's rank (:class:`PartialState`), its ``dp`` x ``sp`` mesh (None
@@ -106,10 +125,45 @@ class AcceleratorState:
 
 
 class GradientState:
-    """Gradient-accumulation bookkeeping: the number of micro-steps per
-    update."""
+    """Gradient-accumulation bookkeeping (JAX ``state.py:647-710``): the
+    micro-steps per update (``num_steps``), whether this micro-step ends an
+    accumulation window (``sync_gradients``, set by
+    ``Accelerator.accumulate``), and the stack of prepared loaders that are
+    iterating, whose innermost tells ``end_of_dataloader`` and ``remainder``.
+    One object per ``Accelerator``, handed to the loaders, optimizers and
+    schedulers it prepares (the JAX package keeps a process-wide singleton).
+    Loaders are held by weak reference, as the JAX package holds them."""
 
     def __init__(self, num_steps: int = 1):
         if int(num_steps) < 1:
             raise ValueError(f"gradient_accumulation_steps must be >= 1, got {num_steps}")
         self.num_steps = int(num_steps)
+        self.sync_with_dataloader = True  # the last batch of a loader always syncs
+        self.sync_gradients = True
+        self._dataloader_refs = []
+
+    @property
+    def active_dataloader(self):
+        refs = [r() for r in self._dataloader_refs]
+        refs = [r for r in refs if r is not None]
+        return refs[-1] if refs else None
+
+    @property
+    def end_of_dataloader(self) -> bool:
+        dl = self.active_dataloader
+        return getattr(dl, "end_of_dataloader", False) if dl is not None else False
+
+    @property
+    def remainder(self) -> int:
+        dl = self.active_dataloader
+        return getattr(dl, "remainder", -1) if dl is not None else -1
+
+    def _set_sync_gradients(self, sync: bool) -> None:
+        self.sync_gradients = bool(sync)
+
+    def _add_dataloader(self, dataloader) -> None:
+        self._dataloader_refs.append(weakref.ref(dataloader))
+
+    def _remove_dataloader(self, dataloader) -> None:
+        self._dataloader_refs = [r for r in self._dataloader_refs
+                                 if r() is not None and r() is not dataloader]

@@ -5,9 +5,12 @@
     python3 chip_smoke.py --profile  # adds torch.profiler passes over a
                                      # serving wave with bf16 weights and
                                      # one with int8 weights, one Llama and
-                                     # one Gemma-2 training step
+                                     # one Gemma-2 training step, one step
+                                     # of the canonical BERT loop
     python3 chip_smoke.py --paged-decode  # only phase 2b, the paged decode
                                      # kernel's cells (the same use)
+    python3 chip_smoke.py --loop     # only phase 11, the canonical BERT loop
+                                     # (with --profile: one profiled step)
     python3 chip_smoke.py --splash-times  # only the splash kernels' times at
                                      # Gemma-2-9B's layers (to set two trees
                                      # side by side in one run: copy this
@@ -114,6 +117,25 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    no key come out 0). Times for each block kernel, its twin and
    ``scaled_dot_product_attention`` on the same block, and for the whole
    ring against single-card flash, beside the bounds.
+11. The canonical Accelerate loop of ``examples/nlp_example.py`` (the port's
+   ``accelerate_tpu_torch/examples/nlp_example.py``) at bert-base-cased's
+   published widths (``bert_config_from_hf`` of its config: 12 layers of
+   768, vocabulary 28996; random weights from the seed, dropout off):
+   ``Accelerator(mixed_precision="bf16")``, the example's key-match data at
+   MRPC's split sizes (3668 train, 408 eval), sequences of 128, batch 16.
+   Arm A, the example as written: ``inject_hyperparams(adamw)(2e-5)`` and
+   ``linear_schedule(2e-5, 2e-6, 229)``, ``clip_grad_norm_(model, 1.0)``,
+   one epoch and the eval: finite losses, the reference chain (no fused
+   update launched), the learning rate after the last step equal to the
+   schedule's, ``gather_for_metrics`` returning exactly 408 rows (the tail
+   of 25 x 16 + 8 padded and trimmed); accuracy printed. Arm B, a constant
+   ``adamw(2e-5)``: 40 steps with the fused update launched from
+   ``optimizer.step()`` 25 times a step (one per BERT parameter leaf), the
+   first 3 losses against a ``kernels="off"`` arm within phase 7's pin,
+   and an accumulation-2 build launching the update only at the
+   boundaries. Steps/s and tokens/s (host clock over 30 steps after 5
+   warm-up, ending in ``synchronize()``) and peak memory of both arms;
+   ``--profile`` adds one profiled step of arm B.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -178,6 +200,17 @@ GEMMA2_ATTENTION = dict(B=GEMMA2_BATCH, S=GEMMA2_SEQ, H=16, Hkv=8, D=256, scale=
 # Phase 10: Llama-3-8B attention widths over a 4-rank ring.
 RING_RANKS, RING_SEQ, RING_SMALL_SEQ = 4, 32768, 4096
 RING_HEADS, RING_KV_HEADS, RING_HEAD_DIM = 32, 8, 128
+# bert-base-cased on the Hugging Face hub, config.json: the published widths
+# (phase 11, the canonical loop; random weights, dropout off).
+BERT_BASE_CASED = dict(vocab_size=28996, hidden_size=768, num_hidden_layers=12,
+                       num_attention_heads=12, intermediate_size=3072, hidden_act="gelu",
+                       hidden_dropout_prob=0.1, max_position_embeddings=512, type_vocab_size=2,
+                       layer_norm_eps=1e-12, position_embedding_type="absolute",
+                       model_type="bert")
+# MRPC's split sizes, the reference example's batch, sequences of 128 tokens.
+LOOP_TRAIN, LOOP_EVAL, LOOP_BATCH, LOOP_SEQ = 3668, 408, 16, 128
+LOOP_LR, LOOP_END_LR = 2e-5, 2e-6
+LOOP_B_STEPS, LOOP_WARMUP, LOOP_TIMED = 40, 5, 30
 T_START = time.perf_counter()
 
 
@@ -1181,29 +1214,10 @@ def train_phase(card):
     return counts
 
 
-def profile_train_step(cfg, shape, label: str):
-    """torch.profiler over one training step: device time by kernel, busy
-    share."""
-    import numpy as np
+def log_profile(prof, wall: float, label: str) -> None:
+    """Device time of a profiled step by kernel family and by kernel, and
+    the busy share of its wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from accelerate_tpu_torch import Accelerator, Llama, adamw
-
-    model = Llama(cfg)
-    model.init_params(SEED)
-    acc = Accelerator(mixed_precision="bf16")
-    pm, po = acc.prepare(model, adamw(3e-4))
-    step = acc.build_train_step(pm, po)
-    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size, shape).astype(np.int32)
-    batch = {"input_ids": ids, "labels": ids}
-    step(batch, clip_norm=1.0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(batch, clip_norm=1.0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
 
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(device_us(e) for e in events) / 1e3
@@ -1229,6 +1243,33 @@ def profile_train_step(cfg, shape, label: str):
         log(f"profile {label}: {ms:9.2f} ms ({100 * ms / total:5.1f}%) {n:5d}x  {name}")
     for e in sorted(events, key=lambda e: -device_us(e))[:20]:
         log(f"profile {label}:   {device_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
+
+
+def profile_train_step(cfg, shape, label: str):
+    """torch.profiler over one training step: device time by kernel, busy
+    share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch import Accelerator, Llama, adamw
+
+    model = Llama(cfg)
+    model.init_params(SEED)
+    acc = Accelerator(mixed_precision="bf16")
+    pm, po = acc.prepare(model, adamw(3e-4))
+    step = acc.build_train_step(pm, po)
+    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size, shape).astype(np.int32)
+    batch = {"input_ids": ids, "labels": ids}
+    step(batch, clip_norm=1.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch, clip_norm=1.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    log_profile(prof, wall, label)
     del model, acc, pm, po, step
     free_cuda()
 
@@ -1843,6 +1884,183 @@ def ring_phase():
                  library_ms=full["library_bwd"])]
 
 
+def bert_base_config():
+    """bert-base-cased's published config through the port's converter,
+    dropout off (parity with ``kernels="off"`` needs the same draws)."""
+    import dataclasses
+
+    from accelerate_tpu_torch import bert_config_from_hf
+
+    return dataclasses.replace(bert_config_from_hf(BERT_BASE_CASED), hidden_dropout_prob=0.0)
+
+
+def loop_arm(cfg, inject: bool, steps=None, kernels=None, accum: int = 1, evaluate=False,
+             profile=False):
+    """The canonical loop on a fresh model from the seed; returns a dict of
+    the losses, launch counts (all steps, and after each step), the wall
+    seconds of steps [LOOP_WARMUP, LOOP_WARMUP + LOOP_TIMED), the peak
+    bytes, the learning rates and, with ``evaluate``, the eval's rows and
+    accuracy."""
+    import torch
+
+    from accelerate_tpu_torch import (
+        Accelerator,
+        BertForSequenceClassification,
+        adamw,
+        inject_hyperparams,
+        linear_schedule,
+        set_seed,
+    )
+    from accelerate_tpu_torch.examples.nlp_example import get_dataloaders
+    from accelerate_tpu_torch.ops import registry
+
+    torch.cuda.reset_peak_memory_stats()
+    acc = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=accum, kernels=kernels)
+    set_seed(SEED)
+    model = BertForSequenceClassification(cfg)
+    model.init_params(SEED)
+    train_dl, eval_dl = get_dataloaders(LOOP_BATCH, cfg.vocab_size, train_size=LOOP_TRAIN,
+                                        eval_size=LOOP_EVAL, seq_len=LOOP_SEQ,
+                                        eval_drop_last=False)
+    train_dl, eval_dl = acc.prepare(train_dl, eval_dl)
+    schedule = None
+    if inject:
+        schedule = linear_schedule(LOOP_LR, LOOP_END_LR, len(train_dl) // accum)
+        model, opt, sched = acc.prepare(model, inject_hyperparams(adamw)(learning_rate=LOOP_LR),
+                                        schedule)
+    else:
+        (model, opt), sched = acc.prepare(model, adamw(LOOP_LR)), None
+    out = {"losses": [], "per_step": [], "wall": None, "schedule": schedule, "opt": opt,
+           "sched": sched}
+    model.train()
+    train_dl.set_epoch(0)
+    registry.reset_launch_counts()
+    for i, batch in enumerate(train_dl):
+        if steps is not None and i == steps:
+            break
+        if i == LOOP_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        prof = None
+        if profile and i == LOOP_WARMUP + LOOP_TIMED:  # after the timed steps
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as torch_profile
+
+            prof = torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.__enter__()
+            t_prof = time.perf_counter()
+        with acc.accumulate(model):
+            loss = model(**batch)["loss"]
+            acc.backward(loss)
+            if acc.sync_gradients:
+                acc.clip_grad_norm_(model, 1.0)
+            opt.step()
+            if sched is not None:
+                sched.step()
+            opt.zero_grad()
+        out["losses"].append(loss.detach())
+        out["per_step"].append(dict(registry.launch_counts))
+        if prof is not None:
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_prof
+            prof.__exit__(None, None, None)
+            log_profile(prof, wall, "loop arm B")
+        if i == LOOP_WARMUP + LOOP_TIMED - 1:
+            torch.cuda.synchronize()
+            out["wall"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    out["counts"] = dict(registry.launch_counts)
+    out["losses"] = [float(x) for x in out["losses"]]
+    out["lr"] = opt.learning_rate
+    out["peak"] = torch.cuda.max_memory_allocated()
+    if evaluate:
+        model.eval()
+        correct = rows = 0
+        for batch in eval_dl:
+            labels = batch.pop("labels")
+            preds, refs = acc.gather_for_metrics((model(**batch)["logits"].argmax(-1), labels))
+            correct += int((preds == refs).sum())
+            rows += len(refs)
+        out["rows"], out["accuracy"] = rows, correct / rows
+    acc.end_training()
+    del acc, model, opt, sched, train_dl, eval_dl
+    free_cuda()
+    return out
+
+
+def loop_phase(card, profile: bool = False) -> dict:
+    """Phase 11; returns arm B's launch counts."""
+    from accelerate_tpu_torch import BertForSequenceClassification
+
+    cfg = bert_base_config()
+    probe = BertForSequenceClassification(cfg, device="cpu")
+    n_params, fpt = probe.num_params(), probe.flops_per_token(LOOP_SEQ)
+    tokens = LOOP_BATCH * LOOP_SEQ
+    n_steps = LOOP_TRAIN // LOOP_BATCH
+    shape = (f"bert-base-cased widths ({cfg.num_hidden_layers} layers of {cfg.hidden_size}, "
+             f"vocabulary {cfg.vocab_size}, {n_params / 1e6:.1f}M params), bf16 compute on f32 "
+             f"masters, batch {LOOP_BATCH}x{LOOP_SEQ}, clip 1.0")
+
+    def speed(run, label):
+        step_s = run["wall"] / LOOP_TIMED
+        log(f"loop {label}: {1 / step_s:.2f} steps/s, {tokens / step_s:.0f} tokens/s "
+            f"(host clock over steps {LOOP_WARMUP}-{LOOP_WARMUP + LOOP_TIMED - 1}, ending in "
+            f"synchronize(); {step_s * 1e3:.2f} ms a step, MFU "
+            f"{100 * fpt * tokens / step_s / BF16_OPS_PER_S:.2f}% of 989 TFLOP/s at "
+            f"{fpt:.4g} FLOP/token); peak memory {run['peak'] / 2**30:.2f} GiB "
+            f"[finding, not a limit; {card}]")
+        return step_s
+
+    a = loop_arm(cfg, inject=True, evaluate=True)
+    want_lr = float(a["schedule"](n_steps))
+    if (a["counts"] or len(a["losses"]) != n_steps
+            or not all(math.isfinite(x) for x in a["losses"])):
+        raise SystemExit(f"loop arm A: {len(a['losses'])} steps (want {n_steps}), launches "
+                         f"{a['counts']} (want none: the reference chain), losses finite: "
+                         f"{all(math.isfinite(x) for x in a['losses'])}")
+    if not (a["lr"] == want_lr == a["sched"].get_last_lr()[0]):
+        raise SystemExit(f"loop arm A: learning rate after the last step {a['lr']}, the "
+                         f"schedule's {want_lr}, the scheduler's {a['sched'].get_last_lr()}")
+    if a["rows"] != LOOP_EVAL:
+        raise SystemExit(f"loop arm A: gather_for_metrics gave {a['rows']} rows, the eval set "
+                         f"has {LOOP_EVAL}")
+    log(f"loop arm A (inject_hyperparams(adamw) + linear_schedule, the reference chain): "
+        f"{shape}; {n_steps} steps, losses first {[round(x, 4) for x in a['losses'][:3]]} "
+        f"last {[round(x, 4) for x in a['losses'][-3:]]}; no fused update launched; lr after "
+        f"the last step {a['lr']:.6g} (the schedule's); eval rows {a['rows']}, accuracy "
+        f"{a['accuracy']:.4f} (random init, one epoch at 2e-5; a finding, not a check)")
+    speed(a, "arm A")
+
+    b = loop_arm(cfg, inject=False, steps=LOOP_B_STEPS, profile=profile)
+    per_step = [c.get("fused_adamw_update", 0) for c in b["per_step"]]
+    leaves = 25
+    if (b["counts"] != {"fused_adamw_update": leaves * LOOP_B_STEPS}
+            or per_step != [leaves * (i + 1) for i in range(LOOP_B_STEPS)]
+            or not all(math.isfinite(x) for x in b["losses"])):
+        raise SystemExit(f"loop arm B: launches {b['counts']} (want fused_adamw_update "
+                         f"{leaves} a step over {LOOP_B_STEPS} steps), after each step "
+                         f"{per_step[:5]}..., losses {b['losses'][:5]}...")
+    log(f"loop arm B (constant adamw(2e-5), the fused update from optimizer.step()): "
+        f"{LOOP_B_STEPS} steps, fused_adamw_update launched {leaves} times a step "
+        f"({b['counts']}); losses first {[round(x, 4) for x in b['losses'][:3]]} last "
+        f"{[round(x, 4) for x in b['losses'][-3:]]}")
+    speed(b, "arm B")
+    off = loop_arm(cfg, inject=False, steps=3, kernels="off")
+    diff = max(abs(x - y) for x, y in zip(off["losses"], b["losses"][:3]))
+    if off["counts"] or diff > TRAIN_LOSS_ATOL:
+        raise SystemExit(f"loop kernels='off': losses {off['losses']} vs {b['losses'][:3]} "
+                         f"(max |diff| {diff}, pin {TRAIN_LOSS_ATOL}), launches {off['counts']}")
+    log(f"loop kernels='off': losses {[round(x, 6) for x in off['losses']]}, max |diff| "
+        f"{diff:.3e} vs arm B (pin {TRAIN_LOSS_ATOL}); no launches")
+    acc2 = loop_arm(cfg, inject=False, steps=4, accum=2)
+    updates = [c.get("fused_adamw_update", 0) for c in acc2["per_step"]]
+    if updates != [0, leaves, leaves, 2 * leaves]:
+        raise SystemExit(f"loop accumulation 2: update launches after each micro-step "
+                         f"{updates}, expected [0, {leaves}, {leaves}, {2 * leaves}]")
+    log(f"loop accumulation 2: 4 micro-steps, update launches after each {updates}")
+    return b["counts"]
+
+
 def main(argv) -> int:
     import torch
 
@@ -1863,6 +2081,13 @@ def main(argv) -> int:
         probe = Llama(LlamaConfig.tiny(), device="cuda")  # the geometry needs no 8B weights
         probe.init_params(SEED, dtype=torch.bfloat16)
         paged_decode_phase(LlamaConfig.llama3_8b(), engine_kwargs(), *engine_geometry(probe))
+        print(card)
+        return 0
+    if "--loop" in argv:
+        _build.build(["fused_update"])
+        card = card_info()
+        log(f"build: fused_update in {time.perf_counter() - t0:.1f} s; device: {card}")
+        loop_phase(card, profile="--profile" in argv)
         print(card)
         return 0
     if "--splash-times" in argv:
@@ -1932,6 +2157,14 @@ def main(argv) -> int:
     free_cuda()
 
     rows += ring_phase()
+    free_cuda()
+
+    loop_counts = loop_phase(card, profile="--profile" in argv)
+    for row in rows:  # phase 7's launches plus the loop's
+        if row["name"] in loop_counts:
+            log(f"kernel {row['name']}: {row['launches']} launches in phase 7, "
+                f"{loop_counts[row['name']]} in phase 11")
+            row["launches"] += loop_counts[row["name"]]
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -25,6 +25,7 @@ import torch
 
 import accelerate_tpu_torch as T
 from accelerate_tpu_torch import optim
+from accelerate_tpu_torch.utils.tree import tree_leaves
 from chip_smoke import (
     FLASH_BWD_REL,
     FLASH_FWD_TILE_REL,
@@ -72,6 +73,10 @@ def _imports(path: Path):
 def test_port_never_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "accelerate_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    scanned = {f.relative_to(ROOT / "accelerate_tpu_torch").as_posix() for f in files[:-1]}
+    assert {"data_loader.py", "scheduler.py", "optimizer.py", "ops/norms.py", "models/bert.py",
+            "utils/operations.py", "utils/tqdm.py", "utils/memory.py", "utils/random.py",
+            "examples/nlp_example.py"} <= scanned
     bad = [(f.relative_to(ROOT).as_posix(), mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "accelerate_tpu")]
     assert bad == []
@@ -100,6 +105,18 @@ def test_entry_points_raise_without_cuda_unless_cpu_requested(monkeypatch):
             make()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         T.set_seed(0)
+    # The canonical loop's entry points (slice 11).
+    bert_cfg = T.BertConfig.tiny()
+    loader = torch.utils.data.DataLoader(list(range(8)), batch_size=4)
+    for make in (lambda: T.BertForSequenceClassification(bert_cfg),
+                 lambda: T.inject_hyperparams(T.adamw)(learning_rate=1e-3),
+                 lambda: T.adamw(T.linear_schedule(1e-3, 0.0, 10)),
+                 lambda: T.prepare_data_loader(loader),
+                 lambda: T.Accelerator(cpu=False)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert T.Accelerator(cpu=True).device.type == "cpu"
+    assert T.prepare_data_loader(loader, device="cpu").device.type == "cpu"
     assert T.resolve_device("cpu").type == "cpu"
     # The training entry points run end to end when the CPU is asked for.
     acc = T.Accelerator(device="cpu")
@@ -712,3 +729,79 @@ def test_gemma2_train_step_on_the_card_matches_kernels_off():
         else:
             assert registry.launch_counts == {}
     np.testing.assert_allclose(losses[None], losses["off"], atol=2e-2)
+
+
+def _bert_loop_arm(spec, steps, accum=1):
+    """The canonical loop on a small BERT on the card (bf16 compute), with a
+    constant adamw; returns the accelerator, model, optimizer, losses and
+    the fused update's launch count after each step."""
+    cfg = T.BertConfig.tiny(vocab_size=1000, max_position_embeddings=128,
+                            hidden_dropout_prob=0.0)
+    model = T.BertForSequenceClassification(cfg)
+    model.init_params(0)
+    acc = T.Accelerator(mixed_precision="bf16", kernels=spec, gradient_accumulation_steps=accum)
+    pm, po = acc.prepare(model, T.adamw(1e-3))
+    rng = np.random.default_rng(3)
+    losses, counts = [], []
+    registry.reset_launch_counts()
+    for _ in range(steps):
+        batch = {"input_ids": rng.integers(0, 1000, (8, 128)).astype(np.int32),
+                 "token_type_ids": np.repeat([[0] * 64 + [1] * 64], 8, axis=0).astype(np.int32),
+                 "labels": rng.integers(0, 2, (8,)).astype(np.int32)}
+        with acc.accumulate(pm):
+            loss = pm(**batch)["loss"]
+            acc.backward(loss)
+            if acc.sync_gradients:
+                acc.clip_grad_norm_(pm, 1.0)
+            po.step()
+            po.zero_grad()
+        losses.append(float(loss.detach()))
+        counts.append(registry.launch_counts.get("fused_adamw_update", 0))
+    return acc, pm, po, losses, counts
+
+
+@pytest.mark.cuda
+def test_loop_optimizer_step_launches_the_kernel_bitwise_to_its_plain_version_on_the_card():
+    """``optimizer.step()`` of the imperative loop with a constant adamw:
+    one fused update launch per BERT parameter leaf (25), and, from the
+    same banked gradients, parameters and moments bitwise equal to the
+    ``kernels="off"`` arm's (the plain version)."""
+    _needs_card()
+    arms = {spec: _bert_loop_arm(spec, 0)[:3] for spec in (None, "off")}
+    rng = np.random.default_rng(4)
+    batch = {"input_ids": rng.integers(0, 1000, (8, 128)).astype(np.int32),
+             "labels": rng.integers(0, 2, (8,)).astype(np.int32)}
+    for acc, pm, _ in arms.values():
+        acc.backward(pm(**batch)["loss"])
+    (kacc, kpm, kpo), (oacc, opm, opo) = arms[None], arms["off"]
+    for a, b in zip(tree_leaves(opo.grads), tree_leaves(kpo.grads)):
+        a.copy_(b)  # the same banked gradients on both arms
+    for acc, pm, _ in arms.values():
+        acc.clip_grad_norm_(pm, 1.0)
+    registry.reset_launch_counts()
+    kpo.step()
+    opo.step()
+    torch.cuda.synchronize()
+    assert registry.launch_counts == {"fused_adamw_update": 25}
+    for a, b in zip(tree_leaves(kpm.params), tree_leaves(opm.params)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for name in ("mu", "nu"):
+        for a, b in zip(tree_leaves(getattr(kpo.opt_state[0], name)),
+                        tree_leaves(getattr(opo.opt_state[0], name))):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_loop_on_the_card_matches_kernels_off():
+    """Four steps of the loop (bf16 compute, a constant adamw): the kernel
+    arm launches the update 25 times a step, the plain arm never; losses
+    agree to 2e-2 (bf16 compute, losses about 0.7). With accumulation 2 the
+    update launches only at the boundaries."""
+    _needs_card()
+    _, _, _, losses, counts = _bert_loop_arm(None, 4)
+    assert counts == [25, 50, 75, 100]
+    _, _, _, off, off_counts = _bert_loop_arm("off", 4)
+    assert off_counts == [0, 0, 0, 0]
+    np.testing.assert_allclose(losses, off, atol=2e-2)
+    _, _, _, _, acc_counts = _bert_loop_arm(None, 4, accum=2)
+    assert acc_counts == [0, 25, 25, 50]

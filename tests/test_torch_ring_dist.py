@@ -83,7 +83,7 @@ def ring_worker(out_dir: str):
             saved[f"{c}_{name}_loop"] = b.detach().numpy()
     from accelerate_tpu_torch.utils.operations import broadcast, reduce
 
-    saved["reduced"] = np.asarray([float(reduce(torch.tensor([float(rank)]))),
+    saved["reduced"] = np.asarray([float(reduce(torch.tensor([float(rank)]), "sum")),
                                    float(reduce(torch.tensor([float(rank)]), "mean")),
                                    float(broadcast(torch.tensor([float(rank)]), src=2))])
     np.savez(Path(out_dir) / f"rank{rank}.npz", **saved)
