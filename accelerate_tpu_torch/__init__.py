@@ -23,7 +23,11 @@ Qwen2, Qwen3); sequence-parallel training with ring attention over
 as kernels; the canonical Accelerate loop of ``examples/nlp_example.py``
 (prepared loaders, ``backward``, the imperative ``optimizer.step()`` through
 the fused update kernel, schedules, ``gather_for_metrics``) on BERT
-(``models/bert.py``; ``python -m accelerate_tpu_torch.examples.nlp_example``).
+(``models/bert.py``; ``python -m accelerate_tpu_torch.examples.nlp_example``);
+checkpoints in the JAX package's layout (``save_state`` / ``load_state``,
+``save_model``; ``checkpointing.py``), mid-epoch loader resume, trackers and
+multi-process logging (``tracking.py``, ``logging.py``;
+``python -m accelerate_tpu_torch.examples.complete_nlp_example``).
 ROADMAP.md lists what comes next.
 
 Entry points run on the card by default and raise without one unless the
@@ -35,6 +39,7 @@ from .accelerator import Accelerator
 from .data_loader import prepare_data_loader, skip_first_batches
 from .generation import generate
 from .launchers import debug_launcher
+from .logging import get_logger
 from .models import (
     BertConfig,
     BertForSequenceClassification,
@@ -65,7 +70,11 @@ from .parallel.mesh import ParallelismConfig
 from .parallel.ring import LoopbackRing, ring_attention
 from .serving import ContinuousBatcher
 from .state import AcceleratorState, GradientState, PartialState
-from .utils.dataclasses import DataLoaderConfiguration, SequenceParallelPlugin
+from .utils.dataclasses import (
+    DataLoaderConfiguration,
+    ProjectConfiguration,
+    SequenceParallelPlugin,
+)
 from .utils.device import resolve_device
 from .utils.memory import find_executable_batch_size, release_memory
 from .utils.operations import gather, gather_object, reduce, send_to_device
@@ -85,6 +94,7 @@ __all__ = [
     "LoopbackRing",
     "ParallelismConfig",
     "PartialState",
+    "ProjectConfiguration",
     "SequenceParallelPlugin",
     "adam",
     "adamw",
@@ -99,6 +109,7 @@ __all__ = [
     "gemma2_config_from_hf",
     "gemma_config_from_hf",
     "generate",
+    "get_logger",
     "init_kv_pool",
     "inject_hyperparams",
     "linear_schedule",

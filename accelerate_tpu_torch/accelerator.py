@@ -27,8 +27,8 @@ calls ``.item()``.
 Mixed precision ``bf16`` keeps f32 master parameters and casts them to bf16
 *inside* the differentiated function, so the gradients land in f32, as in
 JAX. Not ported yet: ``build_train_window``, the fp16 gradient scaler, ZeRO
-and the fsdp, tp, pp and ep axes, Ulysses, remat, adafactor, trackers and
-checkpoints, and the telemetry, audit and health hooks of the step.
+and the fsdp, tp, pp and ep axes, Ulysses, remat, adafactor, and the
+telemetry, audit and health hooks of the step.
 
 The canonical imperative loop (``examples/nlp_example.py``; the port's
 ``accelerate_tpu_torch/examples/nlp_example.py``)::
@@ -65,6 +65,24 @@ skips the reduction of the other micro-steps with ``no_sync``). In eval mode
 the forward runs under ``torch.no_grad()``. Under ``sp_size > 1`` the
 imperative path raises: train with ``build_train_step``.
 
+Checkpoints and trackers (``checkpointing.py``, ``tracking.py``; the JAX
+package's ``accelerator.py:1766-1935``)::
+
+    accelerator = Accelerator(log_with="json", project_config=ProjectConfiguration(
+        project_dir=out, automatic_checkpoint_naming=True, total_limit=2))
+    accelerator.init_trackers("run", config)
+    ...
+    accelerator.save_state()              # checkpoints/checkpoint_<i>
+    accelerator.load_state()              # the newest complete one, in place
+    accelerator.log({"train_loss": loss}, step=step)
+    accelerator.save_model(model, export_dir, max_shard_size="200MB")
+    accelerator.end_training()            # finishes trackers, joins saves
+
+``save_state`` and ``load_state`` serve both training paths: each reads and
+writes the handle's parameters and the optimizer's state in place, which
+``build_train_step`` and ``optimizer.step()`` share; the dropout generator
+of each prepared model travels in ``random_states_<rank>.pkl``.
+
 Sequence parallelism, one process per rank (``torchrun`` on cards,
 ``launchers.debug_launcher`` over gloo on the CPU)::
 
@@ -91,12 +109,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
+import os
 
 import numpy as np
 import torch
 import torch.utils.data as tud
 
-from .data_loader import DataLoaderShard, prepare_data_loader
+from .data_loader import DataLoaderShard, prepare_data_loader, skip_first_batches
 from .modules import Module
 from .ops.fused_update import fused_update_apply, reference_update_apply
 from .ops.registry import resolve_spec
@@ -106,14 +126,31 @@ from .parallel.mesh import ParallelismConfig
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils import operations as ops
-from .utils.dataclasses import DataLoaderConfiguration, SequenceParallelPlugin
+from .utils.dataclasses import (
+    DataLoaderConfiguration,
+    ProjectConfiguration,
+    SequenceParallelPlugin,
+)
 from .utils.device import host_to_device
 from .utils.operations import broadcast, reduce
 from .utils.transfer import place_batch, shard_batch
 from .utils.tree import tree_leaves, tree_map, tree_unflatten
 
+_TRUE, _FALSE = ("y", "yes", "t", "true", "on", "1"), ("n", "no", "f", "false", "off", "0")
+
+
+def _flag_from_env(key: str, default: bool = False) -> bool:
+    """A yes/no environment variable (the JAX package's
+    ``parse_flag_from_env``)."""
+    value = os.environ.get(key, str(default)).lower()
+    if value in _TRUE:
+        return True
+    if value in _FALSE:
+        return False
+    raise ValueError(f"If set, {key} must be yes/no/1/0/true/false, got {value!r}.")
+
 # The seed of a prepared model's dropout generator (the JAX package seeds its
-# dropout key with ACCELERATE_SEED + 7919; the port reads no environment).
+# dropout key with ACCELERATE_SEED + 7919; no environment variable sets it).
 DROPOUT_SEED = 7919
 
 
@@ -255,14 +292,19 @@ class Accelerator:
     """One process, one device, one rank of the job. ``kernels`` is the
     registry spec: None (the hand-written kernels for CUDA tensors) or
     ``"off"`` (their plain versions, the comparison arm of
-    ``chip_smoke.py``). The accumulation steps are fixed at construction.
+    ``chip_smoke.py``). The accumulation steps are fixed at construction (only
+    ``load_state(reshard=True)`` rescales them, to keep the global batch).
     ``cpu=True`` is the JAX package's spelling of ``device="cpu"``.
     ``sp_plugin`` or ``parallelism_config`` ask for a ``("dp", "sp")`` mesh
     over the job's ranks (module docstring); ``init_method`` is handed to
     ``init_process_group`` when this process starts the job.
     ``split_batches``, ``dataloader_config`` and ``rng_types`` shape the
     prepared loaders, ``step_scheduler_with_optimizer`` the schedulers, as
-    in the JAX package."""
+    in the JAX package. ``project_config`` (or ``project_dir``) places the
+    checkpoints and tracker logs; without either, ``ACCELERATE_PROJECT_DIR``
+    with ``ACCELERATE_CHECKPOINT_AUTO_NAMING`` and
+    ``ACCELERATE_CHECKPOINT_TOTAL_LIMIT`` do. ``log_with`` names the
+    trackers (``ACCELERATE_LOG_WITH``, comma-separated, when not given)."""
 
     def __init__(self, mixed_precision: str | None = None, gradient_accumulation_steps: int = 1,
                  kernels: str | None = None, device=None,
@@ -271,7 +313,9 @@ class Accelerator:
                  init_method: str | None = None, *, cpu: bool = False,
                  split_batches: bool = False,
                  dataloader_config: DataLoaderConfiguration | None = None,
-                 rng_types: list | None = None, step_scheduler_with_optimizer: bool = True):
+                 rng_types: list | None = None, step_scheduler_with_optimizer: bool = True,
+                 log_with=None, project_dir: str | os.PathLike | None = None,
+                 project_config: ProjectConfiguration | None = None):
         if cpu:
             if device is not None and torch.device(device).type != "cpu":
                 raise ValueError(f"cpu=True contradicts device={device!r}")
@@ -297,6 +341,41 @@ class Accelerator:
         self._optimizers: list[AcceleratedOptimizer] = []
         self._schedulers: list[AcceleratedScheduler] = []
         self._dataloaders: list = []
+        self._custom_objects: list = []
+        if project_config is None and project_dir is None:
+            env_dir = os.environ.get("ACCELERATE_PROJECT_DIR")
+            if env_dir:
+                limit = os.environ.get("ACCELERATE_CHECKPOINT_TOTAL_LIMIT")
+                project_config = ProjectConfiguration(
+                    project_dir=env_dir,
+                    automatic_checkpoint_naming=_flag_from_env(
+                        "ACCELERATE_CHECKPOINT_AUTO_NAMING"),
+                    total_limit=int(limit) if limit else None)
+        self.project_configuration = project_config or ProjectConfiguration(
+            project_dir=project_dir)
+        if project_dir is not None and self.project_configuration.project_dir is None:
+            self.project_configuration.set_directories(project_dir)
+        if log_with is None and os.environ.get("ACCELERATE_LOG_WITH"):
+            log_with = [t.strip() for t in os.environ["ACCELERATE_LOG_WITH"].split(",")
+                        if t.strip()]
+        from .tracking import filter_trackers
+
+        self.log_with = filter_trackers(log_with, self.logging_dir) if log_with is not None \
+            else []
+        self.trackers = []
+
+    @property
+    def project_dir(self):
+        return self.project_configuration.project_dir
+
+    @property
+    def logging_dir(self):
+        return self.project_configuration.logging_dir
+
+    @property
+    def iteration(self) -> int:
+        """The index of the next automatically named checkpoint."""
+        return self.project_configuration.iteration
 
     @property
     def device(self) -> torch.device:
@@ -659,10 +738,103 @@ class Accelerator:
         """The module behind a ``PreparedModel``."""
         return model.module if isinstance(model, PreparedModel) else model
 
+    def get_state_dict(self, model, unwrap: bool = True):
+        """The model's parameters copied to the host (a tree of CPU
+        tensors)."""
+        params = model.params if isinstance(model, PreparedModel) else getattr(
+            model, "params", model)
+        return tree_map(lambda p: p.detach().cpu(), params)
+
+    def free_memory(self, *objects):
+        """Drop every prepared model, optimizer, scheduler and loader, reset
+        the micro-step count, collect garbage and return the card's cached
+        blocks; returns ``objects``."""
+        self._models.clear()
+        self._optimizers.clear()
+        self._schedulers.clear()
+        self._dataloaders.clear()
+        self.step = 0
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return objects
+
+    def clear(self, *objects):
+        return self.free_memory(*objects)
+
+    # ------------------------------------------------------- trackers / log
+    def init_trackers(self, project_name: str, config: dict | None = None,
+                      init_kwargs: dict | None = None):
+        from .tracking import init_trackers
+
+        self.trackers = init_trackers(self.log_with, project_name, self.logging_dir, config,
+                                      init_kwargs, self)
+
+    def get_tracker(self, name: str, unwrap: bool = False):
+        for tracker in self.trackers:
+            if tracker.name == name:
+                return tracker.tracker if unwrap else tracker
+        raise ValueError(f"Tracker {name} not found: available {[t.name for t in self.trackers]}")
+
+    def log(self, values: dict, step: int | None = None, log_kwargs: dict | None = None):
+        """``values`` to every tracker, on the main process."""
+        if self.is_main_process:
+            for tracker in self.trackers:
+                tracker.log(values, step=step, **((log_kwargs or {}).get(tracker.name, {})))
+
     def end_training(self):
-        """Waits for every rank (no trackers or pending checkpoint writes
-        are ported yet)."""
+        """Finish the trackers, join the background checkpoint writes (a
+        failed one raises here) and wait for every rank."""
+        if self.is_main_process:
+            for tracker in self.trackers:
+                tracker.finish()
+        self.finish_pending_saves()
         self.wait_for_everyone()
+
+    # ----------------------------------------------------------- checkpointing
+    def register_for_checkpointing(self, *objects):
+        """Objects with ``state_dict`` / ``load_state_dict`` that
+        ``save_state`` saves and ``load_state`` restores."""
+        invalid = [o for o in objects
+                   if not (hasattr(o, "state_dict") and hasattr(o, "load_state_dict"))]
+        if invalid:
+            raise ValueError(f"Objects lack state_dict/load_state_dict: {invalid}")
+        self._custom_objects.extend(objects)
+
+    def save_state(self, output_dir: str | None = None, **save_model_func_kwargs):
+        """``checkpointing.save_accelerator_state``; ``blocking=False``
+        returns once the arrays are copied to the host and writes them in
+        the background (join with ``finish_pending_saves``)."""
+        from .checkpointing import save_accelerator_state
+
+        return save_accelerator_state(self, output_dir, **save_model_func_kwargs)
+
+    def finish_pending_saves(self):
+        from .checkpointing import finish_pending_saves
+
+        finish_pending_saves()
+
+    def load_state(self, input_dir: str | None = None, **load_model_func_kwargs):
+        """``checkpointing.load_accelerator_state``, into the prepared
+        objects in place."""
+        from .checkpointing import load_accelerator_state
+
+        return load_accelerator_state(self, input_dir, **load_model_func_kwargs)
+
+    def save_model(self, model, save_directory, max_shard_size="10GB",
+                   safe_serialization=True):
+        from .checkpointing import save_model
+
+        return save_model(self, model, save_directory, max_shard_size, safe_serialization)
+
+    def skip_first_batches(self, dataloader, num_batches: int = 0):
+        return skip_first_batches(dataloader, num_batches)
+
+    def checkpoint_on_preemption(self, output_dir: str | None = None, step: int | None = None,
+                                 window: int = 1) -> bool:
+        raise NotImplementedError("preemption checkpointing (the preemption watcher, fault "
+                                  "plans and the goodput ledger of resilience/) is not ported "
+                                  "yet (ROADMAP.md, module queue)")
 
 
     # ------------------------------------------------------------ fused step
@@ -727,12 +899,18 @@ class Accelerator:
         the accumulation buffer and starts its micro-step count at 0."""
         handle = model.handle
         optimizer._ensure_initialized()
-        step_body = self._fused_step_body(model, optimizer, self.gradient_accumulation_steps)
+        accum = self.gradient_accumulation_steps
+        step_body = self._fused_step_body(model, optimizer, accum)
         optimizer._accum_grads = tree_map(torch.zeros_like, handle.params)
         count = 0
 
         def step(batch, clip_norm: float = 0.0):
             nonlocal count
+            if self.gradient_accumulation_steps != accum:  # load_state(reshard=True) rescaled it
+                raise RuntimeError(
+                    f"gradient_accumulation_steps changed from {accum} to "
+                    f"{self.gradient_accumulation_steps} after build_train_step; build the "
+                    "step again")
             clip = host_to_device(np.float32(clip_norm), handle.device)
             (handle.params, optimizer.opt_state, optimizer._accum_grads, count,
              loss) = step_body(handle.params, optimizer.opt_state, optimizer._accum_grads,

@@ -24,9 +24,21 @@ runs one process per rank: each rank's loader yields that rank's shard, numpy
 leaves turned into tensors (``torch.as_tensor``) and placed on the rank's
 device (asynchronously from pinned memory with ``non_blocking``).
 
-Not ported yet: ``DataLoaderDispatcher`` (rank 0 reads, the others receive),
-``DeviceBatchPrefetcher`` and mid-epoch resume (``state_dict``); they wait for
-the checkpointing slice, and ``prepare_data_loader`` raises for them.
+Mid-epoch resume (``DataLoaderShard.state_dict`` / ``load_state_dict``, the
+JAX package's ``data_loader.py:436-700``): the state holds the batches fetched
+this epoch, the epoch, and a snapshot of the random stream that drew this
+epoch's order, taken before the epoch's iterator was built:
+``("generator", bytes)`` for the ``torch.Generator`` the sampler chain
+carries, else ``("torch_global", bytes)`` of torch's global CPU stream (a
+plain ``RandomSampler`` draws its seed there). A loaded state restores the
+snapshot and skips the fetched batches, so the epoch goes on at the same
+batch, index for index; a base loader with its own ``state_dict`` is handed
+its state instead. The form is the JAX package's, so a ``sampler.bin`` that
+either package wrote resumes the other's loader.
+
+Not ported yet: ``DataLoaderDispatcher`` (rank 0 reads, the others receive;
+``prepare_data_loader`` raises for it) and ``DeviceBatchPrefetcher`` (raises
+when built).
 """
 
 from __future__ import annotations
@@ -56,6 +68,25 @@ def _job() -> tuple:
     if dist.is_initialized():
         return dist.get_world_size(), dist.get_rank()
     return 1, 0
+
+
+def _find_order_generator(loader):
+    """The ``torch.Generator`` that draws the loader's order, found along
+    the sampler chain (a prepared torch loader nests the user's sampler in
+    ``BatchSamplerShard`` and a torch ``BatchSampler``), or None."""
+    seen, frontier = set(), [loader]
+    for _ in range(4):  # loader -> shard -> batch_sampler -> sampler
+        nxt = []
+        for obj in frontier:
+            if id(obj) in seen or obj is None:
+                continue
+            seen.add(id(obj))
+            gen = getattr(obj, "generator", None)
+            if gen is not None and hasattr(gen, "get_state"):
+                return gen
+            nxt.extend([getattr(obj, "sampler", None), getattr(obj, "batch_sampler", None)])
+        frontier = nxt
+    return None
 
 
 def _to_tensor(batch):
@@ -277,6 +308,40 @@ class DataLoaderShard:
         self.iteration = 0
         self.end_of_dataloader = False
         self.remainder = -1
+        # Mid-epoch resume: batches fetched this epoch, a loaded position
+        # still to replay, the snapshot of the stream that drew this epoch's
+        # order, a loaded snapshot still to restore, and a stateful base's
+        # loaded and live states.
+        self._num_batches_fetched = 0
+        self._resume_batches = 0
+        self._epoch_rng = None
+        self._pending_rng = None
+        self._pending_base_state = None
+        self._base_state_live = None
+
+    # ---------------------------------------------------- sampler snapshot
+    def _capture_sampler_rng(self):
+        """The state of the stream that will draw this epoch's order, taken
+        before ``iter()`` draws from it: the sampler chain's generator, else
+        torch's global stream for a torch loader; None otherwise."""
+        gen = _find_order_generator(self.base_loader)
+        if gen is not None:
+            return ("generator", gen.get_state().numpy().tobytes())
+        if isinstance(self.base_loader, tud.DataLoader):
+            return ("torch_global", torch.random.get_rng_state().numpy().tobytes())
+        return None
+
+    def _restore_sampler_rng(self, snapshot):
+        if snapshot is None:
+            return
+        kind, raw = snapshot
+        state = torch.from_numpy(np.frombuffer(raw, dtype=np.uint8).copy())
+        if kind == "generator":
+            gen = _find_order_generator(self.base_loader)
+            if gen is not None:
+                gen.set_state(state)
+        else:
+            torch.random.set_rng_state(state)
 
     # ------------------------------------------------------ gradient state
     def reset(self):
@@ -328,7 +393,13 @@ class DataLoaderShard:
         return getattr(self.dataset, "total_dataset_length", None) or len(self.dataset)
 
     def set_epoch(self, epoch: int):
-        self.iteration = epoch
+        if self.iteration != epoch:
+            # A loaded position belongs to epoch ``iteration``: another
+            # epoch drops all of it (the skip, the snapshot, a base state).
+            self._resume_batches = 0
+            self._pending_rng = None
+            self._pending_base_state = None
+            self.iteration = epoch
         if hasattr(self.base_loader, "set_epoch"):
             self.base_loader.set_epoch(epoch)
         if self.batch_sampler is not None and hasattr(self.batch_sampler, "set_epoch"):
@@ -367,10 +438,26 @@ class DataLoaderShard:
         if self.rng_types is not None:
             synchronize_rng_states(self.rng_types, self.synchronized_generator)
         self.set_epoch(self.iteration)
-        effective_skip = self.skip_batches
+        resume = self._resume_batches
+        self._resume_batches = 0
+        self._num_batches_fetched = resume
+        if self._pending_base_state is not None:
+            # A stateful base repositions itself: no skip.
+            self.base_loader.load_state_dict(self._pending_base_state)
+            self._pending_base_state = None
+            resume = 0
+        if self._pending_rng is not None:
+            # Replay the interrupted epoch's order.
+            self._restore_sampler_rng(self._pending_rng)
+            self._pending_rng = None
+        self._epoch_rng = self._capture_sampler_rng()
+        effective_skip = self.skip_batches + resume
+        base_is_stateful = callable(getattr(self.base_loader, "state_dict", None))
         # Indexable iterables skip by indexing instead of loading and
-        # dropping batches; torch loaders skip by counting.
-        if (effective_skip > 0 and hasattr(self.base_loader, "__getitem__")
+        # dropping batches; torch loaders skip by counting, and a stateful
+        # base by its own iterator (indexing would leave its state stale).
+        if (effective_skip > 0 and not base_is_stateful
+                and hasattr(self.base_loader, "__getitem__")
                 and hasattr(self.base_loader, "__len__")
                 and not isinstance(self.base_loader, tud.DataLoader)):
             n = len(self.base_loader)
@@ -383,6 +470,10 @@ class DataLoaderShard:
         # batch: accumulation must sync on it.
         current, have_current, expected_local = None, False, None
         while True:
+            if base_is_stateful:
+                # Before the fetch: at a yield the base's state must say
+                # that its next fetch returns the batch held ahead.
+                self._base_state_live = self.base_loader.state_dict()
             try:
                 nxt = _to_tensor(next(iterator))
             except StopIteration:
@@ -410,12 +501,57 @@ class DataLoaderShard:
                                 # The global tail: this rank's tail times the ranks.
                                 self.remainder = actual * self.num_processes
                             batch = self._pad_batch_to(batch, expected_local)
+                    self._num_batches_fetched += 1
                     yield self._device_feed(batch)
             if nxt is None:
                 break
             current, have_current = nxt, True
         self.iteration += 1
+        # The epoch ran out: a state taken now resumes at the top of the
+        # next epoch, with its own order.
+        self._num_batches_fetched = 0
+        self._base_state_live = None
+        self._epoch_rng = None
         self.end()
+
+    # ----------------------------------------------------------- resume
+    def state_dict(self):
+        """The position to resume at (the JAX package's form):
+        ``num_batches_fetched`` and ``iteration``, the ``sampler_rng``
+        snapshot of this epoch's order when there is one, and a stateful
+        base's own ``base_state``. A loaded state not yet iterated reports
+        itself, so a load followed by a save writes what was loaded."""
+        sd = {"num_batches_fetched": max(self._num_batches_fetched, self._resume_batches),
+              "iteration": self.iteration}
+        rng = self._pending_rng if self._pending_rng is not None else self._epoch_rng
+        if rng is not None:
+            sd["sampler_rng"] = rng
+        if self._pending_base_state is not None:
+            sd["base_state"] = self._pending_base_state
+        elif self._base_state_live is not None:
+            sd["base_state"] = self._base_state_live
+        return sd
+
+    def load_state_dict(self, sd):
+        """Resume at ``sd``'s position at the next iteration (its epoch
+        unless :meth:`set_epoch` picks another first)."""
+        self._resume_batches = sd.get("num_batches_fetched", 0)
+        self.iteration = sd.get("iteration", 0)
+        self._pending_rng = sd.get("sampler_rng")
+        self._epoch_rng = None
+        self._base_state_live = None
+        base_state = sd.get("base_state")
+        if base_state is not None and hasattr(self.base_loader, "load_state_dict"):
+            self._pending_base_state = base_state
+
+
+class DeviceBatchPrefetcher:
+    """Not ported yet (the JAX package's windowed device prefetcher for
+    ``build_train_window``, which waits in ROADMAP.md's module queue)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("DeviceBatchPrefetcher is not ported yet (ROADMAP.md, module "
+                                  "queue: it comes with build_train_window)")
 
 
 class SkipBatchSampler:
@@ -457,10 +593,16 @@ class SkipDataLoader:
 def skip_first_batches(dataloader, num_batches: int = 0):
     """A loader that starts ``num_batches`` in: a prepared loader skips
     before it places the batches on the device; any other iterable becomes a
-    :class:`SkipDataLoader`."""
+    :class:`SkipDataLoader`. An explicit skip replaces a loaded position
+    (on the copy and on ``dataloader``), so the two never add up and the
+    source's next epoch starts at its top."""
     if isinstance(dataloader, DataLoaderShard):
         new_loader = copy.copy(dataloader)
         new_loader.skip_batches = dataloader.skip_batches + num_batches
+        for obj in (new_loader, dataloader):
+            obj._resume_batches = 0
+            obj._pending_rng = None
+            obj._pending_base_state = None
         return new_loader
     return SkipDataLoader(dataloader, skip_batches=num_batches)
 
@@ -477,13 +619,13 @@ def prepare_data_loader(dataloader, device=None, num_processes: int | None = Non
     :class:`BatchSamplerShard` (or an :class:`IterableDatasetShard` of its
     iterable dataset) with its dataset, collate function and workers kept;
     any other iterable of ready batches is wrapped as it is. The loader
-    places batches on ``device`` (the card unless ``device="cpu"``)."""
+    places batches on ``device`` (the card unless ``device="cpu"``).
+    ``use_stateful_dataloader`` is accepted as the JAX package accepts it:
+    every prepared loader resumes mid-epoch, and a base loader with its own
+    ``state_dict`` / ``load_state_dict`` is treated as stateful."""
     job_n, job_i = _job()
     num_processes = num_processes if num_processes is not None else job_n
     process_index = process_index if process_index is not None else job_i
-    if use_stateful_dataloader:
-        raise NotImplementedError("use_stateful_dataloader (mid-epoch resume) is not ported yet "
-                                  "(ROADMAP.md, module queue: checkpointing)")
     is_torch = isinstance(dataloader, tud.DataLoader)
     is_iterable = is_torch and isinstance(dataloader.dataset, tud.IterableDataset)
     if dispatch_batches is None:

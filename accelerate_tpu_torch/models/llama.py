@@ -20,8 +20,8 @@ logsumexp straight from the hidden states (``fused_cross_entropy_loss``,
 with Gemma-2's final softcap per chunk and the tied (V, h) table read in
 place) and returns the loss without logits. Its knobs are the config's
 ``fused_loss_*`` fields; the JAX package's ``ACCELERATE_FUSED_LOSS_*``
-environment overrides are not ported (the port reads no environment
-variable).
+environment overrides are not ported (no environment variable sets
+them).
 
 The uncached forward's attention goes through ``ops/attention.attention``:
 Gemma-2's windowed, softcapped and scaled layers resolve to the splash

@@ -16,7 +16,7 @@ the Mistral, Gemma-2 and Qwen2 recipes need (op ``splash_attention``:
 kernel-friendly shapes from :data:`FLASH_MIN_SEQ` tokens on: splash for a
 windowed, softcapped or scaled recipe, flash for plain causal attention;
 dense otherwise, and always dense for a CPU tensor. The crossover is a
-constant: the port reads no environment variable.
+constant: no environment variable moves it.
 """
 
 from __future__ import annotations

@@ -41,18 +41,43 @@ def _env_int(name: str, default: int) -> int:
     return int(value) if value else default
 
 
-class PartialState:
-    """This process's rank of the job: ``process_index``, ``num_processes``,
-    ``local_process_index`` and ``device``."""
+class ProcessView:
+    """This process's rank of the job as ``torch.distributed`` (or, before
+    a process group exists, torchrun's environment) reports it, without a
+    device: what logging and the trackers read to decide who writes (the
+    JAX package reads its ``PartialState`` singleton there).
+    :class:`PartialState` adds the device and the process group."""
 
-    def __init__(self, device=None, *, init_method: str | None = None):
-        dev = resolve_device(device)
+    def __init__(self):
         if dist.is_initialized():
             rank, world_size = dist.get_rank(), dist.get_world_size()
         else:
             rank, world_size = _env_int("RANK", 0), _env_int("WORLD_SIZE", 1)
         self.process_index, self.num_processes = rank, world_size
         self.local_process_index = _env_int("LOCAL_RANK", rank)
+
+    @property
+    def is_main_process(self) -> bool:
+        return self.process_index == 0
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.local_process_index == 0
+
+    def wait_for_everyone(self) -> None:
+        """A barrier over the job's ranks; nothing on one rank."""
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
+
+
+class PartialState(ProcessView):
+    """This process's rank of the job: ``process_index``, ``num_processes``,
+    ``local_process_index`` and ``device``."""
+
+    def __init__(self, device=None, *, init_method: str | None = None):
+        dev = resolve_device(device)
+        super().__init__()
+        rank, world_size = self.process_index, self.num_processes
         if world_size == 1 and not dist.is_initialized():
             self.device = dev
             return
@@ -70,19 +95,6 @@ class PartialState:
     @property
     def distributed(self) -> bool:
         return self.num_processes > 1
-
-    @property
-    def is_main_process(self) -> bool:
-        return self.process_index == 0
-
-    @property
-    def is_local_main_process(self) -> bool:
-        return self.local_process_index == 0
-
-    def wait_for_everyone(self) -> None:
-        """A barrier over the job's ranks; nothing on one rank."""
-        if dist.is_initialized() and dist.get_world_size() > 1:
-            dist.barrier()
 
     def print(self, *args, **kwargs) -> None:
         """``print`` on the main process only."""

@@ -4,8 +4,10 @@ The mixed-precision names the port trains with: ``no`` (f32 compute) and
 ``bf16`` (f32 master parameters, bf16 compute). ``fp16`` needs the gradient
 scaler and ``fp8`` the int8 matmul path; neither is ported, and
 ``state.AcceleratorState`` raises ``NotImplementedError`` for them. Also
-the sequence-parallel plugin, the random streams a loader synchronizes and
-the data-loader configuration.
+the sequence-parallel plugin, the random streams a loader synchronizes, the
+data-loader configuration and the project (checkpoint and logging folder)
+configuration. The JAX package has no tracker-type enum: trackers are named
+by string (``tracking.LOGGER_TYPE_TO_CLASS``), and so are the port's.
 """
 
 from __future__ import annotations
@@ -50,9 +52,11 @@ class RNGType(str, enum.Enum):
 class DataLoaderConfiguration:
     """How ``Accelerator.prepare`` shards a loader (JAX
     ``utils/dataclasses.py:288-297``). ``dispatch_batches=True`` (rank 0
-    reads, the others receive) and ``use_stateful_dataloader`` are not ported
-    yet and raise at ``prepare``; ``non_blocking`` makes the loader's copies
-    to the card asynchronous (from pinned memory)."""
+    reads, the others receive) is not ported yet and raises at ``prepare``;
+    ``use_stateful_dataloader`` is accepted as the JAX package accepts it
+    (every prepared loader resumes mid-epoch, and a base loader with its own
+    ``state_dict`` is used as one); ``non_blocking`` makes the loader's
+    copies to the card asynchronous (from pinned memory)."""
 
     split_batches: bool = False
     dispatch_batches: bool | None = None
@@ -61,3 +65,28 @@ class DataLoaderConfiguration:
     non_blocking: bool = False
     data_seed: int | None = None
     use_stateful_dataloader: bool = False
+
+
+@dataclass
+class ProjectConfiguration:
+    """Checkpoint and logging folder layout (JAX ``utils/dataclasses.py:
+    267-286``): ``project_dir`` holds ``checkpoints/checkpoint_<i>`` under
+    ``automatic_checkpoint_naming``, ``total_limit`` bounds how many stay,
+    ``iteration`` is the index of the next automatic save, and the
+    trackers write under ``logging_dir`` (``project_dir`` unless set)."""
+
+    project_dir: str = None
+    logging_dir: str = None
+    automatic_checkpoint_naming: bool = False
+    total_limit: int = None
+    iteration: int = 0
+    save_on_each_node: bool = False  # kept for the API: each rank writes its own files
+
+    def set_directories(self, project_dir: str = None):
+        self.project_dir = project_dir
+        if self.logging_dir is None:
+            self.logging_dir = project_dir
+
+    def __post_init__(self):
+        if self.logging_dir is None:
+            self.logging_dir = self.project_dir

@@ -41,3 +41,46 @@ def tree_map(fn, tree, *rest):
                                  f"{sorted(other) if isinstance(other, dict) else other!r}")
         return {key: tree_map(fn, tree[key], *(o[key] for o in rest)) for key in sorted(tree)}
     return fn(tree, *rest)
+
+
+def _children(node):
+    """``(key, child)`` pairs of a container in ``jax.tree_util``'s order:
+    a dict by sorted key, a named tuple by field name, a tuple or list by
+    index; None for a leaf."""
+    if isinstance(node, dict):
+        return [(str(k), node[k]) for k in sorted(node)]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return list(zip(node._fields, node))
+    if isinstance(node, (tuple, list)):
+        return [(str(i), v) for i, v in enumerate(node)]
+    return None
+
+
+def flatten_with_paths(tree, prefix: str = "") -> list:
+    """``[(path, leaf), ...]`` over dicts, tuples, lists and named tuples,
+    the path's keys joined by dots: the JAX package's checkpoint keys
+    (``path_str(path).replace("/", ".")``), such as ``layers.wq`` or, in an
+    optimizer state, ``0.mu.layers.wq`` and ``0.count``. A container with
+    no leaves (an empty named tuple) contributes nothing."""
+    children = _children(tree)
+    if children is None:
+        return [(prefix, tree)]
+    out = []
+    for key, child in children:
+        out.extend(flatten_with_paths(child, f"{prefix}.{key}" if prefix else key))
+    return out
+
+
+def map_with_paths(fn, tree, prefix: str = ""):
+    """The tree with each leaf replaced by ``fn(path, leaf)`` (paths as
+    :func:`flatten_with_paths` names them); containers keep their types."""
+    children = _children(tree)
+    if children is None:
+        return fn(prefix, tree)
+    mapped = [map_with_paths(fn, child, f"{prefix}.{key}" if prefix else key)
+              for key, child in children]
+    if isinstance(tree, dict):
+        return dict(zip(sorted(tree), mapped))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*mapped)
+    return type(tree)(mapped)

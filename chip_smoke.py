@@ -11,6 +11,8 @@
                                      # kernel's cells (the same use)
     python3 chip_smoke.py --loop     # only phase 11, the canonical BERT loop
                                      # (with --profile: one profiled step)
+    python3 chip_smoke.py --checkpoint  # only phase 12, checkpoints and
+                                     # mid-epoch resume of that loop
     python3 chip_smoke.py --splash-times  # only the splash kernels' times at
                                      # Gemma-2-9B's layers (to set two trees
                                      # side by side in one run: copy this
@@ -137,6 +139,29 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    warm-up, ending in ``synchronize()``) and peak memory of both arms;
    ``--profile`` adds one profiled step of arm B.
 
+12. Checkpoint phase: the complete example's loop (phase 11's, with
+   dropout at bert-base-cased's published 0.1) through ``save_state``,
+   ``load_state`` and ``save_model``, everything written under a temporary
+   folder removed at the end. Arm A: a constant ``adamw``, 40 steps. Arm B:
+   20 steps, a blocking ``save_state``, every object dropped and built again
+   (the model from another seed), ``prepare``, ``load_state``, 20 more
+   steps: the loaded parameters, moments and counts bitwise equal to a host
+   copy taken at the save, steps 21-40 bitwise A's (losses, batches, final
+   state), the fused update launched 25 times in every step after the load.
+   Arm C: ``save_state(blocking=False)`` at step 20, 2 more steps at once,
+   ``finish_pending_saves()``: fresh objects load step 20's state bitwise,
+   not step 22's. Arm D, the example as written (``inject_hyperparams(adamw)``
+   and ``linear_schedule``) under ``ProjectConfiguration(
+   automatic_checkpoint_naming=True, total_limit=2)``, a save every 10 steps
+   over 30: two ``checkpoint_<i>`` folders left; the newest one's
+   ``optimizer/`` deleted (a crash mid-save); ``load_state()`` falls back to
+   the one before, the iteration and the learning rate line up, and steps
+   21-30 repeat the first run's bitwise. Arm E: ``save_model`` of arm A's
+   model in 200 MB shards, read back bitwise, each tensor once in the
+   index. One log line gives the save, load, non-blocking return and join,
+   and export seconds and GB/s, the checkpoint's bytes, and arms A and B's
+   steps/s beside the card's name and power limit.
+
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script exits non-zero before printing any result.
@@ -211,6 +236,12 @@ BERT_BASE_CASED = dict(vocab_size=28996, hidden_size=768, num_hidden_layers=12,
 LOOP_TRAIN, LOOP_EVAL, LOOP_BATCH, LOOP_SEQ = 3668, 408, 16, 128
 LOOP_LR, LOOP_END_LR = 2e-5, 2e-6
 LOOP_B_STEPS, LOOP_WARMUP, LOOP_TIMED = 40, 5, 30
+# Phase 12: save at step CKPT_AT of CKPT_STEPS; the non-blocking arm steps
+# CKPT_AFTER more before the join; the example arm saves every CKPT_EVERY
+# of CKPT_D_STEPS steps, keeping CKPT_LIMIT; the export's shard size.
+CKPT_STEPS, CKPT_AT, CKPT_AFTER = 40, 20, 2
+CKPT_D_STEPS, CKPT_EVERY, CKPT_LIMIT = 30, 10, 2
+CKPT_SHARD = "200MB"
 T_START = time.perf_counter()
 
 
@@ -2061,6 +2092,348 @@ def loop_phase(card, profile: bool = False) -> dict:
     return b["counts"]
 
 
+def ckpt_build(cfg, seed: int, inject: bool, project_config=None) -> dict:
+    """Phase 12's objects, built and prepared as the complete example builds
+    them: a fresh Accelerator, the model from ``seed``, the loaders, and a
+    constant adamw (``inject=False``) or ``inject_hyperparams(adamw)`` with
+    the example's linear schedule."""
+    from accelerate_tpu_torch import (
+        Accelerator,
+        BertForSequenceClassification,
+        adamw,
+        inject_hyperparams,
+        linear_schedule,
+        set_seed,
+    )
+    from accelerate_tpu_torch.examples.nlp_example import get_dataloaders
+
+    acc = Accelerator(mixed_precision="bf16", project_config=project_config)
+    set_seed(SEED)  # python, numpy and torch: the shuffle draws from torch's stream
+    model = BertForSequenceClassification(cfg)
+    model.init_params(seed)
+    train_dl, eval_dl = get_dataloaders(LOOP_BATCH, cfg.vocab_size, train_size=LOOP_TRAIN,
+                                        eval_size=LOOP_EVAL, seq_len=LOOP_SEQ,
+                                        eval_drop_last=False)
+    train_dl, eval_dl = acc.prepare(train_dl, eval_dl)
+    sched = None
+    if inject:
+        model, opt, sched = acc.prepare(model, inject_hyperparams(adamw)(learning_rate=LOOP_LR),
+                                        linear_schedule(LOOP_LR, LOOP_END_LR, len(train_dl)))
+    else:
+        model, opt = acc.prepare(model, adamw(LOOP_LR))
+    model.train()
+    train_dl.set_epoch(0)
+    return dict(acc=acc, model=model, opt=opt, sched=sched, train_dl=train_dl, eval_dl=eval_dl,
+                it=None, losses=[], ids=[], launches=[], lrs=[])
+
+
+def ckpt_steps(run: dict, n: int) -> None:
+    """``n`` steps of the loop, dropout on; records each step's loss, input
+    ids, fused-update launches and learning rate."""
+    import torch
+
+    from accelerate_tpu_torch.ops import registry
+
+    acc, model, opt, sched = run["acc"], run["model"], run["opt"], run["sched"]
+    if run["it"] is None:
+        run["it"] = iter(run["train_dl"])
+    for _ in range(n):
+        batch = next(run["it"])
+        before = registry.launch_counts.get("fused_adamw_update", 0)
+        with acc.accumulate(model):
+            loss = model(**batch)["loss"]
+            acc.backward(loss)
+            acc.clip_grad_norm_(model, 1.0)
+            opt.step()
+            if sched is not None:
+                sched.step()
+            opt.zero_grad()
+        run["losses"].append(loss.detach())
+        run["ids"].append(batch["input_ids"].clone())
+        run["launches"].append(registry.launch_counts.get("fused_adamw_update", 0) - before)
+        run["lrs"].append(opt.learning_rate if sched is not None else None)
+    torch.cuda.synchronize()
+
+
+def ckpt_state(run: dict) -> dict:
+    """A host copy of the run's parameters and optimizer state, by the
+    checkpoint's keys."""
+    from accelerate_tpu_torch.utils.tree import flatten_with_paths
+
+    out = {f"model.{k}": v.detach().cpu().clone()
+           for k, v in flatten_with_paths(run["model"].params)}
+    out.update({f"optimizer.{k}": v.detach().cpu().clone()
+                for k, v in flatten_with_paths(run["opt"].opt_state) if hasattr(v, "cpu")})
+    return out
+
+
+def ckpt_diff(got: dict, want: dict) -> list:
+    """The keys whose tensors are not bitwise equal (bits, not values)."""
+    import torch
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else (
+            t.view(torch.int32) if t.dtype == torch.float32 else t)
+
+    if set(got) != set(want):
+        return sorted(set(got) ^ set(want))
+    return [k for k in want if got[k].shape != want[k].shape or got[k].dtype != want[k].dtype
+            or not torch.equal(bits(got[k]), bits(want[k]))]
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def checkpoint_phase(card: str) -> dict:
+    """Phase 12; returns the fused update's launches over its runs."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from accelerate_tpu_torch import BertForSequenceClassification, bert_config_from_hf
+    from accelerate_tpu_torch import checkpointing
+    from accelerate_tpu_torch.checkpointing import load_model_weights
+    from accelerate_tpu_torch.ops import registry
+    from accelerate_tpu_torch.utils.constants import SAFE_WEIGHTS_INDEX_NAME
+    from accelerate_tpu_torch.utils.dataclasses import ProjectConfiguration
+    from accelerate_tpu_torch.utils.tree import flatten_with_paths
+
+    cfg = bert_config_from_hf(BERT_BASE_CASED)
+    if cfg.hidden_dropout_prob != 0.1:
+        raise SystemExit(f"checkpoint phase: dropout {cfg.hidden_dropout_prob}, the published "
+                         "config's is 0.1")
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    leaves, total = 25, {}
+    times = {}
+
+    def count(run):
+        for k, v in registry.launch_counts.items():
+            total[k] = total.get(k, 0) + v
+        registry.reset_launch_counts()
+
+    def timed_steps(run, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt_steps(run, n)
+        return n / (time.perf_counter() - t0)
+
+    def fail(msg):
+        raise SystemExit(f"checkpoint phase: {msg}")
+
+    try:
+        # Arm A: uninterrupted.
+        registry.reset_launch_counts()
+        a = ckpt_build(cfg, SEED, inject=False)
+        ckpt_steps(a, CKPT_AT)
+        a_sps = timed_steps(a, CKPT_STEPS - CKPT_AT)
+        count(a)
+        if a["launches"] != [leaves] * CKPT_STEPS:
+            fail(f"arm A: fused update launches a step {a['launches']}, want {leaves}")
+        a_losses = [float(x) for x in a["losses"]]
+        if not all(math.isfinite(x) for x in a_losses):
+            fail(f"arm A: losses {a_losses}")
+        a_final, a_ids = ckpt_state(a), a["ids"]
+
+        # Arm E: export arm A's model, read it back into a fresh model.
+        export = os.path.join(root, "export")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a["acc"].save_model(a["model"], export, max_shard_size=CKPT_SHARD)
+        times["export"] = time.perf_counter() - t0
+        export_bytes = dir_bytes(export)
+        fresh = BertForSequenceClassification(cfg)
+        fresh.init_params(SEED + 2)
+        t0 = time.perf_counter()
+        fresh.params = load_model_weights(export, fresh.params)
+        torch.cuda.synchronize()
+        times["export_load"] = time.perf_counter() - t0
+        with open(os.path.join(export, SAFE_WEIGHTS_INDEX_NAME)) as f:
+            index = json.load(f)
+        keys = [k for k, _ in flatten_with_paths(a["model"].params)]
+        shards = sorted(set(index["weight_map"].values()))
+        if sorted(index["weight_map"]) != sorted(keys) or len(keys) != len(set(keys)):
+            fail(f"arm E: the index lists {len(index['weight_map'])} tensors, the model has "
+                 f"{len(keys)}")
+        got = {f"model.{k}": v.cpu() for k, v in flatten_with_paths(fresh.params)}
+        bad = ckpt_diff(got, {k: v for k, v in a_final.items() if k.startswith("model.")})
+        if bad or len(shards) < 2:
+            fail(f"arm E: {len(shards)} shards; tensors not bitwise after the reload: {bad[:5]}")
+        log(f"checkpoint arm E: save_model in {len(shards)} shards of <= {CKPT_SHARD} "
+            f"({export_bytes} bytes, {len(keys)} tensors, each once in the index), read back "
+            f"bitwise")
+        shutil.rmtree(export)
+        del a, fresh
+        free_cuda()
+
+        # Arm B: save at step 20, drop everything, load into fresh objects.
+        registry.reset_launch_counts()
+        b = ckpt_build(cfg, SEED, inject=False)
+        ckpt_steps(b, CKPT_AT)
+        count(b)
+        at_save = ckpt_state(b)
+        b_dir = os.path.join(root, "b")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b["acc"].save_state(b_dir)
+        times["save"] = time.perf_counter() - t0
+        ckpt_bytes = dir_bytes(b_dir)
+        first = dict(losses=b["losses"], ids=b["ids"])
+        b["acc"].end_training()
+        del b
+        free_cuda()
+        b = ckpt_build(cfg, SEED + 1, inject=False)
+        if not ckpt_diff(ckpt_state(b), at_save):
+            fail("arm B: the model from another seed already equals the saved state")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b["acc"].load_state(b_dir)
+        torch.cuda.synchronize()
+        times["load"] = time.perf_counter() - t0
+        bad = ckpt_diff(ckpt_state(b), at_save)
+        if bad:
+            fail(f"arm B: after load_state not bitwise the state at the save: {bad[:5]}")
+        b_sps = timed_steps(b, CKPT_STEPS - CKPT_AT)
+        count(b)
+        b_losses = [float(x) for x in first["losses"] + b["losses"]]
+        if b_losses != a_losses:
+            diffs = [i + 1 for i, (x, y) in enumerate(zip(a_losses, b_losses)) if x != y]
+            fail(f"arm B: losses differ from arm A's at steps {diffs[:10]}")
+        ids = first["ids"] + b["ids"]
+        if len(ids) != CKPT_STEPS or not all(torch.equal(x, y) for x, y in zip(ids, a_ids)):
+            fail("arm B: the batches of steps 21-40 are not arm A's")
+        bad = ckpt_diff(ckpt_state(b), a_final)
+        if bad:
+            fail(f"arm B: final state not bitwise arm A's: {bad[:5]}")
+        if b["launches"] != [leaves] * (CKPT_STEPS - CKPT_AT):
+            fail(f"arm B: fused update launches a step after load_state {b['launches']}, "
+                 f"want {leaves}")
+        checksums = [int((x.long() * torch.arange(1, x.numel() + 1, device=x.device).view(
+            x.shape)).sum()) for x in ids[CKPT_AT:CKPT_AT + 3]]
+        log(f"checkpoint arm B: saved at step {CKPT_AT} ({ckpt_bytes} bytes), loaded into "
+            f"fresh objects (model from seed {SEED + 1}) bitwise; steps {CKPT_AT + 1}-"
+            f"{CKPT_STEPS}: losses bitwise arm A's (step {CKPT_AT + 1}: {b_losses[CKPT_AT]:.6f},"
+            f" last {b_losses[-1]:.6f}), input_ids arm A's (checksums of steps "
+            f"{CKPT_AT + 1}-{CKPT_AT + 3}: {checksums}), final state bitwise; "
+            f"fused_adamw_update {leaves} launches in every step after the load")
+        b["acc"].end_training()
+        shutil.rmtree(b_dir)
+        del b
+        free_cuda()
+
+        # Arm C: non-blocking save, two in-place steps, then the join.
+        registry.reset_launch_counts()
+        c = ckpt_build(cfg, SEED, inject=False)
+        ckpt_steps(c, CKPT_AT)
+        at_save = ckpt_state(c)
+        c_dir = os.path.join(root, "c")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c["acc"].save_state(c_dir, blocking=False)
+        times["return"] = time.perf_counter() - t0
+        writer = checkpointing._PENDING_SAVES[-1]
+        ckpt_steps(c, CKPT_AFTER)
+        count(c)
+        t0 = time.perf_counter()
+        c["acc"].finish_pending_saves()
+        times["join"] = time.perf_counter() - t0
+        times["write"] = writer.seconds
+        after = ckpt_state(c)
+        c["acc"].end_training()
+        del c
+        free_cuda()
+        c = ckpt_build(cfg, SEED + 1, inject=False)
+        c["acc"].load_state(c_dir)
+        loaded = ckpt_state(c)
+        bad, moved = ckpt_diff(loaded, at_save), ckpt_diff(after, at_save)
+        if bad or not moved:
+            fail(f"arm C: loaded state differs from step {CKPT_AT}'s at {bad[:5]}; the "
+                 f"{CKPT_AFTER} later steps changed {len(moved)} tensors")
+        log(f"checkpoint arm C: save_state(blocking=False) returned in {times['return']:.3f} s,"
+            f" {CKPT_AFTER} in-place steps ran before the join ({times['join']:.3f} s; the "
+            f"background write took {times['write']:.3f} s); the "
+            f"loaded state is step {CKPT_AT}'s bitwise, not step "
+            f"{CKPT_AT + CKPT_AFTER}'s ({len(moved)} of {len(at_save)} tensors differ)")
+        c["acc"].end_training()
+        shutil.rmtree(c_dir)
+        del c
+        free_cuda()
+
+        # Arm D: the example as written, automatic naming and rotation.
+        registry.reset_launch_counts()
+        project = os.path.join(root, "d")
+
+        def d_config():
+            return ProjectConfiguration(project_dir=project, automatic_checkpoint_naming=True,
+                                        total_limit=CKPT_LIMIT)
+
+        d = ckpt_build(cfg, SEED, inject=True, project_config=d_config())
+        for _ in range(CKPT_D_STEPS // CKPT_EVERY):
+            ckpt_steps(d, CKPT_EVERY)
+            d["acc"].save_state()
+        count(d)
+        base = os.path.join(project, "checkpoints")
+        folders = sorted(os.listdir(base))
+        newest = f"checkpoint_{CKPT_D_STEPS // CKPT_EVERY - 1}"
+        want = [f"checkpoint_{i}" for i in range(CKPT_D_STEPS // CKPT_EVERY - CKPT_LIMIT,
+                                                  CKPT_D_STEPS // CKPT_EVERY)]
+        if folders != want or any(d["launches"]):
+            fail(f"arm D: folders {folders}, want {want}; fused update launches "
+                 f"{sum(d['launches'])} (want 0: the reference chain)")
+        d_losses, d_lrs = [float(x) for x in d["losses"]], d["lrs"]
+        d["acc"].end_training()
+        del d
+        free_cuda()
+        shutil.rmtree(os.path.join(base, newest, "optimizer"))  # a crash mid-save
+        d = ckpt_build(cfg, SEED + 1, inject=True, project_config=d_config())
+        resumed = d["acc"].load_state()
+        resumed_at = CKPT_D_STEPS - CKPT_EVERY
+        if (os.path.basename(resumed) != want[0] or d["acc"].iteration != len(want)
+                or sorted(os.listdir(base)) != want[:1]):
+            fail(f"arm D: load_state() took {resumed}, iteration {d['acc'].iteration}, "
+                 f"folders left {sorted(os.listdir(base))}")
+        lr_loaded = d["opt"].learning_rate
+        ckpt_steps(d, CKPT_D_STEPS - resumed_at)
+        count(d)
+        got = [float(x) for x in d["losses"]]
+        if (lr_loaded != d_lrs[resumed_at - 1] or d["lrs"] != d_lrs[resumed_at:]
+                or got != d_losses[resumed_at:]):
+            fail(f"arm D: after the load lr {lr_loaded} vs {d_lrs[resumed_at - 1]}, then "
+                 f"{d['lrs'][:3]} vs {d_lrs[resumed_at:resumed_at + 3]}; losses {got[:3]} vs "
+                 f"{d_losses[resumed_at:resumed_at + 3]}")
+        d["acc"].save_state()
+        if sorted(os.listdir(base)) != want:
+            fail(f"arm D: after the next save the folders are {sorted(os.listdir(base))}")
+        log(f"checkpoint arm D (inject_hyperparams(adamw) + linear_schedule, automatic naming, "
+            f"total_limit {CKPT_LIMIT}): saves every {CKPT_EVERY} of {CKPT_D_STEPS} steps left "
+            f"{want}; with {newest}/optimizer deleted, load_state() skipped it and resumed "
+            f"{want[0]} (iteration {len(want)}), lr {lr_loaded:.6g} = the run's after step "
+            f"{resumed_at}; steps {resumed_at + 1}-{CKPT_D_STEPS} bitwise the run's (losses "
+            f"and learning rates); the next save wrote {newest} again")
+        d["acc"].end_training()
+        del d
+        free_cuda()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    gb = 1e9
+
+    def rate(nbytes, key):
+        return f"{times[key]:.3f} s ({nbytes / gb / times[key]:.2f} GB/s)"
+
+    log(f"checkpoint phase: bert-base-cased widths, dropout 0.1, batch {LOOP_BATCH}x{LOOP_SEQ}; "
+        f"checkpoint {ckpt_bytes} bytes; blocking save {rate(ckpt_bytes, 'save')}, load "
+        f"{rate(ckpt_bytes, 'load')}, non-blocking return {times['return']:.3f} s, "
+        f"join {times['join']:.3f} s and background write {rate(ckpt_bytes, 'write')}, export {rate(export_bytes, 'export')} and its reload "
+        f"{rate(export_bytes, 'export_load')}; steps/s arm A {a_sps:.2f}, arm B after the load "
+        f"{b_sps:.2f} (host clock over steps {CKPT_AT + 1}-{CKPT_STEPS}, ending in "
+        f"synchronize()) [{card}]")
+    return total
+
+
 def main(argv) -> int:
     import torch
 
@@ -2088,6 +2461,13 @@ def main(argv) -> int:
         card = card_info()
         log(f"build: fused_update in {time.perf_counter() - t0:.1f} s; device: {card}")
         loop_phase(card, profile="--profile" in argv)
+        print(card)
+        return 0
+    if "--checkpoint" in argv:
+        _build.build(["fused_update"])
+        card = card_info()
+        log(f"build: fused_update in {time.perf_counter() - t0:.1f} s; device: {card}")
+        checkpoint_phase(card)
         print(card)
         return 0
     if "--splash-times" in argv:
@@ -2160,11 +2540,14 @@ def main(argv) -> int:
     free_cuda()
 
     loop_counts = loop_phase(card, profile="--profile" in argv)
-    for row in rows:  # phase 7's launches plus the loop's
-        if row["name"] in loop_counts:
+    free_cuda()
+    ckpt_counts = checkpoint_phase(card)
+    for row in rows:  # phase 7's launches plus the loop's and the checkpoint phase's
+        if row["name"] in loop_counts or row["name"] in ckpt_counts:
             log(f"kernel {row['name']}: {row['launches']} launches in phase 7, "
-                f"{loop_counts[row['name']]} in phase 11")
-            row["launches"] += loop_counts[row["name"]]
+                f"{loop_counts.get(row['name'], 0)} in phase 11, "
+                f"{ckpt_counts.get(row['name'], 0)} in phase 12")
+            row["launches"] += loop_counts.get(row["name"], 0) + ckpt_counts.get(row["name"], 0)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

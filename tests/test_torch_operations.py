@@ -26,6 +26,10 @@ checks, in each rank:
   ``sqrt(v)``, which magnifies a rounding difference of a gradient near
   zero), and ``gather_for_metrics`` returns exactly the eval set's 50 rows
   (the last global batch is padded by wrap-around and trimmed).
+
+A second launch of 2 gloo ranks saves one checkpoint folder from both ranks
+and loads it back: rank 0 alone writes the shared files, each rank its own
+``random_states_<rank>.pkl``, and each rank gets its own streams back.
 """
 
 from pathlib import Path
@@ -232,3 +236,84 @@ def test_find_executable_batch_size_retries_on_cuda_oom():
     with pytest.raises(TypeError, match="first argument"):
         train(8, 3)
     assert T.release_memory(torch.ones(2), "x") == [None, None]
+
+
+class _RankCounter:
+    def __init__(self, n):
+        self.n = n
+
+    def state_dict(self):
+        return {"n": self.n}
+
+    def load_state_dict(self, sd):
+        self.n = sd["n"]
+
+
+def two_rank_checkpoint_worker(ckpt_dir: str, out_dir: str):
+    """``save_state`` over 2 gloo ranks into one folder, then ``load_state``
+    on each rank; records what each rank wrote and restored."""
+    import json
+    import random
+
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch import checkpointing
+
+    torch.set_num_threads(1)
+    rank = dist.get_rank()
+    committed = []
+    commit = checkpointing._commit_item
+    checkpointing._commit_item = lambda path, tensors: (committed.append(Path(path).name),
+                                                        commit(path, tensors))
+    acc = T.Accelerator(device="cpu")
+    model = T.BertForSequenceClassification(
+        T.BertConfig.tiny(vocab_size=LOOP["vocab"], max_position_embeddings=16), device="cpu")
+    model.init_params(0)
+    train_dl, _ = get_dataloaders(LOOP["per_rank_batch"], LOOP["vocab"], train_size=32,
+                                  eval_size=8)
+    train_dl = acc.prepare(train_dl)
+    pm, po = acc.prepare(model, T.adamw(LOOP["lr"], device="cpu"))
+    acc.register_for_checkpointing(_RankCounter(10 + rank))
+    it = iter(train_dl)
+    for _ in range(2):
+        with acc.accumulate(pm):
+            acc.backward(pm(**next(it))["loss"])
+            po.step()
+            po.zero_grad()
+    random.seed(100 + rank)
+    want_python = random.getstate()
+    params = [p.clone() for p in tree_leaves(pm.params)]
+    acc.save_state(ckpt_dir)
+    acc.wait_for_everyone()
+    random.seed(0)
+    with torch.no_grad():
+        for p in tree_leaves(pm.params):
+            p.zero_()
+    acc.load_state(ckpt_dir)
+    restored = all(torch.equal(a, b) for a, b in zip(tree_leaves(pm.params), params))
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps({
+        "committed": committed, "python_restored": random.getstate() == want_python,
+        "params_restored": restored}))
+    acc.end_training()
+
+
+def test_two_ranks_save_state_shares_one_folder(tmp_path):
+    """Rank 0 alone writes the shared files (the arrays, the manifest, the
+    loader, optimizer and custom pickles); each rank writes and restores its
+    own ``random_states_<rank>.pkl``."""
+    import json
+    import pickle
+
+    ckpt, out = tmp_path / "ckpt", tmp_path / "out"
+    out.mkdir()
+    T.debug_launcher(two_rank_checkpoint_worker, args=(str(ckpt), str(out)), num_processes=2)
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)]
+    assert ranks[0]["committed"] == ["model", "optimizer"] and ranks[1]["committed"] == []
+    assert all(r["python_restored"] and r["params_restored"] for r in ranks)
+    assert sorted(p.name for p in ckpt.iterdir()) == [
+        "custom_checkpoint_0.pkl", "manifest.json", "model", "optimizer", "optimizer.meta.pkl",
+        "random_states_0.pkl", "random_states_1.pkl", "sampler.bin"]
+    assert pickle.loads((ckpt / "custom_checkpoint_0.pkl").read_bytes()) == {"n": 10}
+    manifest = json.loads((ckpt / "manifest.json").read_text())
+    assert manifest["mesh"]["axes"] == {"dp": 2, "sp": 1}
+    assert manifest["mesh"]["process_count"] == 2

@@ -27,9 +27,15 @@ import accelerate_tpu_torch as T
 from accelerate_tpu_torch import optim
 from accelerate_tpu_torch.utils.tree import tree_leaves
 from chip_smoke import (
+    CKPT_AT,
+    CKPT_STEPS,
     FLASH_BWD_REL,
     FLASH_FWD_TILE_REL,
     PAGED_DECODE_ROW_REL,
+    ckpt_build,
+    ckpt_diff,
+    ckpt_state,
+    ckpt_steps,
     engine_forwards,
     plain_without_cap_derivative,
     row_rel_err,
@@ -76,7 +82,9 @@ def test_port_never_imports_jax_or_the_jax_package():
     scanned = {f.relative_to(ROOT / "accelerate_tpu_torch").as_posix() for f in files[:-1]}
     assert {"data_loader.py", "scheduler.py", "optimizer.py", "ops/norms.py", "models/bert.py",
             "utils/operations.py", "utils/tqdm.py", "utils/memory.py", "utils/random.py",
-            "examples/nlp_example.py"} <= scanned
+            "examples/nlp_example.py", "checkpointing.py", "tracking.py", "logging.py",
+            "utils/other.py", "utils/safetensors_io.py", "utils/constants.py",
+            "examples/complete_nlp_example.py"} <= scanned
     bad = [(f.relative_to(ROOT).as_posix(), mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "accelerate_tpu")]
     assert bad == []
@@ -805,3 +813,89 @@ def test_loop_on_the_card_matches_kernels_off():
     np.testing.assert_allclose(losses, off, atol=2e-2)
     _, _, _, _, acc_counts = _bert_loop_arm(None, 4, accum=2)
     assert acc_counts == [0, 25, 25, 50]
+
+
+def test_complete_example_runs_on_the_card_unless_cpu(monkeypatch, tmp_path):
+    from accelerate_tpu_torch.examples import complete_nlp_example
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        complete_nlp_example.main(["--output_dir", str(tmp_path), "--num_epochs", "1"])
+
+
+def test_background_checkpoint_write_failure_raises_at_finish_pending_saves(monkeypatch,
+                                                                            tmp_path):
+    """A non-blocking save whose write fails raises at the join, never
+    swallowed; a blocking save raises at once. Nothing is left queued."""
+    from accelerate_tpu_torch import checkpointing
+
+    acc = T.Accelerator(cpu=True)
+    model = T.BertForSequenceClassification(T.BertConfig.tiny(), device="cpu")
+    model.init_params(0)
+    acc.prepare(model, T.adamw(1e-3, device="cpu"))
+
+    def broken(path, tensors):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(checkpointing, "_commit_item", broken)
+    acc.save_state(str(tmp_path / "a"), blocking=False)
+    with pytest.raises(RuntimeError, match="disk full"):
+        acc.finish_pending_saves()
+    assert checkpointing._PENDING_SAVES == []
+    with pytest.raises(OSError, match="disk full"):
+        acc.save_state(str(tmp_path / "b"))
+    acc.save_state(str(tmp_path / "c"), blocking=False)
+    with pytest.raises(RuntimeError, match="disk full"):
+        acc.end_training()
+
+
+@pytest.mark.cuda
+def test_checkpoint_resume_on_the_card_is_bitwise():
+    """Phase 12's arm B at a tiny width (dropout 0.1): 20 steps, a blocking
+    save, fresh objects from another seed, ``load_state`` (bitwise the
+    state at the save), 20 more steps: losses, batches and final state
+    bitwise an uninterrupted run's, 25 fused-update launches in every step
+    after the load. The snapshot of CUDA tensors goes through pinned host
+    memory (never the CPU-only clone)."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch import checkpointing
+
+    _needs_card()
+    cfg = T.BertConfig.tiny(hidden_dropout_prob=0.1)
+    a = ckpt_build(cfg, 0, inject=False)
+    ckpt_steps(a, CKPT_STEPS)
+    want = ckpt_state(a)
+    b = ckpt_build(cfg, 0, inject=False)
+    ckpt_steps(b, CKPT_AT)
+    copies = checkpointing._host_copies(b["model"].params)
+    assert copies and all(t.is_pinned() for t in copies.values())
+    at_save = ckpt_state(b)
+    root = tempfile.mkdtemp()
+    try:
+        b["acc"].save_state(root)
+        first = b["losses"] + []
+        c = ckpt_build(cfg, 1, inject=False)
+        c["acc"].load_state(root)
+        assert ckpt_diff(ckpt_state(c), at_save) == []
+        registry.reset_launch_counts()
+        ckpt_steps(c, CKPT_STEPS - CKPT_AT)
+    finally:
+        shutil.rmtree(root)
+    assert [float(x) for x in first + c["losses"]] == [float(x) for x in a["losses"]]
+    assert all(torch.equal(x, y) for x, y in zip(b["ids"][:CKPT_AT] + c["ids"], a["ids"]))
+    assert ckpt_diff(ckpt_state(c), want) == []
+    assert c["launches"] == [25] * (CKPT_STEPS - CKPT_AT)
+
+
+def test_unported_checkpoint_options_raise(tmp_path):
+    acc = T.Accelerator(cpu=True)
+    with pytest.raises(NotImplementedError, match="preemption"):
+        acc.checkpoint_on_preemption()
+    with pytest.raises(NotImplementedError, match="DeviceBatchPrefetcher"):
+        T.data_loader.DeviceBatchPrefetcher([], prefetch=2)
+    from accelerate_tpu_torch.checkpointing import export_full_weights
+
+    with pytest.raises(NotImplementedError, match="msgpack"):
+        export_full_weights({"w": torch.zeros(2)}, str(tmp_path), safe_serialization=False)
