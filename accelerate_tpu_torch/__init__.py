@@ -27,8 +27,12 @@ the fused update kernel, schedules, ``gather_for_metrics``) on BERT
 checkpoints in the JAX package's layout (``save_state`` / ``load_state``,
 ``save_model``; ``checkpointing.py``), mid-epoch loader resume, trackers and
 multi-process logging (``tracking.py``, ``logging.py``;
-``python -m accelerate_tpu_torch.examples.complete_nlp_example``).
-ROADMAP.md lists what comes next.
+``python -m accelerate_tpu_torch.examples.complete_nlp_example``); sharded
+training: the fsdp axis and ZeRO over dp with the JAX package's planners
+(``FullyShardedDataParallelPlugin``, ``Accelerator.zero_sharding``,
+``parallel/sharding.py``, ``parallel/fsdp.py``) over ``torch.distributed``
+or on one card through ``LoopbackShards``, and remat (``LlamaConfig(remat=
+True)``). ROADMAP.md lists what comes next.
 
 Entry points run on the card by default and raise without one unless the
 caller passes ``device="cpu"``.
@@ -66,12 +70,14 @@ from .optim import (
     polynomial_schedule,
     sgd,
 )
+from .parallel.fsdp import LoopbackShards
 from .parallel.mesh import ParallelismConfig
 from .parallel.ring import LoopbackRing, ring_attention
 from .serving import ContinuousBatcher
 from .state import AcceleratorState, GradientState, PartialState
 from .utils.dataclasses import (
     DataLoaderConfiguration,
+    FullyShardedDataParallelPlugin,
     ProjectConfiguration,
     SequenceParallelPlugin,
 )
@@ -88,10 +94,12 @@ __all__ = [
     "BertForSequenceClassification",
     "ContinuousBatcher",
     "DataLoaderConfiguration",
+    "FullyShardedDataParallelPlugin",
     "GradientState",
     "Llama",
     "LlamaConfig",
     "LoopbackRing",
+    "LoopbackShards",
     "ParallelismConfig",
     "PartialState",
     "ProjectConfiguration",

@@ -26,9 +26,9 @@ calls ``.item()``.
 
 Mixed precision ``bf16`` keeps f32 master parameters and casts them to bf16
 *inside* the differentiated function, so the gradients land in f32, as in
-JAX. Not ported yet: ``build_train_window``, the fp16 gradient scaler, ZeRO
-and the fsdp, tp, pp and ep axes, Ulysses, remat, adafactor, and the
-telemetry, audit and health hooks of the step.
+JAX. Not ported yet: ``build_train_window``, the fp16 gradient scaler, the
+tp, pp and ep axes, Ulysses, adafactor, and the telemetry, audit and
+health hooks of the step.
 
 The canonical imperative loop (``examples/nlp_example.py``; the port's
 ``accelerate_tpu_torch/examples/nlp_example.py``)::
@@ -103,6 +103,28 @@ summed over the mesh, and sums the gradients over the mesh before
 accumulation, clip and the fused update, so every rank keeps identical
 parameters; the step returns the global mean loss. With one process and no
 ``sp`` axis none of this runs: the step is the single-process one above.
+
+Sharded training, one process per rank (``torchrun --nproc_per_node=4`` on
+cards), or all ranks on one device with ``loopback=LoopbackShards(n)``::
+
+    accelerator = Accelerator(mixed_precision="bf16", fsdp_plugin=
+        FullyShardedDataParallelPlugin(fsdp_size=4, activation_checkpointing=True))
+    accelerator.zero_sharding = True           # ZeRO over dp (ACCELERATE_ZERO_SHARDING)
+    model, optimizer = accelerator.prepare(Llama(cfg), optim.adamw(3e-4))
+    step = accelerator.build_train_step(model, optimizer)
+    loss = step({"input_ids": ids, "labels": ids}, clip_norm=1.0)  # the GLOBAL batch
+
+With an fsdp axis, ZeRO over a dp axis, or a loopback, ``prepare`` plans
+each leaf's layout as the JAX package does (``parallel/sharding.py``, with
+the model's ``sharding_rules`` and ``min_shard_size``), hands every rank rank
+0's parameters and keeps only this rank's shards (``parallel/fsdp.py``):
+``model.params`` is then this rank's tree of shards. Each step cuts this
+rank's rows out of the global batch (rows split over dp x fsdp), gathers each
+layer just before the model uses it, reduce-scatters its gradient into the
+owning shard of the accumulation buffer, and runs the clip and the fused
+update on the shards (on 1/dp of each under ZeRO, with the new parameters
+all-gathered back). The imperative ``backward`` / ``optimizer.step()`` loop
+runs on the same shards (one process per rank).
 """
 
 from __future__ import annotations
@@ -117,17 +139,21 @@ import torch
 import torch.utils.data as tud
 
 from .data_loader import DataLoaderShard, prepare_data_loader, skip_first_batches
+from .models.llama import Llama
 from .modules import Module
 from .ops.fused_update import fused_update_apply, reference_update_apply
 from .ops.registry import resolve_spec
 from .optim import GradientTransformation
 from .optimizer import AcceleratedOptimizer, clip_factor, global_norm
-from .parallel.mesh import ParallelismConfig
+from .parallel.fsdp import LoopbackShards, ShardedModel
+from .parallel.mesh import ParallelismConfig, mesh_coordinate
+from .parallel.sharding import data_parallel_degree, plan_param_shardings
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils import operations as ops
 from .utils.dataclasses import (
     DataLoaderConfiguration,
+    FullyShardedDataParallelPlugin,
     ProjectConfiguration,
     SequenceParallelPlugin,
 )
@@ -169,6 +195,7 @@ class TrainHandle:
         self.generator.manual_seed(DROPOUT_SEED)
         self.pending = None
         self.last_grad_norm = None
+        self.sharded: ShardedModel | None = None  # the shards, under fsdp, ZeRO or a loopback
 
 
 def _loss_of(outputs):
@@ -214,6 +241,8 @@ class PreparedModel:
                 "optimizer), which takes the global batch")
         args, kwargs = acc._place_inputs((args, kwargs))
         module, kernels = handle.module, acc.kernels
+        if handle.sharded is not None:
+            return self._sharded_call(args, kwargs)
         if not self.training:
             with torch.no_grad():
                 return module.apply(self._cast(handle.params), *args, train=False,
@@ -228,6 +257,35 @@ class PreparedModel:
 
     def forward(self, *args, **kwargs):
         return self(*args, **kwargs)
+
+    def _sharded_call(self, args, kwargs):
+        """The forward on this rank's shards, the layers gathered as the
+        model reads them; in train mode the backward's gradients go to the
+        optimizer's buffer, averaged over the data ranks (``backward``)."""
+        acc, handle = self.accelerator, self.handle
+        engine = handle.sharded
+        if engine.loopback:
+            raise NotImplementedError("the imperative loop runs one rank a process; a "
+                                      "LoopbackShards accelerator trains with build_train_step")
+        opt = acc._optimizer_for_handle(handle)
+        if opt is None:
+            raise RuntimeError("No prepared optimizer is bound to this model.")
+        rank = engine.ranks[0]
+        if not self.training:
+            aliases, anchor = engine.begin(None)
+            with torch.no_grad():
+                out = handle.module.apply(engine.rank_tree(rank, aliases, anchor), *args,
+                                          train=False, kernels=acc.kernels, **kwargs)
+            engine._sink = engine._bank = None
+            return out
+        aliases, anchor = engine.begin(opt._sharded_sink(acc.gradient_accumulation_steps),
+                                       n_data_ranks=acc.num_data_ranks)
+        with torch.enable_grad(), engine.hooks():
+            outputs = handle.module.apply(engine.rank_tree(rank, aliases, anchor), *args,
+                                          train=True, generator=handle.generator,
+                                          kernels=acc.kernels, **kwargs)
+        handle.pending = (_loss_of(outputs), ("sharded", aliases))
+        return outputs
 
     def training_loss_fn(self):
         """``loss_of(params, batch)``: the forward on the parameters cast to
@@ -295,9 +353,11 @@ class Accelerator:
     ``chip_smoke.py``). The accumulation steps are fixed at construction (only
     ``load_state(reshard=True)`` rescales them, to keep the global batch).
     ``cpu=True`` is the JAX package's spelling of ``device="cpu"``.
-    ``sp_plugin`` or ``parallelism_config`` ask for a ``("dp", "sp")`` mesh
-    over the job's ranks (module docstring); ``init_method`` is handed to
-    ``init_process_group`` when this process starts the job.
+    ``sp_plugin``, ``fsdp_plugin`` or ``parallelism_config`` ask for a
+    ``("dp", "fsdp", "sp")`` mesh over the job's ranks, or, with
+    ``loopback=LoopbackShards(n)``, over n ranks held in this process
+    (module docstring); ``init_method`` is handed to ``init_process_group``
+    when this process starts the job.
     ``split_batches``, ``dataloader_config`` and ``rng_types`` shape the
     prepared loaders, ``step_scheduler_with_optimizer`` the schedulers, as
     in the JAX package. ``project_config`` (or ``project_dir``) places the
@@ -315,7 +375,9 @@ class Accelerator:
                  dataloader_config: DataLoaderConfiguration | None = None,
                  rng_types: list | None = None, step_scheduler_with_optimizer: bool = True,
                  log_with=None, project_dir: str | os.PathLike | None = None,
-                 project_config: ProjectConfiguration | None = None):
+                 project_config: ProjectConfiguration | None = None,
+                 fsdp_plugin: FullyShardedDataParallelPlugin | None = None,
+                 loopback: LoopbackShards | None = None):
         if cpu:
             if device is not None and torch.device(device).type != "cpu":
                 raise ValueError(f"cpu=True contradicts device={device!r}")
@@ -327,8 +389,26 @@ class Accelerator:
                     "SequenceParallelPlugin(ring_attention=False) asks for Ulysses sequence "
                     "parallelism, which is not ported yet (ROADMAP.md, module queue)")
             cfg = dataclasses.replace(cfg, sp_size=sp_plugin.sp_size)
+        if fsdp_plugin is not None:  # -1: full-shard over the ranks left over
+            cfg = dataclasses.replace(
+                cfg, fsdp_size=fsdp_plugin.fsdp_size if fsdp_plugin.fsdp_size > 0 else -1)
+        self.fsdp_plugin = fsdp_plugin
+        self.loopback = loopback
+        self._zero_sharding = None
+        if loopback is not None:
+            cfg.resolved_sizes(loopback.size)  # the loopback must hold the mesh
+            if cfg.sp_size > 1:
+                raise NotImplementedError("a LoopbackShards accelerator shards over dp and fsdp; "
+                                          "drive the sp ring with LoopbackRing")
         self.state = AcceleratorState(mixed_precision=mixed_precision, device=device,
                                       parallelism_config=cfg, init_method=init_method)
+        if loopback is not None and self.state.partial.distributed:
+            raise ValueError("a LoopbackShards accelerator holds every rank in one process; "
+                             "this process is one rank of a process group")
+        sizes = self.mesh_sizes
+        if sizes["fsdp"] > 1 and sizes["sp"] > 1:
+            raise NotImplementedError("fsdp together with sp is not ported yet (ROADMAP.md, "
+                                      "module queue)")
         self.gradient_state = GradientState(gradient_accumulation_steps)
         self.kernels = resolve_spec(kernels)
         self.split_batches = split_batches
@@ -383,9 +463,41 @@ class Accelerator:
 
     @property
     def mesh(self):
-        """The ``("dp", "sp")`` ``DeviceMesh``, or None for one process
-        without sequence parallelism."""
+        """The ``("dp", "fsdp", "sp")`` ``DeviceMesh``, or None for one
+        process without sequence parallelism."""
         return self.state.mesh
+
+    @property
+    def mesh_sizes(self) -> dict:
+        """``{"dp", "fsdp", "sp"}`` of the job: its process mesh, its
+        loopback's ranks, or one rank."""
+        cfg = self.state.parallelism_config
+        if self.loopback is not None:
+            return cfg.resolved_sizes(self.loopback.size)
+        return cfg.resolved_sizes(self.num_processes if self.mesh is not None else 1)
+
+    @property
+    def num_data_ranks(self) -> int:
+        """How many ways a batch's rows split: dp x fsdp."""
+        return data_parallel_degree(self.mesh_sizes)
+
+    @property
+    def zero_sharding(self) -> bool:
+        """ZeRO: the optimizer state and the update sharded over the dp axis
+        (JAX ``accelerator.py:578-603``). The default comes from
+        ``ACCELERATE_ZERO_SHARDING``, else off. Setting it reaches the
+        optimizers prepared before, as long as their state does not exist
+        yet."""
+        if self._zero_sharding is None:
+            self._zero_sharding = _flag_from_env("ACCELERATE_ZERO_SHARDING")
+        return self._zero_sharding
+
+    @zero_sharding.setter
+    def zero_sharding(self, value):
+        self._zero_sharding = bool(value)
+        for opt in self._optimizers:
+            if opt.opt_state is None:
+                opt.zero_sharding = self._zero_sharding
 
     @property
     def gradient_accumulation_steps(self) -> int:
@@ -422,24 +534,30 @@ class Accelerator:
         self.state.partial.wait_for_everyone()
 
     def _dp_group(self):
-        """The process group a batch is split over: the mesh's dp axis, or
-        the default group."""
-        return None if self.mesh is None else self.mesh.get_group("dp")
+        """The process group a batch is split over: the mesh's dp axis under
+        sp, else the default group (dp x fsdp)."""
+        if self.mesh is None or self.mesh_sizes["sp"] == 1:
+            return None
+        return self.mesh.get_group("dp")
+
+    def _data_index(self, coord) -> int:
+        """The rows a rank holds: its index over dp x fsdp."""
+        return coord["dp"] * self.mesh_sizes["fsdp"] + coord["fsdp"]
 
     def _dp_size_index(self):
         mesh = self.mesh
         if mesh is None:
             return 1, 0
-        return mesh["dp"].size(), mesh.get_coordinate()[0]
+        return self.num_data_ranks, self._data_index(mesh_coordinate(mesh))
 
     def _place_batch(self, batch, module=None):
         mesh = self.mesh
         if mesh is None:
             return place_batch(batch, self.device)
-        dp_index, sp_index = mesh.get_coordinate()
-        return shard_batch(batch, self.device, dp_index=dp_index, dp_size=mesh["dp"].size(),
-                           sp_index=sp_index, sp_size=mesh["sp"].size(),
-                           shift_labels=module._shift_labels)
+        coord = mesh_coordinate(mesh)
+        return shard_batch(batch, self.device, dp_index=self._data_index(coord),
+                           dp_size=self.num_data_ranks, sp_index=coord["sp"],
+                           sp_size=mesh["sp"].size(), shift_labels=module._shift_labels)
 
     def _place_inputs(self, data):
         """Numpy and CPU-tensor leaves of a forward's inputs on the device;
@@ -506,16 +624,46 @@ class Accelerator:
             raise ValueError("Model has no parameters: call model.init_params(seed) first.")
         if self.state.sp_size > 1:
             model.config = self._sequence_parallel_config(model.config)
+        if self.fsdp_plugin is not None and self.fsdp_plugin.activation_checkpointing:
+            model.config = dataclasses.replace(model.config, remat=True)
         dev = self.device
         params = tree_map(lambda p: p.detach().to(dev), model.params)
         if self.mesh is not None:  # every rank starts from rank 0's parameters
             for leaf in tree_leaves(params):
                 broadcast(leaf, src=0)
-        model.params = params  # the user's handle sees the prepared parameters
         handle = TrainHandle(model, params, self.state.compute_dtype, dev)
+        sizes = self.mesh_sizes
+        if sizes["fsdp"] > 1 or self.loopback is not None or (
+                self.zero_sharding and sizes["dp"] > 1):
+            self._shard(handle)
+        model.params = handle.params  # the user's handle sees the prepared parameters
         prepared = PreparedModel(handle, self)
         self._models.append(prepared)
         return prepared
+
+    def _shard(self, handle):
+        """Keep only this rank's shards of ``handle``'s parameters
+        (``parallel/fsdp.py``), laid out as the JAX package plans them."""
+        module = handle.module
+        if not isinstance(module, Llama):
+            raise NotImplementedError(
+                f"sharded training (fsdp, ZeRO, a loopback) runs models that read their "
+                f"stacked layers one index at a time, as Llama does; {type(module).__name__} "
+                "is not ported to it yet (ROADMAP.md, module queue)")
+        sizes = self.mesh_sizes
+        plugin = self.fsdp_plugin
+        specs = plan_param_shardings(handle.params, sizes, rules=module.sharding_rules(),
+                                     min_shard_size=plugin.min_shard_size if plugin else 2**14)
+        rank = 0 if self.mesh is None else self.process_index
+        handle.sharded = ShardedModel(
+            handle.params, specs, sizes, comm=self.loopback, mesh=self.mesh, rank=rank,
+            compute_dtype=handle.compute_dtype,
+            reshard_after_forward=plugin.reshard_after_forward if plugin else True)
+        handle.params = handle.sharded.param_tree(handle.sharded.ranks[0])
+        if module.params is not None and module.params is not handle.params:
+            module.params = handle.params  # drop the full tree: only the shards stay
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     def _sequence_parallel_config(self, cfg):
         """The model's config under sp > 1: the JAX package's prepare-time
@@ -548,7 +696,8 @@ class Accelerator:
 
     def _new_optimizer(self, tx):
         prepared = AcceleratedOptimizer(tx, gradient_state=self.gradient_state,
-                                        kernels=self.kernels)
+                                        kernels=self.kernels, zero_sharding=self.zero_sharding)
+        prepared.accelerator = self
         self._optimizers.append(prepared)
         return prepared
 
@@ -608,6 +757,12 @@ class Accelerator:
         opt = self._optimizer_for_handle(model.handle)
         if opt is None:
             raise RuntimeError("No prepared optimizer is bound to this model.")
+        if model.handle.sharded is not None:  # the gradients reach the buffer in the backward
+            opt._ensure_initialized()
+            torch.autograd.backward(loss)
+            model.handle.sharded.end(leaves[1])
+            opt._accum_grads = model.handle.sharded.accum_tree(model.handle.sharded.ranks[0])
+            return
         # A parameter the loss does not reach gets a zero gradient, as in JAX.
         grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         opt._accumulate(grads, scale=1.0 / self.gradient_accumulation_steps)
@@ -685,7 +840,7 @@ class Accelerator:
         if opt is None or opt.grads is None:
             return torch.zeros((), dtype=torch.float32, device=self.device)
         opt._pending_clip_norm = float(max_norm)
-        return global_norm(opt.grads)
+        return opt.grad_norm()
 
     def clip_grad_value_(self, parameters, clip_value: float):
         opt = self._optimizer_for_parameters(parameters)
@@ -741,6 +896,10 @@ class Accelerator:
     def get_state_dict(self, model, unwrap: bool = True):
         """The model's parameters copied to the host (a tree of CPU
         tensors)."""
+        if isinstance(model, PreparedModel) and model.handle.sharded is not None:
+            from .checkpointing import full_host_params
+
+            return full_host_params(model.handle.sharded)
         params = model.params if isinstance(model, PreparedModel) else getattr(
             model, "params", model)
         return tree_map(lambda p: p.detach().cpu(), params)
@@ -899,6 +1058,8 @@ class Accelerator:
         the accumulation buffer and starts its micro-step count at 0."""
         handle = model.handle
         optimizer._ensure_initialized()
+        if handle.sharded is not None:
+            return self._build_sharded_step(model, optimizer)
         accum = self.gradient_accumulation_steps
         step_body = self._fused_step_body(model, optimizer, accum)
         optimizer._accum_grads = tree_map(torch.zeros_like, handle.params)
@@ -915,6 +1076,66 @@ class Accelerator:
             (handle.params, optimizer.opt_state, optimizer._accum_grads, count,
              loss) = step_body(handle.params, optimizer.opt_state, optimizer._accum_grads,
                                count, self._place_batch(batch, handle.module), clip)
+            return loss
+
+        return step
+
+    def _build_sharded_step(self, model: PreparedModel, optimizer: AcceleratedOptimizer):
+        """``build_train_step`` on shards (``parallel/fsdp.py``): every held
+        rank's rows of the global batch, forward and backward with the
+        gradients reduce-scattered into the buffer at ``1/accum``, and on a
+        boundary the clip from the sharded norm and the update on the
+        shards."""
+        handle = model.handle
+        engine, module = handle.sharded, handle.module
+        accum = self.gradient_accumulation_steps
+        n_data = self.num_data_ranks
+        dev = handle.device
+        accum_t = torch.full((), float(accum), dtype=torch.float32, device=dev)
+        for shards in engine.ensure_accum():
+            for t in shards.values():
+                t.zero_()
+        optimizer._accum_grads = engine.accum_tree(engine.ranks[0])
+
+        def sink(i, layer, key, g):
+            target = engine.accum[i][key]
+            (target if layer is None else target[layer]).add_(g / accum_t)
+
+        count = 0
+
+        def step(batch, clip_norm: float = 0.0):
+            nonlocal count
+            if self.gradient_accumulation_steps != accum:
+                raise RuntimeError(
+                    f"gradient_accumulation_steps changed from {accum} to "
+                    f"{self.gradient_accumulation_steps} after build_train_step; build the "
+                    "step again")
+            clip = host_to_device(np.float32(clip_norm), dev)
+            rows = np.shape(batch["input_ids"])[0]
+            if rows % n_data:
+                raise ValueError(f"global batch dim {rows} not divisible by data-parallel "
+                                 f"degree {n_data}; pad the batch or change dp/fsdp.")
+            shards = {r: shard_batch(batch, dev, dp_index=r, dp_size=n_data,
+                                     sp_index=0, sp_size=1, shift_labels=module._shift_labels)
+                      for r in engine.ranks}
+            counts = None
+            for r in engine.ranks:
+                c = (shards[r]["targets"] != -100).sum()
+                counts = c if counts is None else counts + c
+            if not engine.loopback:
+                counts = reduce(counts, reduction="sum")
+            normalizer = counts.clamp(min=1)
+
+            def forward(rank, tree):
+                out = module.apply(tree, kernels=self.kernels, loss_normalizer=normalizer,
+                                   **shards[rank])
+                return out["loss"]
+
+            with torch.no_grad():
+                loss = engine.forward_backward(forward, sink)
+                count += 1
+                if count % accum == 0:
+                    optimizer._sharded_update(clip_factor(engine.global_norm(), clip))
             return loss
 
         return step

@@ -42,6 +42,17 @@ thread. :func:`finish_pending_saves` joins the writers and raises if one
 failed; ``load_state``, automatic naming and ``end_training`` join first,
 and an ``atexit`` hook joins whatever is left.
 
+**Sharded state** (``parallel/fsdp.py``: fsdp, ZeRO, a loopback) is saved
+in the full layout, so a checkpoint does not depend on the mesh that wrote
+it: every rank joins the gathers of one leaf at a time (parameters from
+their base shards, moments from their ZeRO slices), so no rank holds the
+whole model on its device, and the main process writes the full host
+arrays. ``load_state`` slices each rank's shards out of the full arrays.
+The mesh record holds the axes (``dp``, ``fsdp``, ``sp``), the dp x fsdp
+degree and ``zero_sharding``; with ``reshard=True`` a checkpoint of another
+mesh (fsdp 4 into one unsharded process, and back) loads, its accumulation
+rescaled by the data-parallel degree.
+
 Not ported yet: the JAX package's goodput ledger and fault-injection hooks
 of ``save_state`` (they wait for ``resilience/``), the fp16 scaler's
 ``scale`` (a checkpoint that holds one raises) and the msgpack export
@@ -75,7 +86,8 @@ from .utils.constants import (
     SCHEDULER_NAME,
 )
 from .utils.safetensors_io import load_file, save_file
-from .utils.tree import flatten_with_paths, map_with_paths
+from .parallel.sharding import data_parallel_degree
+from .utils.tree import flatten_with_paths, map_with_paths, tree_unflatten
 
 logger = get_logger(__name__)
 
@@ -224,16 +236,22 @@ def save_accelerator_state(accelerator, output_dir: str | None = None,
         os.makedirs(output_dir, exist_ok=True)
     accelerator.wait_for_everyone()
 
-    # The ranks hold whole replicas: rank 0 writes the arrays.
+    # Rank 0 writes the arrays: replicas as they are, sharded state gathered.
     items, expected_items = [], []
     for i, model in enumerate(accelerator._models):
         name = f"{MODEL_NAME}{'' if i == 0 else f'_{i}'}"
-        items.append((os.path.join(output_dir, name), model.handle.params))
+        engine = model.handle.sharded
+        items.append((os.path.join(output_dir, name), model.handle.params) if engine is None
+                     else (os.path.join(output_dir, name),
+                           dict(flatten_with_paths(full_host_params(engine))), True))
         expected_items.append(name)
     for i, opt in enumerate(accelerator._optimizers):
         suffix = "" if i == 0 else f"_{i}"
         if opt.opt_state is not None:
-            items.append((os.path.join(output_dir, f"{OPTIMIZER_NAME}{suffix}"), opt.opt_state))
+            engine = None if opt.handle is None else opt.handle.sharded
+            path = os.path.join(output_dir, f"{OPTIMIZER_NAME}{suffix}")
+            items.append((path, opt.opt_state) if engine is None
+                         else (path, full_host_opt_state(engine, opt), True))
             expected_items.append(f"{OPTIMIZER_NAME}{suffix}")
         _host_pickle(os.path.join(output_dir, f"{OPTIMIZER_NAME}{suffix}.meta.pkl"),
                      {"step_count": int(opt._step_count), "scale": None}, accelerator)
@@ -241,7 +259,9 @@ def save_accelerator_state(accelerator, output_dir: str | None = None,
     if main:
         with open(os.path.join(output_dir, "manifest.json"), "w") as f:
             json.dump({"items": expected_items, "mesh": _mesh_record(accelerator)}, f)
-        snapshot = [(path, _host_copies(tree)) for path, tree in items]
+        # (path, tree) or, gathered to the host already, (path, arrays, True).
+        snapshot = [(item[0], item[1] if len(item) == 3 else _host_copies(item[1]))
+                    for item in items]
         if blocking:
             for path, tensors in snapshot:
                 _commit_item(path, tensors)
@@ -280,14 +300,103 @@ def _host_pickle(path, obj, accelerator, all_processes: bool = False):
 
 
 def _mesh_record(accelerator) -> dict:
-    """The mesh's axis sizes, the process count, the dp degree and the
-    accumulation: what decides whether a checkpoint loads as it is."""
-    axes = accelerator.state.parallelism_config.resolved_sizes(accelerator.num_processes)
+    """The mesh's axis sizes, the process count, the dp x fsdp degree, the
+    accumulation and whether ZeRO engaged: what decides whether a checkpoint
+    loads as it is."""
+    axes = accelerator.mesh_sizes
     return {"axes": {name: int(size) for name, size in axes.items()},
             "process_count": int(accelerator.num_processes),
-            "data_parallel": int(axes["dp"]),
+            "data_parallel": int(data_parallel_degree(axes)),
             "gradient_accumulation_steps": int(accelerator.gradient_accumulation_steps),
-            "zero_sharding": False}
+            "zero_sharding": bool(any(o.zero_active for o in accelerator._optimizers))}
+
+
+def _axes_key(axes: dict) -> dict:
+    """A record's axes without those of size 1 (a record written before an
+    axis existed reads as that axis of size 1)."""
+    return {k: int(v) for k, v in axes.items() if int(v) != 1}
+
+
+def full_host_params(engine) -> dict:
+    """A sharded model's parameters in the full layout, on the host: every
+    rank joins each leaf's gather in turn; only the main process keeps the
+    copies (the others get an empty tree's leaves as None)."""
+    keep = _is_main()
+    leaves = []
+    for i in range(len(engine.layouts)):
+        full = engine.full_leaf(i)
+        leaves.append(full.detach().cpu().clone() if keep else None)
+        del full
+    return tree_unflatten(engine.template, leaves)
+
+
+def _moment_leaf(engine, path, leaf):
+    """The parameter leaf index whose update slice ``leaf`` (an optimizer
+    state tensor at ``path``) mirrors, or None (a count, a scalar)."""
+    for i, layout in enumerate(engine.layouts):
+        dotted = layout.path.replace("/", ".")
+        if (path == dotted or path.endswith("." + dotted)) and \
+                list(leaf.shape) == layout.update_shape:
+            return i
+    return None
+
+
+def full_host_opt_state(engine, opt) -> dict:
+    """A sharded optimizer's state in the full layout, on the host, keyed
+    as the unsharded state's safetensors item (``0.mu.layers.wq``)."""
+    per_rank = [dict(flatten_with_paths(s)) for s in opt.rank_states]
+    out = {}
+    keep = _is_main()
+    for path, leaf in per_rank[0].items():
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        i = _moment_leaf(engine, path, leaf)
+        full = leaf if i is None else engine.full_leaf(i, [s[path] for s in per_rank])
+        if keep:
+            out[path] = full.detach().cpu().clone()
+        del full
+    return out
+
+
+def _is_main() -> bool:
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _load_sharded_params(engine, tensors: dict, where: str):
+    expected = {p.replace("/", ".") for p in engine.paths}
+    missing, extra = sorted(expected - set(tensors)), sorted(set(tensors) - expected)
+    if missing or extra:
+        raise KeyError(f"{where}: keys missing from the checkpoint {missing[:5]}, keys the "
+                       f"live state lacks {extra[:5]}")
+    for i, layout in enumerate(engine.layouts):
+        src = tensors[layout.path.replace("/", ".")]
+        if tuple(src.shape) != layout.shape:
+            raise ValueError(f"{where}: {layout.path} is {tuple(src.shape)} in the "
+                             f"checkpoint, {layout.shape} live")
+        with torch.no_grad():
+            engine.load_full(i, src.to(next(iter(engine.local[i].values())).device))
+
+
+def _load_sharded_opt_state(engine, opt, tensors: dict, where: str):
+    per_rank = [dict(flatten_with_paths(s)) for s in opt.rank_states]
+    keys = {k for k, v in per_rank[0].items() if isinstance(v, torch.Tensor)}
+    missing, extra = sorted(keys - set(tensors)), sorted(set(tensors) - keys)
+    if missing or extra:
+        raise KeyError(f"{where}: keys missing from the checkpoint {missing[:5]}, keys the "
+                       f"live state lacks {extra[:5]}")
+    with torch.no_grad():
+        for path in keys:
+            leaf = per_rank[0][path]
+            src = tensors[path].to(leaf.device)
+            i = _moment_leaf(engine, path, leaf)
+            parts = [src] * len(per_rank) if i is None else engine.update_slices_of(i, src)
+            for state, part in zip(per_rank, parts):
+                if tuple(part.shape) != tuple(state[path].shape):
+                    raise ValueError(f"{where}: {path} is {tuple(src.shape)} in the "
+                                     "checkpoint, which does not hold the live slices")
+                state[path].copy_(part)
 
 
 def rescaled_accumulation(accum: int, old_dp: int, new_dp: int, *, context: str) -> int:
@@ -325,7 +434,8 @@ def _check_mesh_compatible(input_dir: str, accelerator, reshard: bool):
     if not saved:
         return
     current = _mesh_record(accelerator)
-    if saved["axes"] == current["axes"] and saved.get("process_count") == current["process_count"]:
+    if (_axes_key(saved["axes"]) == _axes_key(current["axes"])
+            and saved.get("process_count") == current["process_count"]):
         return
     if reshard:
         _rescale_accumulation(accelerator, saved, current)
@@ -441,14 +551,21 @@ def load_accelerator_state(accelerator, input_dir: str | None = None, reshard: b
     for i, model in enumerate(accelerator._models):
         name = f"{MODEL_NAME}{'' if i == 0 else f'_{i}'}"
         tensors = load_file(os.path.join(input_dir, name, PAYLOAD_NAME))
-        _load_into(model.handle.params, tensors, name)
+        if model.handle.sharded is not None:
+            _load_sharded_params(model.handle.sharded, tensors, name)
+        else:
+            _load_into(model.handle.params, tensors, name)
     for i, opt in enumerate(accelerator._optimizers):
         suffix = "" if i == 0 else f"_{i}"
         opt_dir = os.path.join(input_dir, f"{OPTIMIZER_NAME}{suffix}")
         if os.path.isdir(opt_dir):
             opt._ensure_initialized()
             tensors = load_file(os.path.join(opt_dir, PAYLOAD_NAME))
-            opt.opt_state = _load_into(opt.opt_state, tensors, f"{OPTIMIZER_NAME}{suffix}")
+            if opt.handle.sharded is not None:
+                _load_sharded_opt_state(opt.handle.sharded, opt, tensors,
+                                        f"{OPTIMIZER_NAME}{suffix}")
+            else:
+                opt.opt_state = _load_into(opt.opt_state, tensors, f"{OPTIMIZER_NAME}{suffix}")
         meta_path = os.path.join(input_dir, f"{OPTIMIZER_NAME}{suffix}.meta.pkl")
         if os.path.isfile(meta_path):
             with open(meta_path, "rb") as f:

@@ -40,12 +40,32 @@ wo, gate, up, down) through ``ops/int8.matmul``, whose forward is the int8
 matmul kernel on the card; the embedding and the LM head stay exact, as in
 the JAX package.
 
-Left out so far, and raising when set: remat, the pipeline schedule, MoE,
-the ulysses attention impl, and the ``yarn``/``dynamic`` rope types.
+Remat (``remat=True``; JAX ``models/llama.py:726-732``): under autograd each
+block runs inside ``torch.utils.checkpoint.checkpoint(...,
+use_reentrant=False)``, so the backward runs the block's forward again in
+place of keeping its activations. ``remat_policy`` picks what the region
+keeps anyway: ``nothing_saveable`` nothing; ``dots_with_no_batch_dims_
+saveable`` the outputs of the weight products (``aten.mm``; attention's
+batched products are recomputed, as JAX keeps none); ``names_saveable`` the
+block's tagged outputs among ``remat_save_names``, the attention projection
+(``attn_out``) and the MLP's down projection (``mlp_out``), JAX's
+``checkpoint_name`` tags. Kept values equal recomputed ones, so every
+policy gives the plain step's numbers bitwise. A sharded model
+(``parallel/fsdp.py``) gathers each layer inside the region, so remat frees
+the gathered weights after the forward and gathers them again for the
+backward.
+
+``sharding_rules`` are the JAX package's ``(path_regex, spec)`` rules, which
+``parallel/sharding.plan_param_shardings`` reads under an fsdp axis.
+
+Left out so far, and raising when set: the pipeline schedule, MoE, the
+ulysses attention impl, and the ``yarn``/``dynamic`` rope types.
 """
 
 from __future__ import annotations
 
+import contextvars
+import functools
 import math
 from dataclasses import dataclass
 
@@ -59,6 +79,7 @@ from ..ops.attention import cached_attention, softcap_scores
 from ..ops.int8 import PRECISIONS
 from ..ops.int8 import matmul as _precision_matmul
 from ..ops.losses import cross_entropy_loss, fused_cross_entropy_loss
+from ..utils.dataclasses import resolve_remat_policy
 from ..utils.device import host_to_device, resolve_device
 
 
@@ -243,19 +264,50 @@ def _index_tree(tree, i):
     return {k: _index_tree(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+# The block output a remat region is computing (``names_saveable``): set
+# around the attention and MLP output projections, read by the policy.
+_REMAT_TAG = contextvars.ContextVar("accelerate_tpu_torch_remat_tag", default=None)
+
+
+def _tagged(name, fn, *args):
+    """``fn(*args)`` with the remat tag ``name`` set (JAX's
+    ``checkpoint_name``)."""
+    token = _REMAT_TAG.set(name)
+    try:
+        return fn(*args)
+    finally:
+        _REMAT_TAG.reset(token)
+
+
+def _remat_context_fn(policy: str, save_names: tuple):
+    """The ``context_fn`` of ``checkpoint`` for a remat policy, or None for
+    ``nothing_saveable`` (plain checkpointing)."""
+    if policy == "nothing_saveable":
+        return None
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    aten = torch.ops.aten
+    dots = {aten.mm.default, aten.addmm.default}
+
+    def keep(ctx, op, *args, **kwargs):
+        if policy == "dots_with_no_batch_dims_saveable":
+            save = op in dots
+        else:
+            save = _REMAT_TAG.get() in save_names
+        return CheckpointPolicy.MUST_SAVE if save else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, keep)
+
+
 class Llama(Module):
     _WINDOW_FROM_CONFIG = object()  # sentinel: use cfg.sliding_window
 
     def __init__(self, config: LlamaConfig, device=None):
-        unported = {
-            "remat": config.remat,
-            "attention_impl=ulysses": config.attention_impl == "ulysses",
-        }
-        for name, engaged in unported.items():
-            if engaged:
-                raise NotImplementedError(
-                    f"Llama option {name} is not ported yet (ROADMAP.md, module queue)"
-                )
+        if config.attention_impl == "ulysses":
+            raise NotImplementedError(
+                "Llama option attention_impl=ulysses is not ported yet (ROADMAP.md, module "
+                "queue)")
+        resolve_remat_policy(config.remat_policy, config.remat_save_names)
         if config.matmul_precision not in PRECISIONS:
             raise ValueError(f"matmul precision must be 'default' or 'int8', "
                              f"got {config.matmul_precision!r}")
@@ -389,7 +441,7 @@ class Llama(Module):
                 softcap=cfg.attn_logit_softcap, scale=scale, kernels=ctx.get("kernels"),
                 group=ctx.get("sp_group"),
             )
-        attn_out = self._mm(attn_out.reshape(B, S, nh * hd), a["wo"], ctx)
+        attn_out = _tagged("attn_out", self._mm, attn_out.reshape(B, S, nh * hd), a["wo"], ctx)
         if cfg.sandwich_norms:
             x = x + rms_norm(attn_out, layer["post_attn_norm"]["weight"], cfg.rms_norm_eps)
             h2 = rms_norm(x, layer["pre_ffw_norm"]["weight"], cfg.rms_norm_eps)
@@ -406,7 +458,7 @@ class Llama(Module):
         m = layer["mlp"]
         gate = self._mm(h2, m["w_gate"], ctx)
         gate = F.silu(gate) if self.config.hidden_act == "silu" else F.gelu(gate, approximate="tanh")
-        return self._mm(gate * self._mm(h2, m["w_up"], ctx), m["w_down"], ctx)
+        return _tagged("mlp_out", self._mm, gate * self._mm(h2, m["w_up"], ctx), m["w_down"], ctx)
 
     def _mm(self, a, b, ctx=None):
         """Block matmul through the precision dispatcher (``ops/int8.py``),
@@ -414,6 +466,22 @@ class Llama(Module):
         exact, the usual QAT skip list."""
         kernels = None if ctx is None else ctx.get("kernels")
         return _precision_matmul(a, b, precision=self.config.matmul_precision, kernels=kernels)
+
+    def sharding_rules(self):
+        """The JAX package's rules (``models/llama.py:411-431``): Megatron
+        tp with the complementary fsdp dim, and the layer stack on pp. The
+        port's mesh has no tp or pp axis yet, so those entries have size 1."""
+        return [
+            (r"embed/weight", ("tp", "fsdp")),
+            (r"attn/w[qkv]", ("pp", "fsdp", "tp")),
+            (r"attn/b[qkv]", ("pp", "tp")),
+            (r"attn/wo", ("pp", "tp", "fsdp")),
+            (r"mlp/w_(gate|up)", ("pp", "fsdp", "tp")),
+            (r"mlp/w_down", ("pp", "tp", "fsdp")),
+            (r"layers/.*norm", ("pp",)),
+            (r"norm", ()),
+            (r"lm_head/weight", ("fsdp", "tp")),
+        ]
 
     @staticmethod
     def _shift_labels(labels, attention_mask):
@@ -500,9 +568,23 @@ class Llama(Module):
         x, ctx = self.embed(params, input_ids, positions, attention_mask)
         ctx["kernels"] = kernels
         ctx["sp_group"] = sp_group
-        for i in range(self.config.num_hidden_layers):
-            x = self.block(_index_tree(params["layers"], i), x, ctx,
-                           window=self._layer_window(i))
+        cfg = self.config
+        remat = cfg.remat and torch.is_grad_enabled()
+        if remat:
+            from torch.utils.checkpoint import checkpoint
+
+            context_fn = _remat_context_fn(*resolve_remat_policy(cfg.remat_policy,
+                                                                 cfg.remat_save_names))
+            extra = {} if context_fn is None else {"context_fn": context_fn}
+        layers = params["layers"]
+        for i in range(cfg.num_hidden_layers):
+            window = self._layer_window(i)
+            if remat:  # the layer is indexed (gathered, when sharded) inside the region
+                x = checkpoint(lambda x, i=i, window=window: self.block(
+                    _index_tree(layers, i), x, ctx, window=window), x, use_reentrant=False,
+                    **extra)
+            else:
+                x = self.block(_index_tree(layers, i), x, ctx, window=window)
         return self.head(params, x, labels=labels, attention_mask=attention_mask,
                          targets=targets, loss_normalizer=loss_normalizer)
 

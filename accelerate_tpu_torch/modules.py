@@ -38,6 +38,11 @@ class Module:
     def apply(self, params, *args, **kwargs):
         raise NotImplementedError
 
+    def sharding_rules(self):
+        """``(path_regex, spec)`` rules for the sharding planner
+        (``parallel/sharding.py``), or None: the auto plan."""
+        return None
+
     def init_params(self, generator=None, **kwargs):
         """Materialize the parameter dictionary and remember it on the model.
         ``generator`` is a ``torch.Generator`` (or an int seed)."""

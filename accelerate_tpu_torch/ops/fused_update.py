@@ -169,6 +169,27 @@ def leaf_update(p, g, moments, factor, bc1=None, bc2=None, *, plan: FusedUpdateP
     g.zero_()
 
 
+def fused_update_leaves(opt_state, *, plan: FusedUpdatePlan):
+    """What one update's per-leaf launches share: ``(moments, scalars,
+    new_state)``, the moment tensors of each parameter leaf (in
+    ``tree_leaves`` order; ``(mu, nu)``, ``(trace,)`` or ``()``), the f32
+    device scalars after the clip factor (adam's bias corrections of the
+    advanced count), and the state tuple with that count."""
+    states = list(opt_state)
+    if plan.kind == "adam":
+        st = states[plan.state_index]
+        count = safe_int32_increment(st.count)
+        scalars = ScaleByAdam(plan.b1, plan.b2).bias_corrections(count)
+        moments = list(zip(tree_leaves(st.mu), tree_leaves(st.nu)))
+        states[plan.state_index] = st._replace(count=count)
+    elif plan.kind == "sgd_momentum":
+        moments = [(tr,) for tr in tree_leaves(states[plan.state_index].trace)]
+        scalars = ()
+    else:
+        moments, scalars = None, ()
+    return moments, scalars, tuple(states)
+
+
 def fused_update_apply(params, opt_state, grads, *, plan: FusedUpdatePlan, clip_factor,
                        kernels=None):
     """One fused pass per leaf, in place: afterwards ``params`` hold
@@ -176,24 +197,12 @@ def fused_update_apply(params, opt_state, grads, *, plan: FusedUpdatePlan, clip_
     moments their new values and ``grads`` zeros. Returns the new state
     tuple (the adam count is a new device scalar). ``clip_factor`` is an f32
     device scalar; ``kernels="off"`` runs the plain version on any device."""
-    states = list(opt_state)
     p_leaves, g_leaves = tree_leaves(params), tree_leaves(grads)
-    if plan.kind == "adam":
-        st = states[plan.state_index]
-        count = safe_int32_increment(st.count)
-        bc1, bc2 = ScaleByAdam(plan.b1, plan.b2).bias_corrections(count)
-        for p, mu, nu, g in zip(p_leaves, tree_leaves(st.mu), tree_leaves(st.nu), g_leaves):
-            dispatch("fused_update", p, g, (mu, nu), clip_factor, bc1, bc2, plan=plan,
-                     kernels=kernels)
-        states[plan.state_index] = st._replace(count=count)
-    elif plan.kind == "sgd_momentum":
-        st = states[plan.state_index]
-        for p, tr, g in zip(p_leaves, tree_leaves(st.trace), g_leaves):
-            dispatch("fused_update", p, g, (tr,), clip_factor, plan=plan, kernels=kernels)
-    else:
-        for p, g in zip(p_leaves, g_leaves):
-            dispatch("fused_update", p, g, (), clip_factor, plan=plan, kernels=kernels)
-    return tuple(states)
+    moments, scalars, new_state = fused_update_leaves(opt_state, plan=plan)
+    for i, (p, g) in enumerate(zip(p_leaves, g_leaves)):
+        dispatch("fused_update", p, g, () if moments is None else moments[i], clip_factor,
+                 *scalars, plan=plan, kernels=kernels)
+    return new_state
 
 
 def reference_update_apply(params, opt_state, grads, *, tx, clip_factor):

@@ -26,9 +26,19 @@ non-finite norm skips the update, as the JAX package's ``lax.cond`` does; the
 port takes that branch on the host after one ``.item()``, the only read of
 the device in ``step()``.
 
+Sharded models (``parallel/fsdp.py``: an fsdp axis, ZeRO, a loopback): the
+state is one tree per held rank (``rank_states``; ``opt_state`` is the first
+held rank's), built by ``tx.init`` over that rank's update slices, so the
+moments exist only as shards. With ``zero_sharding`` and a dp axis the ZeRO
+plan (``parallel/sharding.plan_zero_shardings``, the JAX package's
+``_plan_zero_shardings``) splits each update further over dp; it engages
+when at least one leaf gains dp (``zero_active``). The buffer is the model's
+sharded buffer, the norm the sharded one, and ``step()`` scales the shards
+by the clip factor and runs the update on them.
+
 Not ported yet: the fp16 gradient scaler (``mixed_precision="fp16"`` raises
-in ``AcceleratorState``; a state dict with a scale raises here), host offload
-of the optimizer state, and ZeRO sharding.
+in ``AcceleratorState``; a state dict with a scale raises here) and host
+offload of the optimizer state.
 """
 
 from __future__ import annotations
@@ -67,7 +77,8 @@ class AcceleratedOptimizer:
     ``kernels`` is the accelerator's registry spec; ``gradient_state`` its
     accumulation bookkeeping."""
 
-    def __init__(self, tx, gradient_state: GradientState | None = None, kernels=None):
+    def __init__(self, tx, gradient_state: GradientState | None = None, kernels=None,
+                 zero_sharding: bool = False):
         if not isinstance(tx, GradientTransformation):
             raise TypeError(f"expected an accelerate_tpu_torch.optim.GradientTransformation, "
                             f"got {type(tx)}")
@@ -81,6 +92,9 @@ class AcceleratedOptimizer:
         self._pending_clip_norm = None
         self._step_was_skipped = False
         self._step_count = 0  # updates applied
+        self.zero_sharding = bool(zero_sharding)
+        self.accelerator = None  # the Accelerator that prepared it (shards a ZeRO model)
+        self.rank_states = None  # sharded: per held rank, its state
 
     def _ensure_initialized(self):
         if self.handle is None:
@@ -88,8 +102,68 @@ class AcceleratedOptimizer:
         if self.tx.device != self.handle.device:
             raise ValueError(f"the optimizer keeps its state on {self.tx.device}, the model's "
                              f"parameters are on {self.handle.device}")
-        if self.opt_state is None:
+        if self.opt_state is not None:
+            return
+        acc = self.accelerator
+        if (self.zero_sharding and self.handle.sharded is None and acc is not None
+                and acc.mesh_sizes["dp"] > 1):
+            acc._shard(self.handle)
+        engine = self.handle.sharded
+        if engine is None:
             self.opt_state = self.tx.init(self.handle.params)
+            return
+        engine.set_zero_specs(self._plan_zero_specs())
+        engine.ensure_accum()
+        self.rank_states = [self.tx.init(engine.update_template(r)) for r in engine.ranks]
+        self.opt_state = self.rank_states[0]
+
+    def _plan_zero_specs(self):
+        """The ZeRO specs of the model's leaves, or None when ZeRO is off,
+        dp is 1, or no leaf gains a dp split (JAX ``optimizer.py:143-192``;
+        no port model defines ZeRO rules, so the shape-aware plan runs)."""
+        from .parallel.sharding import plan_zero_shardings, spec_axes
+
+        engine = self.handle.sharded
+        if not self.zero_sharding or engine.sizes["dp"] <= 1:
+            return None
+        plan = plan_zero_shardings(engine.template, engine.specs, dict(engine.sizes))
+        base = tree_leaves(engine.specs)
+        if not any("dp" in spec_axes(z) and "dp" not in spec_axes(b)
+                   for z, b in zip(tree_leaves(plan), base)):
+            return None
+        return plan
+
+    @property
+    def zero_active(self) -> bool:
+        """Whether ZeRO engaged: requested, dp > 1, and at least one leaf
+        gained a dp split. Valid after ``_ensure_initialized()``."""
+        engine = None if self.handle is None else self.handle.sharded
+        return engine is not None and engine.zero_active
+
+    def _sharded_sink(self, accum_steps: int):
+        """The imperative backward's gradient sink: the buffer shard plus
+        ``g * (1/accum)``, as :meth:`_accumulate` banks."""
+        self._ensure_initialized()
+        engine, scale = self.handle.sharded, 1.0 / accum_steps
+
+        def sink(i, layer, key, g):
+            target = engine.accum[i][key]
+            (target if layer is None else target[layer]).add_(g * scale)
+
+        return sink
+
+    def _sharded_update(self, factor, kernels=None):
+        """The update on the shards with clip factor ``factor``."""
+        engine = self.handle.sharded
+        self.rank_states = engine.update(self.tx, self.plan, self.rank_states, factor,
+                                         kernels=self.kernels if kernels is None else kernels)
+        self.opt_state = self.rank_states[0]
+
+    def grad_norm(self):
+        """The global norm of the banked gradients (the sharded norm on a
+        sharded model)."""
+        engine = None if self.handle is None else self.handle.sharded
+        return global_norm(self.grads) if engine is None else engine.global_norm()
 
     @property
     def grads(self):
@@ -126,6 +200,8 @@ class AcceleratedOptimizer:
             return
         self._ensure_initialized()
         handle, grads = self.handle, self._accum_grads
+        if handle.sharded is not None:
+            return self._sharded_step()
         with torch.no_grad():
             gnorm = global_norm(grads)
             clip = self._pending_clip_norm if self._pending_clip_norm is not None else -1.0
@@ -154,6 +230,26 @@ class AcceleratedOptimizer:
         self._step_was_skipped = False
         self._step_count += 1
 
+    def _sharded_step(self):
+        engine = self.handle.sharded
+        with torch.no_grad():
+            gnorm = engine.global_norm()
+            clip = self._pending_clip_norm if self._pending_clip_norm is not None else -1.0
+            clip_t = torch.full((), clip, dtype=torch.float32, device=gnorm.device)
+            factor = clip_factor(gnorm, clip_t)
+            buffers = [t for shards in engine.accum for t in shards.values()]
+            torch._foreach_mul_(buffers, factor)
+            if bool(torch.isfinite(gnorm).item()):
+                self._sharded_update(torch.ones((), dtype=torch.float32, device=gnorm.device))
+            else:
+                for t in buffers:
+                    t.zero_()
+        self._accum_grads = None
+        self._pending_clip_norm = None
+        self.handle.last_grad_norm = gnorm
+        self._step_was_skipped = False
+        self._step_count += 1
+
     @property
     def step_was_skipped(self) -> bool:
         """Whether the last ``step()`` was skipped (only the fp16 scaler
@@ -164,10 +260,15 @@ class AcceleratedOptimizer:
         """Drop the banked gradients; a no-op while accumulating."""
         if self.gradient_state.sync_gradients:
             self._accum_grads = None
+            engine = None if self.handle is None else self.handle.sharded
+            if engine is not None and engine.accum is not None:
+                for shards in engine.accum:
+                    for t in shards.values():
+                        t.zero_()
 
     # ----------------------------------------------------------- inspection
-    def _hyperparams(self):
-        state = self.opt_state
+    def _hyperparams(self, state=None):
+        state = self.opt_state if state is None else state
         if state is None:
             return None
         hp = getattr(state, "hyperparams", None)
@@ -191,6 +292,8 @@ class AcceleratedOptimizer:
         if hp is None:
             return False
         hp["learning_rate"].fill_(lr)
+        for state in (self.rank_states or [])[1:]:  # the loopback's other ranks
+            self._hyperparams(state)["learning_rate"].fill_(lr)
         return True
 
     @property

@@ -4,9 +4,10 @@ The mixed-precision names the port trains with: ``no`` (f32 compute) and
 ``bf16`` (f32 master parameters, bf16 compute). ``fp16`` needs the gradient
 scaler and ``fp8`` the int8 matmul path; neither is ported, and
 ``state.AcceleratorState`` raises ``NotImplementedError`` for them. Also
-the sequence-parallel plugin, the random streams a loader synchronizes, the
-data-loader configuration and the project (checkpoint and logging folder)
-configuration. The JAX package has no tracker-type enum: trackers are named
+the sequence-parallel plugin, the fully sharded data-parallel plugin and
+the remat policies it turns on, the random streams a loader synchronizes,
+the data-loader configuration and the project (checkpoint and logging
+folder) configuration. The JAX package has no tracker-type enum: trackers are named
 by string (``tracking.LOGGER_TYPE_TO_CLASS``), and so are the port's.
 """
 
@@ -34,6 +35,61 @@ class SequenceParallelPlugin:
 
     sp_size: int = 1
     ring_attention: bool = True
+
+
+@dataclass
+class FullyShardedDataParallelPlugin:
+    """Fully sharded data parallelism over the mesh's ``fsdp`` axis (JAX
+    ``utils/dataclasses.py:151-173``; ``parallel/fsdp.py`` runs it):
+
+    - ``fsdp_size``: the axis size, -1 for every rank left over;
+    - ``min_shard_size``: leaves with fewer elements stay replicated (and
+      are all-reduced);
+    - ``reshard_after_forward``: a layer's gathered weights are freed after
+      its forward and gathered again by its backward;
+    - ``activation_checkpointing``: the model's remat (``LlamaConfig.remat``)
+      is turned on at ``prepare``;
+    - ``state_dict_type``: ``save_state`` writes the full layout either way
+      (module docstring of ``checkpointing.py``);
+    - ``cpu_offload=True`` (host offload of the sharded optimizer state) is
+      not ported and raises."""
+
+    fsdp_size: int = -1
+    reshard_after_forward: bool = True
+    min_shard_size: int = 2**14
+    cpu_offload: bool = False
+    activation_checkpointing: bool = False
+    state_dict_type: str = "SHARDED_STATE_DICT"
+
+    def __post_init__(self):
+        if self.state_dict_type not in ("SHARDED_STATE_DICT", "FULL_STATE_DICT"):
+            raise ValueError(f"invalid state_dict_type {self.state_dict_type}")
+        if self.cpu_offload:
+            raise NotImplementedError(
+                "FullyShardedDataParallelPlugin(cpu_offload=True), host offload of the "
+                "optimizer state, is not ported yet (ROADMAP.md, module queue item 1)")
+
+
+# The remat policies of the JAX package's ``jax.checkpoint_policies`` the
+# port runs (``models/llama.py``); any other name raises.
+REMAT_POLICIES = ("nothing_saveable", "dots_with_no_batch_dims_saveable", "names_saveable")
+
+
+def resolve_remat_policy(name: str, save_names: tuple = ()):
+    """Check a config's ``remat_policy`` (JAX ``utils/dataclasses.py:
+    37-63``) and return ``(name, save_names)`` for the model's checkpoint
+    contexts: ``nothing_saveable`` keeps nothing, ``dots_with_no_batch_dims_
+    saveable`` keeps the outputs of the weight products, ``names_saveable``
+    keeps the tagged block outputs ``save_names`` (Llama's ``attn_out`` and
+    ``mlp_out``)."""
+    if name == "names_saveable" and not save_names:
+        raise ValueError("remat_policy='names_saveable' needs a non-empty remat_save_names "
+                         "tuple (the tags to keep, e.g. ('attn_out', 'mlp_out')).")
+    if name not in REMAT_POLICIES:
+        raise NotImplementedError(
+            f"remat_policy {name!r} is not ported yet (ROADMAP.md, module queue); the port "
+            f"runs {REMAT_POLICIES}")
+    return name, tuple(save_names) if name == "names_saveable" else ()
 
 
 class RNGType(str, enum.Enum):

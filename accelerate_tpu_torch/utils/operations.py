@@ -14,6 +14,9 @@ one rank.
   shapes must agree: :func:`pad_across_processes` first where they do not);
 - :func:`gather_object` and :func:`broadcast_object_list`: picklable objects,
   over torch's object collectives;
+- :func:`all_gather_along` and :func:`reduce_scatter_along`: a tensor
+  gathered, or summed and scattered, along any dim over a group (the
+  sharded step's collectives, ``parallel/fsdp.py``);
 - :func:`recursively_apply`, :func:`send_to_device`, :func:`find_batch_size`
   and :func:`concatenate` walk nested lists, tuples and dicts of tensors.
 """
@@ -217,3 +220,32 @@ def pad_across_processes(tensor, dim: int = 0, pad_index: int = 0, pad_first: bo
         return out
 
     return recursively_apply(one, tensor, test_type=lambda x: isinstance(x, torch.Tensor))
+
+
+def all_gather_along(tensor: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The group's tensors concatenated along ``dim`` in group-rank order,
+    as one contiguous tensor (``all_gather_into_tensor``, which gathers
+    along dim 0, between two ``movedim``); ``tensor`` itself on one rank."""
+    if _single(group):
+        return tensor
+    src = tensor.movedim(dim, 0).contiguous()
+    out = src.new_empty((_world(group) * src.shape[0], *src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
+def reduce_scatter_along(tensor: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The group's tensors summed, and this rank's chunk of the sum along
+    ``dim`` (chunk ``i`` of equal chunks for group rank ``i``), contiguous;
+    ``tensor`` itself on one rank. The size along ``dim`` must divide by the
+    group's size."""
+    if _single(group):
+        return tensor
+    n = _world(group)
+    if tensor.shape[dim] % n:
+        raise ValueError(f"dim {dim} of a {tuple(tensor.shape)} tensor does not split into "
+                         f"{n} equal chunks")
+    src = tensor.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim).contiguous() if dim else out

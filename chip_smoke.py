@@ -13,6 +13,8 @@
                                      # (with --profile: one profiled step)
     python3 chip_smoke.py --checkpoint  # only phase 12, checkpoints and
                                      # mid-epoch resume of that loop
+    python3 chip_smoke.py --fsdp     # only phase 13, sharded training
+                                     # (fsdp, ZeRO, remat) on one card
     python3 chip_smoke.py --splash-times  # only the splash kernels' times at
                                      # Gemma-2-9B's layers (to set two trees
                                      # side by side in one run: copy this
@@ -162,6 +164,26 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and export seconds and GB/s, the checkpoint's bytes, and arms A and B's
    steps/s beside the card's name and power limit.
 
+13. Sharded training on one card: Llama-3-8B widths cut to 4 layers (phase
+   7's ``TRAIN_CUT``), global batch 4 x 2048 (one row a rank), bf16,
+   ``adamw(3e-4)``, clip 1.0, 4 steps a arm. Arm A: the unsharded
+   ``build_train_step``. Arm B: ``FullyShardedDataParallelPlugin(fsdp_size=4,
+   activation_checkpointing=True)`` (remat ``nothing_saveable``) with all
+   four ranks on this card (``LoopbackShards(4)``): each layer gathered in
+   bf16 from the four shards inside the remat region, its gradient banked
+   in f32 and scattered into the shards, the fused update on every
+   (rank, shard leaf). Arm C: dp 4 with ``zero_sharding=True`` on the
+   loopback: the update on each rank's 1/4 slice of every leaf, the new
+   slices gathered back. Arm D: arm A with remat, bitwise arm A (losses and
+   final parameters). Arms B and C hold their first 3 losses to arm A's
+   within ``SHARD_LOSS_ATOL``; each arm's flash and update launches are
+   counted, every update launch is on a shard (B, C) or a whole leaf (A, D),
+   each rank's parameter, moment and buffer bytes are printed with the
+   sharded leaves' bytes summing over the ranks to the unsharded total, and
+   each arm's step time, tokens/s, MFU against 989 TFLOP/s (JAX's
+   ``flops_per_token``, not counting the recompute) and peak memory are
+   logged. The kernels' table adds these launches to rows 4, 5 and 5b.
+
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script exits non-zero before printing any result.
@@ -242,6 +264,14 @@ LOOP_B_STEPS, LOOP_WARMUP, LOOP_TIMED = 40, 5, 30
 CKPT_STEPS, CKPT_AT, CKPT_AFTER = 40, 20, 2
 CKPT_D_STEPS, CKPT_EVERY, CKPT_LIMIT = 30, 10, 2
 CKPT_SHARD = "200MB"
+# Phase 13: sharded training on one card through LoopbackShards.
+SHARD_RANKS, SHARD_BATCH, SHARD_SEQ = 4, 4, 2048
+SHARD_STEPS, SHARD_WARMUP = 4, 1
+# Arms B and C vs arm A, first 3 losses: the ranks' rows run as 1 x 2048
+# products where arm A runs 4 x 2048 ones, and the gradients sum over the
+# ranks in f32, so the bf16 losses move in the third decimal at most; no
+# looser than phase 7's kernels-off pin (TRAIN_LOSS_ATOL).
+SHARD_LOSS_ATOL = 1e-2
 T_START = time.perf_counter()
 
 
@@ -2434,6 +2464,206 @@ def checkpoint_phase(card: str) -> dict:
     return total
 
 
+def shard_arm(cfg, label: str, *, fsdp: bool = False, zero: bool = False,
+              remat: bool = False, keep_params: bool = False, device: str = "cuda"):
+    """One arm of phase 13 on a fresh model from the seed: its losses, step
+    seconds, launch counts, the sizes of the leaves the update launched on,
+    per rank the parameter, moment and buffer bytes (sharded leaves and
+    replicated ones apart), peak memory, and (``keep_params``) the final
+    parameters on the host."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import (Accelerator, FullyShardedDataParallelPlugin, Llama,
+                                      LoopbackShards, ParallelismConfig, adamw)
+    from accelerate_tpu_torch.ops import registry
+    from accelerate_tpu_torch.utils.tree import flatten_with_paths, tree_leaves
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model = Llama(dataclasses.replace(cfg, remat=remat and not fsdp), device=device)
+    model.init_params(SEED)
+    if fsdp:
+        acc = Accelerator(mixed_precision="bf16", device=device, loopback=LoopbackShards(
+            SHARD_RANKS), fsdp_plugin=FullyShardedDataParallelPlugin(
+                fsdp_size=SHARD_RANKS, activation_checkpointing=remat))
+    elif zero:
+        acc = Accelerator(mixed_precision="bf16", device=device,
+                          parallelism_config=ParallelismConfig(dp_size=SHARD_RANKS),
+                          loopback=LoopbackShards(SHARD_RANKS))
+        acc.zero_sharding = True
+    else:
+        acc = Accelerator(mixed_precision="bf16", device=device)
+    pm, po = acc.prepare(model, adamw(3e-4, device=device))
+    step = acc.build_train_step(pm, po)
+    if (fsdp or zero) != (pm.handle.sharded is not None) or po.zero_active != zero:
+        raise SystemExit(f"shard {label}: sharded={pm.handle.sharded is not None}, "
+                         f"zero_active={po.zero_active}")
+    update_op = registry._OPS["fused_update"]
+    real_kernel, sizes = update_op.kernel, []
+
+    def counted(p, *args, **kwargs):  # the leaf each launch covers
+        sizes.append(p.numel())
+        return real_kernel(p, *args, **kwargs)
+
+    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                               (SHARD_BATCH, SHARD_SEQ)).astype(np.int32)
+    batch = {"input_ids": ids, "labels": ids}
+    registry.reset_launch_counts()
+    update_op.kernel = counted
+    losses, times = [], []
+    try:
+        for _ in range(SHARD_STEPS):
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(batch, clip_norm=1.0)))
+            times.append(time.perf_counter() - t0)
+    finally:
+        update_op.kernel = real_kernel
+    counts = dict(registry.launch_counts)
+    engine = pm.handle.sharded
+    ranks = []
+    for j, r in enumerate(engine.ranks if engine is not None else (0,)):
+        states = po.rank_states[j] if engine is not None else po.opt_state
+        moments = {k: t for k, t in flatten_with_paths(states)
+                   if isinstance(t, torch.Tensor) and t.dim() > 0}
+        # [bytes of leaves split over the ranks, bytes held whole]
+        row = {"params": [0, 0], "moments": [0, 0], "buffer": [0, 0]}
+        leaves = (zip(engine.layouts, tree_leaves(engine.param_tree(r)),
+                      tree_leaves(engine.accum_tree(r))) if engine is not None else
+                  ((None, p, g) for p, g in zip(tree_leaves(pm.params), tree_leaves(po.grads))))
+        for layout, p, g in leaves:
+            split = layout is not None and layout.dim is not None
+            row["params"][0 if split else 1] += p.numel() * 4
+            row["buffer"][0 if split else 1] += g.numel() * 4
+        for k, t in moments.items():  # "0.mu.layers.attn.wq"
+            layout = None if engine is None else next(
+                lay for lay in engine.layouts if lay.path.replace("/", ".") == k.split(".", 2)[2])
+            split = layout is not None and (layout.dim is not None or layout.zero_dim is not None)
+            row["moments"][0 if split else 1] += t.numel() * 4
+        ranks.append(row)
+    # The leaf sizes one step's update launches cover, over the held ranks.
+    if engine is not None:
+        slices = [int(math.prod(lay.update_shape)) for lay in engine.layouts] * len(engine.ranks)
+        # (slice elements * ranks, leaf elements) of each leaf the plan splits
+        split = [(int(math.prod(lay.update_shape)) * len(engine.ranks), int(math.prod(lay.shape)))
+                 for lay in engine.layouts if lay.dim is not None or lay.zero_dim is not None]
+    else:
+        slices, split = [p.numel() for p in tree_leaves(pm.params)], []
+    params = None
+    if keep_params:
+        params = [p.detach().cpu().clone() for p in tree_leaves(pm.params)]
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    del model, acc, pm, po, step, engine
+    if cuda:
+        free_cuda()
+    return {"losses": losses, "times": times, "counts": counts, "sizes": sizes, "ranks": ranks,
+            "peak": peak, "params": params, "slices": slices, "split": split}
+
+
+def shard_phase(card: str) -> dict:
+    """Phase 13; returns the launch counts of its four arms."""
+    import torch
+
+    from accelerate_tpu_torch import Llama, LlamaConfig
+
+    cfg = LlamaConfig.llama3_8b(**TRAIN_CUT)
+    probe = Llama(cfg, device="cpu")
+    n_params, fpt = probe.num_params(), probe.flops_per_token()
+    layers, tokens, leaves = cfg.num_hidden_layers, SHARD_BATCH * SHARD_SEQ, 12
+    full_sizes = [int(math.prod(t.shape)) for t in _leaf_shapes(probe)]
+    arms = {}
+    for name, kw in (("A", dict(keep_params=True)), ("B", dict(fsdp=True, remat=True)),
+                     ("C", dict(zero=True)), ("D", dict(remat=True, keep_params=True))):
+        arms[name] = shard_arm(cfg, name, **kw)
+        run = arms[name]
+        if not all(math.isfinite(x) for x in run["losses"]):
+            raise SystemExit(f"shard {name}: losses not finite: {run['losses']}")
+        sharded = name in "BC"
+        fwd_per_rank = layers * (2 if kw.get("remat") else 1)
+        n_ranks = SHARD_RANKS if sharded else 1
+        want = {"flash_attention_fwd": SHARD_STEPS * n_ranks * fwd_per_rank,
+                "flash_attention_bwd": SHARD_STEPS * n_ranks * layers,
+                "fused_adamw_update": SHARD_STEPS * n_ranks * leaves}
+        step_s = sum(run["times"][SHARD_WARMUP:]) / (SHARD_STEPS - SHARD_WARMUP)
+        mfu = fpt * tokens / step_s / BF16_OPS_PER_S
+        per_rank = "; ".join(
+            f"rank {r}: params {row['params'][0] / 1e9:.3f} + {row['params'][1] / 1e6:.3f} MB "
+            f"replicated, moments {row['moments'][0] / 1e9:.3f} GB + "
+            f"{row['moments'][1] / 1e6:.3f} MB, buffer {row['buffer'][0] / 1e9:.3f} GB + "
+            f"{row['buffer'][1] / 1e6:.3f} MB" for r, row in enumerate(run["ranks"]))
+        log(f"shard {name} ({kw}): losses {[round(x, 4) for x in run['losses']]}; step "
+            f"{step_s * 1e3:.1f} ms, {tokens / step_s:.0f} tokens/s, MFU {100 * mfu:.2f}% of "
+            f"989 TFLOP/s ({fpt:.4g} FLOP/token, recompute not counted); peak memory "
+            f"{run['peak'] / 2**30:.2f} GiB; launches {run['counts']}; {per_rank} [{card}]")
+        arms[name]["step_s"], arms[name]["mfu"] = step_s, mfu
+        if run["counts"] != want:
+            raise SystemExit(f"shard {name}: launch counts {run['counts']}, expected {want}")
+        # Every update launch covers a rank's slice of a leaf, and a leaf the
+        # plan splits (B: 9 of 12, the norms replicated; C: all 12) is cut
+        # into 4 equal slices.
+        split_ok = all(a == b for a, b in run["split"]) and len(run["split"]) == (
+            (9 if name == "B" else 12) if sharded else 0)
+        if sorted(run["sizes"]) != sorted(run["slices"] * SHARD_STEPS) or not split_ok or (
+                not sharded and sorted(run["slices"]) != sorted(full_sizes)):
+            raise SystemExit(f"shard {name}: update launch sizes {sorted(set(run['sizes']))}, "
+                             f"the slices {sorted(set(run['slices']))}, split leaves "
+                             f"{run['split']}")
+        log(f"shard {name}: {len(run['sizes'])} update launches, each on one rank's slice: "
+            f"{len(run['split'])} leaves split {SHARD_RANKS} ways"
+            + (" (the norms replicated, as the plan keeps them)" if name == "B" else ""))
+    total = n_params * 4
+    want = {"params": total, "moments": 2 * total, "buffer": total}
+    for name in "BC":
+        # The split parts summed over the ranks plus the parts every rank
+        # holds whole, counted once: the unsharded model's bytes.
+        ranks = arms[name]["ranks"]
+        whole = {k: {r[k][1] for r in ranks} for k in want}
+        got = {k: sum(r[k][0] for r in ranks) + min(whole[k]) for k in want}
+        if got != want or any(len(v) != 1 for v in whole.values()):
+            raise SystemExit(f"shard {name}: split bytes over the ranks plus whole bytes "
+                             f"{got} (whole per rank {whole}) != the unsharded {want}")
+        log(f"shard {name}: split over the {SHARD_RANKS} ranks + held whole by each = {got} B, "
+            f"the unsharded model's ({n_params} parameters)")
+    a, d = arms["A"], arms["D"]
+    same = a["losses"] == d["losses"] and all(
+        torch.equal(x.view(torch.int32), y.view(torch.int32))
+        for x, y in zip(a["params"], d["params"]))
+    if not same:
+        raise SystemExit(f"shard D (remat) is not bitwise arm A: losses {d['losses']} vs "
+                         f"{a['losses']}")
+    for name in "BC":
+        diff = max(abs(x - y) for x, y in zip(arms[name]["losses"][:3], a["losses"][:3]))
+        if diff > SHARD_LOSS_ATOL:
+            raise SystemExit(f"shard {name}: losses {arms[name]['losses'][:3]} vs arm A's "
+                             f"{a['losses'][:3]} (max |diff| {diff}, pin {SHARD_LOSS_ATOL})")
+        log(f"shard {name} vs A: first 3 losses max |diff| {diff:.3e} (pin {SHARD_LOSS_ATOL}); "
+            f"step {arms[name]['step_s'] / a['step_s']:.2f}x arm A's")
+    log(f"shard D vs A: remat bitwise (losses and {len(a['params'])} parameter leaves); step "
+        f"{d['step_s'] / a['step_s']:.2f}x arm A's, peak {d['peak'] / 2**30:.2f} vs "
+        f"{a['peak'] / 2**30:.2f} GiB")
+    counts = {}
+    for run in arms.values():
+        for k, v in run["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def _leaf_shapes(model):
+    """The parameter leaves of ``model`` as meta tensors (shapes only)."""
+    import torch
+
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    probe = type(model)(model.config, device="cpu")
+    probe.device = torch.device("meta")
+    return tree_leaves(probe.init())
+
+
 def main(argv) -> int:
     import torch
 
@@ -2468,6 +2698,14 @@ def main(argv) -> int:
         card = card_info()
         log(f"build: fused_update in {time.perf_counter() - t0:.1f} s; device: {card}")
         checkpoint_phase(card)
+        print(card)
+        return 0
+    if "--fsdp" in argv:
+        _build.build(["flash_attention", "fused_update"])
+        card = card_info()
+        log(f"build: flash_attention, fused_update in {time.perf_counter() - t0:.1f} s; "
+            f"device: {card}")
+        shard_phase(card)
         print(card)
         return 0
     if "--splash-times" in argv:
@@ -2542,12 +2780,15 @@ def main(argv) -> int:
     loop_counts = loop_phase(card, profile="--profile" in argv)
     free_cuda()
     ckpt_counts = checkpoint_phase(card)
-    for row in rows:  # phase 7's launches plus the loop's and the checkpoint phase's
-        if row["name"] in loop_counts or row["name"] in ckpt_counts:
-            log(f"kernel {row['name']}: {row['launches']} launches in phase 7, "
-                f"{loop_counts.get(row['name'], 0)} in phase 11, "
-                f"{ckpt_counts.get(row['name'], 0)} in phase 12")
-            row["launches"] += loop_counts.get(row["name"], 0) + ckpt_counts.get(row["name"], 0)
+    free_cuda()
+    shard_counts = shard_phase(card)
+    for row in rows:  # phase 7's launches plus those of phases 11, 12 and 13
+        later = [counts.get(row["name"], 0) for counts in (loop_counts, ckpt_counts,
+                                                           shard_counts)]
+        if any(later):
+            log(f"kernel {row['name']}: {row['launches']} launches in phase 7, {later[0]} in "
+                f"phase 11, {later[1]} in phase 12, {later[2]} in phase 13")
+            row["launches"] += sum(later)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

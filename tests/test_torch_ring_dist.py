@@ -163,7 +163,7 @@ def test_collectives_over_the_ring_ranks(ring_run):
 def test_unported_sequence_parallel_options_raise():
     with pytest.raises(NotImplementedError, match="Ulysses"):
         T.Accelerator(device="cpu", sp_plugin=T.SequenceParallelPlugin(4, ring_attention=False))
-    for axis in ("fsdp_size", "tp_size", "pp_size", "ep_size"):
+    for axis in ("tp_size", "pp_size", "ep_size"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.ParallelismConfig(**{axis: 2})
     x = torch.zeros((1, 8, 2, 16))
