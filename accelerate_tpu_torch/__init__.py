@@ -32,7 +32,12 @@ training: the fsdp axis and ZeRO over dp with the JAX package's planners
 (``FullyShardedDataParallelPlugin``, ``Accelerator.zero_sharding``,
 ``parallel/sharding.py``, ``parallel/fsdp.py``) over ``torch.distributed``
 or on one card through ``LoopbackShards``, and remat (``LlamaConfig(remat=
-True)``). ROADMAP.md lists what comes next.
+True)``, ``BertConfig(remat=True)``); the precision modes ``fp16`` (the loss
+scaler, flash in fp16) and ``fp8`` (int8 QAT through the int8 matmul),
+host-offloaded optimizer state, ``build_train_window`` fed by
+``DeviceBatchPrefetcher``, ``DataLoaderDispatcher``, the train steps of
+``train_steps.py`` (exported lazily, as in the JAX package) and the yarn and
+dynamic rope types. ROADMAP.md lists what comes next.
 
 Entry points run on the card by default and raise without one unless the
 caller passes ``device="cpu"``.
@@ -40,7 +45,12 @@ caller passes ``device="cpu"``.
 
 from . import optim
 from .accelerator import Accelerator
-from .data_loader import prepare_data_loader, skip_first_batches
+from .data_loader import (
+    DataLoaderDispatcher,
+    DeviceBatchPrefetcher,
+    prepare_data_loader,
+    skip_first_batches,
+)
 from .generation import generate
 from .launchers import debug_launcher
 from .logging import get_logger
@@ -74,9 +84,11 @@ from .parallel.fsdp import LoopbackShards
 from .parallel.mesh import ParallelismConfig
 from .parallel.ring import LoopbackRing, ring_attention
 from .serving import ContinuousBatcher
+from .optimizer import GradScalerState
 from .state import AcceleratorState, GradientState, PartialState
 from .utils.dataclasses import (
     DataLoaderConfiguration,
+    Fp8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     ProjectConfiguration,
     SequenceParallelPlugin,
@@ -86,6 +98,20 @@ from .utils.memory import find_executable_batch_size, release_memory
 from .utils.operations import gather, gather_object, reduce, send_to_device
 from .utils.random import set_seed
 from .utils.tqdm import tqdm
+from .utils.transfer import reset_transfer_stats, transfer_stats
+
+_TRAIN_STEPS = ("GPTTrainStep", "BertTrainStep", "T5TrainStep", "RegressionTrainStep",
+                "get_train_step")
+
+
+def __getattr__(name):
+    # The train steps load on first use, as in the JAX package.
+    if name in _TRAIN_STEPS:
+        from . import train_steps
+
+        return getattr(train_steps, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "Accelerator",
@@ -94,7 +120,11 @@ __all__ = [
     "BertForSequenceClassification",
     "ContinuousBatcher",
     "DataLoaderConfiguration",
+    "DataLoaderDispatcher",
+    "DeviceBatchPrefetcher",
+    "Fp8RecipeKwargs",
     "FullyShardedDataParallelPlugin",
+    "GradScalerState",
     "GradientState",
     "Llama",
     "LlamaConfig",
@@ -131,6 +161,7 @@ __all__ = [
     "qwen3_config_from_hf",
     "reduce",
     "release_memory",
+    "reset_transfer_stats",
     "resolve_device",
     "ring_attention",
     "send_to_device",
@@ -138,4 +169,5 @@ __all__ = [
     "sgd",
     "skip_first_batches",
     "tqdm",
+    "transfer_stats",
 ]

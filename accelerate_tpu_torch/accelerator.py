@@ -26,9 +26,30 @@ calls ``.item()``.
 
 Mixed precision ``bf16`` keeps f32 master parameters and casts them to bf16
 *inside* the differentiated function, so the gradients land in f32, as in
-JAX. Not ported yet: ``build_train_window``, the fp16 gradient scaler, the
-tp, pp and ep axes, Ulysses, adafactor, and the telemetry, audit and
-health hooks of the step.
+JAX. ``fp16`` does the same in fp16 with the dynamic loss scaler
+(``optimizer.GradScalerState``, JAX ``accelerator.py:444``): the loss is
+multiplied by the scale before the backward, in the fused step and in the
+imperative ``backward`` (JAX ``accelerator.py:252-303``), and the update
+unscales, clips and skips a non-finite step (``optimizer.py``'s module
+docstring). The fused step reads the finite flag once at each update
+boundary, to launch no update kernel on a skipped step; the JAX package's
+fused step carries no scaler. ``fp8`` computes in bf16 and ``prepare``
+swaps the model's ``matmul_precision`` from ``"default"`` to ``"int8"``
+(``fp8_backend`` ``"INT8"``, JAX ``accelerator.py:634-643, 835-846``), so
+the block projections run the int8 matmul with the straight-through
+backward. ``FullyShardedDataParallelPlugin(cpu_offload=True)`` (or
+``ACCELERATE_FSDP_CPU_OFFLOAD``) keeps the imperative optimizer's state in
+pinned host memory between steps.
+
+``build_train_window(model, optimizer, window=K)`` returns
+``step_window(batch) -> losses``: K fused steps over a batch whose every
+leaf carries a leading K axis (``DeviceBatchPrefetcher(..., window=K)``
+stacks them on the device), the K losses as one device tensor, bitwise K
+calls of ``build_train_step`` (accumulation included). PyTorch has no
+compiled scan: the window is a host loop over the step, with no read of
+the device inside it (except the fp16 finite flag). Not ported yet: the tp,
+pp and ep axes, Ulysses, adafactor, and the telemetry, audit and health
+hooks of the step.
 
 The canonical imperative loop (``examples/nlp_example.py``; the port's
 ``accelerate_tpu_torch/examples/nlp_example.py``)::
@@ -144,7 +165,7 @@ from .modules import Module
 from .ops.fused_update import fused_update_apply, reference_update_apply
 from .ops.registry import resolve_spec
 from .optim import GradientTransformation
-from .optimizer import AcceleratedOptimizer, clip_factor, global_norm
+from .optimizer import AcceleratedOptimizer, GradScalerState, clip_factor, global_norm
 from .parallel.fsdp import LoopbackShards, ShardedModel
 from .parallel.mesh import ParallelismConfig, mesh_coordinate
 from .parallel.sharding import data_parallel_degree, plan_param_shardings
@@ -153,7 +174,9 @@ from .state import AcceleratorState, GradientState
 from .utils import operations as ops
 from .utils.dataclasses import (
     DataLoaderConfiguration,
+    Fp8RecipeKwargs,
     FullyShardedDataParallelPlugin,
+    KwargsHandler,
     ProjectConfiguration,
     SequenceParallelPlugin,
 )
@@ -174,6 +197,9 @@ def _flag_from_env(key: str, default: bool = False) -> bool:
     if value in _FALSE:
         return False
     raise ValueError(f"If set, {key} must be yes/no/1/0/true/false, got {value!r}.")
+
+# The launcher contract of the train window (JAX ``utils/constants.py:134``).
+ENV_TRAIN_WINDOW = "ACCELERATE_TRAIN_WINDOW"
 
 # The seed of a prepared model's dropout generator (the JAX package seeds its
 # dropout key with ACCELERATE_SEED + 7919; no environment variable sets it).
@@ -287,11 +313,13 @@ class PreparedModel:
         handle.pending = (_loss_of(outputs), ("sharded", aliases))
         return outputs
 
-    def training_loss_fn(self):
+    def training_loss_fn(self, loss_fn=None):
         """``loss_of(params, batch)``: the forward on the parameters cast to
-        the compute dtype, with the accelerator's kernel spec, and the loss
-        the model computes from the batch's labels. Differentiating it with
-        respect to the master parameters gives gradients in their dtype."""
+        the compute dtype, with the accelerator's kernel spec, and the loss:
+        ``loss_fn(outputs, batch)`` when given (JAX ``training_loss_fn(
+        extract)``), else the one the model computes from the batch's
+        labels. Differentiating it with respect to the master parameters
+        gives gradients in their dtype."""
         module, cast = self.handle.module, self._cast
         kernels = self.accelerator.kernels
         mesh = self.accelerator.mesh
@@ -302,8 +330,11 @@ class PreparedModel:
                 batch = dict(batch, sp_group=mesh.get_group("sp"),
                              loss_normalizer=reduce(count, reduction="sum").clamp(min=1))
             outputs = module.apply(cast(params), kernels=kernels, **batch)
+            if loss_fn is not None:
+                return loss_fn(outputs, batch)
             if "loss" not in outputs:
-                raise ValueError("the model computed no loss: pass labels in the batch")
+                raise ValueError("the model computed no loss: pass labels in the batch, or "
+                                 "give build_train_step a loss_fn(outputs, batch)")
             return outputs["loss"]
 
         return loss_of
@@ -377,12 +408,34 @@ class Accelerator:
                  log_with=None, project_dir: str | os.PathLike | None = None,
                  project_config: ProjectConfiguration | None = None,
                  fsdp_plugin: FullyShardedDataParallelPlugin | None = None,
-                 loopback: LoopbackShards | None = None):
+                 loopback: LoopbackShards | None = None,
+                 kwargs_handlers: list | None = None):
         if cpu:
             if device is not None and torch.device(device).type != "cpu":
                 raise ValueError(f"cpu=True contradicts device={device!r}")
             device = "cpu"
         cfg = parallelism_config or ParallelismConfig()
+        if fsdp_plugin is None and (os.environ.get("ACCELERATE_FSDP_MIN_SHARD_SIZE")
+                                    or os.environ.get("ACCELERATE_FSDP_CPU_OFFLOAD")):
+            # JAX accelerator.py:361-373: the per-feature options from the env
+            # (the port reads no mesh-shape env: the axis takes every rank left).
+            fsdp_plugin = FullyShardedDataParallelPlugin(
+                fsdp_size=-1,
+                min_shard_size=int(os.environ.get("ACCELERATE_FSDP_MIN_SHARD_SIZE", 2**14)),
+                cpu_offload=_flag_from_env("ACCELERATE_FSDP_CPU_OFFLOAD"))
+        self.fp8_recipe_handler = None
+        seen = set()
+        for handler in kwargs_handlers or []:
+            if not isinstance(handler, KwargsHandler):
+                raise TypeError(f"Unsupported kwargs handler passed: {handler}, must be one "
+                                "that inherits `accelerate_tpu_torch.utils.dataclasses."
+                                "KwargsHandler`.")
+            if type(handler) in seen:
+                raise ValueError(f"You can only pass one {type(handler).__name__} in "
+                                 "`kwargs_handlers`.")
+            seen.add(type(handler))
+            if isinstance(handler, Fp8RecipeKwargs):
+                self.fp8_recipe_handler = handler
         if sp_plugin is not None:
             if not sp_plugin.ring_attention:
                 raise NotImplementedError(
@@ -410,6 +463,11 @@ class Accelerator:
             raise NotImplementedError("fsdp together with sp is not ported yet (ROADMAP.md, "
                                       "module queue)")
         self.gradient_state = GradientState(gradient_accumulation_steps)
+        self.scaler = GradScalerState() if self.state.mixed_precision == "fp16" else None
+        # cpu_offload: the imperative optimizer's state parks in pinned host
+        # memory between steps; the fused step keeps it on the device.
+        self._offload_opt_state = bool(fsdp_plugin.cpu_offload) if fsdp_plugin else False
+        self._train_window = None  # lazy: ACCELERATE_TRAIN_WINDOW, then 1
         self.kernels = resolve_spec(kernels)
         self.split_batches = split_batches
         self.dataloader_config = dataloader_config or DataLoaderConfiguration(
@@ -480,6 +538,38 @@ class Accelerator:
     def num_data_ranks(self) -> int:
         """How many ways a batch's rows split: dp x fsdp."""
         return data_parallel_degree(self.mesh_sizes)
+
+    @property
+    def fp8_backend(self):
+        """Which backend serves ``mixed_precision="fp8"`` (JAX
+        ``accelerator.py:634-643``): ``"INT8"`` (the int8 QAT matmuls) or
+        ``"BF16"`` (bf16 compute only); None without fp8."""
+        if self.state.mixed_precision != "fp8":
+            return None
+        return (self.fp8_recipe_handler or Fp8RecipeKwargs()).backend.upper()
+
+    @property
+    def train_window(self) -> int:
+        """How many fused steps ``build_train_window`` runs a call: from
+        ``ACCELERATE_TRAIN_WINDOW`` (the launcher's ``--train_window``),
+        else 1; ``build_train_window(window=K)`` pins it."""
+        if self._train_window is None:
+            raw = os.environ.get(ENV_TRAIN_WINDOW, "").strip()
+            try:
+                value = int(raw) if raw else 1
+            except ValueError:
+                raise ValueError(f"{ENV_TRAIN_WINDOW}={raw!r} is not an integer") from None
+            if value < 1:
+                raise ValueError(f"{ENV_TRAIN_WINDOW} must be >= 1, got {value}")
+            self._train_window = value
+        return self._train_window
+
+    @train_window.setter
+    def train_window(self, value):
+        value = int(value)
+        if value < 1:
+            raise ValueError(f"train_window must be >= 1, got {value}")
+        self._train_window = value
 
     @property
     def zero_sharding(self) -> bool:
@@ -626,6 +716,10 @@ class Accelerator:
             model.config = self._sequence_parallel_config(model.config)
         if self.fsdp_plugin is not None and self.fsdp_plugin.activation_checkpointing:
             model.config = dataclasses.replace(model.config, remat=True)
+        if self.fp8_backend == "INT8" and getattr(model.config, "matmul_precision",
+                                                  None) == "default":
+            # fp8 as int8 QAT: a new config, as a shared one must not change.
+            model.config = dataclasses.replace(model.config, matmul_precision="int8")
         dev = self.device
         params = tree_map(lambda p: p.detach().to(dev), model.params)
         if self.mesh is not None:  # every rank starts from rank 0's parameters
@@ -696,7 +790,8 @@ class Accelerator:
 
     def _new_optimizer(self, tx):
         prepared = AcceleratedOptimizer(tx, gradient_state=self.gradient_state,
-                                        kernels=self.kernels, zero_sharding=self.zero_sharding)
+                                        kernels=self.kernels, zero_sharding=self.zero_sharding,
+                                        scaler=self.scaler, host_offload=self._offload_opt_state)
         prepared.accelerator = self
         self._optimizers.append(prepared)
         return prepared
@@ -746,7 +841,8 @@ class Accelerator:
         """The gradients of ``loss`` (from a train-mode forward of a
         prepared model) with respect to its f32 master parameters, banked
         into its optimizer at ``1/accum``; on a sync boundary of a dp mesh,
-        the banked gradients averaged over the dp ranks (module docstring)."""
+        the banked gradients averaged over the dp ranks (module docstring).
+        Under fp16 the gradients are those of ``loss * scale``."""
         model = self._find_model_for_loss(loss)
         if model is None or model.handle.pending is None:
             raise RuntimeError(
@@ -757,6 +853,9 @@ class Accelerator:
         opt = self._optimizer_for_handle(model.handle)
         if opt is None:
             raise RuntimeError("No prepared optimizer is bound to this model.")
+        if self.scaler is not None:
+            loss = loss * torch.full((), self.scaler.scale, dtype=torch.float32,
+                                     device=loss.device)
         if model.handle.sharded is not None:  # the gradients reach the buffer in the backward
             opt._ensure_initialized()
             torch.autograd.backward(loss)
@@ -997,42 +1096,59 @@ class Accelerator:
 
 
     # ------------------------------------------------------------ fused step
-    def _fused_value_and_grads(self, model: PreparedModel):
-        """``(params, batch) -> (loss, grads)``: the loss as a detached device
-        scalar and the gradient of every parameter leaf, in the order of
-        ``tree_leaves(params)``."""
-        loss_of = model.training_loss_fn()
+    def _fused_value_and_grads(self, model: PreparedModel, loss_fn=None):
+        """``(params, batch, scale) -> (loss, grads)``: the loss as a detached
+        device scalar and the gradient of every parameter leaf, in the order
+        of ``tree_leaves(params)``; with an fp16 ``scale`` (an f32 device
+        scalar) the gradients are those of ``loss * scale`` and the loss is
+        ``(loss * scale) / scale``, as JAX's ``train_fwd`` returns it."""
+        loss_of = model.training_loss_fn(loss_fn)
         summed = self.mesh is not None
 
-        def value_and_grads(params, batch):
+        def value_and_grads(params, batch, scale=None):
             leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
             with torch.enable_grad():
                 loss = loss_of(tree_unflatten(params, leaves), batch)
+                if scale is not None:
+                    loss = loss * scale
             grads = torch.autograd.grad(loss, leaves)
+            loss = loss.detach() if scale is None else loss.detach() / scale
             if summed:  # each rank's loss is its share of the global mean
                 for g in grads:
                     reduce(g, reduction="sum")
-                return reduce(loss.detach(), reduction="sum"), grads
-            return loss.detach(), grads
+                return reduce(loss, reduction="sum"), grads
+            return loss, grads
 
         return value_and_grads
 
     def _fused_step_body(self, model: PreparedModel, optimizer: AcceleratedOptimizer,
-                         accum: int):
+                         accum: int, loss_fn=None):
         """``(params, opt_state, accum_grads, count, batch, clip_norm) ->
         (params, opt_state, accum_grads, count, loss)``: forward and
         backward, accumulation at ``1/accum`` scale, and on a boundary the
         clip and the update (the fused pass, or the reference chain for a
-        transform the fused pass does not cover)."""
+        transform the fused pass does not cover). Under fp16 the boundary
+        first unscales, then reads the finite flag: a non-finite step
+        zeroes the buffer and launches no update."""
         tx, plan, kernels = optimizer.tx, optimizer.plan, self.kernels
-        value_and_grads = self._fused_value_and_grads(model)
+        scaler = optimizer.scaler
+        value_and_grads = self._fused_value_and_grads(model, loss_fn)
         dev = model.handle.device
         # Divisor and fallback factor as device scalars: a CPU scalar divisor
         # would become a multiply by its reciprocal, which is not g / accum.
         accum_t = torch.full((), float(accum), dtype=torch.float32, device=dev)
 
         def upd(params, opt_state, grads, clip_norm):
-            factor = clip_factor(global_norm(grads), clip_norm)
+            if scaler is not None:
+                torch._foreach_mul_(tree_leaves(grads), scaler.inv_scale(dev))
+            gnorm = global_norm(grads)
+            factor = clip_factor(gnorm, clip_norm)
+            if scaler is not None:
+                finite = bool(torch.isfinite(gnorm).item())
+                optimizer._count_fused_step(finite)
+                if not finite:
+                    torch._foreach_zero_(tree_leaves(grads))
+                    return params, opt_state, grads
             if plan is not None:
                 opt_state = fused_update_apply(params, opt_state, grads, plan=plan,
                                                clip_factor=factor, kernels=kernels)
@@ -1040,7 +1156,10 @@ class Accelerator:
             return reference_update_apply(params, opt_state, grads, tx=tx, clip_factor=factor)
 
         def step_body(params, opt_state, accum_grads, count, batch, clip_norm):
-            loss, grads = value_and_grads(params, batch)
+            scale = None
+            if scaler is not None:
+                scale = torch.full((), scaler.scale, dtype=torch.float32, device=dev)
+            loss, grads = value_and_grads(params, batch, scale)
             with torch.no_grad():
                 for a, g in zip(tree_leaves(accum_grads), grads):
                     a.add_(g / accum_t)
@@ -1052,40 +1171,86 @@ class Accelerator:
 
         return step_body
 
-    def build_train_step(self, model: PreparedModel, optimizer: AcceleratedOptimizer):
+    def build_train_step(self, model: PreparedModel, optimizer: AcceleratedOptimizer,
+                         loss_fn=None):
         """Returns ``step(batch, clip_norm=0.0) -> loss``, one micro-step on
-        the shared handle state (see the module docstring). A build zeroes
-        the accumulation buffer and starts its micro-step count at 0."""
+        the shared handle state (see the module docstring); ``loss_fn(
+        outputs, batch)`` replaces the model's own loss (JAX
+        ``accelerator.py:1322``). A build zeroes the accumulation buffer,
+        starts its micro-step count at 0 and brings an offloaded optimizer
+        state to the device, where the fused step keeps it."""
         handle = model.handle
         optimizer._ensure_initialized()
+        optimizer._fetch_state()
         if handle.sharded is not None:
-            return self._build_sharded_step(model, optimizer)
+            return self._build_sharded_step(model, optimizer, loss_fn)
         accum = self.gradient_accumulation_steps
-        step_body = self._fused_step_body(model, optimizer, accum)
+        step_body = self._fused_step_body(model, optimizer, accum, loss_fn)
         optimizer._accum_grads = tree_map(torch.zeros_like, handle.params)
         count = 0
 
         def step(batch, clip_norm: float = 0.0):
             nonlocal count
-            if self.gradient_accumulation_steps != accum:  # load_state(reshard=True) rescaled it
-                raise RuntimeError(
-                    f"gradient_accumulation_steps changed from {accum} to "
-                    f"{self.gradient_accumulation_steps} after build_train_step; build the "
-                    "step again")
+            self._check_accum(accum, "build_train_step")
             clip = host_to_device(np.float32(clip_norm), handle.device)
-            (handle.params, optimizer.opt_state, optimizer._accum_grads, count,
-             loss) = step_body(handle.params, optimizer.opt_state, optimizer._accum_grads,
+            (handle.params, optimizer._opt_state, optimizer._accum_grads, count,
+             loss) = step_body(handle.params, optimizer._opt_state, optimizer._accum_grads,
                                count, self._place_batch(batch, handle.module), clip)
             return loss
 
         return step
 
-    def _build_sharded_step(self, model: PreparedModel, optimizer: AcceleratedOptimizer):
+    def _check_accum(self, accum: int, builder: str):
+        if self.gradient_accumulation_steps != accum:  # load_state(reshard=True) rescaled it
+            raise RuntimeError(
+                f"gradient_accumulation_steps changed from {accum} to "
+                f"{self.gradient_accumulation_steps} after {builder}; build the step again")
+
+    def build_train_window(self, model: PreparedModel, optimizer: AcceleratedOptimizer,
+                           window: int | None = None, loss_fn=None):
+        """Returns ``step_window(batch, clip_norm=0.0) -> losses``: K fused
+        steps a call (JAX ``accelerator.py:1392-1440``), K from ``window``
+        (which pins :attr:`train_window`) or :attr:`train_window`. Every
+        leaf of ``batch`` carries a leading K axis
+        (``DeviceBatchPrefetcher(..., window=K)`` builds such batches on the
+        device; a host batch goes to the device in one copy a window); step
+        i runs on ``batch[i]`` through the step ``build_train_step`` builds,
+        so K calls are bitwise K calls of ``build_train_step``, accumulation
+        included. Returns the K losses stacked as one device tensor; nothing
+        in the window reads the device (the fp16 finite flag aside)."""
+        window = self.train_window if window is None else int(window)
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        self.train_window = window
+        step = self.build_train_step(model, optimizer, loss_fn)
+        direct = self.mesh is None and model.handle.sharded is None
+
+        def step_window(batch, clip_norm: float = 0.0):
+            if self.train_window != window:
+                raise RuntimeError(
+                    f"train_window changed from {window} to {self.train_window} after "
+                    "build_train_window; call build_train_window again to pick up the new "
+                    "value.")
+            _check_leading_axis(batch, window)
+            if direct:  # one copy a window; the steps index the device tensors
+                batch = place_batch(batch, model.handle.device)
+            losses = [step(_window_slice(batch, i), clip_norm) for i in range(window)]
+            return torch.stack(losses)
+
+        step_window.window = window
+        return step_window
+
+    def _build_sharded_step(self, model: PreparedModel, optimizer: AcceleratedOptimizer,
+                            loss_fn=None):
         """``build_train_step`` on shards (``parallel/fsdp.py``): every held
         rank's rows of the global batch, forward and backward with the
         gradients reduce-scattered into the buffer at ``1/accum``, and on a
         boundary the clip from the sharded norm and the update on the
         shards."""
+        if self.scaler is not None:
+            raise NotImplementedError("the fused step on shards (fsdp, ZeRO, a loopback) does "
+                                      "not run the fp16 scaler yet; train sharded models in "
+                                      "bf16, or use the imperative loop (ROADMAP.md)")
         handle = model.handle
         engine, module = handle.sharded, handle.module
         accum = self.gradient_accumulation_steps
@@ -1105,11 +1270,7 @@ class Accelerator:
 
         def step(batch, clip_norm: float = 0.0):
             nonlocal count
-            if self.gradient_accumulation_steps != accum:
-                raise RuntimeError(
-                    f"gradient_accumulation_steps changed from {accum} to "
-                    f"{self.gradient_accumulation_steps} after build_train_step; build the "
-                    "step again")
+            self._check_accum(accum, "build_train_step")
             clip = host_to_device(np.float32(clip_norm), dev)
             rows = np.shape(batch["input_ids"])[0]
             if rows % n_data:
@@ -1129,7 +1290,7 @@ class Accelerator:
             def forward(rank, tree):
                 out = module.apply(tree, kernels=self.kernels, loss_normalizer=normalizer,
                                    **shards[rank])
-                return out["loss"]
+                return out["loss"] if loss_fn is None else loss_fn(out, shards[rank])
 
             with torch.no_grad():
                 loss = engine.forward_backward(forward, sink)
@@ -1139,3 +1300,29 @@ class Accelerator:
             return loss
 
         return step
+
+
+def _check_leading_axis(batch, window: int):
+    """Every array leaf of a window batch carries the leading K axis (JAX
+    ``build_train_window``'s check)."""
+    for leaf in (batch.values() if isinstance(batch, dict) else [batch]):
+        if isinstance(leaf, dict):
+            _check_leading_axis(leaf, window)
+            continue
+        shape = np.shape(leaf)
+        if len(shape) > 0 and shape[0] != window:
+            hint = ("Use DeviceBatchPrefetcher(..., window=K) or np.stack K batches."
+                    if window > 1 else
+                    "Stack a length-1 leading axis (np.expand_dims, axis=0): "
+                    "DeviceBatchPrefetcher(window=1) yields PLAIN batches shaped for "
+                    "build_train_step.")
+            raise ValueError(f"build_train_window(window={window}) expects every batch leaf "
+                             f"stacked on a leading K axis; got leading dim {shape[0]} (shape "
+                             f"{tuple(shape)}). " + hint)
+
+
+def _window_slice(batch, i: int):
+    """Step ``i`` of a window batch: index ``i`` of every array leaf."""
+    if isinstance(batch, dict):
+        return {k: _window_slice(v, i) for k, v in batch.items()}
+    return batch[i] if np.ndim(batch) > 0 else batch

@@ -254,7 +254,9 @@ def save_accelerator_state(accelerator, output_dir: str | None = None,
                          else (path, full_host_opt_state(engine, opt), True))
             expected_items.append(f"{OPTIMIZER_NAME}{suffix}")
         _host_pickle(os.path.join(output_dir, f"{OPTIMIZER_NAME}{suffix}.meta.pkl"),
-                     {"step_count": int(opt._step_count), "scale": None}, accelerator)
+                     {"step_count": int(opt._step_count),
+                      "scale": opt.scaler.scale if opt.scaler is not None else None},
+                     accelerator)
     # The listed items, and the mesh record a load compares with its own.
     if main:
         with open(os.path.join(output_dir, "manifest.json"), "w") as f:
@@ -351,7 +353,9 @@ def full_host_opt_state(engine, opt) -> dict:
         if not isinstance(leaf, torch.Tensor):
             continue
         i = _moment_leaf(engine, path, leaf)
-        full = leaf if i is None else engine.full_leaf(i, [s[path] for s in per_rank])
+        # An offloaded state lies on the host: gather its slices on the device.
+        dev = next(iter(engine.local[0].values())).device
+        full = leaf if i is None else engine.full_leaf(i, [s[path].to(dev) for s in per_rank])
         if keep:
             out[path] = full.detach().cpu().clone()
         del full
@@ -570,10 +574,9 @@ def load_accelerator_state(accelerator, input_dir: str | None = None, reshard: b
         if os.path.isfile(meta_path):
             with open(meta_path, "rb") as f:
                 meta = pickle.load(f)
-            if meta.get("scale") is not None:
-                raise NotImplementedError("this checkpoint holds an fp16 gradient scaler's scale; "
-                                          "the fp16 scaler is not ported yet (ROADMAP.md)")
             opt._step_count = int(meta.get("step_count", 0))
+            if opt.scaler is not None and meta.get("scale"):  # JAX checkpointing.py:450
+                opt.scaler.scale = float(meta["scale"])
     for i, sched in enumerate(accelerator._schedulers):
         path = os.path.join(input_dir, f"{SCHEDULER_NAME}{'' if i == 0 else f'_{i}'}.bin")
         if os.path.isfile(path):

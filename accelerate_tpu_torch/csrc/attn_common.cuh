@@ -1,5 +1,5 @@
 // Device helpers shared by the attention kernels (flash_attention.cu,
-// splash_attention.cu): the mask value, bf16 packing, exp2, and the
+// splash_attention.cu): the mask value, bf16 and fp16 packing, exp2, and the
 // reductions over the four lanes that share an accumulator row.
 //
 // Each .cu that includes this header is compiled into a library of its own
@@ -9,12 +9,14 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace attn {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 // The library kernels' DEFAULT_MASK_VALUE (-0.7 * FLT_MAX).
 constexpr float kMaskValue = static_cast<float>(-0.7 * 3.4028234663852886e38);
@@ -23,6 +25,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two f32 values rounded to the 16-bit type T and packed, lo in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<bf16>(float lo, float hi) {
+  return pack_bf16(lo, hi);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<f16>(float lo, float hi) {
+  return pack_f16(lo, hi);
+}
+
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(f16 x) { return __half2float(x); }
 
 // exp2 in one instruction (ex2.approx, flush to zero); softmax logits are
 // kept in log2 units (times kLog2e) so the exponential is this.

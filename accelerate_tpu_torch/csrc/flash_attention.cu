@@ -4,14 +4,19 @@
 // accelerate_tpu/ops/attention.py:144 (jax/experimental/pallas/ops/tpu/
 // flash_attention.py: forward pallas_call at :758, dkv at :1121, dq at :1456).
 //
-// What it computes, in the layout (B, S, H, D) with bf16 q, k, v and equal
-// head counts (GQA heads are repeated by the caller, as the JAX model does):
+// What it computes, in the layout (B, S, H, D) with q, k, v of one 16-bit
+// type T, bf16 or fp16, and equal head counts (GQA heads are repeated by the
+// caller, as the JAX model does):
 //   s = (q . k^T) * scale in f32; where a key is masked (key > query when
 //   causal, or a segment id that differs from the query's) s += MASK, the
 //   library's DEFAULT_MASK_VALUE (-0.7 * FLT_MAX); p = softmax(s) with an
-//   online running max and sum; P is rounded to bf16 before P.V, which
+//   online running max and sum; P is rounded to T before P.V, which
 //   accumulates in f32 (the library does p.astype(v.dtype) at :471/:556).
-//   The forward writes o (bf16) and the per-row log-sum-exp (f32, (B, H, S)).
+//   The forward writes o (T) and the per-row log-sum-exp (f32, (B, H, S)).
+//   The backward rounds P and dS to T before their products and writes dq,
+//   dk and dv in T. Every product is wgmma with f32 accumulators, on bf16
+//   or fp16 operands (f32.bf16.bf16 or f32.f16.f16) and tensor maps of the
+//   same type; one source serves both through the template parameter T.
 //   The backward recomputes P = exp(s - lse) and follows the library's split:
 //   delta = rowsum(dO * O); a dK/dV kernel over KV tiles; a dQ kernel over
 //   query tiles. No atomics: every output element has one writer, so the
@@ -59,7 +64,7 @@
 // written. The ping-pong schedule of the two consumers (named barriers
 // ordering one's softmax against the other's products) is not in.
 //
-// Ring-attention blocks (ring_block_fwd_launch / ring_block_bwd_launch).
+// Ring-attention blocks (ring_block_fwd_launch / ring_block_bwd_launch), bf16 only.
 // They replace the library flash calls of the JAX package's ring,
 // accelerate_tpu/parallel/ring.py: _flash_block_fwd (:93, library
 // _flash_attention with save_residuals at :112) and _flash_block_bwd (:209,
@@ -111,13 +116,13 @@ constexpr float kNoKeyMax = -1e30f;  // the ring's running max of a row with no 
 constexpr int kFwdStages = 3;  // depth of the forward's ring of K/V tiles
 
 // S = Q_w . K^T (64 rows x 128 keys), issued and committed.
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void issue_scores(float (&s)[kRows / 2], uint32_t q_base,
                                              uint32_t k_base) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    Wgmma<kRows>::ss(s, kstep(q_base, kRows, kk), kstep(k_base, kRows, kk), kk > 0);
+    Wgmma<kRows, T>::ss(s, kstep(q_base, kRows, kk), kstep(k_base, kRows, kk), kk > 0);
   wgmma_commit();
 }
 
@@ -135,11 +140,11 @@ struct FwdSmem {
 
 // Grid (ceil(S / 128), B*H). Writes the log-sum-exp to `lse` (flash), or,
 // with lse null, the row stats to `l_out` and `m_out` (a ring block).
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
               const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ seg_q,
-              const int* __restrict__ seg_kv, bf16* __restrict__ o, float* __restrict__ lse,
+              const int* __restrict__ seg_kv, T* __restrict__ o, float* __restrict__ lse,
               float* __restrict__ l_out, float* __restrict__ m_out, int S, int H, int causal,
               float scale) {
   using L = FwdSmem<D>;
@@ -216,7 +221,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // S = Q . K^T: 64 rows x 128 keys.
     float s[kRows / 2];
     mbar_wait(&full_k[st], ph);
-    issue_scores<D>(s, q_base, smem_u32(smem + L::kK + st * L::kTile));
+    issue_scores<D, T>(s, q_base, smem_u32(smem + L::kK + st * L::kTile));
     wgmma_wait<0>();
     fence_regs(s);
 
@@ -276,7 +281,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       acc[4 * j + 3] *= alpha_b;
     }
     uint32_t p[kRows / 4];
-    to_a_frags<kRows>(p, s);
+    to_a_frags<kRows, T>(p, s);
 
     // O += P . V: V read MN-major (its rows are the contraction).
     const uint32_t v_base = smem_u32(smem + L::kV + st * L::kTile);
@@ -286,7 +291,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < kRows / 16; ++kc)
-      Wgmma<D>::rs_mn(acc, &p[4 * kc], mnstep(v_base, kRows, kc), 1);
+      Wgmma<D, T>::rs_mn(acc, &p[4 * kc], mnstep(v_base, kRows, kc), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -331,18 +336,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ------------------------------------------------------------ backward: delta
 // delta[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d] in f32; one warp per row.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(256)
-    flash_bwd_delta(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+    flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
                     float* __restrict__ delta, int S, int H, long long rows) {
   const long long r = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (r >= rows) return;
-  const bf16* po = o + r * D;
-  const bf16* pd = dout + r * D;
+  const T* po = o + r * D;
+  const T* pd = dout + r * D;
   float acc = 0.f;
 #pragma unroll
-  for (int i = lane; i < D; i += 32) acc += __bfloat162float(po[i]) * __bfloat162float(pd[i]);
+  for (int i = lane; i < D; i += 32) acc += to_float(po[i]) * to_float(pd[i]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) {
@@ -386,9 +391,9 @@ struct DkdvSmem {
 //   dV warpgroup: P^T = exp(S^T - lse) with S^T = K Q^T, dV += P^T dO;
 //   dK warpgroup: dP^T = V dO^T, dS^T = P^T (dP^T - delta) * scale,
 //                 dK += dS^T Q.
-// OutT: bf16 (flash: dk, dv stored) or float (a ring block: added to the
+// OutT: T (flash: dk, dv stored) or float (a ring block: added to the
 // ring's accumulators).
-template <int D, typename OutT>
+template <int D, typename T, typename OutT>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -478,7 +483,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        Wgmma<kStream>::ss(sp, kstep(k_base, kStream, kk), kstep(q_base, kStream, kk), kk > 0);
+        Wgmma<kStream, T>::ss(sp, kstep(k_base, kStream, kk), kstep(q_base, kStream, kk),
+                              kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sp);
@@ -510,13 +516,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // dV += P^T . dO (dO read MN-major).
       uint32_t pa[kStream / 4];
-      to_a_frags<kStream>(pa, sp);
+      to_a_frags<kStream, T>(pa, sp);
       fence_regs(pa);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < kStream / 16; ++kc)
-        Wgmma<D>::rs_mn(acc, &pa[4 * kc], mnstep(do_base, kStream, kc), 1);
+        Wgmma<D, T>::rs_mn(acc, &pa[4 * kc], mnstep(do_base, kStream, kc), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -539,7 +545,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        Wgmma<kStream>::ss(dpt, kstep(v_base, kStream, kk), kstep(do_base, kStream, kk), kk > 0);
+        Wgmma<kStream, T>::ss(dpt, kstep(v_base, kStream, kk), kstep(do_base, kStream, kk),
+                              kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dpt);
@@ -561,13 +568,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // dK += dS^T . Q (Q read MN-major).
       uint32_t da[kStream / 4];
-      to_a_frags<kStream>(da, dpt);
+      to_a_frags<kStream, T>(da, dpt);
       fence_regs(da);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < kStream / 16; ++kc)
-        Wgmma<D>::rs_mn(acc, &da[4 * kc], mnstep(q_base, kStream, kc), 1);
+        Wgmma<D, T>::rs_mn(acc, &da[4 * kc], mnstep(q_base, kStream, kc), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -599,9 +606,9 @@ struct DqSmem {
 
 // Grid (ceil(S / 128), B*H). Each consumer warpgroup owns 64 of the CTA's
 // 128 queries and walks the 64-key tiles they can see: P = exp(S - lse),
-// dP = dO V^T, dS = P (dP - delta) * scale, dQ += dS K. OutT as in
+// dP = dO V^T, dS = P (dP - delta) * scale, dQ += dS K. T and OutT as in
 // flash_bwd_dkdv.
-template <int D, typename OutT>
+template <int D, typename T, typename OutT>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
@@ -688,10 +695,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<kStream>::ss(s, kstep(q_base, kRows, kk), kstep(k_base, kStream, kk), kk > 0);
+      Wgmma<kStream, T>::ss(s, kstep(q_base, kRows, kk), kstep(k_base, kStream, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<kStream>::ss(dp, kstep(do_base, kRows, kk), kstep(v_base, kStream, kk), kk > 0);
+      Wgmma<kStream, T>::ss(dp, kstep(do_base, kRows, kk), kstep(v_base, kStream, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -714,7 +721,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     uint32_t da[kStream / 4];
-    to_a_frags<kStream>(da, s);
+    to_a_frags<kStream, T>(da, s);
 
     // dQ += dS . K (K read MN-major).
     fence_regs(da);
@@ -722,7 +729,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < kStream / 16; ++kc)
-      Wgmma<D>::rs_mn(dq_acc, &da[4 * kc], mnstep(k_base, kStream, kc), 1);
+      Wgmma<D, T>::rs_mn(dq_acc, &da[4 * kc], mnstep(k_base, kStream, kc), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq_acc);
@@ -735,18 +742,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (in_b) emit_row<D>(dq + base + row_b * stride + t * 2, dq_acc, 1, 1.f);
 }
 
+// The tensor-map element type of T.
+template <typename T>
+constexpr CUtensorMapDataType map_type();
+template <>
+constexpr CUtensorMapDataType map_type<bf16>() {
+  return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+template <>
+constexpr CUtensorMapDataType map_type<f16>() {
+  return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+}
+
 // Tensor maps of q, k, v (and dO) with the box rows each kernel streams.
 struct Maps {
   CUtensorMap q, k, v, dout;
 };
 
-template <int D>
-int make_maps(Maps* m, const bf16* q, const bf16* k, const bf16* v, const bf16* dout, int B,
-              int S, int H, int q_rows, int kv_rows) {
-  int err = encode_bshd_map(&m->q, q, B, S, H, D, q_rows);
-  if (err == 0) err = encode_bshd_map(&m->k, k, B, S, H, D, kv_rows);
-  if (err == 0) err = encode_bshd_map(&m->v, v, B, S, H, D, kv_rows);
-  if (err == 0 && dout != nullptr) err = encode_bshd_map(&m->dout, dout, B, S, H, D, q_rows);
+template <int D, typename T>
+int make_maps(Maps* m, const T* q, const T* k, const T* v, const T* dout, int B, int S, int H,
+              int q_rows, int kv_rows) {
+  constexpr CUtensorMapDataType type = map_type<T>();
+  int err = encode_bshd_map(&m->q, q, B, S, H, D, q_rows, type);
+  if (err == 0) err = encode_bshd_map(&m->k, k, B, S, H, D, kv_rows, type);
+  if (err == 0) err = encode_bshd_map(&m->v, v, B, S, H, D, kv_rows, type);
+  if (err == 0 && dout != nullptr) err = encode_bshd_map(&m->dout, dout, B, S, H, D, q_rows, type);
   return err;
 }
 
@@ -756,101 +776,126 @@ int set_smem(Kernel kernel, int bytes) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-template <int D>
-int fwd_launch(const bf16* q, const bf16* k, const bf16* v, const int* seg_q, const int* seg_kv,
-               bf16* o, float* lse, float* l_out, float* m_out, int B, int S, int H, int causal,
+template <int D, typename T>
+int fwd_launch(const T* q, const T* k, const T* v, const int* seg_q, const int* seg_kv, T* o,
+               float* lse, float* l_out, float* m_out, int B, int S, int H, int causal,
                float scale, cudaStream_t stream) {
   Maps m;
-  int err = make_maps<D>(&m, q, k, v, nullptr, B, S, H, kRows, kRows);
-  if (err == 0) err = set_smem(flash_fwd<D>, FwdSmem<D>::kBytes);
+  int err = make_maps<D, T>(&m, q, k, v, nullptr, B, S, H, kRows, kRows);
+  if (err == 0) err = set_smem(flash_fwd<D, T>, FwdSmem<D>::kBytes);
   if (err != 0) return err;
-  flash_fwd<D><<<dim3((S + kRows - 1) / kRows, B * H), kThreads, FwdSmem<D>::kBytes, stream>>>(
-      m.q, m.k, m.v, seg_q, seg_kv, o, lse, l_out, m_out, S, H, causal, scale);
+  flash_fwd<D, T><<<dim3((S + kRows - 1) / kRows, B * H), kThreads, FwdSmem<D>::kBytes,
+                     stream>>>(m.q, m.k, m.v, seg_q, seg_kv, o, lse, l_out, m_out, S, H, causal,
+                               scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The dK/dV and dQ kernels; delta must be ready on the stream.
-template <int D, typename OutT>
-int bwd_main_launch(const bf16* q, const bf16* k, const bf16* v, const int* seg_q,
-                    const int* seg_kv, const bf16* dout, const float* lse, const float* delta,
-                    OutT* dq, OutT* dk, OutT* dv, int B, int S, int H, int causal, float scale,
+template <int D, typename T, typename OutT>
+int bwd_main_launch(const T* q, const T* k, const T* v, const int* seg_q, const int* seg_kv,
+                    const T* dout, const float* lse, const float* delta, OutT* dq, OutT* dk,
+                    OutT* dv, int B, int S, int H, int causal, float scale,
                     cudaStream_t stream) {
   Maps m;
-  int err = make_maps<D>(&m, q, k, v, dout, B, S, H, kStream, kStream);
-  if (err == 0) err = set_smem(flash_bwd_dkdv<D, OutT>, DkdvSmem<D>::kBytes);
+  int err = make_maps<D, T>(&m, q, k, v, dout, B, S, H, kStream, kStream);
+  if (err == 0) err = set_smem(flash_bwd_dkdv<D, T, OutT>, DkdvSmem<D>::kBytes);
   if (err != 0) return err;
-  flash_bwd_dkdv<D, OutT><<<dim3(S / kStream, B * H), kThreads, DkdvSmem<D>::kBytes, stream>>>(
-      m.q, m.k, m.v, m.dout, seg_q, seg_kv, lse, delta, dk, dv, S, H, causal, scale);
+  flash_bwd_dkdv<D, T, OutT><<<dim3(S / kStream, B * H), kThreads, DkdvSmem<D>::kBytes,
+                               stream>>>(m.q, m.k, m.v, m.dout, seg_q, seg_kv, lse, delta, dk,
+                                         dv, S, H, causal, scale);
   err = static_cast<int>(cudaGetLastError());
-  if (err == 0) err = make_maps<D>(&m, q, k, v, dout, B, S, H, kRows, kStream);
-  if (err == 0) err = set_smem(flash_bwd_dq<D, OutT>, DqSmem<D>::kBytes);
+  if (err == 0) err = make_maps<D, T>(&m, q, k, v, dout, B, S, H, kRows, kStream);
+  if (err == 0) err = set_smem(flash_bwd_dq<D, T, OutT>, DqSmem<D>::kBytes);
   if (err != 0) return err;
-  flash_bwd_dq<D, OutT><<<dim3((S + kRows - 1) / kRows, B * H), kThreads, DqSmem<D>::kBytes,
-                          stream>>>(
-      m.q, m.k, m.v, m.dout, seg_q, seg_kv, lse, delta, dq, S, H, causal, scale);
+  flash_bwd_dq<D, T, OutT><<<dim3((S + kRows - 1) / kRows, B * H), kThreads, DqSmem<D>::kBytes,
+                             stream>>>(m.q, m.k, m.v, m.dout, seg_q, seg_kv, lse, delta, dq, S,
+                                       H, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int bwd_launch(const bf16* q, const bf16* k, const bf16* v, const int* seg, const bf16* o,
-               const bf16* dout, const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv,
-               int B, int S, int H, int causal, float scale, cudaStream_t stream) {
+template <int D, typename T>
+int bwd_launch(const T* q, const T* k, const T* v, const int* seg, const T* o, const T* dout,
+               const float* lse, float* delta, T* dq, T* dk, T* dv, int B, int S, int H,
+               int causal, float scale, cudaStream_t stream) {
   const long long rows = static_cast<long long>(B) * S * H;
-  flash_bwd_delta<D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
+  flash_bwd_delta<D, T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
       o, dout, delta, S, H, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return bwd_main_launch<D, bf16>(q, k, v, seg, seg, dout, lse, delta, dq, dk, dv, B, S, H,
+  return bwd_main_launch<D, T, T>(q, k, v, seg, seg, dout, lse, delta, dq, dk, dv, B, S, H,
                                   causal, scale, stream);
+}
+
+template <typename T>
+int fwd_typed(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
+              int B, int S, int H, int D, int causal, float scale, cudaStream_t s) {
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const int* sp = static_cast<const int*>(seg);
+  T* op = static_cast<T*>(o);
+  float* lp = static_cast<float*>(lse);
+  if (D == 128)
+    return fwd_launch<128, T>(qp, kp, vp, sp, sp, op, lp, nullptr, nullptr, B, S, H, causal,
+                              scale, s);
+  if (D == 64)
+    return fwd_launch<64, T>(qp, kp, vp, sp, sp, op, lp, nullptr, nullptr, B, S, H, causal,
+                             scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int bwd_typed(const void* q, const void* k, const void* v, const void* seg, const void* o,
+              const void* dout, const void* lse, void* delta, void* dq, void* dk, void* dv, int B,
+              int S, int H, int D, int causal, float scale, cudaStream_t s) {
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const int* sp = static_cast<const int*>(seg);
+  const T* op = static_cast<const T*>(o);
+  const T* dp = static_cast<const T*>(dout);
+  const float* lp = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  T* dqp = static_cast<T*>(dq);
+  T* dkp = static_cast<T*>(dk);
+  T* dvp = static_cast<T*>(dv);
+  if (D == 128)
+    return bwd_launch<128, T>(qp, kp, vp, sp, op, dp, lp, dl, dqp, dkp, dvp, B, S, H, causal,
+                              scale, s);
+  if (D == 64)
+    return bwd_launch<64, T>(qp, kp, vp, sp, op, dp, lp, dl, dqp, dkp, dvp, B, S, H, causal,
+                             scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, o: (B, S, H, D) bf16, contiguous; seg: (B, S) int32 or null;
-// lse: (B, H, S) f32. D is 64 or 128 and S a multiple of 64 (the wrapper checks).
+// q, k, v, o: (B, S, H, D) contiguous, bf16 (dtype 0) or fp16 (dtype 1);
+// seg: (B, S) int32 or null; lse: (B, H, S) f32. D is 64 or 128 and S a
+// multiple of 64 (the wrapper checks).
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v, const void* seg,
                                void* o, void* lse, int B, int S, int H, int D, int causal,
-                               float scale, void* stream) {
+                               float scale, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const int* sp = static_cast<const int*>(seg);
-  bf16* op = static_cast<bf16*>(o);
-  float* lp = static_cast<float*>(lse);
-  if (D == 128)
-    return fwd_launch<128>(qp, kp, vp, sp, sp, op, lp, nullptr, nullptr, B, S, H, causal, scale,
-                           s);
-  if (D == 64)
-    return fwd_launch<64>(qp, kp, vp, sp, sp, op, lp, nullptr, nullptr, B, S, H, causal, scale,
-                          s);
+  if (dtype == 0) return fwd_typed<bf16>(q, k, v, seg, o, lse, B, S, H, D, causal, scale, s);
+  if (dtype == 1) return fwd_typed<f16>(q, k, v, seg, o, lse, B, S, H, D, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// delta: (B, H, S) f32 scratch; dq, dk, dv: (B, S, H, D) bf16 outputs.
+// delta: (B, H, S) f32 scratch; dq, dk, dv: (B, S, H, D) outputs of q's type.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* seg,
                                const void* o, const void* dout, const void* lse, void* delta,
                                void* dq, void* dk, void* dv, int B, int S, int H, int D,
-                               int causal, float scale, void* stream) {
+                               int causal, float scale, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const int* sp = static_cast<const int*>(seg);
-  const bf16* op = static_cast<const bf16*>(o);
-  const bf16* dp = static_cast<const bf16*>(dout);
-  const float* lp = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  if (D == 128)
-    return bwd_launch<128>(qp, kp, vp, sp, op, dp, lp, dl, static_cast<bf16*>(dq),
-                           static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, S, H, causal, scale,
-                           s);
-  if (D == 64)
-    return bwd_launch<64>(qp, kp, vp, sp, op, dp, lp, dl, static_cast<bf16*>(dq),
-                          static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, S, H, causal, scale,
-                          s);
+  if (dtype == 0)
+    return bwd_typed<bf16>(q, k, v, seg, o, dout, lse, delta, dq, dk, dv, B, S, H, D, causal,
+                           scale, s);
+  if (dtype == 1)
+    return bwd_typed<f16>(q, k, v, seg, o, dout, lse, delta, dq, dk, dv, B, S, H, D, causal,
+                          scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -870,9 +915,11 @@ int ring_block_fwd_launch(const void* q, const void* k, const void* v, const voi
   float* lp = static_cast<float*>(l);
   float* mp = static_cast<float*>(m);
   if (D == 128)
-    return fwd_launch<128>(qp, kp, vp, sq, skv, op, nullptr, lp, mp, B, S, H, causal, scale, s);
+    return fwd_launch<128, bf16>(qp, kp, vp, sq, skv, op, nullptr, lp, mp, B, S, H, causal,
+                                 scale, s);
   if (D == 64)
-    return fwd_launch<64>(qp, kp, vp, sq, skv, op, nullptr, lp, mp, B, S, H, causal, scale, s);
+    return fwd_launch<64, bf16>(qp, kp, vp, sq, skv, op, nullptr, lp, mp, B, S, H, causal,
+                                scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -896,11 +943,11 @@ int ring_block_bwd_launch(const void* q, const void* k, const void* v, const voi
   float* dkp = static_cast<float*>(dk);
   float* dvp = static_cast<float*>(dv);
   if (D == 128)
-    return bwd_main_launch<128, float>(qp, kp, vp, sq, skv, dp, lp, dl, dqp, dkp, dvp, B, S, H,
-                                       causal, scale, s);
+    return bwd_main_launch<128, bf16, float>(qp, kp, vp, sq, skv, dp, lp, dl, dqp, dkp, dvp, B,
+                                             S, H, causal, scale, s);
   if (D == 64)
-    return bwd_main_launch<64, float>(qp, kp, vp, sq, skv, dp, lp, dl, dqp, dkp, dvp, B, S, H,
-                                      causal, scale, s);
+    return bwd_main_launch<64, bf16, float>(qp, kp, vp, sq, skv, dp, lp, dl, dqp, dkp, dvp, B,
+                                            S, H, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

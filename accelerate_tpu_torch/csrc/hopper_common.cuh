@@ -242,12 +242,13 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 
 // d (64 x N f32, the warpgroup's accumulator layout: thread t of warp w
 // holds rows 16w + t/4 and +8, columns 8j + 2(t%4) and +1 at d[4j..4j+3])
-// += A . B over one k16 step, bf16 operands. scale_d = 0 overwrites d.
+// += A . B over one k16 step, 16-bit operands of type T (bf16, or fp16 for
+// the flash kernels' fp16 path). scale_d = 0 overwrites d.
 //   ss:    A (64 x 16) and B (N x 16) K-major in shared memory.
 //   rs_mn: A in registers (the mma.m16n8k16 A fragment of the warp's 16
 //          rows: a[0] row t/4 cols 2(t%4)+{0,1}, a[1] row +8, a[2] cols +8,
 //          a[3] both), B (16 x N) MN-major in shared memory.
-template <int N>
+template <int N, typename T = attn::bf16>
 struct Wgmma {
   static __device__ __forceinline__ void ss(float (&d)[N / 2], uint64_t a, uint64_t b,
                                             int scale_d);
@@ -255,89 +256,90 @@ struct Wgmma {
                                                int scale_d);
 };
 
-template <>
-__device__ __forceinline__ void Wgmma<64>::ss(float (&d)[32], uint64_t a, uint64_t b,
-                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
+// The N = 64 and N = 128 products for element type T, whose PTX name is TY.
+#define HOPPER_WGMMA_64_128(T, TY)                                                              \
+  template <>                                                                                   \
+  __device__ __forceinline__ void Wgmma<64, T>::ss(float (&d)[32], uint64_t a, uint64_t b,      \
+                                                   int scale_d) {                               \
+    asm volatile(                                                                               \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                            \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                            \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"        \
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                                      \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),\
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),\
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),\
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])                                  \
+        : "l"(a), "l"(b), "r"(scale_d));                                                        \
+  }                                                                                             \
+  template <>                                                                                   \
+  __device__ __forceinline__ void Wgmma<64, T>::rs_mn(float (&d)[32], const uint32_t* a,        \
+                                                      uint64_t b, int scale_d) {                \
+    asm volatile(                                                                               \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                            \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                            \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"        \
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                         \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),\
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),\
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),\
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])                                  \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));                    \
+  }                                                                                             \
+  template <>                                                                                   \
+  __device__ __forceinline__ void Wgmma<128, T>::ss(float (&d)[64], uint64_t a, uint64_t b,     \
+                                                    int scale_d) {                              \
+    asm volatile(                                                                               \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                            \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                           \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "      \
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "      \
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"        \
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                                      \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),\
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),\
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),\
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),\
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),\
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),\
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),\
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),\
+          "+f"(d[63])                                                                         \
+        : "l"(a), "l"(b), "r"(scale_d));                                                        \
+  }                                                                                             \
+  template <>                                                                                   \
+  __device__ __forceinline__ void Wgmma<128, T>::rs_mn(float (&d)[64], const uint32_t* a,       \
+                                                       uint64_t b, int scale_d) {               \
+    asm volatile(                                                                               \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                            \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                           \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "      \
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "      \
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"        \
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                                         \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),\
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),\
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),\
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),\
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),\
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),\
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),\
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),\
+          "+f"(d[63])                                                                         \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));                    \
+  }
 
-template <>
-__device__ __forceinline__ void Wgmma<64>::rs_mn(float (&d)[32], const uint32_t* a, uint64_t b,
-                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void Wgmma<128>::ss(float (&d)[64], uint64_t a, uint64_t b,
-                                               int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void Wgmma<128>::rs_mn(float (&d)[64], const uint32_t* a, uint64_t b,
-                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
+HOPPER_WGMMA_64_128(attn::bf16, "bf16")
+HOPPER_WGMMA_64_128(attn::f16, "f16")
+#undef HOPPER_WGMMA_64_128
 
 // N = 256 (a D = 256 accumulator: O += P.V, dV, dK and dQ at Gemma-2's head
 // width), RS only; B spans four 64-column panels, `panel_bytes` apart.
@@ -428,23 +430,27 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* 
     tma_load_4d(dst + p * panel_bytes(rows), map, bar, p * 64, h, s0, b);
 }
 
-// The bf16 A fragments of an f32 accumulator of N columns (the layout of
-// Wgmma's d): 16-column step kc is a[4kc..4kc+3].
-template <int N>
+// The A fragments (type T: bf16 or fp16) of an f32 accumulator of N columns
+// (the layout of Wgmma's d): 16-column step kc is a[4kc..4kc+3].
+template <int N, typename T = attn::bf16>
 __device__ __forceinline__ void to_a_frags(uint32_t (&a)[N / 4], const float (&d)[N / 2]) {
 #pragma unroll
   for (int kc = 0; kc < N / 16; ++kc) {
-    a[4 * kc + 0] = attn::pack_bf16(d[8 * kc + 0], d[8 * kc + 1]);
-    a[4 * kc + 1] = attn::pack_bf16(d[8 * kc + 2], d[8 * kc + 3]);
-    a[4 * kc + 2] = attn::pack_bf16(d[8 * kc + 4], d[8 * kc + 5]);
-    a[4 * kc + 3] = attn::pack_bf16(d[8 * kc + 6], d[8 * kc + 7]);
+    a[4 * kc + 0] = attn::pack2<T>(d[8 * kc + 0], d[8 * kc + 1]);
+    a[4 * kc + 1] = attn::pack2<T>(d[8 * kc + 2], d[8 * kc + 3]);
+    a[4 * kc + 2] = attn::pack2<T>(d[8 * kc + 4], d[8 * kc + 5]);
+    a[4 * kc + 3] = attn::pack2<T>(d[8 * kc + 6], d[8 * kc + 7]);
   }
 }
 
-// Two adjacent output elements: bf16 outputs are stored, f32 outputs
-// (gradient accumulators, as a ring block's) are added to.
+// Two adjacent output elements: bf16 and fp16 outputs are stored, f32
+// outputs (gradient accumulators, as a ring block's) are added to.
 __device__ __forceinline__ void emit2(attn::bf16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = attn::pack_bf16(a, b);
+}
+
+__device__ __forceinline__ void emit2(attn::f16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = attn::pack_f16(a, b);
 }
 
 __device__ __forceinline__ void emit2(float* p, float a, float b) {
@@ -487,11 +493,13 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// Tensor map of a contiguous (B, S, H, D) bf16 tensor read in boxes of
-// `rows` positions x 64 head-dim elements of one (batch, head), 128-byte
-// swizzled; coordinates (d0, h, s0, b). Returns a cudaError_t code.
+// Tensor map of a contiguous (B, S, H, D) tensor of 16-bit elements (bf16
+// unless `type` says fp16) read in boxes of `rows` positions x 64 head-dim
+// elements of one (batch, head), 128-byte swizzled; coordinates (d0, h, s0,
+// b). Returns a cudaError_t code.
 inline int encode_bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
-                           int rows) {
+                           int rows,
+                           CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
@@ -501,7 +509,7 @@ inline int encode_bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int 
                                  static_cast<cuuint64_t>(S) * H * D * 2};
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+  const CUresult r = fn(map, type, 4, const_cast<void*>(ptr), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

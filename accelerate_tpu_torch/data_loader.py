@@ -36,9 +36,21 @@ batch, index for index; a base loader with its own ``state_dict`` is handed
 its state instead. The form is the JAX package's, so a ``sampler.bin`` that
 either package wrote resumes the other's loader.
 
-Not ported yet: ``DataLoaderDispatcher`` (rank 0 reads, the others receive;
-``prepare_data_loader`` raises for it) and ``DeviceBatchPrefetcher`` (raises
-when built).
+:class:`DataLoaderDispatcher` (JAX ``data_loader.py:702-842``): rank 0
+reads every batch of the base loader, the batch goes to every rank by one
+``broadcast_object_list`` (gloo on the CPU, NCCL on cards), and each rank
+keeps its rows ``[i·B/n, (i+1)·B/n)`` on its device. ``prepare_data_loader`` builds it for
+``dispatch_batches=True``, the default for an iterable dataset over several
+ranks.
+
+:class:`DeviceBatchPrefetcher` (JAX ``data_loader.py:843-1113``): a
+background thread reads host batches, stacks ``window`` of them on a
+leading axis (``window > 1``, for ``Accelerator.build_train_window``),
+copies each from pinned memory to the device on a side CUDA stream
+``prefetch`` batches ahead of the consumer, and the consumer's stream waits
+on the copy's event; uploads and the consumer's waits are counted
+(``utils/transfer.py``). Its ``state_dict`` reports the consumer's
+position.
 """
 
 from __future__ import annotations
@@ -54,7 +66,8 @@ import torch.utils.data as tud
 
 from .state import GradientState
 from .utils.device import resolve_device
-from .utils.operations import recursively_apply, send_to_device
+from .utils.operations import broadcast_object_list, recursively_apply, send_to_device
+from .utils.transfer import host_put, record_input_wait
 from .utils.random import synchronize_rng_states
 
 _PYTORCH_DATALOADER_KWARGS = (
@@ -545,13 +558,377 @@ class DataLoaderShard:
             self._pending_base_state = base_state
 
 
-class DeviceBatchPrefetcher:
-    """Not ported yet (the JAX package's windowed device prefetcher for
-    ``build_train_window``, which waits in ROADMAP.md's module queue)."""
+class DataLoaderDispatcher:
+    """Rank 0 reads every batch; each rank receives its rows (JAX
+    ``data_loader.py:702-842``). For iterable datasets that cannot be
+    sharded by index (a stream). Each batch goes to every rank by one
+    ``broadcast_object_list`` (gloo on the CPU, NCCL on cards); rank
+    ``process_index`` keeps rows ``[i·B/n, (i+1)·B/n)`` of every leaf, on
+    ``device``. It
+    fetches one batch ahead, so ``end_of_dataloader`` is true on the last
+    batch; ``skip_batches`` and a loaded position (``load_state_dict``) are
+    read and dropped on rank 0, so a skip past the end yields nothing. On
+    one rank it yields the base loader's batches as they are."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("DeviceBatchPrefetcher is not ported yet (ROADMAP.md, module "
-                                  "queue: it comes with build_train_window)")
+    def __init__(self, base_loader, device=None, split_batches: bool = False,
+                 put_on_device: bool = True, skip_batches: int = 0, _drop_last: bool = False,
+                 num_processes: int | None = None, process_index: int | None = None,
+                 gradient_state: GradientState | None = None):
+        self.base_loader = base_loader
+        self.device = resolve_device(device)
+        self.split_batches = split_batches
+        self.put_on_device = put_on_device
+        self.skip_batches = skip_batches
+        self._drop_last = _drop_last
+        job_n, job_i = _job()
+        self.num_processes = num_processes if num_processes is not None else job_n
+        self.process_index = process_index if process_index is not None else job_i
+        self.gradient_state = gradient_state if gradient_state is not None else GradientState()
+        self.iteration = 0
+        self.end_of_dataloader = False
+        self.remainder = -1
+        self._num_batches_fetched = 0
+        self._resume_batches = 0
+
+    @property
+    def dataset(self):
+        return getattr(self.base_loader, "dataset", self.base_loader)
+
+    @property
+    def batch_size(self):
+        return getattr(self.base_loader, "batch_size", None)
+
+    @property
+    def total_batch_size(self):
+        return (self.batch_size or 1) * (1 if self.split_batches else self.num_processes)
+
+    @property
+    def total_dataset_length(self):
+        return len(self.dataset)
+
+    def __len__(self):
+        return max(len(self.base_loader) - self.skip_batches, 0)
+
+    def set_epoch(self, epoch: int):
+        if self.iteration != epoch:
+            self._resume_batches = 0
+        self.iteration = epoch
+        if hasattr(self.base_loader, "set_epoch"):
+            self.base_loader.set_epoch(epoch)
+
+    def begin(self):
+        self.end_of_dataloader = False
+        self.remainder = -1
+        self.gradient_state._add_dataloader(self)
+
+    def end(self):
+        self.gradient_state._remove_dataloader(self)
+
+    def _fetch_and_scatter(self, iterator):
+        """Rank 0 fetches and the batch goes to every rank (JAX
+        ``_fetch_and_scatter``); None at the end of the stream."""
+        batch = None
+        if self.process_index == 0:
+            try:
+                batch = _to_tensor(next(iterator))
+            except StopIteration:
+                pass
+        if self.num_processes > 1:
+            payload = [batch]
+            broadcast_object_list(payload, from_process=0)
+            batch = payload[0]
+        return batch
+
+    def _emit(self, batch):
+        """This rank's rows of a global batch, on the device (or the host
+        without ``put_on_device``)."""
+        n, i = self.num_processes, self.process_index
+
+        def rows(x):
+            if n == 1 or x.dim() == 0:
+                return x
+            per = x.shape[0] // n
+            return x[i * per:(i + 1) * per]
+
+        local = recursively_apply(rows, batch, test_type=lambda x: isinstance(x, torch.Tensor))
+        if self.put_on_device:
+            return send_to_device(local, self.device)
+        return recursively_apply(lambda t: t.cpu(), local,
+                                 test_type=lambda x: isinstance(x, torch.Tensor))
+
+    def __iter__(self):
+        self.begin()
+        self.set_epoch(self.iteration)
+        iterator = iter(self.base_loader) if self.process_index == 0 else None
+        resume = self._resume_batches
+        self._resume_batches = 0
+        self._num_batches_fetched = resume
+        effective_skip = self.skip_batches + resume
+        skipped, prev, have_prev = 0, None, False
+        while True:
+            batch = self._fetch_and_scatter(iterator)
+            if batch is None:
+                if have_prev and skipped >= effective_skip:
+                    self.end_of_dataloader = True
+                    self._num_batches_fetched += 1
+                    yield self._emit(prev)
+                break
+            if have_prev:
+                if skipped < effective_skip:
+                    skipped += 1
+                else:
+                    self._num_batches_fetched += 1
+                    yield self._emit(prev)
+            prev, have_prev = batch, True
+        self.iteration += 1
+        self._num_batches_fetched = 0
+        self.end()
+
+    def state_dict(self):
+        return {"num_batches_fetched": max(self._num_batches_fetched, self._resume_batches),
+                "iteration": self.iteration}
+
+    def load_state_dict(self, sd):
+        self._resume_batches = sd.get("num_batches_fetched", 0)
+        self.iteration = sd.get("iteration", 0)
+
+
+class DeviceBatchPrefetcher:
+    """An asynchronous host-to-device input feed (JAX ``data_loader.py:
+    843-1113``): the training loop should never wait for an upload.
+
+    A background thread pulls host batches from any iterable (typically a
+    prepared :class:`DataLoaderShard`, whose own device feed it suspends
+    while it iterates), stacks ``window`` consecutive batches on a leading
+    axis when ``window > 1`` (the batches ``Accelerator.build_train_window``
+    takes; with ``window=1`` it yields plain batches; a tail that fills no
+    window is dropped), and copies each from pinned memory to ``device`` on
+    a side CUDA stream, ``prefetch`` batches ahead of the consumer. The
+    consumer's current stream waits on the copy's event before it uses the
+    batch (and the batch's memory is recorded on that stream), so no host
+    thread ever waits for a copy. Leaves already on the device pass through.
+
+    Every upload counts as a ``host_put``; a wait of the consumer for a
+    batch that was not staged yet, after the first batch of an iteration
+    (pipeline fill), counts as a blocking input transfer
+    (``record_input_wait``): ``transfer_stats()`` measures whether the loop
+    ever waited. ``state_dict`` is the wrapped loader's with the position
+    rewritten to the consumer's (whole windows handed out), and the epoch's
+    identity taken at its first batch, so read-ahead is replayed after a
+    resume, not lost. ``device`` defaults to the wrapped loader's, else the
+    card (raising without one)."""
+
+    _SENTINEL = object()
+
+    def __init__(self, loader, prefetch: int = 2, window: int = 1, device=None):
+        if prefetch < 1:
+            raise ValueError(f"prefetch must be >= 1, got {prefetch}")
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        self.loader = loader
+        self.prefetch = int(prefetch)
+        self.window = int(window)
+        if device is None:
+            device = getattr(loader, "device", None)
+        self.device = resolve_device(device)
+        self._consumed = 0  # base batches handed to the training loop this epoch
+        self._resume_consumed = 0
+        self._epoch_identity = None
+
+    def __len__(self):
+        n = len(self.loader)
+        return n // self.window if self.window > 1 else n
+
+    def _stage(self, batches, stream):
+        """``window`` host batches -> one batch on the device (counted), and
+        the event its copy records on ``stream`` (None on the CPU)."""
+        dev = self.device
+
+        def stack(*xs):
+            xs = [torch.as_tensor(x) if isinstance(x, np.ndarray) else x for x in xs]
+            if not isinstance(xs[0], torch.Tensor):
+                return xs[0]
+            if len(xs) == 1:
+                return xs[0]
+            if any(x.device != xs[0].device for x in xs):
+                xs = [x.to(dev) for x in xs]
+            return torch.stack(xs)
+
+        batch = _map_leaves(stack, *batches)
+
+        def place(b):
+            def one(x):
+                if not isinstance(x, torch.Tensor) or x.device.type != "cpu" or dev.type == "cpu":
+                    return x
+                return x.pin_memory().to(dev, non_blocking=True)
+
+            if stream is None:
+                return _map_leaves(one, b)
+            with torch.cuda.stream(stream):
+                out = _map_leaves(one, b)
+            done = torch.cuda.Event()
+            done.record(stream)
+            return out, done
+
+        # A leaf on the host is uploaded (on the CPU it stays, but the batch is
+        # still counted as placed); a leaf already on the card passes through.
+        host = [x for x in _leaves(batch)
+                if isinstance(x, torch.Tensor) and x.device.type == "cpu"]
+        if not host:
+            return batch, None
+        staged = host_put(batch, place)
+        return staged if stream is not None else (staged, None)
+
+    def __iter__(self):
+        import atexit
+        import queue
+        import threading
+        import time
+
+        resume = self._resume_consumed
+        self._resume_consumed = 0
+        self._consumed = resume
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        # Bound now: an iterator finalized at interpreter teardown finds the
+        # queue module's globals gone.
+        empty = queue.Empty
+        stop = threading.Event()
+        box = {"error": None}
+        loader = self.loader
+        dev = self.device
+        stream = torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
+
+        def offer(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            # The wrapped shard would place each batch on the device itself;
+            # the prefetcher places (counted, window-shaped) instead.
+            restore_put = getattr(loader, "put_on_device", None) is True
+            if restore_put:
+                loader.put_on_device = False
+            try:
+                if dev.type == "cuda" and dev.index is not None:
+                    torch.cuda.set_device(dev)
+                stack, first = [], True
+                for batch in loader:
+                    if first:
+                        first = False
+                        if hasattr(loader, "state_dict"):
+                            ident = dict(loader.state_dict())
+                            ident.pop("base_state", None)
+                            ident.pop("num_batches_fetched", None)
+                            self._epoch_identity = ident
+                    if stop.is_set():
+                        return
+                    stack.append(batch)
+                    if len(stack) < self.window:
+                        continue
+                    staged = self._stage(stack, stream)
+                    stack = []
+                    if not offer(staged):
+                        return
+            except BaseException as exc:  # raised again on the consumer's thread
+                box["error"] = exc
+            finally:
+                if restore_put:
+                    loader.put_on_device = True
+                offer(self._SENTINEL)
+
+        thread = threading.Thread(target=produce, name="accelerate-device-prefetch",
+                                  daemon=True)
+
+        def shutdown():
+            # An iterator abandoned before the end leaves the producer running
+            # into interpreter teardown: stop it before daemon threads freeze.
+            stop.set()
+            thread.join(timeout=1.0)
+
+        atexit.register(shutdown)
+        thread.start()
+        delivered = False
+        try:
+            while True:
+                waited = 0.0
+                try:
+                    item = q.get_nowait()
+                except empty:
+                    t0 = time.perf_counter()
+                    item = q.get()
+                    waited = time.perf_counter() - t0
+                if item is self._SENTINEL:
+                    if box["error"] is not None:
+                        raise box["error"]
+                    self._consumed = 0
+                    self._epoch_identity = None
+                    break
+                if delivered and waited > 1e-3:
+                    # The batch was not staged when the loop asked (sub-ms
+                    # waits are the queue's own jitter, not a stall).
+                    record_input_wait(waited)
+                delivered = True
+                batch, done = item
+                if done is not None:
+                    current = torch.cuda.current_stream(dev)
+                    current.wait_event(done)
+                    for t in _leaves(batch):
+                        if isinstance(t, torch.Tensor) and t.is_cuda:
+                            t.record_stream(current)
+                self._consumed += self.window
+                yield batch
+        finally:
+            stop.set()
+            try:
+                atexit.unregister(shutdown)
+            except Exception:
+                pass  # interpreter teardown: the atexit module may be gone
+            with q.mutex:  # drop staged batches (get() would raise a torn-down Empty)
+                q.queue.clear()
+            thread.join(timeout=5.0)
+
+    def state_dict(self):
+        """The wrapped loader's resume state with the position rewritten to
+        the consumer's (whole windows yielded) and the epoch's identity
+        (iteration, sampler stream) taken at its first batch; a stateful
+        base's own state (the producer's position) is dropped."""
+        sd = dict(self.loader.state_dict()) if hasattr(self.loader, "state_dict") else {}
+        if self._epoch_identity is not None:
+            sd.update(self._epoch_identity)
+        sd["num_batches_fetched"] = max(self._consumed, self._resume_consumed)
+        sd.pop("base_state", None)
+        return sd
+
+    def load_state_dict(self, sd):
+        self._resume_consumed = sd.get("num_batches_fetched", 0)
+        self._consumed = 0
+        self._epoch_identity = None
+        if hasattr(self.loader, "load_state_dict"):
+            self.loader.load_state_dict(sd)
+
+
+def _map_leaves(fn, *batches):
+    """``fn`` over the leaves of batches of one structure (dicts, lists,
+    tuples)."""
+    first = batches[0]
+    if isinstance(first, Mapping):
+        return {k: _map_leaves(fn, *(b[k] for b in batches)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_map_leaves(fn, *xs) for xs in zip(*batches))
+    return fn(*batches)
+
+
+def _leaves(batch) -> list:
+    if isinstance(batch, Mapping):
+        return [leaf for v in batch.values() for leaf in _leaves(v)]
+    if isinstance(batch, (list, tuple)):
+        return [leaf for v in batch for leaf in _leaves(v)]
+    return [batch]
 
 
 class SkipBatchSampler:
@@ -618,7 +995,11 @@ def prepare_data_loader(dataloader, device=None, num_processes: int | None = Non
     ``prepare_data_loader``): a torch ``DataLoader`` is rebuilt over a
     :class:`BatchSamplerShard` (or an :class:`IterableDatasetShard` of its
     iterable dataset) with its dataset, collate function and workers kept;
-    any other iterable of ready batches is wrapped as it is. The loader
+    any other iterable of ready batches is wrapped as it is. With
+    ``dispatch_batches`` (None: on for an iterable dataset over several
+    ranks) an iterable dataset, or any iterable that is not a torch loader,
+    goes through a :class:`DataLoaderDispatcher` instead; a map-style torch
+    loader is sharded by index either way, as in the JAX package. The loader
     places batches on ``device`` (the card unless ``device="cpu"``).
     ``use_stateful_dataloader`` is accepted as the JAX package accepts it:
     every prepared loader resumes mid-epoch, and a base loader with its own
@@ -630,12 +1011,12 @@ def prepare_data_loader(dataloader, device=None, num_processes: int | None = Non
     is_iterable = is_torch and isinstance(dataloader.dataset, tud.IterableDataset)
     if dispatch_batches is None:
         dispatch_batches = is_iterable and put_on_device and num_processes > 1
-    if dispatch_batches:
-        raise NotImplementedError(
-            "DataLoaderDispatcher (dispatch_batches=True: rank 0 reads, the others receive; "
-            "the JAX package's default for an iterable dataset over several ranks) is not "
-            "ported yet (ROADMAP.md, module queue); pass "
-            "DataLoaderConfiguration(dispatch_batches=False) to shard the stream instead")
+    if dispatch_batches and (is_iterable or not is_torch):
+        # JAX data_loader.py:1210-1218, 1266-1268: rank 0 reads the stream.
+        return DataLoaderDispatcher(
+            dataloader, device=device, split_batches=split_batches, put_on_device=put_on_device,
+            _drop_last=getattr(dataloader, "drop_last", False), num_processes=num_processes,
+            process_index=process_index, gradient_state=gradient_state)
     common = dict(device=device, put_on_device=put_on_device, gradient_state=gradient_state,
                   num_processes=num_processes)
     if not is_torch:

@@ -16,7 +16,15 @@ package's is a plain einsum and softmax (no Pallas kernel).
 Dropout (``hidden_dropout_prob``, after the attention output and the MLP in
 train mode) draws from an explicit ``torch.Generator``; it cannot draw the
 JAX package's bits, so parity runs at ``hidden_dropout_prob=0.0``.
-``remat=True`` and ``pipeline=`` are not ported and raise.
+
+``remat=True`` (JAX ``bert.py:235``, ``jax.checkpoint`` of the layer with
+nothing saved): under autograd each layer runs inside
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, so the backward
+runs its forward again in place of keeping its activations. The recompute
+draws the same dropout masks: the layer's run starts from the dropout
+generator's state at its first run, and a recompute puts the generator back
+where it found it. So a remat step is the plain step's, bitwise.
+``pipeline=`` is not ported and raises.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..modules import ModelOutput, Module
 from ..ops.losses import cross_entropy_loss
@@ -75,9 +84,6 @@ def _unstack(tree, n: int) -> list:
 
 class BertForSequenceClassification(Module):
     def __init__(self, config: BertConfig, device=None):
-        if config.remat:
-            raise NotImplementedError("BERT option remat is not ported yet (ROADMAP.md, "
-                                      "module queue)")
         self.config = config
         self.device = resolve_device(device)
         self.params = None
@@ -198,10 +204,37 @@ class BertForSequenceClassification(Module):
         cfg = self.config
         x, ctx = self.embed(params, input_ids, attention_mask, token_type_ids)
         drop_rate = cfg.hidden_dropout_prob if train else 0.0
+        gen = generator if train else None
+        remat = cfg.remat and torch.is_grad_enabled()
         for layer in _unstack(params["layers"], cfg.num_hidden_layers):
-            x = self.block(layer, x, ctx, generator=generator if train else None,
-                           drop_rate=drop_rate)
+            if remat:
+                x = checkpoint(self._replayable_block(layer, ctx, gen, drop_rate), x,
+                               use_reentrant=False)
+            else:
+                x = self.block(layer, x, ctx, generator=gen, drop_rate=drop_rate)
         return self.head(params, x, labels=labels)
+
+    def _replayable_block(self, layer, ctx, generator, drop_rate):
+        """``x -> block(x)`` for a remat region: every run starts from the
+        dropout generator's state at the first run, and a recompute (any run
+        after the first) puts the generator back where it found it, so the
+        recompute draws the forward's masks and later draws are unmoved."""
+        start = None if generator is None else generator.get_state()
+        runs = [0]
+
+        def run(x):
+            if generator is None:
+                return self.block(layer, x, ctx, generator=None, drop_rate=drop_rate)
+            outer, first = generator.get_state(), runs[0] == 0
+            runs[0] += 1
+            generator.set_state(start)
+            try:
+                return self.block(layer, x, ctx, generator=generator, drop_rate=drop_rate)
+            finally:  # also when checkpoint's early stop ends a recompute midway
+                if not first:
+                    generator.set_state(outer)
+
+        return run
 
     # -------------------------------------------------------------- estimation
     def num_params(self) -> int:

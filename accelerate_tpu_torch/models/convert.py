@@ -20,11 +20,8 @@ import dataclasses
 from .bert import BertConfig
 from .llama import SUPPORTED_ROPE_TYPES, LlamaConfig
 
-# Rope types a config may name. The JAX package's model implements all five;
-# the port's computes the first three and raises NotImplementedError on
-# 'yarn' and 'dynamic' when it builds the rotary tables, so configs convert
-# alike in both packages.
-CONFIG_ROPE_TYPES = SUPPORTED_ROPE_TYPES + ("yarn", "dynamic")
+# Rope types a config may name: the five both packages' models compute.
+CONFIG_ROPE_TYPES = SUPPORTED_ROPE_TYPES
 
 
 def _getter(hf_config):

@@ -58,8 +58,13 @@ backward.
 ``sharding_rules`` are the JAX package's ``(path_regex, spec)`` rules, which
 ``parallel/sharding.plan_param_shardings`` reads under an fsdp axis.
 
-Left out so far, and raising when set: the pipeline schedule, MoE, the
-ulysses attention impl, and the ``yarn``/``dynamic`` rope types.
+Rope types: ``default``, ``linear``, ``llama3``, ``yarn`` (with its
+attention factor on cos and sin) and ``dynamic`` (NTK, the base stretched
+past the pretraining window; the cached decode pins the length to the
+cache's, as the JAX package does).
+
+Left out so far, and raising when set: the pipeline schedule, MoE and the
+ulysses attention impl.
 """
 
 from __future__ import annotations
@@ -105,8 +110,8 @@ class LlamaConfig:
     qk_norm: bool = False
     # Sliding-window attention (Mistral): None = full causal.
     sliding_window: int | None = None
-    # RoPE scaling: None, or a dict with rope_type 'linear' or 'llama3'
-    # ('yarn' and 'dynamic' are not ported yet). Matches the HF config field.
+    # RoPE scaling: None, or a dict with rope_type 'linear', 'llama3', 'yarn'
+    # or 'dynamic' (NTK-aware). Matches the HF config field.
     rope_scaling: dict | None = None
     # Per-head width; None = hidden/heads.
     head_dim: int | None = None
@@ -201,7 +206,7 @@ def rms_norm(x, weight, eps):
     return (x * weight).to(dtype)
 
 
-SUPPORTED_ROPE_TYPES = ("default", "linear", "llama3")
+SUPPORTED_ROPE_TYPES = ("default", "linear", "llama3", "yarn", "dynamic")
 
 
 def _llama3_scale_inv_freq(inv_freq, scaling: dict):
@@ -223,29 +228,83 @@ def _llama3_scale_inv_freq(inv_freq, scaling: dict):
     return np.where(is_medium, smoothed, scaled).astype(np.float32)
 
 
+def _yarn_inv_freq(head_dim, theta, scaling: dict):
+    """YaRN frequency blending (JAX ``models/llama.py:229-272``, the public
+    recipe of transformers' ``_compute_yarn_parameters``): low-frequency
+    components interpolate (divided by ``factor``), high-frequency ones
+    extrapolate (unchanged), with a linear ramp between the correction dims
+    of ``beta_fast`` and ``beta_slow``. Returns ``(inv_freq,
+    attention_factor)``; the factor scales cos and sin. Numpy f32, the JAX
+    expression step for step."""
+    dim = head_dim
+    factor = float(scaling.get("factor", 1.0))
+    original_max = scaling.get("original_max_position_embeddings") or scaling.get(
+        "max_position_embeddings", 4096)
+    beta_fast = scaling.get("beta_fast") or 32
+    beta_slow = scaling.get("beta_slow") or 1
+    attention_factor = scaling.get("attention_factor")
+    mscale, mscale_all = scaling.get("mscale"), scaling.get("mscale_all_dim")
+
+    def get_mscale(scale, m=1):
+        return 1.0 if scale <= 1 else 0.1 * m * math.log(scale) + 1.0
+
+    if attention_factor is None:
+        if mscale and mscale_all:
+            attention_factor = get_mscale(factor, mscale) / get_mscale(factor, mscale_all)
+        else:
+            attention_factor = get_mscale(factor)
+
+    def correction_dim(num_rot):
+        return (dim * math.log(original_max / (num_rot * 2 * math.pi))) / (2 * math.log(theta))
+
+    low, high = correction_dim(beta_fast), correction_dim(beta_slow)
+    if scaling.get("truncate", True):
+        low, high = math.floor(low), math.ceil(high)
+    low, high = max(low, 0), min(high, dim - 1)
+    if low == high:
+        high += 0.001
+    pos_freqs = theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim)
+    extrapolation = 1.0 / pos_freqs
+    interpolation = 1.0 / (factor * pos_freqs)
+    ramp = np.clip((np.arange(dim // 2, dtype=np.float32) - low) / (high - low), 0, 1)
+    extrapolation_factor = 1.0 - ramp
+    inv_freq = interpolation * (1 - extrapolation_factor) + extrapolation * extrapolation_factor
+    return inv_freq.astype(np.float32), float(attention_factor)
+
+
 def rope_tables(positions, head_dim, theta, scaling: dict | None = None,
                 seq_len: int | None = None, max_position_embeddings: int | None = None):
     """cos/sin tables for rotary embeddings, fp32. positions: (B, S) int.
 
-    ``seq_len``/``max_position_embeddings`` are accepted for signature parity
-    with the JAX version, where they feed the ``dynamic`` rope type."""
-    del seq_len, max_position_embeddings
+    ``seq_len`` and ``max_position_embeddings`` feed the ``dynamic`` (NTK)
+    rope type, whose base stretches when the forward's length exceeds the
+    pretraining window (JAX ``models/llama.py:276-306``); the cached decode
+    passes the cache's length, so prefill and every decode step share one
+    set of frequencies. ``yarn`` scales cos and sin by its attention
+    factor."""
     rope_type = scaling.get("rope_type", scaling.get("type", "default")) if scaling else "default"
-    if rope_type in ("yarn", "dynamic"):
-        raise NotImplementedError(
-            f"rope_type {rope_type!r} is not ported yet (ROADMAP.md, module "
-            "queue: the model zoo's rope scalings)"
-        )
     if rope_type not in (None,) + SUPPORTED_ROPE_TYPES:
         raise ValueError(f"Unsupported rope_type {rope_type!r} (supported: {SUPPORTED_ROPE_TYPES})")
+    attention_factor = 1.0
+    if rope_type == "dynamic":
+        max_pos = max_position_embeddings or scaling.get("max_position_embeddings", 2048)
+        eff = max(seq_len or max_pos, max_pos)
+        factor = float(scaling.get("factor", 1.0))
+        theta = theta * ((factor * eff / max_pos) - (factor - 1)) ** (head_dim / (head_dim - 2))
     inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
     if rope_type == "linear":
         inv_freq = inv_freq / float(scaling.get("factor", 1.0))
     elif rope_type == "llama3":
         inv_freq = _llama3_scale_inv_freq(inv_freq, scaling)
+    elif rope_type == "yarn":
+        if "original_max_position_embeddings" not in scaling and max_position_embeddings:
+            scaling = {**scaling, "max_position_embeddings": max_position_embeddings}
+        inv_freq, attention_factor = _yarn_inv_freq(head_dim, theta, scaling)
     inv = host_to_device(np.asarray(inv_freq, np.float32), positions.device)
     angles = positions[..., None].float() * inv  # (B,S,D/2)
-    return torch.cos(angles), torch.sin(angles)
+    if attention_factor == 1.0:
+        return torch.cos(angles), torch.sin(angles)
+    return torch.cos(angles) * attention_factor, torch.sin(angles) * attention_factor
 
 
 def apply_rope(x, cos, sin):

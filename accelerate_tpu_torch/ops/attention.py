@@ -25,6 +25,7 @@ import math
 
 import torch
 
+from .kernels.flash_attention import DTYPES as FLASH_DTYPES
 from .kernels.flash_attention import HEAD_DIMS as KERNEL_HEAD_DIMS
 from .kernels.flash_attention import flash_attention_cuda
 from .kernels.splash_attention import HEAD_DIMS as SPLASH_HEAD_DIMS
@@ -252,22 +253,25 @@ def resolve_auto_impl(seq_len: int, head_dim: int, *, kv_len: int | None = None,
                       dtype=None) -> str:
     """What ``impl='auto'`` resolves to for this shape, recipe, device and
     dtype — the single source of the dispatch predicate. A kernel needs a
-    CUDA device, a bf16 (or unstated) dtype, equal query and key lengths and
-    a sequence that is a multiple of 128 from :data:`FLASH_MIN_SEQ` tokens
-    on. Windowed, softcapped or scaled recipes resolve to splash where it is
-    also causal and the head width is in :data:`SPLASH_HEAD_DIMS`; plain
-    attention resolves to flash at a head width in :data:`KERNEL_HEAD_DIMS`
-    (the JAX predicate also admits 96, and 256 for flash, which wait for a
-    later kernel). Everything else, and every CPU tensor, resolves to
-    dense."""
+    CUDA device, equal query and key lengths and a sequence that is a
+    multiple of 128 from :data:`FLASH_MIN_SEQ` tokens on. Windowed,
+    softcapped or scaled recipes resolve to splash where it is also causal,
+    the dtype bf16 (or unstated) and the head width in
+    :data:`SPLASH_HEAD_DIMS`; plain attention resolves to flash at a bf16 or
+    fp16 (or unstated) dtype and a head width in :data:`KERNEL_HEAD_DIMS`
+    (the JAX predicate has no dtype test, and also admits 96, and 256 for
+    flash, which wait for a later kernel). Everything else, f32 included,
+    and every CPU tensor, resolves to dense."""
     kv_len = seq_len if kv_len is None else kv_len
     on_card = device is not None and torch.device(device).type == "cuda"
-    dtype_ok = dtype is None or dtype == torch.bfloat16
-    kernel_ok = (on_card and dtype_ok and kv_len == seq_len and seq_len % 128 == 0
-                 and seq_len >= FLASH_MIN_SEQ)
+    shape_ok = (on_card and kv_len == seq_len and seq_len % 128 == 0
+                and seq_len >= FLASH_MIN_SEQ)
     if window is not None or softcap is not None or scale is not None:
-        return "splash" if kernel_ok and causal and head_dim in SPLASH_HEAD_DIMS else "dense"
-    return "flash" if kernel_ok and head_dim in KERNEL_HEAD_DIMS else "dense"
+        splash_dtype = dtype is None or dtype == torch.bfloat16
+        return ("splash" if shape_ok and splash_dtype and causal
+                and head_dim in SPLASH_HEAD_DIMS else "dense")
+    flash_dtype = dtype is None or dtype in FLASH_DTYPES
+    return "flash" if shape_ok and flash_dtype and head_dim in KERNEL_HEAD_DIMS else "dense"
 
 
 def attention(q, k, v, *, causal=True, mask=None, impl: str = "auto", window=None,

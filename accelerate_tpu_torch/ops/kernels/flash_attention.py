@@ -10,12 +10,15 @@ One ``torch.autograd.Function``: the forward launches the forward kernel and
 saves q, k, v, o and the per-row log-sum-exp; the backward launches the
 backward kernels (Δ = rowsum(dO∘O), then dK/dV over KV tiles and dQ over
 query tiles; no atomics, so it is deterministic). Each direction counts one
-launch, ``flash_attention_fwd`` and ``flash_attention_bwd``.
+launch, ``flash_attention_fwd`` and ``flash_attention_bwd`` on bf16, and
+``flash_attention_fp16_fwd`` and ``flash_attention_fp16_bwd`` on fp16.
 
 Takes CUDA tensors only — CPU tensors reach the plain version through the
-registry — in the layout (B, S, H, D), bf16, contiguous, with equal head
-counts for q, k and v (GQA is repeated by the caller), D in (64, 128) and
-S a multiple of 64. Anything else raises.
+registry — in the layout (B, S, H, D), bf16 or fp16 (one source, templated
+on the element type: the fp16 instantiation runs ``wgmma ... f32.f16.f16``
+on fp16 tensor maps, rounds P and dS to fp16 and stores o, dq, dk and dv in
+fp16), contiguous, with equal head counts for q, k and v (GQA is repeated by
+the caller), D in (64, 128) and S a multiple of 64. Anything else raises.
 """
 
 from __future__ import annotations
@@ -30,6 +33,11 @@ from ._build import load
 
 HEAD_DIMS = (64, 128)
 SEQ_MULTIPLE = 64
+# The element types the kernels take, with the code the C entry points read,
+# and the names their launches count under (forward, backward).
+DTYPES = {torch.bfloat16: 0, torch.float16: 1}
+LAUNCH_NAMES = {torch.bfloat16: ("flash_attention_fwd", "flash_attention_bwd"),
+                torch.float16: ("flash_attention_fp16_fwd", "flash_attention_fp16_bwd")}
 _LIB = None
 
 
@@ -39,10 +47,11 @@ def _lib():
         lib = load("flash_attention")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attention_fwd_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                                   i32, i32, f32, ptr]
+                                                   i32, i32, f32, i32, ptr]
         lib.flash_attention_fwd_launch.restype = i32
         lib.flash_attention_bwd_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                                   ptr, ptr, i32, i32, i32, i32, i32, f32, ptr]
+                                                   ptr, ptr, i32, i32, i32, i32, i32, f32, i32,
+                                                   ptr]
         lib.flash_attention_bwd_launch.restype = i32
         lib.flash_attention_error_string.argtypes = [i32]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -73,9 +82,9 @@ def _forward(q, k, v, segment_ids, causal: bool, sm_scale: float):
     with torch.cuda.device(q.device):
         rc = _lib().flash_attention_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _seg_ptr(segment_ids), o.data_ptr(),
-            lse.data_ptr(), B, S, H, D, int(causal), sm_scale, stream)
+            lse.data_ptr(), B, S, H, D, int(causal), sm_scale, DTYPES[q.dtype], stream)
     _raise_on(rc, "flash_attention_fwd")
-    record_launch("flash_attention_fwd")
+    record_launch(LAUNCH_NAMES[q.dtype][0])
     return o, lse
 
 
@@ -88,9 +97,9 @@ def _backward(q, k, v, segment_ids, o, lse, do, causal: bool, sm_scale: float):
         rc = _lib().flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _seg_ptr(segment_ids), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, S, H, D, int(causal), sm_scale, stream)
+            dv.data_ptr(), B, S, H, D, int(causal), sm_scale, DTYPES[q.dtype], stream)
     _raise_on(rc, "flash_attention_bwd")
-    record_launch("flash_attention_bwd")
+    record_launch(LAUNCH_NAMES[q.dtype][1])
     return dq, dk, dv
 
 
@@ -123,7 +132,8 @@ def flash_attention_cuda(q, k, v, segment_ids=None, causal=True, sm_scale=None):
                f"{name} must match q's shape {tuple(q.shape)} and device (repeat GQA heads "
                f"first), got {tuple(t.shape)} on {t.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(t.dtype == torch.bfloat16, f"{name} must be bfloat16, got {t.dtype}")
+        _check(t.dtype in DTYPES and t.dtype == q.dtype,
+               f"{name} must be bfloat16 or float16, as q, got {t.dtype}")
         _check(t.is_contiguous(), f"{name} must be contiguous")
     _check(D in HEAD_DIMS, f"head_dim {D} not in {HEAD_DIMS}")
     _check(S > 0 and S % SEQ_MULTIPLE == 0, f"sequence length {S} must be a positive "

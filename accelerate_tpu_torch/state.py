@@ -30,7 +30,7 @@ import torch
 import torch.distributed as dist
 
 from .parallel.mesh import ParallelismConfig
-from .utils.dataclasses import UNPORTED_PRECISIONS, PrecisionType
+from .utils.dataclasses import PrecisionType
 from .utils.device import resolve_device
 
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
@@ -105,16 +105,12 @@ class PartialState(ProcessView):
 class AcceleratorState:
     """The job's rank (:class:`PartialState`), its ``dp`` x ``sp`` mesh (None
     for a single process without sequence parallelism) and the
-    mixed-precision mode."""
+    mixed-precision mode (``no``, ``bf16``, ``fp16`` or ``fp8``)."""
 
     def __init__(self, mixed_precision: str | None = None, device=None,
                  parallelism_config: ParallelismConfig | None = None,
                  init_method: str | None = None):
         mode = "no" if mixed_precision is None else str(mixed_precision).lower()
-        if mode in UNPORTED_PRECISIONS:
-            raise NotImplementedError(
-                f"mixed_precision={mode!r} is not ported yet (ROADMAP.md, module queue: "
-                "the fp16 gradient scaler and the int8 matmul path)")
         if mode not in {p.value for p in PrecisionType}:
             raise ValueError(f"Unknown mixed_precision mode: {mixed_precision!r}; "
                              f"choose from {[p.value for p in PrecisionType]}")
@@ -129,7 +125,11 @@ class AcceleratorState:
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        return torch.bfloat16 if self.mixed_precision == "bf16" else torch.float32
+        """bf16 under ``bf16`` and ``fp8`` (whose int8 products take bf16
+        operands), fp16 under ``fp16``, else f32 (JAX ``state.py:589-594``)."""
+        if self.mixed_precision in ("bf16", "fp8"):
+            return torch.bfloat16
+        return torch.float16 if self.mixed_precision == "fp16" else torch.float32
 
     @property
     def sp_size(self) -> int:

@@ -1,29 +1,59 @@
 """The parts of ``accelerate_tpu/utils/dataclasses.py`` the Accelerator reads.
 
-The mixed-precision names the port trains with: ``no`` (f32 compute) and
-``bf16`` (f32 master parameters, bf16 compute). ``fp16`` needs the gradient
-scaler and ``fp8`` the int8 matmul path; neither is ported, and
-``state.AcceleratorState`` raises ``NotImplementedError`` for them. Also
-the sequence-parallel plugin, the fully sharded data-parallel plugin and
-the remat policies it turns on, the random streams a loader synchronizes,
-the data-loader configuration and the project (checkpoint and logging
-folder) configuration. The JAX package has no tracker-type enum: trackers are named
-by string (``tracking.LOGGER_TYPE_TO_CLASS``), and so are the port's.
+The mixed-precision modes (JAX ``utils/dataclasses.py:84-88``): ``no`` (f32
+compute), ``bf16`` (f32 master parameters, bf16 compute), ``fp16`` (fp16
+compute with the dynamic loss scaler of ``optimizer.GradScalerState``) and
+``fp8`` (bf16 compute with the block projections through the int8 matmul,
+quantization-aware training, as :class:`Fp8RecipeKwargs` describes). Also
+the fp8 recipe, the sequence-parallel plugin, the fully sharded
+data-parallel plugin and the remat policies it turns on, the random streams
+a loader synchronizes, the data-loader configuration and the project
+(checkpoint and logging folder) configuration. The JAX package has no
+tracker-type enum: trackers are named by string
+(``tracking.LOGGER_TYPE_TO_CLASS``), and so are the port's.
 """
 
 from __future__ import annotations
 
+import copy
 import enum
 from dataclasses import dataclass
+
+
+class KwargsHandler:
+    """Base of the handlers ``Accelerator(kwargs_handlers=[...])`` takes
+    (JAX ``utils/dataclasses.py:25-34``): ``to_kwargs`` is what differs
+    from the defaults."""
+
+    def to_dict(self):
+        return copy.deepcopy(self.__dict__)
+
+    def to_kwargs(self):
+        default_dict = self.__class__().to_dict()
+        return {k: v for k, v in self.to_dict().items() if default_dict[k] != v}
 
 
 class PrecisionType(str, enum.Enum):
     NO = "no"
     BF16 = "bf16"
+    FP16 = "fp16"
+    FP8 = "fp8"
 
 
-# Mixed-precision modes of the JAX package that the port does not run yet.
-UNPORTED_PRECISIONS = ("fp16", "fp8")
+@dataclass
+class Fp8RecipeKwargs(KwargsHandler):
+    """The ``mixed_precision="fp8"`` recipe (JAX ``utils/dataclasses.py:
+    225-248``): ``backend="int8"`` swaps the model's block projections to
+    the int8 matmul with the straight-through backward at ``prepare``
+    (quantization-aware training; ``ops/int8.py``, the kernel of
+    ``csrc/int8_matmul.cu`` on the card), ``backend="bf16"`` keeps plain
+    bf16 compute."""
+
+    backend: str = "int8"  # 'int8' (QAT matmuls) | 'bf16' (cast-only fallback)
+
+    def __post_init__(self):
+        if self.backend not in ("int8", "bf16"):
+            raise ValueError(f"fp8 recipe backend must be int8|bf16, got {self.backend!r}")
 
 
 @dataclass
@@ -51,8 +81,12 @@ class FullyShardedDataParallelPlugin:
       is turned on at ``prepare``;
     - ``state_dict_type``: ``save_state`` writes the full layout either way
       (module docstring of ``checkpointing.py``);
-    - ``cpu_offload=True`` (host offload of the sharded optimizer state) is
-      not ported and raises."""
+    - ``cpu_offload``: the imperative optimizer keeps its state (the
+      moments, on the shards under fsdp) in pinned host memory between
+      steps and brings it to the device only for the update (JAX
+      ``accelerator.py:445-449``; ``optimizer.AcceleratedOptimizer``); the
+      fused ``build_train_step`` keeps its state on the device, as the JAX
+      package's does."""
 
     fsdp_size: int = -1
     reshard_after_forward: bool = True
@@ -64,10 +98,6 @@ class FullyShardedDataParallelPlugin:
     def __post_init__(self):
         if self.state_dict_type not in ("SHARDED_STATE_DICT", "FULL_STATE_DICT"):
             raise ValueError(f"invalid state_dict_type {self.state_dict_type}")
-        if self.cpu_offload:
-            raise NotImplementedError(
-                "FullyShardedDataParallelPlugin(cpu_offload=True), host offload of the "
-                "optimizer state, is not ported yet (ROADMAP.md, module queue item 1)")
 
 
 # The remat policies of the JAX package's ``jax.checkpoint_policies`` the
@@ -107,8 +137,10 @@ class RNGType(str, enum.Enum):
 @dataclass
 class DataLoaderConfiguration:
     """How ``Accelerator.prepare`` shards a loader (JAX
-    ``utils/dataclasses.py:288-297``). ``dispatch_batches=True`` (rank 0
-    reads, the others receive) is not ported yet and raises at ``prepare``;
+    ``utils/dataclasses.py:288-297``). ``dispatch_batches=True``: rank 0
+    reads and each rank receives its slice by a broadcast
+    (``data_loader.DataLoaderDispatcher``; None: on for an iterable dataset
+    over several ranks, as in the JAX package);
     ``use_stateful_dataloader`` is accepted as the JAX package accepts it
     (every prepared loader resumes mid-epoch, and a base loader with its own
     ``state_dict`` is used as one); ``non_blocking`` makes the loader's

@@ -1,6 +1,6 @@
 """Batch placement — the port's counterpart of the JAX package's
-``Accelerator._place_batch`` (``accelerator.py:693``) and the host-to-device
-side of ``utils/transfer.py``.
+``Accelerator._place_batch`` (``accelerator.py:693``) and of
+``utils/transfer.py``.
 
 A training step's batch arrives as numpy arrays (or CPU tensors). Each leaf
 goes to the step's device through :func:`.device.host_to_device`: pinned
@@ -8,6 +8,13 @@ memory and a non-blocking copy, so the host never waits for the work already
 queued on the card. Leaves already on the device pass through untouched.
 Under a dp x sp mesh, :func:`shard_batch` cuts each rank's shard out of the
 global batch first.
+
+The input-transfer counters (JAX ``utils/transfer.py:66-96``):
+:func:`host_put` counts a deliberate host-to-device batch upload (the
+``DeviceBatchPrefetcher``'s), :func:`record_input_wait` a wait of the
+training thread for a batch that was not staged yet (a blocking input
+transfer and its wall-clock seconds), and :func:`transfer_stats` /
+:func:`reset_transfer_stats` read and clear them.
 """
 
 from __future__ import annotations
@@ -16,6 +23,39 @@ import numpy as np
 import torch
 
 from .device import host_to_device
+
+_stats = {
+    "h2d_puts": 0,        # deliberate host-to-device batch uploads
+    "h2d_blocking": 0,    # input waits: the training thread stalled on an upload
+    "input_wait_s": 0.0,  # wall-clock seconds of those stalls
+    "resets": 0,          # reset_transfer_stats calls
+}
+
+
+def host_put(x, placer):
+    """``placer(x)``: a deliberate host-to-device upload, counted. The copy
+    itself is asynchronous, so a wait is counted on the consumer's side
+    (:func:`record_input_wait`), not here."""
+    _stats["h2d_puts"] += 1
+    return placer(x)
+
+
+def record_input_wait(seconds: float):
+    """The training thread waited ``seconds`` for an input batch that was
+    not staged yet: one blocking host-to-device transfer."""
+    _stats["h2d_blocking"] += 1
+    _stats["input_wait_s"] += float(seconds)
+
+
+def transfer_stats() -> dict:
+    """A snapshot of every counter."""
+    return dict(_stats)
+
+
+def reset_transfer_stats():
+    _stats["h2d_puts"] = _stats["h2d_blocking"] = 0
+    _stats["input_wait_s"] = 0.0
+    _stats["resets"] += 1
 
 
 def place_batch(batch, device):

@@ -15,6 +15,9 @@
                                      # mid-epoch resume of that loop
     python3 chip_smoke.py --fsdp     # only phase 13, sharded training
                                      # (fsdp, ZeRO, remat) on one card
+    python3 chip_smoke.py --precision  # only phase 14: fp16, fp8 (int8
+                                     # QAT), the train window and its
+                                     # prefetcher, host offload
     python3 chip_smoke.py --splash-times  # only the splash kernels' times at
                                      # Gemma-2-9B's layers (to set two trees
                                      # side by side in one run: copy this
@@ -184,6 +187,35 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    ``flops_per_token``, not counting the recompute) and peak memory are
    logged. The kernels' table adds these launches to rows 4, 5 and 5b.
 
+14. The rest of single-card training, on phase 7's model (Llama-3-8B widths
+   cut to 4 layers, 2 x 2048 seeded ids, ``adamw(3e-4)``, clip 1.0). E: the
+   flash kernel in fp16 at B2 S2048 H32 D128, forward and backward, against
+   its plain version under flash's pins, timed beside
+   ``scaled_dot_product_attention`` in fp16 (rows 5c and 5d). The int8
+   matmul at M = 4096 (a training step's rows) on the four projection
+   shapes, bitwise its plain version with ``plan()``'s partition logged,
+   and the 4096 -> 14336 product timed as the kernel, the bf16 ``x @ w`` and
+   ``torch._int_mm`` on operands already quantized (row 3c). A:
+   ``mixed_precision="fp16"``, 8 ``build_train_step`` steps and the same
+   with ``kernels="off"``, both with a ``loss_fn`` that poisons step 3 (its
+   loss times +inf): the same scales and skipped steps (step 3 among
+   them, the scale halving there), losses on the
+   applied steps within ``TRAIN_LOSS_ATOL``, the fp16 flash kernels
+   launched 4 + 4 a step and the update 12 times on each applied step and
+   never on a skipped one; the scale trajectory, step time, tokens/s, MFU
+   and peak memory. B: ``mixed_precision="fp8"`` (int8 QAT), 5 steps with
+   the int8 matmul launched 28 times a step, the first 3 losses within the
+   pin of a ``kernels="off"`` arm. C: bf16 ``build_train_window(window=4)``
+   fed by ``DeviceBatchPrefetcher(window=4)``, 2 windows: losses and final
+   parameters bitwise 8 ``build_train_step`` calls, 2 uploads and no
+   blocking input wait. D: the imperative loop under
+   ``FullyShardedDataParallelPlugin(fsdp_size=1, cpu_offload=True)``, 4
+   steps: losses and final parameters bitwise the loop without offload,
+   the optimizer state in pinned host memory between steps and the device
+   holding at least its bytes less; step time and peak memory of both. The
+   kernels' table gains rows 3c, 5c and 5d (launches in arms B and A), and
+   this phase's bf16 flash and update launches are added to rows 4, 5, 5b.
+
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script exits non-zero before printing any result.
@@ -272,6 +304,11 @@ SHARD_STEPS, SHARD_WARMUP = 4, 1
 # ranks in f32, so the bf16 losses move in the third decimal at most; no
 # looser than phase 7's kernels-off pin (TRAIN_LOSS_ATOL).
 SHARD_LOSS_ATOL = 1e-2
+# Phase 14: the rest of single-card training at phase 7's cut.
+PREC_FP16_STEPS, PREC_FP8_STEPS, PREC_FP8_OFF_STEPS = 8, 5, 3
+PREC_FP16_POISON = 3  # the fp16 arms' step whose loss_fn returns +inf
+PREC_WINDOW, PREC_WINDOWS, PREC_OFFLOAD_STEPS = 4, 2, 4
+INT8_TRAIN_M = TRAIN_BATCH * TRAIN_SEQ  # rows of every block projection of a step
 T_START = time.perf_counter()
 
 
@@ -1007,13 +1044,14 @@ def tile_rel_err(got, ref, real, tile: int = 64) -> float:
     return float((num[den > 0] / den[den > 0]).sqrt().max())
 
 
-def flash_case(B, S, H, D, padded: bool):
-    """Inputs of one flash case, made on the card from the seed."""
+def flash_case(B, S, H, D, padded: bool, dtype=None):
+    """Inputs of one flash case (bf16 unless ``dtype``), made on the card
+    from the seed."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device="cuda", dtype=torch.bfloat16)
-                   for _ in range(4))
+    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device="cuda",
+                               dtype=dtype or torch.bfloat16) for _ in range(4))
     seg = None
     if padded:  # right padding: the last quarter of row 1 is pads
         seg = torch.full((B, S), 2, dtype=torch.int32, device="cuda")
@@ -1021,21 +1059,28 @@ def flash_case(B, S, H, D, padded: bool):
     return q, k, v, do, seg
 
 
-def flash_op_phase():
-    """Flash kernel vs its plain version; returns the fwd and bwd rows at
-    the training shape (the first case)."""
+FLASH_CASES = [("causal S2048", 2, 2048, 32, 128, False),
+               ("padded S2048", 2, 2048, 32, 128, True),
+               ("crossover S1024", 2, 1024, 32, 128, False),
+               ("ragged S1088", 2, 1088, 32, 128, True), ("D64 S2048", 2, 2048, 32, 64, False)]
+
+
+def flash_op_phase(dtype=None, cases=None):
+    """Flash kernel vs its plain version, bf16 unless ``dtype`` (fp16:
+    phase 14's cell); returns the fwd and bwd rows at the training shape
+    (the first case), named as the wrapper counts that dtype's launches."""
     import torch
     import torch.nn.functional as F
 
     from accelerate_tpu_torch.ops.attention import flash_attention_reference
     from accelerate_tpu_torch.ops.kernels import flash_attention as fk
 
-    cases = [("causal S2048", 2, 2048, 32, 128, False), ("padded S2048", 2, 2048, 32, 128, True),
-             ("crossover S1024", 2, 1024, 32, 128, False), ("ragged S1088", 2, 1088, 32, 128, True),
-             ("D64 S2048", 2, 2048, 32, 64, False)]
+    dtype = dtype or torch.bfloat16
+    fwd_name, bwd_name = fk.LAUNCH_NAMES[dtype]
     rows = []
-    for label, B, S, H, D, padded in cases:
-        q, k, v, do, seg = flash_case(B, S, H, D, padded)
+    for label, B, S, H, D, padded in cases or FLASH_CASES:
+        q, k, v, do, seg = flash_case(B, S, H, D, padded, dtype)
+        label = f"{label} {str(dtype).split('.')[-1]}"
         scale = 1.0 / math.sqrt(D)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -1109,9 +1154,9 @@ def flash_op_phase():
         if not rows:  # the training shape: the rows of the kernel table
             base = {"route": "cuda", "source": "accelerate_tpu_torch/csrc/flash_attention.cu",
                     "replaces": "accelerate_tpu/ops/attention.py:144", "launches": 0}
-            rows = [dict(base, name="flash_attention_fwd", max_abs_err=fwd_err, ms=t_fwd,
+            rows = [dict(base, name=fwd_name, max_abs_err=fwd_err, ms=t_fwd,
                          plain_ms=t_plain_fwd, bound_ms=fb, bound_by=fby, library_ms=t_lib_fwd),
-                    dict(base, name="flash_attention_bwd",
+                    dict(base, name=bwd_name,
                          max_abs_err=float(max((a.grad.float() - b.grad.float()).abs().max()
                                                for a, b in zip(leaves, ref_leaves))),
                          ms=t_bwd, plain_ms=t_plain_bwd, bound_ms=bb, bound_by=bby,
@@ -2653,6 +2698,359 @@ def shard_phase(card: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ phase 14
+def _train_batches(cfg, n: int, seed: int = SEED):
+    """``n`` seeded host batches of phase 7's shape (the ids as labels)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+        out.append({"input_ids": ids, "labels": ids})
+    return out
+
+
+def _count_delta(now: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
+
+
+def precision_arm(cfg, mixed_precision: str, steps: int, kernels=None, warmup: int = 1,
+                  poison=None):
+    """``build_train_step`` under ``mixed_precision`` on a fresh model from
+    the seed, ``steps`` steps of phase 7's batch with clip 1.0: per-step
+    losses, scales and skip flags, per-step and total launch counts, step
+    seconds after ``warmup`` steps and peak bytes. At step ``poison`` the
+    step's ``loss_fn`` multiplies the loss by +inf (a poisoned batch), so
+    its gradients are not finite."""
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, Llama, adamw
+    from accelerate_tpu_torch.ops import registry
+
+    torch.cuda.reset_peak_memory_stats()
+    model = Llama(cfg)
+    model.init_params(SEED)
+    acc = Accelerator(mixed_precision=mixed_precision, kernels=kernels)
+    pm, po = acc.prepare(model, adamw(3e-4))
+    now_at = [0]
+
+    def loss_fn(outputs, batch):
+        return outputs["loss"] * (math.inf if now_at[0] == poison else 1.0)
+
+    step = acc.build_train_step(pm, po, loss_fn=loss_fn)
+    batch = _train_batches(cfg, 1)[0]
+    registry.reset_launch_counts()
+    losses, scales, skipped, per_step, before, t0 = [], [], [], [], {}, None
+    for i in range(steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        now_at[0] = i
+        losses.append(step(batch, clip_norm=1.0))
+        scales.append(None if po.scaler is None else po.scaler.scale)
+        skipped.append(po.step_was_skipped)
+        now = dict(registry.launch_counts)
+        per_step.append(_count_delta(now, before))
+        before = now
+    torch.cuda.synchronize()
+    out = dict(losses=[float(x) for x in losses], scales=scales, skipped=skipped,
+               per_step=per_step, counts=dict(registry.launch_counts),
+               step_s=(time.perf_counter() - t0) / (steps - warmup),
+               peak=torch.cuda.max_memory_allocated(), skipped_steps=po.skipped_steps)
+    del model, acc, pm, po, step, losses
+    free_cuda()
+    return out
+
+
+def int8_train_cells() -> dict:
+    """The int8 matmul at M = 4096 rows (2 x 2048 tokens: a training step's
+    block projections) on the four Llama-3-8B shapes, bitwise against its
+    plain version; the 4096 -> 14336 product timed as the kernel (CUDA
+    events and the profiler's device time), the bf16 ``x @ w`` (cuBLAS) and
+    ``torch._int_mm`` on operands already quantized. Returns row 3c."""
+    import torch
+
+    from accelerate_tpu_torch.ops.int8 import int8_matmul_reference, quantize_rowwise
+    from accelerate_tpu_torch.ops.kernels.int8_matmul import int8_matmul_cuda, plan
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    M, row = INT8_TRAIN_M, None
+    for K, N in INT8_SHAPES:
+        pl = plan(M, N, K, 2, sms)
+        if pl is None:
+            raise SystemExit(f"int8_matmul M={M} K={K} N={N}: plan() finds no partition")
+        x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, K), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        w = (torch.randn((K, N), generator=g, device="cuda") / math.sqrt(K)).to(torch.bfloat16)
+        got, ref = int8_matmul_cuda(x, w), int8_matmul_reference(x, w)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        if got.dtype != ref.dtype or not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+            raise SystemExit(f"int8_matmul M={M} K={K} N={N}: kernel disagrees with the plain "
+                             f"version (max_abs_err={err})")
+        log(f"op int8_matmul M={M} K={K} N={N} bf16: bitwise equal; panels of {pl.nt} columns, "
+            f"clusters of {pl.cluster} CTAs x {pl.per} k blocks, tiles of {pl.mt} rows "
+            f"({-(-M // pl.mt)} a CTA in turn), {pl.ctas} CTAs of {pl.smem} B")
+        if (K, N) == (4096, 14336):
+            qx, _ = quantize_rowwise(x.reshape(M, K), -1)
+            qw, _ = quantize_rowwise(w, 0)
+            qb = qw.t().contiguous().t()  # column-major: cuBLASLt's int8 layout
+            t_kernel = cuda_ms(lambda: int8_matmul_cuda(x, w), 20)
+            t_device = profiled_ms(lambda: int8_matmul_cuda(x, w), kernels=2,
+                                   label=f"int8_matmul M={M} K={K} N={N}")
+            t_plain = cuda_ms(lambda: int8_matmul_reference(x, w), 3)
+            t_lib = cuda_ms(lambda: torch._int_mm(qx, qb), 20)
+            t_bf16 = cuda_ms(lambda: x @ w, 20)
+            ops = 2 * M * N * K
+            moved = 2 * (M * K + K * N + M * N)  # bf16 x and w in, bf16 out
+            t_ops, t_bytes = ops / INT8_OPS_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+            bound, by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+            log(f"op int8_matmul M={M} K={K} N={N}: kernel {t_kernel:.4f} ms ({t_device:.4f} ms "
+                f"of device time, profiler), plain {t_plain:.4f} ms, torch._int_mm on "
+                f"pre-quantized operands {t_lib:.4f} ms (the contraction only), bf16 x @ w "
+                f"(cuBLAS) {t_bf16:.4f} ms; bound {bound:.4f} ms ({by}: {ops / 1e9:.0f} GOP at "
+                f"1979 TOP/s, {moved / 1e6:.0f} MB at 3.35 TB/s is {t_bytes:.4f} ms); "
+                f"{ops / t_kernel / 1e9:.1f} TOP/s, {bound / t_kernel:.1%} of the bound")
+            row = {"name": "int8_matmul_train", "route": "cuda",
+                   "source": "accelerate_tpu_torch/csrc/int8_matmul.cu",
+                   "replaces": "accelerate_tpu/ops/pallas/int8_mm.py:36", "launches": 0,
+                   "max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain, "bound_ms": bound,
+                   "bound_by": by, "library_ms": t_lib}
+            del qx, qw, qb
+        del x, w, got, ref
+        free_cuda()
+    return row
+
+
+def window_phase(cfg, card: str) -> dict:
+    """Arm C: ``build_train_window(window=4)`` fed by
+    ``DeviceBatchPrefetcher(window=4)`` over 2 windows, then 8
+    ``build_train_step`` calls on a fresh model over the same batches:
+    losses and final parameters bitwise; no blocking input wait after the
+    first window. Returns the window arm's launch counts."""
+    import torch
+
+    from accelerate_tpu_torch import (Accelerator, DeviceBatchPrefetcher, Llama, adamw,
+                                      prepare_data_loader, reset_transfer_stats, transfer_stats)
+    from accelerate_tpu_torch.ops import registry
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    batches = _train_batches(cfg, PREC_WINDOW * PREC_WINDOWS, seed=SEED + 14)
+
+    def fresh():
+        model = Llama(cfg)
+        model.init_params(SEED)
+        acc = Accelerator(mixed_precision="bf16")
+        return (acc,) + acc.prepare(model, adamw(3e-4))
+
+    torch.cuda.reset_peak_memory_stats()
+    acc, pm, po = fresh()
+    window = acc.build_train_window(pm, po, window=PREC_WINDOW)
+    feed = DeviceBatchPrefetcher(prepare_data_loader(batches), prefetch=2, window=PREC_WINDOW)
+    reset_transfer_stats()
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = [window(wb, clip_norm=1.0) for wb in feed]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats, counts = transfer_stats(), dict(registry.launch_counts)
+    w_losses = torch.cat(out).cpu()
+    w_params = [p.detach().cpu() for p in tree_leaves(pm.params)]
+    peak = torch.cuda.max_memory_allocated()
+    del acc, pm, po, window, feed, out
+    free_cuda()
+    acc, pm, po = fresh()
+    step = acc.build_train_step(pm, po)
+    s_losses = torch.stack([step(b, clip_norm=1.0) for b in batches]).cpu()
+    same_loss = torch.equal(w_losses.view(torch.int32), s_losses.view(torch.int32))
+    same_params = all(torch.equal(p.view(torch.int32), h.to(p.device).view(torch.int32))
+                      for p, h in zip(tree_leaves(pm.params), w_params))
+    del acc, pm, po, step, w_params
+    free_cuda()
+    layers, n = cfg.num_hidden_layers, PREC_WINDOW * PREC_WINDOWS
+    want = {"flash_attention_fwd": n * layers, "flash_attention_bwd": n * layers,
+            "fused_adamw_update": n * 12}
+    if not (same_loss and same_params):
+        raise SystemExit(f"window: not bitwise {n} build_train_step calls (losses equal "
+                         f"{same_loss}, parameters equal {same_params}): {w_losses.tolist()} vs "
+                         f"{s_losses.tolist()}")
+    if counts != want or stats["h2d_puts"] != PREC_WINDOWS or stats["h2d_blocking"] != 0:
+        raise SystemExit(f"window: launches {counts} (expected {want}), transfers {stats} "
+                         f"(expected {PREC_WINDOWS} uploads, no blocking wait)")
+    tokens = n * TRAIN_BATCH * TRAIN_SEQ
+    rounded = [round(x, 4) for x in w_losses.tolist()]
+    log(f"window: {PREC_WINDOWS} windows of {PREC_WINDOW} bf16 steps fed by "
+        f"DeviceBatchPrefetcher(window={PREC_WINDOW}): losses {rounded} bitwise {n} "
+        f"build_train_step calls, final parameters bitwise; "
+        f"transfers {stats}; {wall / n * 1e3:.1f} ms a step ({tokens / wall:.0f} tokens/s, the "
+        f"first window included); launches {counts}; peak memory {peak / 2**30:.2f} GiB [{card}]")
+    return counts
+
+
+def offload_arm(cfg, offload: bool, batches) -> dict:
+    """The imperative loop (forward, ``backward``, ``clip_grad_norm_(1.0)``,
+    ``step``, ``zero_grad``) under ``FullyShardedDataParallelPlugin(
+    fsdp_size=1, cpu_offload=offload)`` over ``batches``: losses, final
+    parameters (on the host), the device bytes allocated between steps, the
+    state's host bytes and placement, step seconds after the first step and
+    peak bytes."""
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, FullyShardedDataParallelPlugin, Llama, adamw
+    from accelerate_tpu_torch.ops import registry
+    from accelerate_tpu_torch.utils.tree import flatten_with_paths, tree_leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    model = Llama(cfg)
+    model.init_params(SEED)
+    acc = Accelerator(mixed_precision="bf16", fsdp_plugin=FullyShardedDataParallelPlugin(
+        fsdp_size=1, cpu_offload=offload))
+    pm, po = acc.prepare(model, adamw(3e-4))
+    registry.reset_launch_counts()
+    losses, between, placed, t0 = [], [], [], None
+    for i, batch in enumerate(batches):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out = pm(**batch)
+        acc.backward(out["loss"])
+        acc.clip_grad_norm_(pm, 1.0)
+        po.step()
+        po.zero_grad()
+        losses.append(out["loss"].detach())
+        state = [t for _, t in flatten_with_paths(po.opt_state) if isinstance(t, torch.Tensor)]
+        torch.cuda.synchronize()
+        between.append(torch.cuda.memory_allocated())
+        placed.append(all(t.device.type == "cpu" and t.is_pinned() for t in state))
+    torch.cuda.synchronize()
+    run = dict(losses=torch.stack(losses).cpu(), step_s=(time.perf_counter() - t0) /
+               (len(batches) - 1), between=between, placed=placed,
+               state_bytes=sum(t.numel() * t.element_size() for t in state),
+               params=[p.detach().cpu() for p in tree_leaves(pm.params)],
+               counts=dict(registry.launch_counts), peak=torch.cuda.max_memory_allocated())
+    del model, acc, pm, po, out, state
+    free_cuda()
+    return run
+
+
+def offload_phase(cfg, card: str) -> dict:
+    """Arm D: the imperative loop with the optimizer state offloaded to
+    pinned host memory, bitwise the same loop without offload; between
+    steps the state lies in pinned host memory and the device holds none
+    of it. Returns the offload arm's launch counts."""
+    import torch
+
+    batches = _train_batches(cfg, PREC_OFFLOAD_STEPS, seed=SEED + 15)
+    keep = offload_arm(cfg, False, batches)
+    off = offload_arm(cfg, True, batches)
+    same = torch.equal(keep["losses"].view(torch.int32), off["losses"].view(torch.int32)) and all(
+        torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for a, b in zip(keep["params"], off["params"]))
+    freed = [a - b for a, b in zip(keep["between"], off["between"])]
+    leaves = 12
+    want = {"flash_attention_fwd": PREC_OFFLOAD_STEPS * cfg.num_hidden_layers,
+            "flash_attention_bwd": PREC_OFFLOAD_STEPS * cfg.num_hidden_layers,
+            "fused_adamw_update": PREC_OFFLOAD_STEPS * leaves}
+    if not same:
+        raise SystemExit(f"offload: not bitwise the loop without offload: losses "
+                         f"{off['losses'].tolist()} vs {keep['losses'].tolist()}")
+    if not all(off["placed"]) or any(keep["placed"]) or min(freed) < off["state_bytes"]:
+        raise SystemExit(f"offload: state in pinned host memory after each step "
+                         f"{off['placed']}, device bytes freed {freed} < the state's "
+                         f"{off['state_bytes']}")
+    if off["counts"] != want or keep["counts"] != want:
+        raise SystemExit(f"offload: launches {off['counts']} and {keep['counts']}, expected "
+                         f"{want}")
+    log(f"offload: {PREC_OFFLOAD_STEPS} imperative bf16 steps, losses "
+        f"{[round(x, 4) for x in off['losses'].tolist()]} and {len(off['params'])} parameter "
+        f"leaves bitwise the loop without offload; between steps the state "
+        f"({off['state_bytes'] / 1e9:.2f} GB) lies in pinned host memory and the device holds "
+        f"{min(freed) / 1e9:.2f} GB less; step {off['step_s'] * 1e3:.1f} ms vs "
+        f"{keep['step_s'] * 1e3:.1f} ms without offload, peak memory "
+        f"{off['peak'] / 2**30:.2f} vs {keep['peak'] / 2**30:.2f} GiB; launches {off['counts']} "
+        f"[{card}]")
+    return off["counts"]
+
+
+def precision_phase(card: str):
+    """Phase 14; returns its kernel-table rows (3c, 5c, 5d) and the launch
+    counts of its arms, rows 5c and 5d counted in arm A, row 3c in arm B."""
+    import torch
+
+    from accelerate_tpu_torch import Llama, LlamaConfig
+
+    cfg = LlamaConfig.llama3_8b(**TRAIN_CUT)
+    probe = Llama(cfg, device="cpu")
+    fpt, layers = probe.flops_per_token(), cfg.num_hidden_layers
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flash_rows = flash_op_phase(torch.float16, FLASH_CASES[:1])  # E: the fp16 cell
+    int8_row = int8_train_cells()
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # A: fp16 with its loss scaler, against kernels="off"; step PREC_FP16_POISON
+    # is poisoned, so at least that step must be skipped in both arms.
+    a = precision_arm(cfg, "fp16", PREC_FP16_STEPS, poison=PREC_FP16_POISON)
+    a_off = precision_arm(cfg, "fp16", PREC_FP16_STEPS, kernels="off", poison=PREC_FP16_POISON)
+    applied = [i for i, s in enumerate(a["skipped"]) if not s]
+    if a["scales"] != a_off["scales"] or a["skipped"] != a_off["skipped"] or not applied or \
+            not a["skipped"][PREC_FP16_POISON]:
+        raise SystemExit(f"fp16: scales {a['scales']} / skipped {a['skipped']} vs kernels='off' "
+                         f"{a_off['scales']} / {a_off['skipped']} (at least one applied step, "
+                         f"step {PREC_FP16_POISON} skipped)")
+    diff = max(abs(a["losses"][i] - a_off["losses"][i]) for i in applied)
+    finite = all(math.isfinite(a["losses"][i]) for i in applied)
+    for i, counts in enumerate(a["per_step"]):
+        want = {"flash_attention_fp16_fwd": layers, "flash_attention_fp16_bwd": layers}
+        if i in applied:
+            want["fused_adamw_update"] = 12
+        if counts != want:
+            raise SystemExit(f"fp16 step {i}: launches {counts}, expected {want}")
+    if diff > TRAIN_LOSS_ATOL or not finite or a_off["counts"]:
+        raise SystemExit(f"fp16: losses {a['losses']} vs kernels='off' {a_off['losses']} on "
+                         f"applied steps {applied} (max |diff| {diff}, pin {TRAIN_LOSS_ATOL}); "
+                         f"kernels='off' launches {a_off['counts']}")
+    mfu = fpt * tokens / a["step_s"] / BF16_OPS_PER_S
+    log(f"fp16: {PREC_FP16_STEPS} build_train_step steps, scales {a['scales']}, skipped "
+        f"{a['skipped']} ({a['skipped_steps']} skipped), both as kernels='off'; losses "
+        f"{[round(x, 4) for x in a['losses']]}, max |diff| on applied steps {diff:.3e} (pin "
+        f"{TRAIN_LOSS_ATOL}); step {a['step_s'] * 1e3:.1f} ms, {tokens / a['step_s']:.0f} "
+        f"tokens/s, MFU {100 * mfu:.2f}% of 989 TFLOP/s; launches {a['counts']}; peak memory "
+        f"{a['peak'] / 2**30:.2f} GiB (kernels='off' {a_off['peak'] / 2**30:.2f} GiB) [{card}]")
+    add(a["counts"])
+    flash_rows[0]["launches"] = a["counts"].get("flash_attention_fp16_fwd", 0)
+    flash_rows[1]["launches"] = a["counts"].get("flash_attention_fp16_bwd", 0)
+
+    # B: fp8 as int8 QAT, against kernels="off".
+    b = precision_arm(cfg, "fp8", PREC_FP8_STEPS)
+    b_off = precision_arm(cfg, "fp8", PREC_FP8_OFF_STEPS, kernels="off")
+    per_int8 = [c.get("int8_matmul", 0) for c in b["per_step"]]
+    diff = max(abs(x - y) for x, y in zip(b["losses"], b_off["losses"]))
+    if per_int8 != [7 * layers] * PREC_FP8_STEPS or b_off["counts"] or diff > TRAIN_LOSS_ATOL \
+            or not all(math.isfinite(x) for x in b["losses"]):
+        raise SystemExit(f"fp8: int8 launches a step {per_int8} (expected {7 * layers}), losses "
+                         f"{b['losses']} vs kernels='off' {b_off['losses']} (max |diff| {diff}, "
+                         f"pin {TRAIN_LOSS_ATOL}), kernels='off' launches {b_off['counts']}")
+    mfu = fpt * tokens / b["step_s"] / BF16_OPS_PER_S
+    log(f"fp8 (int8 QAT): {PREC_FP8_STEPS} steps, int8 launches a step {per_int8}; losses "
+        f"{[round(x, 4) for x in b['losses']]}, first {PREC_FP8_OFF_STEPS} within {diff:.3e} of "
+        f"kernels='off' (pin {TRAIN_LOSS_ATOL}); step {b['step_s'] * 1e3:.1f} ms, "
+        f"{tokens / b['step_s']:.0f} tokens/s, MFU {100 * mfu:.2f}% of the bf16 989 TFLOP/s; "
+        f"launches {b['counts']}; peak memory {b['peak'] / 2**30:.2f} GiB [{card}]")
+    add(b["counts"])
+    int8_row["launches"] = b["counts"].get("int8_matmul", 0)
+
+    add(window_phase(cfg, card))   # C
+    add(offload_phase(cfg, card))  # D
+    totals.pop("int8_matmul", None)  # row 3c's, not the serving row's
+    return [int8_row] + flash_rows, totals
+
+
 def _leaf_shapes(model):
     """The parameter leaves of ``model`` as meta tensors (shapes only)."""
     import torch
@@ -2706,6 +3104,15 @@ def main(argv) -> int:
         log(f"build: flash_attention, fused_update in {time.perf_counter() - t0:.1f} s; "
             f"device: {card}")
         shard_phase(card)
+        print(card)
+        return 0
+    if "--precision" in argv:
+        _build.build(["flash_attention", "fused_update", "int8_matmul"])
+        card = card_info()
+        log(f"build: flash_attention, fused_update, int8_matmul in "
+            f"{time.perf_counter() - t0:.1f} s; device: {card}")
+        precision_rows, _ = precision_phase(card)
+        log(f"phase 14 rows: {json.dumps(precision_rows)}")
         print(card)
         return 0
     if "--splash-times" in argv:
@@ -2782,13 +3189,17 @@ def main(argv) -> int:
     ckpt_counts = checkpoint_phase(card)
     free_cuda()
     shard_counts = shard_phase(card)
-    for row in rows:  # phase 7's launches plus those of phases 11, 12 and 13
+    free_cuda()
+    precision_rows, precision_counts = precision_phase(card)
+    for row in rows:  # phase 7's launches plus those of phases 11, 12, 13 and 14
         later = [counts.get(row["name"], 0) for counts in (loop_counts, ckpt_counts,
-                                                           shard_counts)]
+                                                           shard_counts, precision_counts)]
         if any(later):
             log(f"kernel {row['name']}: {row['launches']} launches in phase 7, {later[0]} in "
-                f"phase 11, {later[1]} in phase 12, {later[2]} in phase 13")
+                f"phase 11, {later[1]} in phase 12, {later[2]} in phase 13, {later[3]} in "
+                f"phase 14")
             row["launches"] += sum(later)
+    rows += precision_rows
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -192,8 +192,61 @@ def test_params_from_numpy_refuses_a_wrong_tree():
 
 @pytest.mark.parametrize("option", [dict(remat=True)])
 def test_unported_bert_options_raise(option):
-    with pytest.raises(NotImplementedError, match="remat"):
-        T.BertForSequenceClassification(T.BertConfig.tiny(**option), device="cpu")
+    # remat is ported: the model builds, and its gradients with dropout on
+    # are the plain model's, bitwise (the recompute draws the forward's
+    # masks). The pipeline schedule still raises.
+    _, plain = _models()
+    model = T.BertForSequenceClassification(T.BertConfig.tiny(hidden_dropout_prob=0.3,
+                                                              **option), device="cpu")
+    model.params = plain.params
+    plain.config = dataclasses.replace(plain.config, hidden_dropout_prob=0.3)
+    batch = _as_torch(_inputs(5))
+    grads = []
+    for m in (model, plain):
+        leaves = [p.detach().clone().requires_grad_(True) for p in tree_leaves(m.params)]
+        from accelerate_tpu_torch.utils.tree import tree_unflatten
+
+        g = torch.Generator().manual_seed(11)
+        loss = m.apply(tree_unflatten(m.params, leaves), train=True, generator=g,
+                       **batch)["loss"]
+        grads.append((loss, torch.autograd.grad(loss, leaves), g.get_state()))
+    assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][2], grads[1][2])
+    assert all(torch.equal(a, b) for a, b in zip(grads[0][1], grads[1][1]))
     _, tm = _models()
     with pytest.raises(NotImplementedError, match="pipeline"):
         tm.apply(tm.params, **_as_torch(_inputs()), pipeline=object())
+
+
+def test_remat_step_is_bitwise_the_plain_step_and_matches_jax():
+    """Three fused AdamW steps with dropout 0.1: ``BertConfig(remat=True)``
+    gives the plain step's losses and parameters bitwise; without dropout
+    the remat forward and gradients match JAX's remat (``jax.checkpoint`` of
+    the layer scan) at the f32 pins."""
+    from accelerate_tpu_torch.utils.tree import tree_unflatten
+
+    def run(remat):
+        _, tm = _models()
+        model = T.BertForSequenceClassification(
+            T.BertConfig.tiny(hidden_dropout_prob=0.1, remat=remat), device="cpu")
+        model.params = tm.params
+        acc = T.Accelerator(cpu=True)
+        pm, po = acc.prepare(model, T.adamw(1e-3, device="cpu"))
+        step = acc.build_train_step(pm, po)
+        losses = [step(_inputs(seed), clip_norm=1.0) for seed in range(3)]
+        return losses, tree_leaves(pm.params)
+
+    (l0, p0), (l1, p1) = run(False), run(True)
+    assert all(torch.equal(a, b) for a, b in zip(l0, l1))
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    jm, tm = _models(remat=True)
+    batch = _inputs(1)
+
+    def jloss(p):
+        return jm.apply(p, **{k: jnp.asarray(v) for k, v in batch.items()})["loss"]
+
+    jgrads = jax.jit(jax.grad(jloss))(jm.params)
+    leaves = [p.clone().requires_grad_(True) for p in tree_leaves(tm.params)]
+    loss = tm.apply(tree_unflatten(tm.params, leaves), train=True, **_as_torch(batch))["loss"]
+    assert abs(float(loss.detach()) - float(jloss(jm.params))) <= ATOL
+    for a, b in zip(jax.tree_util.tree_leaves(jgrads), torch.autograd.grad(loss, leaves)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=ATOL, rtol=0)

@@ -521,13 +521,23 @@ def test_mesh_mismatch_raises_without_reshard(tmp_path):
 
 
 def test_fp16_scale_in_a_checkpoint_raises(tmp_path):
-    acc = T.Accelerator(cpu=True)
-    acc.prepare(_port_bert(), T.adamw(LR, device="cpu"))
+    """The fp16 scaler is ported: a checkpoint's scale no longer raises. An
+    fp16 accelerator writes its scale to ``optimizer.meta.pkl`` and loads it
+    back; one without the scaler ignores it, as the JAX package does."""
+    acc = T.Accelerator(cpu=True, mixed_precision="fp16")
+    _, po = acc.prepare(_port_bert(), T.adamw(LR, device="cpu"))
+    po.scaler.scale = 1024.0
     path = acc.save_state(str(tmp_path / "ck"))
+    with open(os.path.join(path, "optimizer.meta.pkl"), "rb") as f:
+        assert pickle.load(f) == {"step_count": 0, "scale": 1024.0}
     with open(os.path.join(path, "optimizer.meta.pkl"), "wb") as f:
         pickle.dump({"step_count": 0, "scale": 65536.0}, f)
-    with pytest.raises(NotImplementedError, match="fp16"):
-        acc.load_state(path)
+    acc.load_state(path)
+    assert po.scaler.scale == 65536.0
+    plain = T.Accelerator(cpu=True)
+    _, po_plain = plain.prepare(_port_bert(), T.adamw(LR, device="cpu"))
+    plain.load_state(path)
+    assert po_plain.scaler is None and po_plain.state_dict()["scale"] is None
 
 
 # ------------------------------------------------------ the complete example

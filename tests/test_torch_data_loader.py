@@ -176,8 +176,17 @@ def test_skip_first_batches_matches_jax():
 
 
 def test_unported_loader_options_raise():
-    with pytest.raises(NotImplementedError, match="DataLoaderDispatcher"):
-        P.prepare_data_loader(_loader(8, 4, False, False), device="cpu", dispatch_batches=True)
+    # The dispatcher is ported. As in the JAX package, dispatch_batches only
+    # reroutes an iterable dataset or a plain iterable; a map-style loader
+    # is still sharded by index.
+    jdl = J.prepare_data_loader(_loader(8, 4, False, False), put_on_device=False,
+                                dispatch_batches=True)
+    pdl = P.prepare_data_loader(_loader(8, 4, False, False), device="cpu", dispatch_batches=True)
+    assert isinstance(pdl, P.DataLoaderShard) and isinstance(jdl, J.DataLoaderShard)
+    assert [b["y"].tolist() for b in pdl] == [b["y"].tolist() for b in jdl]
+    plain = P.prepare_data_loader([{"y": np.arange(4)}], device="cpu", dispatch_batches=True)
+    assert isinstance(plain, P.DataLoaderDispatcher)
+    assert [b["y"].tolist() for b in plain] == [[0, 1, 2, 3]]
 
 
 def test_use_stateful_dataloader_is_accepted_as_jax_accepts_it():

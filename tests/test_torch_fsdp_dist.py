@@ -23,8 +23,10 @@ leaves' parameters, moments and buffer. The imperative loop runs under fsdp
 
 ``cuda``-marked, skipped on hosts with fewer than four cards: Llama-3-8B
 with all 32 layers under fsdp 4 with remat over NCCL (one process a card,
-as ``torchrun --nproc_per_node=4`` runs it), and NCCL fsdp 4 at 4 layers
-against ``LoopbackShards(4)`` on one card.
+as ``torchrun --nproc_per_node=4`` runs it), NCCL fsdp 4 at 4 layers
+against ``LoopbackShards(4)`` on one card, the dispatcher over NCCL (each
+card's slices against the one-process split), and ``cpu_offload=True``
+under NCCL fsdp 4 at 4 layers, bitwise the same run without offload.
 """
 
 from pathlib import Path
@@ -421,8 +423,10 @@ def test_unported_sharding_options_raise():
     for axis in ("tp_size", "pp_size", "ep_size"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.ParallelismConfig(**{axis: 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.FullyShardedDataParallelPlugin(cpu_offload=True)
+    # cpu_offload is ported (the optimizer state in pinned host memory).
+    offload = T.Accelerator(device="cpu", fsdp_plugin=T.FullyShardedDataParallelPlugin(
+        fsdp_size=2, cpu_offload=True), loopback=LoopbackShards(2))
+    assert offload._offload_opt_state
     with pytest.raises(NotImplementedError, match="sp"):
         T.Accelerator(device="cpu", parallelism_config=T.ParallelismConfig(sp_size=2),
                       loopback=LoopbackShards(2))
@@ -599,3 +603,100 @@ def test_fsdp_over_nccl_matches_loopback_on_four_cards(tmp_path):
     print(f"nccl fsdp4 losses {load_ranks(tmp_path)[0]['losses'].tolist()}, loopback "
           f"{want.tolist()}")
 
+
+
+class _NcclStream(torch.utils.data.IterableDataset):
+    """A stream of 30 samples, each a (5,) int row: an iterable dataset, so
+    ``prepare`` dispatches it over several ranks."""
+
+    def __iter__(self):
+        for i in range(30):
+            yield {"x": np.arange(5, dtype=np.int64) + 100 * i}
+
+
+def nccl_dispatch_ranks(out_dir: str):
+    """One rank of the dispatcher over NCCL: rank 0 reads, every rank
+    receives its rows of each batch of 8 on its card."""
+    import torch.distributed as dist
+
+    acc = T.Accelerator()
+    rank = dist.get_rank()
+    dl = acc.prepare(torch.utils.data.DataLoader(_NcclStream(), batch_size=8))
+    saved = {"kind": np.asarray(type(dl).__name__)}
+    for i, b in enumerate(dl):
+        saved[f"x{i}"] = b["x"].cpu().numpy()
+        saved[f"cuda{i}"] = np.asarray(b["x"].device.type == "cuda")
+    np.savez(Path(out_dir) / f"rank{rank}.npz", **saved)
+
+
+@pytest.mark.cuda
+def test_dispatcher_over_nccl_matches_the_one_process_split(tmp_path):
+    """Each card's slices of every dispatched batch equal rows
+    ``[r·B/4, (r+1)·B/4)`` of the one-process stream (4 full batches and a
+    tail of 6 rows, which splits 1 a rank)."""
+    _four_cards()
+    _spawn(nccl_dispatch_ranks, str(tmp_path))
+    whole = [b["x"].numpy() for b in T.data_loader.DataLoaderDispatcher(
+        torch.utils.data.DataLoader(_NcclStream(), batch_size=8), device="cpu")]
+    for r, saved in enumerate(load_ranks(tmp_path)):
+        assert str(saved["kind"]) == "DataLoaderDispatcher"
+        assert sum(k.startswith("x") for k in saved) == len(whole) == 4
+        for i, x in enumerate(whole):
+            per = x.shape[0] // N_RANKS
+            assert np.array_equal(saved[f"x{i}"], x[r * per:(r + 1) * per])
+            assert bool(saved[f"cuda{i}"])
+
+
+def offload_fsdp_ranks(out_dir: str, batches):
+    """One rank of NCCL fsdp 4 at Llama-3-8B widths cut to 4 layers, bf16:
+    the imperative loop on this rank's row of each batch, without and with
+    ``cpu_offload``; saves the offloaded run's losses, whether the two runs'
+    losses, parameter shards and state agree bitwise, and where the
+    offloaded state lay between steps."""
+    import gc
+
+    import torch.distributed as dist
+
+    runs = []
+    for offload in (False, True):
+        acc = T.Accelerator(mixed_precision="bf16", fsdp_plugin=T.FullyShardedDataParallelPlugin(
+            fsdp_size=N_RANKS, cpu_offload=offload))
+        rank = dist.get_rank()  # the first Accelerator joined the process group
+        model = T.Llama(T.LlamaConfig.llama3_8b(num_hidden_layers=4, max_position_embeddings=2048))
+        model.init_params(0)
+        pm, po = acc.prepare(model, T.adamw(3e-4))
+        del model
+        losses, placed = [], []
+        for b in batches:
+            out = pm(**{k: v[rank:rank + 1] for k, v in b.items()})
+            acc.backward(out["loss"])
+            acc.clip_grad_norm_(pm, 1.0)
+            po.step()
+            po.zero_grad()
+            losses.append(out["loss"].detach().float().cpu())
+            state = [t for s in po.rank_states for _, t in flatten_with_paths(s)
+                     if isinstance(t, torch.Tensor)]
+            placed.append(all(t.device.type == "cpu" and t.is_pinned() for t in state))
+        runs.append((torch.stack(losses), [t.cpu() for t in tree_leaves(pm.params)],
+                     [t.cpu() for t in state], placed))
+        del acc, pm, po, out, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l0, p0, s0, h0), (l1, p1, s1, h1) = runs
+    same = torch.equal(l0, l1) and all(torch.equal(a, b) for a, b in zip(p0 + s0, p1 + s1))
+    np.savez(Path(out_dir) / f"rank{rank}.npz", losses=l1.numpy(), same=np.asarray(same),
+             placed=np.asarray([any(h0), all(h1)]))
+
+
+@pytest.mark.cuda
+def test_cpu_offload_under_fsdp_on_four_cards_is_bitwise(tmp_path):
+    """``cpu_offload=True`` under NCCL fsdp 4 at 4 layers: the imperative
+    loop's losses, parameter shards and optimizer state bitwise the same run
+    without offload, with the shards' state in pinned host memory between
+    steps."""
+    _four_cards()
+    _spawn(offload_fsdp_ranks, str(tmp_path), _nccl_batches())
+    for saved in load_ranks(tmp_path):
+        assert bool(saved["same"]) and saved["placed"].tolist() == [False, True]
+        assert np.isfinite(saved["losses"]).all()
+    print(f"fsdp4 offload losses {load_ranks(tmp_path)[0]['losses'].tolist()}")

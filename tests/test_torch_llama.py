@@ -48,6 +48,13 @@ CONFIGS = {
     "qwen-like": dict(attention_bias=True, qk_norm=True, sliding_window=4,
                       rope_scaling={"rope_type": "llama3", "factor": 8.0,
                                     "original_max_position_embeddings": 64}),
+    # YaRN: blended frequencies and the attention factor on cos and sin.
+    "yarn": dict(rope_scaling={"rope_type": "yarn", "factor": 4.0,
+                               "original_max_position_embeddings": 8}),
+    # Dynamic NTK past a 4-token window: the base stretches with the length
+    # (the forward's, or the cache's under cached decode).
+    "dynamic": dict(max_position_embeddings=4,
+                    rope_scaling={"rope_type": "dynamic", "factor": 2.0}),
 }
 
 
@@ -109,7 +116,7 @@ def test_cached_prefill_and_decode_match_jax(name):
                                atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("name", ["llama", "qwen-like"])
+@pytest.mark.parametrize("name", ["llama", "qwen-like", "dynamic"])
 def test_greedy_generate_token_identical_to_jax(name):
     jm, tm = _models(name)
     rng = np.random.default_rng(SEED + 2)
@@ -180,10 +187,23 @@ def test_rope_and_rms_norm_match_jax(scaling):
 
 
 def test_unported_rope_types_and_model_options_raise():
-    pos = torch.zeros((1, 2), dtype=torch.int32)
-    for rope_type in ("yarn", "dynamic"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rope_tables(pos, 16, 1e4, {"rope_type": rope_type, "factor": 2.0})
+    # yarn and dynamic are ported: their tables match JAX's at a length past
+    # the window (dynamic's stretch) and at one inside it; ulysses still raises.
+    rng = np.random.default_rng(SEED + 6)
+    pos = rng.integers(0, 9000, (2, 5)).astype(np.int32)
+    for scaling in ({"rope_type": "yarn", "factor": 2.0},
+                    {"rope_type": "yarn", "factor": 8.0, "mscale": 1.0, "mscale_all_dim": 0.5,
+                     "original_max_position_embeddings": 4096, "truncate": False},
+                    {"rope_type": "dynamic", "factor": 2.0}):
+        for seq_len in (16384, 1024):
+            jc, js = j_rope_tables(jnp.asarray(pos), 128, 5e5, scaling, seq_len=seq_len,
+                                   max_position_embeddings=8192)
+            tc, ts = rope_tables(torch.as_tensor(pos), 128, 5e5, scaling, seq_len=seq_len,
+                                 max_position_embeddings=8192)
+            np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-5)
+            np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-5)
+    with pytest.raises(ValueError, match="Unsupported rope_type"):
+        rope_tables(torch.zeros((1, 2), dtype=torch.int32), 16, 1e4, {"rope_type": "ntk-x"})
     for kw in (dict(attention_impl="ulysses"),):
         with pytest.raises(NotImplementedError):
             Llama(LlamaConfig.tiny(**kw), device="cpu")

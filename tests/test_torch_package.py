@@ -893,8 +893,11 @@ def test_unported_checkpoint_options_raise(tmp_path):
     acc = T.Accelerator(cpu=True)
     with pytest.raises(NotImplementedError, match="preemption"):
         acc.checkpoint_on_preemption()
-    with pytest.raises(NotImplementedError, match="DeviceBatchPrefetcher"):
+    # DeviceBatchPrefetcher is ported: it feeds the card by default (and
+    # raises without one), the CPU when asked.
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         T.data_loader.DeviceBatchPrefetcher([], prefetch=2)
+    assert list(T.data_loader.DeviceBatchPrefetcher([], prefetch=2, device="cpu")) == []
     from accelerate_tpu_torch.checkpointing import export_full_weights
 
     with pytest.raises(NotImplementedError, match="msgpack"):

@@ -156,8 +156,13 @@ def test_bf16_mixed_precision_keeps_f32_masters_and_grads():
     assert torch.isfinite(loss)
     assert all(p.dtype == torch.float32 for p in tree_leaves(pm.params))
     assert all(m.dtype == torch.float32 for m in tree_leaves(po.opt_state[0].mu))
-    with pytest.raises(NotImplementedError, match="fp16"):
-        T.Accelerator(mixed_precision="fp16", device="cpu")
+    # fp16 and fp8 are ported: fp16 computes in float16 with the loss scaler,
+    # fp8 in bf16 (its int8 products take bf16 operands).
+    fp16 = T.Accelerator(mixed_precision="fp16", device="cpu")
+    assert fp16.state.compute_dtype == torch.float16 and fp16.scaler.scale == 2.0**15
+    fp8 = T.Accelerator(mixed_precision="fp8", device="cpu")
+    assert fp8.state.compute_dtype == torch.bfloat16 and fp8.scaler is None
+    assert acc.scaler is None
     with pytest.raises(ValueError, match="Unknown mixed_precision"):
         T.Accelerator(mixed_precision="fp7", device="cpu")
 
