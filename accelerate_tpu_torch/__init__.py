@@ -83,6 +83,8 @@ from .optim import (
 from .parallel.fsdp import LoopbackShards
 from .parallel.mesh import ParallelismConfig
 from .parallel.ring import LoopbackRing, ring_attention
+from .parallel.tensor import LoopbackTP
+from .parallel.ulysses import ulysses_attention
 from .serving import ContinuousBatcher
 from .optimizer import GradScalerState
 from .state import AcceleratorState, GradientState, PartialState
@@ -90,8 +92,10 @@ from .utils.dataclasses import (
     DataLoaderConfiguration,
     Fp8RecipeKwargs,
     FullyShardedDataParallelPlugin,
+    MegatronStylePlugin,
     ProjectConfiguration,
     SequenceParallelPlugin,
+    TensorParallelPlugin,
 )
 from .utils.device import resolve_device
 from .utils.memory import find_executable_batch_size, release_memory
@@ -130,10 +134,13 @@ __all__ = [
     "LlamaConfig",
     "LoopbackRing",
     "LoopbackShards",
+    "LoopbackTP",
+    "MegatronStylePlugin",
     "ParallelismConfig",
     "PartialState",
     "ProjectConfiguration",
     "SequenceParallelPlugin",
+    "TensorParallelPlugin",
     "adam",
     "adamw",
     "bert_config_from_hf",
@@ -164,6 +171,7 @@ __all__ = [
     "reset_transfer_stats",
     "resolve_device",
     "ring_attention",
+    "ulysses_attention",
     "send_to_device",
     "set_seed",
     "sgd",

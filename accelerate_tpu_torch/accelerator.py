@@ -47,9 +47,9 @@ leaf carries a leading K axis (``DeviceBatchPrefetcher(..., window=K)``
 stacks them on the device), the K losses as one device tensor, bitwise K
 calls of ``build_train_step`` (accumulation included). PyTorch has no
 compiled scan: the window is a host loop over the step, with no read of
-the device inside it (except the fp16 finite flag). Not ported yet: the tp,
-pp and ep axes, Ulysses, adafactor, and the telemetry, audit and health
-hooks of the step.
+the device inside it (except the fp16 finite flag). Not ported yet: the pp
+and ep axes, adafactor, and the telemetry, audit and health hooks of the
+step.
 
 The canonical imperative loop (``examples/nlp_example.py``; the port's
 ``accelerate_tpu_torch/examples/nlp_example.py``)::
@@ -83,8 +83,11 @@ master leaves and banks it at ``1/accum`` (``AcceleratedOptimizer._accumulate``)
 Over several ranks (a dp mesh) the banked gradients are averaged over the dp
 ranks on each sync boundary, as DDP averages them (under ``accumulate``, DDP
 skips the reduction of the other micro-steps with ``no_sync``). In eval mode
-the forward runs under ``torch.no_grad()``. Under ``sp_size > 1`` the
-imperative path raises: train with ``build_train_step``.
+the forward runs under ``torch.no_grad()``. Under ``sp_size > 1`` a rank's
+batch is its dp rows whole (a prepared loader's); the model call cuts the
+rank's sequence shard, divides its loss by the valid targets over the sp
+group, and gathers the logits back into sequence order; ``backward`` sums
+the gradients over sp and averages them over dp.
 
 Checkpoints and trackers (``checkpointing.py``, ``tracking.py``; the JAX
 package's ``accelerator.py:1766-1935``)::
@@ -113,11 +116,12 @@ Sequence parallelism, one process per rank (``torchrun`` on cards,
     step = accelerator.build_train_step(model, optimizer)
     loss = step({"input_ids": ids, "labels": ids})   # ids: the GLOBAL batch
 
-The ranks form a ``("dp", "sp")`` mesh (``parallel/mesh.py``). ``prepare``
-refuses what the JAX package refuses under sp > 1 (per-layer windows, logit
-softcaps, a query scale, a sliding window), sets the model's
-``attention_impl`` from ``"auto"`` to ``"ring"``, and gives every rank rank
-0's parameters. Each step cuts this rank's shard out of the global batch
+The ranks form a ``("dp", "fsdp", "sp", "tp")`` mesh
+(``parallel/mesh.py``). ``prepare`` refuses what the JAX package refuses
+under sp > 1 (per-layer windows, logit softcaps, a query scale, a sliding
+window), sets the model's ``attention_impl`` from ``"auto"`` to ``"ring"``
+(``"ulysses"`` under ``SequenceParallelPlugin(ring_attention=False)``),
+and gives every rank rank 0's parameters. Each step cuts this rank's shard out of the global batch
 (``utils/transfer.shard_batch``: global positions, labels shifted on the
 global sequence), divides the rank's loss sum by the valid-target count
 summed over the mesh, and sums the gradients over the mesh before
@@ -146,6 +150,17 @@ owning shard of the accumulation buffer, and runs the clip and the fused
 update on the shards (on 1/dp of each under ZeRO, with the new parameters
 all-gathered back). The imperative ``backward`` / ``optimizer.step()`` loop
 runs on the same shards (one process per rank).
+
+Tensor parallelism (``ParallelismConfig(tp_size=)``, ``tp_plugin=
+TensorParallelPlugin(...)``, ``megatron_plugin=MegatronStylePlugin(...)``
+or ``ACCELERATE_MESH_SHAPE=dp:2,tp:2``) always runs on shards: the Llama
+rules split the heads, the MLP's columns and the vocab over tp, each layer
+is gathered over fsdp only, and the model runs Megatron's split on its tp
+pieces (``parallel/tensor.py``); the tp and sp ranks of one data coordinate
+read the same rows, and the gradients are summed over dp, fsdp and sp,
+never over tp. Under fp16 the sharded fused step scales the loss, unscales
+each rank's shards and skips the update on every rank when the norm is not
+finite anywhere.
 """
 
 from __future__ import annotations
@@ -168,7 +183,9 @@ from .optim import GradientTransformation
 from .optimizer import AcceleratedOptimizer, GradScalerState, clip_factor, global_norm
 from .parallel.fsdp import LoopbackShards, ShardedModel
 from .parallel.mesh import ParallelismConfig, mesh_coordinate
+from .parallel.ring import LoopbackRing
 from .parallel.sharding import data_parallel_degree, plan_param_shardings
+from .parallel.ulysses import LoopbackUlysses
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils import operations as ops
@@ -177,11 +194,13 @@ from .utils.dataclasses import (
     Fp8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     KwargsHandler,
+    MegatronStylePlugin,
     ProjectConfiguration,
     SequenceParallelPlugin,
+    TensorParallelPlugin,
 )
 from .utils.device import host_to_device
-from .utils.operations import broadcast, reduce
+from .utils.operations import all_gather_along, broadcast, reduce
 from .utils.transfer import place_batch, shard_batch
 from .utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -260,15 +279,12 @@ class PreparedModel:
 
     def __call__(self, *args, **kwargs):
         acc, handle = self.accelerator, self.handle
-        if acc.state.sp_size > 1:
-            raise NotImplementedError(
-                "the imperative forward/backward loop is not ported under sequence "
-                "parallelism (sp_size > 1); train with accelerator.build_train_step(model, "
-                "optimizer), which takes the global batch")
         args, kwargs = acc._place_inputs((args, kwargs))
         module, kernels = handle.module, acc.kernels
         if handle.sharded is not None:
             return self._sharded_call(args, kwargs)
+        if acc.state.sp_size > 1:
+            return self._sequence_parallel_call(args, kwargs)
         if not self.training:
             with torch.no_grad():
                 return module.apply(self._cast(handle.params), *args, train=False,
@@ -284,10 +300,36 @@ class PreparedModel:
     def forward(self, *args, **kwargs):
         return self(*args, **kwargs)
 
+    def _sequence_parallel_call(self, args, kwargs):
+        """The forward under sp: the batch holds this rank's dp rows whole
+        (a prepared loader's); the rank runs its sequence shard
+        (:meth:`_sequence_shard`) and the output reads as the rows'
+        (:meth:`_sequence_gathered`). ``backward`` sums the gradients over
+        sp and averages them over dp."""
+        acc, handle = self.accelerator, self.handle
+        mesh = acc.mesh
+        sp_group = mesh.get_group("sp")
+        run = dict(kernels=acc.kernels, sp_group=sp_group, **self._sequence_shard(
+            args, kwargs, mesh_coordinate(mesh)["sp"], mesh["sp"].size(), sp_group))
+        if not self.training:
+            with torch.no_grad():
+                out = handle.module.apply(self._cast(handle.params), train=False, **run)
+            return self._sequence_gathered(out, sp_group)
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(handle.params)]
+        with torch.enable_grad():
+            out = handle.module.apply(self._cast(tree_unflatten(handle.params, leaves)),
+                                      train=True, generator=handle.generator, **run)
+        out = self._sequence_gathered(out, sp_group)
+        handle.pending = (_loss_of(out), leaves)
+        return out
+
     def _sharded_call(self, args, kwargs):
         """The forward on this rank's shards, the layers gathered as the
         model reads them; in train mode the backward's gradients go to the
-        optimizer's buffer, averaged over the data ranks (``backward``)."""
+        optimizer's buffer, averaged over the data ranks (``backward``).
+        Under sp the rank runs its sequence shard as
+        :meth:`_sequence_parallel_call` does (the engine sums the gradients
+        over sp)."""
         acc, handle = self.accelerator, self.handle
         engine = handle.sharded
         if engine.loopback:
@@ -297,21 +339,59 @@ class PreparedModel:
         if opt is None:
             raise RuntimeError("No prepared optimizer is bound to this model.")
         rank = engine.ranks[0]
+        unit = engine.unit_context(rank)
+        sp_group = unit["sp_group"] if engine.sizes["sp"] > 1 else None
+        if sp_group is not None:
+            kwargs = self._sequence_shard(args, kwargs, engine.coord(rank)["sp"],
+                                          engine.sizes["sp"], sp_group)
         if not self.training:
             aliases, anchor = engine.begin(None)
             with torch.no_grad():
                 out = handle.module.apply(engine.rank_tree(rank, aliases, anchor), *args,
-                                          train=False, kernels=acc.kernels, **kwargs)
+                                          train=False, kernels=acc.kernels, **unit, **kwargs)
             engine._sink = engine._bank = None
-            return out
+            return self._sequence_gathered(out, sp_group)
         aliases, anchor = engine.begin(opt._sharded_sink(acc.gradient_accumulation_steps),
                                        n_data_ranks=acc.num_data_ranks)
         with torch.enable_grad(), engine.hooks():
             outputs = handle.module.apply(engine.rank_tree(rank, aliases, anchor), *args,
                                           train=True, generator=handle.generator,
-                                          kernels=acc.kernels, **kwargs)
+                                          kernels=acc.kernels, **unit, **kwargs)
+        outputs = self._sequence_gathered(outputs, sp_group)
         handle.pending = (_loss_of(outputs), ("sharded", aliases))
         return outputs
+
+    def _sequence_shard(self, args, kwargs, sp_index, sp_size, sp_group):
+        """The model's keyword arguments for this rank's sequence shard of
+        its dp rows (``utils/transfer.shard_batch``: global positions,
+        labels shifted on the global sequence), the loss divided by the
+        valid-target count over the sp group."""
+        if args:
+            raise TypeError("under sequence parallelism the model takes keyword arguments "
+                            "(input_ids, labels, attention_mask)")
+        acc = self.accelerator
+        shard = shard_batch(kwargs, acc.device, dp_index=0, dp_size=1, sp_index=sp_index,
+                            sp_size=sp_size, shift_labels=self.handle.module._shift_labels)
+        if "targets" in shard:
+            count = (shard["targets"] != -100).sum()
+            shard["loss_normalizer"] = reduce(count, reduction="sum",
+                                              group=sp_group).clamp(min=1)
+        return shard
+
+    def _sequence_gathered(self, out, sp_group):
+        """``out`` of a sequence shard as the whole rows': the logits
+        gathered over sp into sequence order; the loss reads as the sp
+        ranks' shares summed (the rows' mean) while its gradient stays the
+        rank's share."""
+        if sp_group is None:
+            return out
+        if "logits" in out:
+            out["logits"] = all_gather_along(out["logits"].detach(), 1, sp_group)
+        if "loss" in out:
+            share = out["loss"]
+            total = reduce(share.detach().clone(), reduction="sum", group=sp_group)
+            out["loss"] = share + (total - share).detach() if self.training else total
+        return out
 
     def training_loss_fn(self, loss_fn=None):
         """``loss_of(params, batch)``: the forward on the parameters cast to
@@ -409,16 +489,19 @@ class Accelerator:
                  project_config: ProjectConfiguration | None = None,
                  fsdp_plugin: FullyShardedDataParallelPlugin | None = None,
                  loopback: LoopbackShards | None = None,
-                 kwargs_handlers: list | None = None):
+                 kwargs_handlers: list | None = None,
+                 tp_plugin: TensorParallelPlugin | None = None,
+                 megatron_plugin: MegatronStylePlugin | None = None):
         if cpu:
             if device is not None and torch.device(device).type != "cpu":
                 raise ValueError(f"cpu=True contradicts device={device!r}")
             device = "cpu"
-        cfg = parallelism_config or ParallelismConfig()
+        cfg = parallelism_config or self._resolve_parallelism(tp_plugin, megatron_plugin)
         if fsdp_plugin is None and (os.environ.get("ACCELERATE_FSDP_MIN_SHARD_SIZE")
                                     or os.environ.get("ACCELERATE_FSDP_CPU_OFFLOAD")):
-            # JAX accelerator.py:361-373: the per-feature options from the env
-            # (the port reads no mesh-shape env: the axis takes every rank left).
+            # JAX accelerator.py:361-373: the per-feature options from the env.
+            # The fsdp axis takes every rank the other axes leave (JAX sizes
+            # it from ACCELERATE_MESH_SHAPE's fsdp entry instead).
             fsdp_plugin = FullyShardedDataParallelPlugin(
                 fsdp_size=-1,
                 min_shard_size=int(os.environ.get("ACCELERATE_FSDP_MIN_SHARD_SIZE", 2**14)),
@@ -436,11 +519,8 @@ class Accelerator:
             seen.add(type(handler))
             if isinstance(handler, Fp8RecipeKwargs):
                 self.fp8_recipe_handler = handler
+        self.sp_plugin = sp_plugin
         if sp_plugin is not None:
-            if not sp_plugin.ring_attention:
-                raise NotImplementedError(
-                    "SequenceParallelPlugin(ring_attention=False) asks for Ulysses sequence "
-                    "parallelism, which is not ported yet (ROADMAP.md, module queue)")
             cfg = dataclasses.replace(cfg, sp_size=sp_plugin.sp_size)
         if fsdp_plugin is not None:  # -1: full-shard over the ranks left over
             cfg = dataclasses.replace(
@@ -450,11 +530,9 @@ class Accelerator:
         self._zero_sharding = None
         if loopback is not None:
             cfg.resolved_sizes(loopback.size)  # the loopback must hold the mesh
-            if cfg.sp_size > 1:
-                raise NotImplementedError("a LoopbackShards accelerator shards over dp and fsdp; "
-                                          "drive the sp ring with LoopbackRing")
         self.state = AcceleratorState(mixed_precision=mixed_precision, device=device,
-                                      parallelism_config=cfg, init_method=init_method)
+                                      parallelism_config=cfg, init_method=init_method,
+                                      loopback=loopback is not None)
         if loopback is not None and self.state.partial.distributed:
             raise ValueError("a LoopbackShards accelerator holds every rank in one process; "
                              "this process is one rank of a process group")
@@ -502,6 +580,22 @@ class Accelerator:
             else []
         self.trackers = []
 
+    @staticmethod
+    def _resolve_parallelism(tp_plugin, megatron_plugin) -> ParallelismConfig:
+        """The mesh without a ``parallelism_config`` (JAX ``accelerator.py:
+        478-497``): a ``MegatronStylePlugin``'s sizes, else
+        ``ACCELERATE_MESH_SHAPE`` with the tp plugin's size over it (the sp
+        and fsdp plugins are laid over either afterwards)."""
+        if megatron_plugin is not None:
+            return ParallelismConfig(fsdp_size=megatron_plugin.fsdp_size,
+                                     tp_size=megatron_plugin.tp_size,
+                                     pp_size=megatron_plugin.pp_size,
+                                     sp_size=megatron_plugin.sp_size)
+        cfg = ParallelismConfig.from_env()
+        if tp_plugin is not None:
+            cfg = dataclasses.replace(cfg, tp_size=tp_plugin.tp_size)
+        return cfg
+
     @property
     def project_dir(self):
         return self.project_configuration.project_dir
@@ -521,13 +615,13 @@ class Accelerator:
 
     @property
     def mesh(self):
-        """The ``("dp", "fsdp", "sp")`` ``DeviceMesh``, or None for one
-        process without sequence parallelism."""
+        """The ``("dp", "fsdp", "sp", "tp")`` ``DeviceMesh``, or None for
+        one process without sequence parallelism (or with a loopback)."""
         return self.state.mesh
 
     @property
     def mesh_sizes(self) -> dict:
-        """``{"dp", "fsdp", "sp"}`` of the job: its process mesh, its
+        """``{"dp", "fsdp", "sp", "tp"}`` of the job: its process mesh, its
         loopback's ranks, or one rank."""
         cfg = self.state.parallelism_config
         if self.loopback is not None:
@@ -624,11 +718,9 @@ class Accelerator:
         self.state.partial.wait_for_everyone()
 
     def _dp_group(self):
-        """The process group a batch is split over: the mesh's dp axis under
-        sp, else the default group (dp x fsdp)."""
-        if self.mesh is None or self.mesh_sizes["sp"] == 1:
-            return None
-        return self.mesh.get_group("dp")
+        """The process group a batch's rows are split over (dp x fsdp): the
+        default group unless the mesh has an sp or tp axis."""
+        return self.state.data_group
 
     def _data_index(self, coord) -> int:
         """The rows a rank holds: its index over dp x fsdp."""
@@ -712,7 +804,7 @@ class Accelerator:
             return model
         if model.params is None:
             raise ValueError("Model has no parameters: call model.init_params(seed) first.")
-        if self.state.sp_size > 1:
+        if self.mesh_sizes["sp"] > 1:
             model.config = self._sequence_parallel_config(model.config)
         if self.fsdp_plugin is not None and self.fsdp_plugin.activation_checkpointing:
             model.config = dataclasses.replace(model.config, remat=True)
@@ -727,7 +819,7 @@ class Accelerator:
                 broadcast(leaf, src=0)
         handle = TrainHandle(model, params, self.state.compute_dtype, dev)
         sizes = self.mesh_sizes
-        if sizes["fsdp"] > 1 or self.loopback is not None or (
+        if sizes["fsdp"] > 1 or sizes["tp"] > 1 or self.loopback is not None or (
                 self.zero_sharding and sizes["dp"] > 1):
             self._shard(handle)
         model.params = handle.params  # the user's handle sees the prepared parameters
@@ -741,7 +833,7 @@ class Accelerator:
         module = handle.module
         if not isinstance(module, Llama):
             raise NotImplementedError(
-                f"sharded training (fsdp, ZeRO, a loopback) runs models that read their "
+                f"sharded training (fsdp, tp, ZeRO, a loopback) runs models that read their "
                 f"stacked layers one index at a time, as Llama does; {type(module).__name__} "
                 "is not ported to it yet (ROADMAP.md, module queue)")
         sizes = self.mesh_sizes
@@ -752,7 +844,9 @@ class Accelerator:
         handle.sharded = ShardedModel(
             handle.params, specs, sizes, comm=self.loopback, mesh=self.mesh, rank=rank,
             compute_dtype=handle.compute_dtype,
-            reshard_after_forward=plugin.reshard_after_forward if plugin else True)
+            reshard_after_forward=plugin.reshard_after_forward if plugin else True,
+            sp_loopback=LoopbackUlysses if module.config.attention_impl == "ulysses"
+            else LoopbackRing)
         handle.params = handle.sharded.param_tree(handle.sharded.ranks[0])
         if module.params is not None and module.params is not handle.params:
             module.params = handle.params  # drop the full tree: only the shards stay
@@ -762,9 +856,11 @@ class Accelerator:
     def _sequence_parallel_config(self, cfg):
         """The model's config under sp > 1: the JAX package's prepare-time
         refusals (``accelerator.py:850-879``), then ``attention_impl``
-        ``"auto"`` becomes ``"ring"``. A new config object: one shared with
-        another model must not change under it. The port's ranks hold only
-        their shard, so any impl other than the ring raises."""
+        ``"auto"`` becomes ``"ring"``, or ``"ulysses"`` under
+        ``SequenceParallelPlugin(ring_attention=False)``. A new config
+        object: one shared with another model must not change under it. The
+        port's ranks hold only their shard, so an impl other than the ring
+        or Ulysses raises."""
         lw = getattr(cfg, "layer_windows", None)
         if lw is not None and any(w is not None for w in lw):
             raise ValueError(
@@ -781,11 +877,13 @@ class Accelerator:
                 f"(sliding_window={cfg.sliding_window}); train with sp=1, or clear "
                 "config.sliding_window to use full attention.")
         if getattr(cfg, "attention_impl", "auto") == "auto":
-            cfg = dataclasses.replace(cfg, attention_impl="ring")
-        if cfg.attention_impl != "ring":
+            ring = self.sp_plugin.ring_attention if self.sp_plugin is not None else True
+            cfg = dataclasses.replace(cfg, attention_impl="ring" if ring else "ulysses")
+        if cfg.attention_impl not in ("ring", "ulysses"):
             raise ValueError(
-                f"under sp>1 each rank holds a sequence shard, so attention must be the ring; "
-                f"got attention_impl={cfg.attention_impl!r} (use 'auto' or 'ring')")
+                f"under sp>1 each rank holds a sequence shard, so attention must be the ring or "
+                f"Ulysses; got attention_impl={cfg.attention_impl!r} (use 'auto', 'ring' or "
+                "'ulysses')")
         return cfg
 
     def _new_optimizer(self, tx):
@@ -815,11 +913,9 @@ class Accelerator:
 
     def prepare_data_loader(self, data_loader):
         """This rank's shard of ``data_loader`` on this rank's device, split
-        over the dp ranks (``data_loader.prepare_data_loader``)."""
-        if self.state.sp_size > 1:
-            raise NotImplementedError(
-                "prepared loaders are not ported under sequence parallelism (sp_size > 1): "
-                "build_train_step takes the global batch and shards it itself")
+        over the data ranks (dp x fsdp; ``data_loader.prepare_data_loader``):
+        the tp and sp ranks of one data coordinate read the same rows (under
+        sp, the model call cuts the rank's sequence shard)."""
         if isinstance(data_loader, DataLoaderShard):
             self._dataloaders.append(data_loader)
             return data_loader
@@ -866,8 +962,11 @@ class Accelerator:
         grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         opt._accumulate(grads, scale=1.0 / self.gradient_accumulation_steps)
         if self.mesh is not None and self.sync_gradients:
+            sp = self.state.sp_size > 1
             with torch.no_grad():
                 for g in tree_leaves(opt.grads):
+                    if sp:  # each sp rank's loss is its share of its rows' mean
+                        reduce(g, reduction="sum", group=self.mesh.get_group("sp"))
                     reduce(g, reduction="mean", group=self._dp_group())
 
     def _find_model_for_loss(self, loss):
@@ -1242,19 +1341,21 @@ class Accelerator:
 
     def _build_sharded_step(self, model: PreparedModel, optimizer: AcceleratedOptimizer,
                             loss_fn=None):
-        """``build_train_step`` on shards (``parallel/fsdp.py``): every held
-        rank's rows of the global batch, forward and backward with the
-        gradients reduce-scattered into the buffer at ``1/accum``, and on a
-        boundary the clip from the sharded norm and the update on the
-        shards."""
-        if self.scaler is not None:
-            raise NotImplementedError("the fused step on shards (fsdp, ZeRO, a loopback) does "
-                                      "not run the fp16 scaler yet; train sharded models in "
-                                      "bf16, or use the imperative loop (ROADMAP.md)")
+        """``build_train_step`` on shards (``parallel/fsdp.py``): every
+        forward unit's rows of the global batch (and, on a process group,
+        its sp rank's tokens), forward and backward with the gradients
+        reduce-scattered into the buffer at ``1/accum``, and on a boundary
+        the clip from the sharded norm and the update on the shards. Under
+        fp16 the loss is scaled before the backward and the boundary
+        unscales each rank's shards, then skips the update on every rank
+        when the norm is not finite anywhere (the flag MIN-reduced over the
+        job): a skipped step launches no update kernel."""
         handle = model.handle
         engine, module = handle.sharded, handle.module
+        scaler = optimizer.scaler
         accum = self.gradient_accumulation_steps
         n_data = self.num_data_ranks
+        sizes = engine.sizes
         dev = handle.device
         accum_t = torch.full((), float(accum), dtype=torch.float32, device=dev)
         for shards in engine.ensure_accum():
@@ -1276,30 +1377,54 @@ class Accelerator:
             if rows % n_data:
                 raise ValueError(f"global batch dim {rows} not divisible by data-parallel "
                                  f"degree {n_data}; pad the batch or change dp/fsdp.")
-            shards = {r: shard_batch(batch, dev, dp_index=r, dp_size=n_data,
-                                     sp_index=0, sp_size=1, shift_labels=module._shift_labels)
-                      for r in engine.ranks}
+            shards = {}
+            for u in engine.units:
+                coord = engine.coord(u)
+                sp_index, sp_size = (0, 1) if engine.loopback else (coord["sp"], sizes["sp"])
+                shards[u] = shard_batch(batch, dev, dp_index=self._data_index(coord),
+                                        dp_size=n_data, sp_index=sp_index, sp_size=sp_size,
+                                        shift_labels=module._shift_labels)
             counts = None
-            for r in engine.ranks:
-                c = (shards[r]["targets"] != -100).sum()
+            for u in engine.units:
+                c = (shards[u]["targets"] != -100).sum()
                 counts = c if counts is None else counts + c
-            if not engine.loopback:
-                counts = reduce(counts, reduction="sum")
-            normalizer = counts.clamp(min=1)
+            normalizer = engine._reduce(counts).clamp(min=1)
+            scale = None if scaler is None else torch.full((), scaler.scale,
+                                                           dtype=torch.float32, device=dev)
 
-            def forward(rank, tree):
+            def forward(unit, tree):
                 out = module.apply(tree, kernels=self.kernels, loss_normalizer=normalizer,
-                                   **shards[rank])
-                return out["loss"] if loss_fn is None else loss_fn(out, shards[rank])
+                                   **engine.unit_context(unit), **shards[unit])
+                loss = out["loss"] if loss_fn is None else loss_fn(out, shards[unit])
+                return loss if scale is None else loss * scale
 
             with torch.no_grad():
                 loss = engine.forward_backward(forward, sink)
+                if scale is not None:
+                    loss = loss / scale
                 count += 1
                 if count % accum == 0:
-                    optimizer._sharded_update(clip_factor(engine.global_norm(), clip))
+                    self._sharded_boundary(engine, optimizer, clip)
             return loss
 
         return step
+
+    @staticmethod
+    def _sharded_boundary(engine, optimizer, clip):
+        """The update boundary of the sharded fused step (fp16: unscale,
+        then skip every rank's update on a non-finite norm)."""
+        scaler = optimizer.scaler
+        buffers = [t for shards in engine.accum for t in shards.values()]
+        if scaler is not None:
+            torch._foreach_mul_(buffers, scaler.inv_scale(buffers[0].device))
+        gnorm = engine.global_norm()
+        if scaler is not None:
+            finite = engine.all_finite(gnorm)
+            optimizer._count_fused_step(finite)
+            if not finite:
+                torch._foreach_zero_(buffers)
+                return
+        optimizer._sharded_update(clip_factor(gnorm, clip))
 
 
 def _check_leading_axis(batch, window: int):

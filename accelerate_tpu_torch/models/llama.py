@@ -56,15 +56,34 @@ the gathered weights after the forward and gathers them again for the
 backward.
 
 ``sharding_rules`` are the JAX package's ``(path_regex, spec)`` rules, which
-``parallel/sharding.plan_param_shardings`` reads under an fsdp axis.
+``parallel/sharding.plan_param_shardings`` reads under an fsdp or tp axis.
 
 Rope types: ``default``, ``linear``, ``llama3``, ``yarn`` (with its
 attention factor on cos and sin) and ``dynamic`` (NTK, the base stretched
 past the pretraining window; the cached decode pins the length to the
 cache's, as the JAX package does).
 
-Left out so far, and raising when set: the pipeline schedule, MoE and the
-ulysses attention impl.
+Tensor parallelism (``tp``, the sharded step of ``parallel/fsdp.py``):
+``apply`` takes ``tp``, a ``parallel/tensor`` context, and a tree whose
+leaves split over tp by the rules below are lists of the pieces of the tp
+ranks this process holds. The block then runs Megatron's split
+(:meth:`Llama.block`): wq, wk, wv, w_gate and w_up column-parallel, wo
+and w_down row-parallel and summed over tp, the embedding and the LM head
+vocab-parallel (``parallel/tensor.vocab_parallel_embedding``,
+``ops/losses.vocab_parallel_*``). A rank attends with its own query heads
+(8 of Llama-3-8B's 32 at tp 4) through the attention op, flash on the card.
+Where a rule was relaxed, or a rank's KV columns end in the middle of a head
+(2 KV heads at tp 4), the projection's output is gathered over tp and each
+rank takes the heads its queries read; where the query heads do not divide
+by tp, every rank attends with all heads and keeps the columns its wo rows
+read. Every replicated value that per-rank work reads goes through
+``tp.copy``, so the norms' and biases' gradients are whole on every rank.
+
+``attention_impl="ulysses"`` is Ulysses sequence parallelism
+(``parallel/ulysses.py``): under an ``sp`` axis, ``sp_group`` is handed to
+it as to the ring.
+
+Left out so far, and raising when set: the pipeline schedule and MoE.
 """
 
 from __future__ import annotations
@@ -83,9 +102,18 @@ from ..ops.attention import attention as _attention
 from ..ops.attention import cached_attention, softcap_scores
 from ..ops.int8 import PRECISIONS
 from ..ops.int8 import matmul as _precision_matmul
-from ..ops.losses import cross_entropy_loss, fused_cross_entropy_loss
+from ..ops.losses import (
+    cross_entropy_loss,
+    fused_cross_entropy_loss,
+    vocab_parallel_cross_entropy,
+    vocab_parallel_fused_cross_entropy,
+)
+from ..parallel.tensor import LoopbackTP, vocab_parallel_embedding
 from ..utils.dataclasses import resolve_remat_policy
 from ..utils.device import host_to_device, resolve_device
+
+# The tp context of a model whose weights are whole: one piece, no collectives.
+_WHOLE = LoopbackTP(1)
 
 
 @dataclass
@@ -362,10 +390,6 @@ class Llama(Module):
     _WINDOW_FROM_CONFIG = object()  # sentinel: use cfg.sliding_window
 
     def __init__(self, config: LlamaConfig, device=None):
-        if config.attention_impl == "ulysses":
-            raise NotImplementedError(
-                "Llama option attention_impl=ulysses is not ported yet (ROADMAP.md, module "
-                "queue)")
         resolve_remat_policy(config.remat_policy, config.remat_save_names)
         if config.matmul_precision not in PRECISIONS:
             raise ValueError(f"matmul precision must be 'default' or 'int8', "
@@ -433,12 +457,17 @@ class Llama(Module):
 
     # ---------------------------------------------------------------- forward
     def embed(self, params, input_ids, positions=None, attention_mask=None,
-              rope_seq_len=None):
-        """Token embedding + rotary tables. Returns (hidden, ctx)."""
+              rope_seq_len=None, tp=None):
+        """Token embedding + rotary tables. Returns (hidden, ctx). A table
+        split over tp (a list of the held ranks' rows) is looked up
+        vocab-parallel."""
         cfg = self.config
         B, S = input_ids.shape
         table = params["embed"]["weight"]
-        x = F.embedding(input_ids.long(), table)
+        if isinstance(table, list):
+            x = vocab_parallel_embedding(tp, table, input_ids)
+        else:
+            x = F.embedding(input_ids.long(), table)
         if cfg.embedding_multiplier != 1.0:
             # The multiplier rounded to the activation dtype, as jnp.asarray(m, x.dtype).
             x = x * torch.tensor(cfg.embedding_multiplier, dtype=x.dtype).item()
@@ -454,33 +483,27 @@ class Llama(Module):
     def block(self, layer, x, ctx, cache_layer=None, window=_WINDOW_FROM_CONFIG):
         """One decoder layer on the residual stream.
 
-        With ``cache_layer`` (``{"k","v"}`` of shape (B, K, n_kv, D) plus
-        ``ctx["cache_pos"]``) the layer writes this chunk's K/V into the cache
-        at the write offset — in place, where the JAX version returns an
-        updated copy of its donated cache — and attends against the whole
-        cache. Returns ``(x, cache_layer)`` in that mode."""
+        Without a cache the attention runs through :meth:`_tp_attention` on
+        ``ctx["tp"]``'s pieces (one whole piece without tensor
+        parallelism). With ``cache_layer`` (``{"k","v"}`` of shape (B, K,
+        n_kv, D) plus ``ctx["cache_pos"]``) the layer writes this chunk's
+        K/V into the cache at the write offset — in place, where the JAX
+        version returns an updated copy of its donated cache — and attends
+        against the whole cache. Returns ``(x, cache_layer)`` in that
+        mode."""
         cfg = self.config
         if window is Llama._WINDOW_FROM_CONFIG:
             window = cfg.sliding_window
-        nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-        B, S, _ = x.shape
-        cos, sin = ctx["cos"], ctx["sin"]
         scale = cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar is not None else None
+        tp = ctx.get("tp") or _WHOLE
         h = rms_norm(x, layer["input_norm"]["weight"], cfg.rms_norm_eps)
         a = layer["attn"]
-        q, k, v = self._mm(h, a["wq"], ctx), self._mm(h, a["wk"], ctx), self._mm(h, a["wv"], ctx)
-        if "bq" in a:  # Qwen2-style QKV biases
-            q, k, v = q + a["bq"], k + a["bk"], v + a["bv"]
-        q = q.reshape(B, S, nh, hd)
-        k = k.reshape(B, S, nkv, hd)
-        v = v.reshape(B, S, nkv, hd)
-        if "q_norm" in a:  # Qwen3 per-head QK norm
-            q = rms_norm(q, a["q_norm"], cfg.rms_norm_eps)
-            k = rms_norm(k, a["k_norm"], cfg.rms_norm_eps)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        if cache_layer is not None:
+        if cache_layer is None:
+            attn_out = self._tp_attention(tp, h, a, ctx, window, scale)
+        else:
+            q, k, v = self._heads(tp, h, tp.copy(h), a, ctx)
             pos = ctx["cache_pos"]
+            S = h.shape[1]
             k_cache, v_cache = cache_layer["k"], cache_layer["v"]
             k_cache[:, pos:pos + S] = k.to(k_cache.dtype)
             v_cache[:, pos:pos + S] = v.to(v_cache.dtype)
@@ -489,27 +512,16 @@ class Llama(Module):
                 kv_mask=ctx.get("kv_mask"), window=window,
                 softcap=cfg.attn_logit_softcap, scale=scale,
             )
-        else:
-            if nkv != nh:
-                rep = nh // nkv
-                k = k.repeat_interleave(rep, dim=2)
-                v = v.repeat_interleave(rep, dim=2)
-            attn_out = _attention(
-                q, k, v, causal=True, mask=ctx["attention_mask"],
-                impl=cfg.attention_impl, window=window,
-                softcap=cfg.attn_logit_softcap, scale=scale, kernels=ctx.get("kernels"),
-                group=ctx.get("sp_group"),
-            )
-        attn_out = _tagged("attn_out", self._mm, attn_out.reshape(B, S, nh * hd), a["wo"], ctx)
+            attn_out = _tagged("attn_out", self._mm, attn_out.flatten(2), a["wo"], ctx)
         if cfg.sandwich_norms:
             x = x + rms_norm(attn_out, layer["post_attn_norm"]["weight"], cfg.rms_norm_eps)
             h2 = rms_norm(x, layer["pre_ffw_norm"]["weight"], cfg.rms_norm_eps)
-            m = self.mlp(layer, h2, ctx)
-            x = x + rms_norm(m, layer["post_ffw_norm"]["weight"], cfg.rms_norm_eps)
+            x = x + rms_norm(self._tp_mlp(tp, layer, h2, ctx),
+                             layer["post_ffw_norm"]["weight"], cfg.rms_norm_eps)
         else:
             x = x + attn_out
             h2 = rms_norm(x, layer["post_attn_norm"]["weight"], cfg.rms_norm_eps)
-            x = x + self.mlp(layer, h2, ctx)
+            x = x + self._tp_mlp(tp, layer, h2, ctx)
         return x if cache_layer is None else (x, cache_layer)
 
     def mlp(self, layer, h2, ctx=None):
@@ -526,10 +538,141 @@ class Llama(Module):
         kernels = None if ctx is None else ctx.get("kernels")
         return _precision_matmul(a, b, precision=self.config.matmul_precision, kernels=kernels)
 
+
+    # ----------------------------------------------------- tensor parallel
+    def _tp_query_heads(self, tp):
+        """Per held tp rank, the query heads ``(lo, hi)`` it attends with:
+        its own ``nh / tp`` when they divide, else all of them."""
+        nh, T = self.config.num_attention_heads, tp.size
+        if nh % T:
+            return [(0, nh) for _ in tp.indices]
+        n = nh // T
+        return [(t * n, (t + 1) * n) for t in tp.indices]
+
+    def _tp_full(self, tp, h, hs, w, b, ctx):
+        """The replicated ``(B, S, cols)`` projection ``h @ w (+ b)``: each
+        rank's columns gathered over tp when ``w`` is split (``hs``: ``h``
+        through ``tp.copy``), else computed on the replicated ``h``."""
+        if isinstance(w, list):
+            outs = [self._mm(hr, wr, ctx) for hr, wr in zip(hs, w)]
+            if b is not None:
+                outs = [o + br for o, br in zip(outs, b)]
+            return tp.gather(outs, -1)
+        out = self._mm(h, w, ctx)
+        return out if b is None else out + b
+
+    def _tp_heads(self, tp, h, hs, w, b, n_proj, ranges, rep, ctx):
+        """Per held tp rank, the ``(B, S, hi - lo, D)`` heads its queries
+        ``(lo, hi)`` read of the projection ``h @ w (+ b)`` with ``n_proj``
+        heads (``rep`` query heads a projection head, repeated): the rank's
+        own columns where they are exactly those heads, else its heads of
+        the replicated projection (:meth:`_tp_full`) through ``tp.copy``."""
+        B, S, _ = h.shape
+        hd = self.config.head_dim
+        if isinstance(w, list):
+            width = w[0].shape[-1]
+            own = width % hd == 0 and all(
+                lo % rep == 0 and (lo // rep, -(-hi // rep)) == (t * width // hd,
+                                                                  (t + 1) * width // hd)
+                for t, (lo, hi) in zip(tp.indices, ranges))
+            if own:
+                outs = [self._mm(hr, wr, ctx) for hr, wr in zip(hs, w)]
+                if b is not None:
+                    outs = [o + br for o, br in zip(outs, b)]
+                return [o.reshape(B, S, width // hd, hd).repeat_interleave(rep, dim=2)
+                        for o in outs]
+        full = self._tp_full(tp, h, hs, w, b, ctx).reshape(B, S, n_proj, hd)
+        return [f.repeat_interleave(rep, dim=2)[:, :, lo:hi]
+                for f, (lo, hi) in zip(tp.copy(full), ranges)]
+
+    def _heads(self, tp, h, hs, a, ctx):
+        """The replicated q ``(B, S, nh, D)``, k and v ``(B, S, nkv, D)`` of
+        the normed residual ``h``, the QK norms and rope applied; a
+        projection split over tp has its columns gathered
+        (:meth:`_tp_full`, ``hs``: ``h`` through ``tp.copy``)."""
+        cfg = self.config
+        B, S, _ = h.shape
+        q, k, v = (self._tp_full(tp, h, hs, a[w], a.get(b), ctx).reshape(B, S, n, cfg.head_dim)
+                   for w, b, n in (("wq", "bq", cfg.num_attention_heads),
+                                   ("wk", "bk", cfg.num_key_value_heads),
+                                   ("wv", "bv", cfg.num_key_value_heads)))
+        if "q_norm" in a:  # Qwen3 per-head QK norm
+            q = rms_norm(q, a["q_norm"], cfg.rms_norm_eps)
+            k = rms_norm(k, a["k_norm"], cfg.rms_norm_eps)
+        return apply_rope(q, ctx["cos"], ctx["sin"]), apply_rope(k, ctx["cos"], ctx["sin"]), v
+
+    def _tp_attention(self, tp, h, a, ctx, window, scale):
+        """The uncached attention of :meth:`block`: the replicated output
+        of the wo projection. With wo split over tp each rank attends with
+        its query heads (:meth:`_tp_query_heads`) and its wo rows' product
+        is summed over tp; with wo whole (no tp, or its rule relaxed) the
+        attention runs replicated on all heads."""
+        cfg = self.config
+        nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+        B, S, _ = h.shape
+        rep = nh // nkv
+        wo = a["wo"]
+        hs = tp.copy(h)
+        per_rank = isinstance(wo, list)
+        if per_rank:
+            ranges = self._tp_query_heads(tp)
+            q, k, v = (self._tp_heads(tp, h, hs, a[w], a.get(b), n, ranges, r, ctx)
+                       for w, b, n, r in (("wq", "bq", nh, 1), ("wk", "bk", nkv, rep),
+                                          ("wv", "bv", nkv, rep)))
+            if "q_norm" in a:
+                q = [rms_norm(t, w, cfg.rms_norm_eps) for t, w in zip(q, tp.copy(a["q_norm"]))]
+                k = [rms_norm(t, w, cfg.rms_norm_eps) for t, w in zip(k, tp.copy(a["k_norm"]))]
+            q = [apply_rope(t, ctx["cos"], ctx["sin"]) for t in q]
+            k = [apply_rope(t, ctx["cos"], ctx["sin"]) for t in k]
+        else:
+            ranges = [(0, nh)]
+            q, k, v = self._heads(tp, h, hs, a, ctx)
+            if nkv != nh:
+                k = k.repeat_interleave(rep, dim=2)
+                v = v.repeat_interleave(rep, dim=2)
+            q, k, v = [q], [k], [v]
+        sp = ctx.get("sp_group")
+        if cfg.attention_impl == "ulysses" and sp is not None:
+            from ..parallel.ulysses import check_heads
+
+            n_sp = sp.size if isinstance(getattr(sp, "size", None), int) else \
+                torch.distributed.get_world_size(sp)
+            check_heads(ranges[0][1] - ranges[0][0], n_sp, tp.size, nh)
+        outs = [_attention(qr, kr, vr, causal=True, mask=ctx["attention_mask"],
+                           impl=cfg.attention_impl, window=window,
+                           softcap=cfg.attn_logit_softcap, scale=scale,
+                           kernels=ctx.get("kernels"), group=sp).reshape(B, S, -1)
+                for qr, kr, vr in zip(q, k, v)]
+        if not per_rank:
+            return _tagged("attn_out", self._mm, outs[0], wo, ctx)
+        width = wo[0].shape[0]
+        if outs[0].shape[-1] != width:  # every rank attended with all heads
+            outs = [o[..., t * width:(t + 1) * width] for o, t in zip(outs, tp.indices)]
+        return tp.reduce([_tagged("attn_out", self._mm, o, w, ctx) for o, w in zip(outs, wo)])
+
+    def _tp_mlp(self, tp, layer, h2, ctx):
+        """The MLP of :meth:`block`: column-parallel gate and up,
+        row-parallel down, summed over tp (:meth:`mlp` when none is
+        split)."""
+        m = layer["mlp"]
+        split = [isinstance(m[k], list) for k in ("w_gate", "w_up", "w_down")]
+        if not any(split):
+            return self.mlp(layer, h2, ctx)
+        if not all(split):
+            raise NotImplementedError("an MLP with some of w_gate, w_up, w_down split over tp "
+                                      "and others whole")
+        act = F.silu if self.config.hidden_act == "silu" else functools.partial(
+            F.gelu, approximate="tanh")
+        outs = []
+        for hr, wg, wu, wd in zip(tp.copy(h2), m["w_gate"], m["w_up"], m["w_down"]):
+            gate = act(self._mm(hr, wg, ctx))
+            outs.append(_tagged("mlp_out", self._mm, gate * self._mm(hr, wu, ctx), wd, ctx))
+        return tp.reduce(outs)
+
     def sharding_rules(self):
         """The JAX package's rules (``models/llama.py:411-431``): Megatron
         tp with the complementary fsdp dim, and the layer stack on pp. The
-        port's mesh has no tp or pp axis yet, so those entries have size 1."""
+        port's mesh has no pp axis yet, so that entry has size 1."""
         return [
             (r"embed/weight", ("tp", "fsdp")),
             (r"attn/w[qkv]", ("pp", "fsdp", "tp")),
@@ -558,13 +701,16 @@ class Llama(Module):
         return shifted
 
     def head(self, params, x, labels=None, attention_mask=None, targets=None,
-             loss_normalizer=None):
+             loss_normalizer=None, tp=None):
         """Final norm + LM head (+ shifted-label loss with ``labels``, or the
         loss of ``targets``, labels already shifted). The tied head reads the
         embed table in its native (V, h) layout; with ``fused_loss`` and a
         loss to compute, the loss comes straight from the hidden states and
         the output carries no logits. ``loss_normalizer``: the loss's
-        denominator in place of this call's valid-target count."""
+        denominator in place of this call's valid-target count. A head
+        split over tp (a list of the held ranks' vocab slices) runs the
+        vocab-parallel losses; its output carries the loss alone when there
+        is one, else the logits gathered over tp."""
         if labels is not None and targets is not None:
             raise ValueError("pass labels (shifted here) or targets (already shifted), not both")
         if labels is not None:
@@ -572,9 +718,13 @@ class Llama(Module):
         cfg = self.config
         x = rms_norm(x, params["final_norm"]["weight"], cfg.rms_norm_eps)
         if cfg.tie_word_embeddings:
-            head_w = params["embed"]["weight"].to(x.dtype)  # (V, h)
+            head_w = params["embed"]["weight"]  # (V, h)
+            head_w = [w.to(x.dtype) for w in head_w] if isinstance(head_w, list) else \
+                head_w.to(x.dtype)
         else:
             head_w = params["lm_head"]["weight"]  # (h, V)
+        if isinstance(head_w, list):
+            return self._tp_head(tp, x, head_w, targets, loss_normalizer)
         if targets is not None and cfg.fused_loss:
             loss = fused_cross_entropy_loss(
                 x, head_w, targets,
@@ -590,6 +740,24 @@ class Llama(Module):
         if targets is not None:
             out["loss"] = cross_entropy_loss(logits, targets, normalizer=loss_normalizer)
         return out
+
+    def _tp_head(self, tp, x, head_w, targets, loss_normalizer):
+        """The vocab-parallel head of :meth:`head`."""
+        cfg = self.config
+        xs = tp.copy(x)
+        if targets is not None and cfg.fused_loss:
+            return ModelOutput(loss=vocab_parallel_fused_cross_entropy(
+                tp, xs, head_w, targets, logit_cap=cfg.final_logit_softcap,
+                head_transposed=cfg.tie_word_embeddings, vocab_chunk=cfg.fused_loss_chunk,
+                chunk_dtype=cfg.fused_loss_dtype,
+                custom_backward=cfg.fused_loss_backward == "custom", normalizer=loss_normalizer))
+        parts = [xr @ w.T if cfg.tie_word_embeddings else xr @ w for xr, w in zip(xs, head_w)]
+        if cfg.final_logit_softcap is not None:
+            parts = [softcap_scores(p.float(), cfg.final_logit_softcap) for p in parts]
+        if targets is None:
+            return ModelOutput(logits=tp.gather(parts, -1))
+        return ModelOutput(loss=vocab_parallel_cross_entropy(tp, parts, targets,
+                                                             normalizer=loss_normalizer))
 
     # ------------------------------------------------------------------ cache
     def init_cache(self, batch_size: int, max_len: int, dtype=torch.bfloat16):
@@ -612,21 +780,22 @@ class Llama(Module):
 
     def apply(self, params, input_ids=None, labels=None, attention_mask=None,
               positions=None, cache=None, kernels=None, targets=None, loss_normalizer=None,
-              sp_group=None, **kwargs):
+              sp_group=None, tp=None, **kwargs):
         """Forward. ``kernels`` is the registry spec for the kernels the
         forward runs: the uncached attention's flash, splash or ring-block
         ops and, with ``matmul_precision="int8"``, the int8 matmul
         (``None``: the CUDA kernels for CUDA tensors; ``"off"``: their plain
         versions). ``targets``, ``loss_normalizer`` and ``sp_group`` serve a
-        sequence shard (module docstring)."""
+        sequence shard, ``tp`` a tp rank's pieces (module docstring)."""
         if kwargs.get("pipeline") is not None:
             raise NotImplementedError("pipeline schedules are not ported yet (ROADMAP.md)")
         if cache is not None:
             return self._apply_cached(params, input_ids, attention_mask, cache,
                                       labels=labels, positions=positions, kernels=kernels)
-        x, ctx = self.embed(params, input_ids, positions, attention_mask)
+        x, ctx = self.embed(params, input_ids, positions, attention_mask, tp=tp)
         ctx["kernels"] = kernels
         ctx["sp_group"] = sp_group
+        ctx["tp"] = tp
         cfg = self.config
         remat = cfg.remat and torch.is_grad_enabled()
         if remat:
@@ -645,7 +814,7 @@ class Llama(Module):
             else:
                 x = self.block(_index_tree(layers, i), x, ctx, window=window)
         return self.head(params, x, labels=labels, attention_mask=attention_mask,
-                         targets=targets, loss_normalizer=loss_normalizer)
+                         targets=targets, loss_normalizer=loss_normalizer, tp=tp)
 
     def _apply_cached(self, params, input_ids, attention_mask, cache, labels=None,
                       positions=None, kernels=None):

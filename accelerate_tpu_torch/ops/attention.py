@@ -10,7 +10,8 @@ the Mistral, Gemma-2 and Qwen2 recipes need (op ``splash_attention``:
 ``csrc/splash_attention.cu``, plain version :func:`splash_attention_reference`).
 ``impl="ring"`` is sequence-parallel ring attention over a process group
 (``parallel/ring.py``, whose blocks are the ring-block kernels of
-``csrc/flash_attention.cu``); ``"ulysses"`` is not ported yet and raises.
+``csrc/flash_attention.cu``); ``"ulysses"`` is the head-sequence
+all-to-all (``parallel/ulysses.py``) around this module's own attention.
 
 ``impl="auto"`` resolves by :func:`resolve_auto_impl`, for a CUDA tensor at
 kernel-friendly shapes from :data:`FLASH_MIN_SEQ` tokens on: splash for a
@@ -277,27 +278,26 @@ def resolve_auto_impl(seq_len: int, head_dim: int, *, kv_len: int | None = None,
 def attention(q, k, v, *, causal=True, mask=None, impl: str = "auto", window=None,
               softcap=None, scale=None, kernels=None, group=None):
     """Entry used by the model zoo for the uncached forward.
-    ``impl``: auto | dense | flash | splash | ring. ``window``, ``softcap``
-    and ``scale`` take the dense or splash path (``auto`` picks by
-    :func:`resolve_auto_impl`); flash and ring cannot apply them. As in the
-    JAX package, ``impl="splash"`` without any of the three runs dense.
-    ``impl="ring"``: q, k, v and ``mask`` are this rank's sequence shards
-    and ``group`` the sp process group (``parallel/ring.ring_attention``;
-    dense attention without one). ``kernels`` is the registry spec handed to
+    ``impl``: auto | dense | flash | splash | ring | ulysses. ``window``,
+    ``softcap`` and ``scale`` take the dense or splash path (``auto`` picks
+    by :func:`resolve_auto_impl`); flash, ring and ulysses cannot apply
+    them. As in the JAX package, ``impl="splash"`` without any of the three
+    runs dense. ``impl="ring"`` or ``"ulysses"``: q, k, v and ``mask`` are
+    this rank's sequence shards and ``group`` the sp process group
+    (``parallel/ring.ring_attention``, ``parallel/ulysses.ulysses_attention``;
+    without one, dense attention for the ring and this function's ``auto``
+    for Ulysses); with a loopback group (``LoopbackRing`` or
+    ``LoopbackUlysses`` of n ranks), q, k, v and ``mask`` are the whole
+    sequence of the n ranks, cut here into their shards, and the output is
+    the n ranks' output shards concatenated. ``kernels`` is the registry spec handed to
     the flash, splash and ring-block ops (``"off"`` runs their plain
     versions)."""
-    if impl == "ulysses":
-        raise NotImplementedError(
-            "attention impl='ulysses' is not ported yet (ROADMAP.md, module queue: "
-            "Ulysses sequence parallelism)"
-        )
     shaped = window is not None or softcap is not None or scale is not None
-    if impl == "ring":
+    if impl in ("ring", "ulysses"):
         if shaped:
-            raise ValueError("ring attention cannot apply window/softcap/scale options")
-        from ..parallel.ring import ring_attention  # parallel.ring imports this module
-
-        return ring_attention(q, k, v, causal=causal, mask=mask, group=group, kernels=kernels)
+            raise ValueError(f"{impl} attention cannot apply window/softcap/scale options")
+        return _sequence_parallel(q, k, v, causal=causal, mask=mask, impl=impl, group=group,
+                                  kernels=kernels)
     if shaped and impl not in ("auto", "dense", "splash"):
         raise ValueError(
             f"window/softcap/scale attention options need the dense path or splash; "
@@ -316,6 +316,24 @@ def attention(q, k, v, *, causal=True, mask=None, impl: str = "auto", window=Non
         raise ValueError(f"unknown attention impl {impl!r}")
     return dense_attention(q, k, v, causal=causal, mask=mask, window=window, softcap=softcap,
                            scale=scale)
+
+
+def _sequence_parallel(q, k, v, *, causal, mask, impl, group, kernels):
+    """Ring or Ulysses attention over ``group`` (:func:`attention`)."""
+    from ..parallel.ring import LoopbackRing, ring_attention  # they import this module
+    from ..parallel.ulysses import LoopbackUlysses, ulysses_attention
+
+    loopback = isinstance(group, (LoopbackRing, LoopbackUlysses))
+    if loopback:
+        n = group.size
+        group = LoopbackRing(n) if impl == "ring" else LoopbackUlysses(n)
+        q, k, v = (list(t.chunk(n, dim=1)) for t in (q, k, v))
+        mask = None if mask is None else list(mask.chunk(n, dim=1))
+    if impl == "ring":
+        out = ring_attention(q, k, v, causal=causal, mask=mask, group=group, kernels=kernels)
+    else:
+        out = ulysses_attention(q, k, v, causal=causal, mask=mask, group=group, kernels=kernels)
+    return torch.cat(out, dim=1) if loopback else out
 
 
 # Causal flash attention, forward and backward (one autograd.Function).

@@ -215,3 +215,82 @@ def fused_cross_entropy_loss(hidden, head_weight, labels, *, ignore_index: int =
         nll = nll + z_loss * logz.square()
     nll = torch.where(valid, nll, torch.zeros_like(nll))
     return nll.sum() / _denominator(valid, normalizer)
+
+
+# ------------------------------------------------------------ vocab-parallel
+
+def _owned(t, width, safe_labels):
+    """Rank ``t``'s column of each label in its ``width``-wide vocab slice
+    (0 where another rank owns it), and where it owns it."""
+    local = safe_labels - t * width
+    inside = (local >= 0) & (local < width)
+    return torch.where(inside, local, torch.zeros_like(local)), inside
+
+
+def _vocab_parallel_nll(tp, logz_parts, label_parts):
+    """``log Σ_ranks exp(logz_r) - Σ_ranks label_r``: the ranks' partial
+    log-sum-exps and owned label logits combined over tp."""
+    m = tp.max(logz_parts)
+    finite = torch.isfinite(m)
+    m = torch.where(finite, m, torch.zeros_like(m))
+    total = tp.reduce([torch.exp(z - m) for z in logz_parts])
+    return torch.log(total) + m - tp.reduce(label_parts)
+
+
+def vocab_parallel_cross_entropy(tp, logits_parts, labels, ignore_index: int = -100,
+                                 normalizer=None):
+    """:func:`cross_entropy_loss` of logits whose vocab is split over tp:
+    ``logits_parts`` holds each held rank's ``(..., V/tp)`` slice (rank t's
+    columns ``[t·V/tp, (t+1)·V/tp)``); ``tp`` a ``parallel/tensor`` context.
+    Returns the replicated mean NLL over non-ignored positions (over
+    ``normalizer`` when given)."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logz_parts, label_parts = [], []
+    for t, z in zip(tp.indices, logits_parts):
+        z = z.float()
+        col, inside = _owned(t, z.shape[-1], safe)
+        logz_parts.append(torch.logsumexp(z, dim=-1))
+        lab = torch.gather(z, -1, col[..., None])[..., 0]
+        label_parts.append(torch.where(inside, lab, torch.zeros_like(lab)))
+    nll = _vocab_parallel_nll(tp, logz_parts, label_parts)
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / _denominator(valid, normalizer)
+
+
+def vocab_parallel_fused_cross_entropy(tp, hidden_parts, head_parts, labels, *,
+                                       ignore_index: int = -100, vocab_chunk: int = 8192,
+                                       logit_cap=None, chunk_dtype: str = "fp32",
+                                       head_transposed: bool = False,
+                                       custom_backward: bool = True, normalizer=None):
+    """:func:`fused_cross_entropy_loss` with the head's vocab split over tp:
+    per held rank, ``hidden_parts`` its (replicated, ``tp.copy``-ed) hidden
+    states ``(B, S, h)`` and ``head_parts`` its head columns ``(h, V/tp)``
+    (or rows ``(V/tp, h)`` with ``head_transposed``). Each rank streams its
+    own slice in ``vocab_chunk`` chunks; the ranks' log-sum-exps and owned
+    label logits are combined over tp. Returns the replicated loss."""
+    if chunk_dtype not in ("fp32", "bf16"):
+        raise ValueError(f"chunk_dtype must be fp32|bf16, got {chunk_dtype!r}")
+    if vocab_chunk <= 0:
+        raise ValueError(f"vocab_chunk must be > 0, got {vocab_chunk}")
+    B, S, h = hidden_parts[0].shape
+    labels = labels.reshape(B * S)
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    kw = dict(vocab_chunk=vocab_chunk, logit_cap=logit_cap,
+              cd=torch.bfloat16 if chunk_dtype == "bf16" else torch.float32,
+              transposed=head_transposed)
+    logz_parts, label_parts = [], []
+    for t, hidden, w in zip(tp.indices, hidden_parts, head_parts):
+        x = hidden.reshape(B * S, h)
+        width = w.shape[0] if head_transposed else w.shape[-1]
+        col, inside = _owned(t, width, safe)
+        if custom_backward:
+            logz, lab = _StreamingStats.apply(x, w, col, kw)
+        else:
+            logz, lab = _streaming_stats_fwd(x, w, col, checkpointed=True, **kw)
+        logz_parts.append(logz)
+        label_parts.append(torch.where(inside, lab, torch.zeros_like(lab)))
+    nll = _vocab_parallel_nll(tp, logz_parts, label_parts)
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / _denominator(valid, normalizer)

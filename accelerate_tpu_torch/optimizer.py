@@ -260,7 +260,7 @@ class AcceleratedOptimizer:
         else:
             engine.set_zero_specs(self._plan_zero_specs())
             engine.ensure_accum()
-            self.rank_states = [self.tx.init(engine.update_template(r)) for r in engine.ranks]
+            self.rank_states = engine.init_states(self.tx)
         if self.host_offload:
             self._park_state()
 
@@ -414,7 +414,7 @@ class AcceleratedOptimizer:
             clip_t = torch.full((), clip, dtype=torch.float32, device=gnorm.device)
             factor = clip_factor(gnorm, clip_t)
             torch._foreach_mul_(buffers, factor)
-            finite = bool(torch.isfinite(gnorm).item())
+            finite = engine.all_finite(gnorm)
             if finite:
                 host = self._states() if self._on_host else None
                 self._sharded_update(torch.ones((), dtype=torch.float32, device=gnorm.device))

@@ -1,4 +1,4 @@
-"""Sharded training: the fsdp axis and ZeRO over dp.
+"""Sharded training: the fsdp and tp axes, ZeRO over dp, and sp beside them.
 
 The JAX package lays each parameter out by a ``PartitionSpec`` and lets
 GSPMD insert the collectives (``accelerate_tpu/accelerator.py:884-886,
@@ -8,49 +8,65 @@ of ``parallel/sharding.py`` choose:
 
 - **Storage.** Each rank keeps its shard of a leaf (the *base* layout,
   ``plan_param_shardings``) as its own contiguous f32 tensor, and its
-  accumulation buffer in the same layout. Leaves the plan replicates (the
-  norms, leaves under ``min_shard_size``) are whole on every rank. A base
-  spec may split one dim over one mesh axis (what the Llama rules and the
-  auto plan give); other specs raise.
+  accumulation buffer in the same layout. A base spec may split one dim
+  over the fsdp axis and another over the tp axis (the Llama rules: wq
+  ``(pp, fsdp, tp)``, wo ``(pp, tp, fsdp)``, the embedding ``(tp, fsdp)``);
+  other specs raise. Leaves the plan replicates (the norms, leaves under
+  ``min_shard_size``) are whole on every rank.
 - **Forward.** The model receives a tree whose sharded leaves are gathered
-  when the model reads them: a stacked ``(L, ...)`` leaf one layer at a time
-  (``layers[i]``), the others (the embedding, the LM head) whole. A gather
-  casts the shards to the compute dtype first (bf16 under
-  ``mixed_precision="bf16"``, half the bytes) and all-gathers them along
-  the sharded dim (``utils/operations.all_gather_along``). With
-  ``reshard_after_forward`` a gathered tensor that autograd would keep for
-  the backward is dropped and gathered again when the backward reads it
+  over **fsdp only** when the model reads them: a stacked ``(L, ...)`` leaf
+  one layer at a time (``layers[i]``), the others (the embedding, the LM
+  head) whole. A gather casts the shards to the compute dtype first and
+  all-gathers them along the fsdp dim (``utils/operations.all_gather_along``).
+  A leaf split over tp keeps its tp split: the model receives it as a list
+  of the tp ranks' pieces this process holds (one on a process group) and
+  runs Megatron's split on it (``parallel/tensor.py``, ``models/llama.py``).
+  With ``reshard_after_forward`` a gathered tensor that autograd would keep
+  for the backward is dropped and gathered again when the backward reads it
   (``saved_tensors_hooks``); under remat the whole layer is gathered again
   inside the recomputed region.
-- **Backward.** A gathered leaf's gradient, in f32, is reduce-scattered
-  over the axis it is sharded on (summed) and all-reduced over the other
-  data axis, and added into the owning shard of the accumulation buffer at
-  ``1/accum``. A replicated leaf's gradient is all-reduced. Each rank's
-  loss is its share of the global mean (the batch is split over dp x fsdp
-  rows, the loss divided by the global count of targets), so the sums are
-  the global gradient.
+- **Backward.** A gathered leaf's gradient, in f32, is reduce-scattered over
+  fsdp (summed) when the leaf is split there, all-reduced over the other
+  axes of dp, fsdp and sp, and added into the owning shard of the
+  accumulation buffer. It is never summed over tp: a tp rank's gradient of
+  its own piece is whole, and a replicated leaf's is the same on every tp
+  rank (Megatron's conjugate ops make it so). Each rank's loss is its share
+  of the global mean (the rows split over dp x fsdp, the sequence over sp,
+  the loss divided by the global count of targets), so the sums are the
+  global gradient.
 - **Update.** The global norm is each rank's sum of squares of the shards
   it owns, per leaf in the JAX leaf order, one all-reduce of that vector,
-  then the leaves summed in order. Under ZeRO (``plan_zero_shardings``) a
-  leaf's update covers the 1/dp slice of its base shard that the ZeRO spec
-  gives this rank: the slice of the parameter and of the buffer is copied
-  out contiguous, the fused update kernel (row 4) runs on it with the
-  moments, which exist only in that layout, and the new slice is
-  all-gathered over dp back into the base shard; the buffer is zeroed.
-  Without ZeRO the kernel runs in place on the base shard. Either way it
-  launches once per (rank, leaf), on shards only.
+  then the leaves summed in order; a rank owns a slice when its coordinate
+  is 0 on every axis the slice is replicated over (so a tp-split leaf
+  counts each tp piece once and a norm counts once). Under ZeRO
+  (``plan_zero_shardings``) a leaf's update covers the 1/dp slice of its
+  base shard that the ZeRO spec gives this rank: the slice of the
+  parameter and of the buffer is copied out contiguous, the fused update
+  kernel (row 4) runs on it with the moments, which exist only in that
+  layout, and the new slice is all-gathered over dp back into the base
+  shard; the buffer is zeroed. Without ZeRO the kernel runs in place on the
+  base shard. Either way it launches once per (rank, leaf), on shards only;
+  in the loopback, once per distinct update slice of a leaf: ranks that
+  hold the same slice (replicas over dp without ZeRO, over tp or sp) would
+  each make the same update, so the first of them makes it, and their
+  optimizer states share that slice's moments (one card holds them once).
 
 One process holds one rank over a process group (NCCL on cards, gloo on the
 CPU), or all ``n`` ranks with :class:`LoopbackShards` (one card driving the
-kernels as n cards would, ``chip_smoke.py`` phase 13). The loopback ranks run
-one after another. A gather concatenates the held shards. A backward
-cannot wait for the ranks that run after it, so the loopback banks each
-rank's f32 gradient of a sharded leaf into one buffer of the leaf's full
-size, in rank order, and scatters it into the shards after the last rank;
-process groups reduce-scatter each layer in its backward. Tensors the
-layout replicates are shared by the loopback ranks (one parameter, one
-buffer), and a replicated leaf's gradient sums over the ranks in the shared
-leaf's ``.grad``.
+kernels as n cards would, ``chip_smoke.py`` phases 13 and 15). The loopback
+runs one forward and backward per data coordinate (dp, fsdp), one after
+another; each covers that coordinate's tp and sp ranks: the tp ranks in
+lockstep through ``parallel/tensor.LoopbackTP``, the sp ranks as one
+sequence whose position-wise work (the projections, the norms, the MLP)
+runs as one product over their concatenated shards, with ring or Ulysses
+attention over ``LoopbackRing`` / ``LoopbackUlysses`` in the middle. A
+gather concatenates the held shards. A backward cannot wait for the data
+coordinates that run after it, so the loopback banks the f32 gradient of a
+sharded leaf into one buffer of the leaf's full size and scatters it into
+the shards after the last one; process groups reduce-scatter each layer in
+its backward. Tensors the layout replicates are shared by the loopback
+ranks (one parameter, one buffer), and a replicated leaf's gradient sums
+over the data coordinates in the shared leaf's ``.grad``.
 """
 
 from __future__ import annotations
@@ -63,10 +79,16 @@ import torch.distributed as dist
 from ..ops.fused_update import fused_update_leaves, reference_update_apply
 from ..ops.registry import dispatch
 from ..utils.operations import all_gather_along, reduce_scatter_along
-from ..utils.tree import tree_leaves, tree_unflatten
+from ..utils.tree import flatten_with_paths, map_with_paths, tree_leaves, tree_unflatten
+from .mesh import MESH_AXES
 from .sharding import entry_axes, padded_spec
+from .tensor import LoopbackTP, ProcessGroupTP
 
-DATA_AXES = ("dp", "fsdp")
+# The axes a gradient is summed over: each rank's loss is its share of the
+# global mean over the rows (dp x fsdp) and the sequence (sp).
+REDUCE_AXES = ("dp", "fsdp", "sp")
+# The axes a base spec may split a parameter over.
+SPLIT_AXES = ("fsdp", "tp")
 
 
 class LoopbackShards:
@@ -81,24 +103,29 @@ class LoopbackShards:
 
 
 def rank_coordinate(rank: int, sizes: dict) -> dict:
-    """``{"dp": i, "fsdp": j}`` of ``rank`` on a dp x fsdp mesh
-    (rank = i * fsdp + j)."""
-    return {"dp": rank // sizes["fsdp"], "fsdp": rank % sizes["fsdp"]}
+    """``{"dp", "fsdp", "sp", "tp"}`` of ``rank`` on the mesh
+    (rank = ((dp * fsdp + fsdp_index) * sp + sp_index) * tp + tp_index)."""
+    coord = {}
+    for axis in reversed(MESH_AXES):
+        n = int(sizes.get(axis, 1))
+        coord[axis] = rank % n
+        rank //= n
+    return {a: coord[a] for a in MESH_AXES}
 
 
 class _Layout:
-    """One leaf's placement: its full shape, the dim its spec splits over a
-    mesh axis of size > 1 (``dim``, ``axis``; None for a replicated leaf),
-    and, under ZeRO, the dim its update slice further splits over dp
-    (``zero_dim``)."""
+    """One leaf's placement: its full shape, the dims its spec splits over
+    the fsdp and tp axes (``splits``, ``{axis: dim}``; empty for a
+    replicated leaf), and, under ZeRO, the dim its update slice further
+    splits over dp (``zero_dim``)."""
 
     def __init__(self, path, shape, spec, sizes):
         self.path, self.shape, self.sizes = path, tuple(shape), sizes
-        self.dim, self.axis = _split(path, shape, spec, sizes)
-        self.parts = sizes[self.axis] if self.axis else 1
+        self.splits = _split(path, shape, spec, sizes)
+        self.fsdp_dim, self.tp_dim = self.splits.get("fsdp"), self.splits.get("tp")
         self.local_shape = list(self.shape)
-        if self.dim is not None:
-            self.local_shape[self.dim] //= self.parts
+        for axis, d in self.splits.items():
+            self.local_shape[d] //= sizes[axis]
         self.set_zero(None)
 
     def set_zero(self, zero_spec):
@@ -108,7 +135,7 @@ class _Layout:
         self.zero_dim = None
         if zero_spec is not None:
             z_splits = _effective(shape, zero_spec, sizes)
-            base = {} if self.dim is None else {self.dim: (self.axis,)}
+            base = {d: (a,) for a, d in self.splits.items()}
             added = {d: a for d, a in z_splits.items() if base.get(d) != a}
             if any(d not in z_splits for d in base) or len(added) > 1:
                 raise NotImplementedError(f"the ZeRO spec {zero_spec} of {path} is not its "
@@ -122,16 +149,24 @@ class _Layout:
         if self.zero_dim is not None:
             self.update_shape[self.zero_dim] //= sizes["dp"]
 
-    def key(self, coord) -> int:
-        """Which base shard a rank holds (ranks with one key share it)."""
-        return 0 if self.axis is None else coord[self.axis]
+    def key(self, coord) -> tuple:
+        """Which base shard a rank holds, ``(fsdp index, tp index)`` of the
+        axes the leaf is split over, 0 for the others (ranks with one key
+        share it)."""
+        return tuple(coord[a] if a in self.splits else 0 for a in SPLIT_AXES)
+
+    def local_of_key(self, full, key):
+        """The base shard ``key`` of ``full`` (a view)."""
+        for axis, index in zip(SPLIT_AXES, key):
+            if axis in self.splits:
+                d = self.splits[axis]
+                n = self.local_shape[d]
+                full = full.narrow(d, index * n, n)
+        return full
 
     def local(self, full, coord):
         """The base shard of ``full`` at ``coord`` (a view)."""
-        if self.dim is None:
-            return full
-        n = self.local_shape[self.dim]
-        return full.narrow(self.dim, self.key(coord) * n, n)
+        return self.local_of_key(full, self.key(coord))
 
     def update_slice(self, local, coord):
         """The ZeRO slice of a base shard at ``coord`` (a view)."""
@@ -142,9 +177,9 @@ class _Layout:
 
     def owner(self, coord) -> bool:
         """Whether this rank's update slice counts towards the global norm:
-        its coordinate is 0 on every data axis the slice is replicated over."""
-        split = {self.axis} | ({"dp"} if self.zero_dim is not None else set())
-        return all(coord[a] == 0 for a in DATA_AXES if a not in split)
+        its coordinate is 0 on every axis the slice is replicated over."""
+        split = set(self.splits) | ({"dp"} if self.zero_dim is not None else set())
+        return all(coord[a] == 0 for a in MESH_AXES if a not in split)
 
 
 def _effective(shape, spec, sizes) -> dict:
@@ -157,15 +192,15 @@ def _effective(shape, spec, sizes) -> dict:
     return out
 
 
-def _split(path, shape, spec, sizes):
-    splits = _effective(shape, spec, sizes)
-    if not splits:
-        return None, None
-    if len(splits) > 1 or len(next(iter(splits.values()))) > 1:
-        raise NotImplementedError(f"the spec {spec} of {path} splits more than one dim, or a "
-                                  "dim over more than one axis; the sharded step takes one")
-    ((dim, (axis,)),) = splits.items()
-    return dim, axis
+def _split(path, shape, spec, sizes) -> dict:
+    out = {}
+    for d, axes in _effective(shape, spec, sizes).items():
+        if len(axes) > 1 or axes[0] not in SPLIT_AXES or axes[0] in out:
+            raise NotImplementedError(
+                f"the spec {spec} of {path} splits a dim over {axes}; the sharded step takes "
+                "at most one dim over fsdp and one over tp")
+        out[axes[0]] = d
+    return out
 
 
 def _meta_tree(tree):
@@ -183,42 +218,50 @@ def _walk_paths(tree, prefix=""):
 
 # ------------------------------------------------------------- model inputs
 class _Gather(torch.autograd.Function):
-    """A sharded leaf (or layer ``layer`` of a stacked one) gathered at the
-    compute dtype; the backward hands the gradient to the owning shards.
-    ``anchor`` (a scalar that requires grad) makes autograd call the
-    backward; it gets no gradient."""
+    """A sharded leaf (or layer ``layer`` of a stacked one) gathered over
+    fsdp at the compute dtype, for forward unit ``unit``: one tensor, or,
+    for a leaf split over tp, one piece per held tp rank; the backward
+    hands the gradient to the owning shards. ``anchor`` (a scalar that
+    requires grad) makes autograd call the backward; it gets no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, model, i, layer, rank, anchor):
-        ctx.model, ctx.i, ctx.layer, ctx.rank = model, i, layer, rank
-        out = model.gather(i, layer, rank)
-        out._fsdp_regather = (i, layer, rank)
+    def forward(ctx, model, i, layer, unit, anchor):
+        ctx.model, ctx.i, ctx.layer, ctx.unit = model, i, layer, unit
+        out = model.gather(i, layer, unit)
+        for piece, t in enumerate(out if isinstance(out, tuple) else (out,)):
+            t._fsdp_regather = (i, layer, unit, piece)
         return out
 
     @staticmethod
-    def backward(ctx, grad):
-        ctx.model.reduce_grad(ctx.i, ctx.layer, ctx.rank, grad)
+    def backward(ctx, *grads):
+        ctx.model.reduce_grad(ctx.i, ctx.layer, ctx.unit, grads)
         return None, None, None, None, None
+
+
+def _gathered(*args):
+    out = _Gather.apply(*args)
+    return list(out) if isinstance(out, tuple) else out
 
 
 class _Deferred:
     """A whole sharded leaf, gathered when the model reads it."""
 
-    def __init__(self, model, i, rank, anchor):
-        self.args = (model, i, None, rank, anchor)
+    def __init__(self, model, i, unit, anchor):
+        self.args = (model, i, None, unit, anchor)
 
     def __call__(self):
-        return _Gather.apply(*self.args)
+        return _gathered(*self.args)
 
 
 class _StackedLeaf:
     """A stacked ``(L, ...)`` sharded leaf: ``leaf[i]`` gathers layer i."""
 
-    def __init__(self, model, i, rank, anchor):
-        self.model, self.i, self.rank, self.anchor = model, i, rank, anchor
+    def __init__(self, model, i, unit, anchor):
+        self.model, self.i, self.unit, self.anchor = model, i, unit, anchor
 
     def __getitem__(self, layer):
-        return _Gather.apply(self.model, self.i, int(layer), self.rank, self.anchor)
+        return _gathered(self.model, self.i, int(layer), self.unit, self.anchor)
 
 
 class _LazyDict(dict):
@@ -244,18 +287,28 @@ class ShardedModel:
     and the collectives of its step (module docstring). ``params``: the full
     f32 tree, the same on every rank (rank 0's); ``specs``: the base plan's
     tree (:meth:`set_zero_specs` adds ZeRO's); ``sizes``: the mesh's
-    ``{"dp", "fsdp"}``; ``comm``: a :class:`LoopbackShards`, or None for
-    this process's rank ``rank`` of ``mesh``, the job's ``DeviceMesh``."""
+    ``{"dp", "fsdp", "sp", "tp"}``; ``comm``: a :class:`LoopbackShards`, or
+    None for this process's rank ``rank`` of ``mesh``, the job's
+    ``DeviceMesh``. ``sp_loopback``: the class of the loopback sp group a
+    forward unit hands the model (``LoopbackRing`` or ``LoopbackUlysses``)."""
 
     def __init__(self, params, specs, sizes, *, comm=None, mesh=None, rank=0,
-                 compute_dtype=torch.float32, reshard_after_forward=True):
-        self.sizes = {a: int(sizes.get(a, 1)) for a in DATA_AXES}
+                 compute_dtype=torch.float32, reshard_after_forward=True, sp_loopback=None):
+        self.sizes = {a: int(sizes.get(a, 1)) for a in MESH_AXES}
         self.loopback = isinstance(comm, LoopbackShards)
-        if self.loopback and comm.size != self.sizes["dp"] * self.sizes["fsdp"]:
-            raise ValueError(f"LoopbackShards({comm.size}) does not hold a dp x fsdp mesh of "
+        world = 1
+        for n in self.sizes.values():
+            world *= n
+        if self.loopback and comm.size != world:
+            raise ValueError(f"LoopbackShards({comm.size}) does not hold a mesh of "
                              f"{self.sizes}")
         self.ranks = comm.ranks if self.loopback else (int(rank),)
+        # A forward unit: a process group's rank, or in the loopback one data
+        # coordinate with all its tp and sp ranks (its sp 0, tp 0 rank).
+        self.units = tuple(r for r in self.ranks if not self.loopback or (
+            self.coord(r)["sp"] == 0 and self.coord(r)["tp"] == 0))
         self.mesh = mesh
+        self.sp_loopback = sp_loopback
         self.compute_dtype = compute_dtype
         self.reshard_after_forward = bool(reshard_after_forward)
         self.template = _meta_tree(params)  # shapes only: the full tensors are not kept
@@ -266,7 +319,7 @@ class ShardedModel:
                         for p, f, s in zip(self.paths, full, tree_leaves(specs))]
         self.stacked = [p.startswith("layers/") for p in self.paths]
         for layout, stacked in zip(self.layouts, self.stacked):
-            if stacked and layout.dim == 0:
+            if stacked and 0 in layout.splits.values():
                 raise NotImplementedError(f"{layout.path} is sharded on its layer dim; the "
                                           "sharded step gathers a stacked leaf a layer at a time")
         # local[i][key]: base shards (the full tensor itself when replicated).
@@ -274,11 +327,10 @@ class ShardedModel:
         for f, layout in zip(full, self.layouts):
             shards = {}
             for r in self.ranks:
-                coord = self.coord(r)
-                key = layout.key(coord)
+                key = layout.key(self.coord(r))
                 if key not in shards:
-                    shards[key] = (f.detach() if layout.dim is None else
-                                   layout.local(f.detach(), coord).clone(
+                    shards[key] = (f.detach() if not layout.splits else
+                                   layout.local_of_key(f.detach(), key).clone(
                                        memory_format=torch.contiguous_format))
             self.local.append(shards)
         self.accum = None
@@ -304,6 +356,41 @@ class ShardedModel:
     def _group(self, axis):
         return self.mesh.get_group(axis)
 
+    def unit_context(self, unit) -> dict:
+        """What the model's forward of ``unit`` needs besides the tree:
+        ``tp`` (a ``parallel/tensor`` context, None without a tp axis) and
+        ``sp_group`` (the sp process group, a loopback sp group, or None)."""
+        tp = sp = None
+        if self.sizes["tp"] > 1:
+            tp = LoopbackTP(self.sizes["tp"]) if self.loopback else ProcessGroupTP(
+                self._group("tp"))
+        if self.sizes["sp"] > 1:
+            sp = self.sp_loopback(self.sizes["sp"]) if self.loopback else self._group("sp")
+        return {"tp": tp, "sp_group": sp}
+
+    def _reduce(self, t, axes=REDUCE_AXES):
+        """``t`` summed in place over this process group rank's ``axes`` of
+        size > 1 (nothing in the loopback); the default group when they
+        are all of the job's ranks."""
+        if self.loopback or not dist.is_initialized() or dist.get_world_size() == 1:
+            return t
+        live = [a for a in axes if self.sizes[a] > 1]
+        others = [a for a in MESH_AXES if a not in axes and self.sizes[a] > 1]
+        if not others:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM)
+            return t
+        for axis in live:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self._group(axis))
+        return t
+
+    def all_finite(self, gnorm) -> bool:
+        """Whether ``gnorm`` is finite on every rank: the flag MIN-reduced
+        over the job (one read of the device)."""
+        flag = torch.isfinite(gnorm).to(torch.int32).reshape(1)
+        if not self.loopback and dist.is_initialized() and dist.get_world_size() > 1:
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        return bool(flag.item())
+
     def param_tree(self, rank):
         """Rank ``rank``'s parameter tree: its base shards."""
         return tree_unflatten(self.template, [self.local[i][layout.key(self.coord(rank))]
@@ -313,11 +400,57 @@ class ShardedModel:
         return tree_unflatten(self.template, [self.accum[i][layout.key(self.coord(rank))]
                                               for i, layout in enumerate(self.layouts)])
 
-    def update_template(self, rank):
-        """Meta tensors of rank ``rank``'s update slices, for ``tx.init``."""
-        return tree_unflatten(self.template, [
-            torch.empty(layout.update_shape, dtype=self.local[i][layout.key(self.coord(rank))].dtype,
-                        device="meta") for i, layout in enumerate(self.layouts)])
+    def slice_id(self, i, rank) -> tuple:
+        """Which update slice of leaf ``i`` rank ``rank`` updates: its base
+        shard's key and, under ZeRO, its dp index."""
+        layout, coord = self.layouts[i], self.coord(rank)
+        return layout.key(coord), coord["dp"] if layout.zero_dim is not None else None
+
+    def _leaders(self, i) -> list:
+        """Per held rank, whether it is the first to hold its update slice
+        of leaf ``i`` (the one that updates it)."""
+        seen, out = set(), []
+        for r in self.ranks:
+            ident = self.slice_id(i, r)
+            out.append(ident not in seen)
+            seen.add(ident)
+        return out
+
+    def init_states(self, tx):
+        """Per held rank ``tx.init`` over its update slices. A slice several
+        held ranks share has one state, its first holder's: the others'
+        state tensors for it are that rank's tensors (their own ``tx.init``
+        sees an empty placeholder there, so it allocates nothing)."""
+        leaders = [self._leaders(i) for i in range(len(self.layouts))]
+        states = [tx.init(tree_unflatten(self.template, [
+            torch.empty(layout.update_shape if leaders[i][j] else (0,),
+                        dtype=self.local[i][next(iter(self.local[i]))].dtype, device="meta")
+            for i, layout in enumerate(self.layouts)])) for j in range(len(self.ranks))]
+        index = {layout.path.replace("/", "."): i for i, layout in enumerate(self.layouts)}
+        first = {}
+        for j, r in enumerate(self.ranks):
+            for i in range(len(self.layouts)):
+                first.setdefault((i, self.slice_id(i, r)), j)
+        flat = [dict(flatten_with_paths(state)) for state in states]
+
+        def leaf_of(path):
+            """The leaf a state entry belongs to: "0.mu.layers.attn.wq" is
+            leaf "layers.attn.wq"'s (None for the step count)."""
+            parts = path.split(".")
+            return next((index[k] for k in (".".join(parts[m:]) for m in range(len(parts)))
+                         if k in index), None)
+
+        def alias(j):
+            def one(path, t):
+                i = leaf_of(path)
+                if i is None or leaders[i][j]:
+                    return t
+                return flat[first[(i, self.slice_id(i, self.ranks[j]))]][path]
+
+            return one
+
+        return [states[0]] + [map_with_paths(alias(j), states[j])
+                              for j in range(1, len(self.ranks))]
 
     def state_bytes(self, rank) -> dict:
         """Bytes of rank ``rank``'s parameter shards and buffer."""
@@ -338,31 +471,52 @@ class ShardedModel:
         in axis order."""
         coord = self.coord(rank)
         return [r for r in self.ranks
-                if all(self.coord(r)[a] == coord[a] for a in DATA_AXES if a != axis)]
+                if all(self.coord(r)[a] == coord[a] for a in MESH_AXES if a != axis)]
 
-    def gather(self, i, layer, rank, dtype=None):
-        """Leaf ``i`` (layer ``layer`` of it, when not None) whole, at
-        ``dtype`` (the compute dtype)."""
+    def _tp_indices(self, unit):
+        """The tp indices forward unit ``unit`` runs."""
+        if self.loopback:
+            return tuple(range(self.sizes["tp"]))
+        return (self.coord(unit)["tp"],)
+
+    def gather(self, i, layer, unit, piece=None, dtype=None):
+        """Leaf ``i`` (layer ``layer`` of it, when not None) gathered over
+        fsdp at ``dtype`` (the compute dtype) for forward unit ``unit``:
+        one tensor, or for a leaf split over tp a tuple of the unit's tp
+        pieces (only piece ``piece`` when given)."""
         layout = self.layouts[i]
         dtype = self.compute_dtype if dtype is None else dtype
+        coord = self.coord(unit)
 
         def part(shard):
             t = shard if layer is None else shard[layer]
             return t.to(dtype)
 
-        dim = layout.dim - (layer is not None)
-        if self.loopback:
-            return torch.cat([part(self.local[i][layout.key(self.coord(r))])
-                              for r in self._held_group(rank, layout.axis)], dim)
-        return all_gather_along(part(self.local[i][layout.key(self.coord(rank))]), dim,
-                                self._group(layout.axis))
+        def one(t):
+            if layout.fsdp_dim is None:
+                return part(self.local[i][(0, t)])
+            dim = layout.fsdp_dim - (layer is not None)
+            if self.loopback:
+                return torch.cat([part(self.local[i][(j, t)])
+                                  for j in range(self.sizes["fsdp"])], dim)
+            return all_gather_along(part(self.local[i][(coord["fsdp"], t)]), dim,
+                                    self._group("fsdp"))
 
-    def full_leaf(self, i, update_slices=None):
+        if layout.tp_dim is None:
+            return one(0)
+        indices = self._tp_indices(unit)
+        if piece is not None:
+            return one(indices[piece])
+        return tuple(one(t) for t in indices)
+
+    @torch.no_grad()
+    def full_leaf(self, i, update_slices=None, shards=None):
         """Leaf ``i`` whole in f32, one leaf at a time on the device
-        (checkpoints): from its base shards, or from ``update_slices``, per
-        held rank its ZeRO slice (the moments)."""
+        (checkpoints): from its base shards (or ``shards``, a dict laid out
+        as ``local[i]``: the buffer's), or from ``update_slices``, per held
+        rank its ZeRO slice (the moments)."""
         layout = self.layouts[i]
-        base = self.local[i]
+        base = self.local[i] if shards is None else shards
         if update_slices is not None:
             by_rank = dict(zip(self.ranks, update_slices))
             base = {}
@@ -377,30 +531,48 @@ class ShardedModel:
                                           layout.zero_dim)
                 else:
                     base[key] = all_gather_along(by_rank[r], layout.zero_dim, self._group("dp"))
-        if layout.dim is None:
+        if not layout.splits:
             return next(iter(base.values()))
         if self.loopback:
-            return torch.cat([base[k] for k in range(layout.parts)], layout.dim)
-        return all_gather_along(base[layout.key(self.coord(self.ranks[0]))], layout.dim,
-                                self._group(layout.axis))
+            def along_fsdp(t):
+                if layout.fsdp_dim is None:
+                    return base[(0, t)]
+                return torch.cat([base[(j, t)] for j in range(self.sizes["fsdp"])],
+                                 layout.fsdp_dim)
+
+            if layout.tp_dim is None:
+                return along_fsdp(0)
+            return torch.cat([along_fsdp(t) for t in range(self.sizes["tp"])], layout.tp_dim)
+        out = base[layout.key(self.coord(self.ranks[0]))]
+        for axis in SPLIT_AXES:
+            if axis in layout.splits:
+                out = all_gather_along(out, layout.splits[axis], self._group(axis))
+        return out
 
     # ----------------------------------------------------------- backward
-    def reduce_grad(self, i, layer, rank, grad):
+    def reduce_grad(self, i, layer, unit, grads):
         """The backward of a gather: the f32 gradient summed over the ranks
         into the owning shard (banked in the loopback)."""
-        g = grad.float()
         layout = self.layouts[i]
         if self.loopback:
             if i not in self._bank:
-                self._bank[i] = torch.zeros(layout.shape, dtype=torch.float32, device=g.device)
-            (self._bank[i] if layer is None else self._bank[i][layer]).add_(g)
+                self._bank[i] = torch.zeros(layout.shape, dtype=torch.float32,
+                                            device=grads[0].device)
+            bank = self._bank[i] if layer is None else self._bank[i][layer]
+            if layout.tp_dim is None:
+                bank.add_(grads[0].float())
+                return
+            tp_dim = layout.tp_dim - (layer is not None)
+            n = layout.local_shape[layout.tp_dim]
+            for t, g in zip(self._tp_indices(unit), grads):
+                bank.narrow(tp_dim, t * n, n).add_(g.float())
             return
-        part = reduce_scatter_along(g, layout.dim - (layer is not None),
-                                    self._group(layout.axis))
-        for axis in DATA_AXES:
-            if axis != layout.axis and self.sizes[axis] > 1:
-                dist.all_reduce(part, op=dist.ReduceOp.SUM, group=self._group(axis))
-        self._sink(i, layer, layout.key(self.coord(rank)), part)
+        part = grads[0].float()
+        if layout.fsdp_dim is not None:
+            part = reduce_scatter_along(part, layout.fsdp_dim - (layer is not None),
+                                        self._group("fsdp"))
+        self._reduce(part, tuple(a for a in REDUCE_AXES if a not in layout.splits))
+        self._sink(i, layer, layout.key(self.coord(unit)), part)
 
     def _pack(self, t):
         key = getattr(t, "_fsdp_regather", None)
@@ -412,18 +584,18 @@ class ShardedModel:
                 return self.gather(*packed[1])
         return packed
 
-    def rank_tree(self, rank, aliases, anchor):
-        """The tree the model reads for rank ``rank``: replicated leaves as
-        their (cast) aliases, sharded ones gathered on read."""
+    def rank_tree(self, unit, aliases, anchor):
+        """The tree the model reads for forward unit ``unit``: replicated
+        leaves as their (cast) aliases, sharded ones gathered on read."""
         leaves = []
         for i, layout in enumerate(self.layouts):
-            if layout.dim is None:
+            if not layout.splits:
                 a = aliases[i]
                 leaves.append(a.to(self.compute_dtype) if a.is_floating_point() else a)
             elif self.stacked[i]:
-                leaves.append(_StackedLeaf(self, i, rank, anchor))
+                leaves.append(_StackedLeaf(self, i, unit, anchor))
             else:
-                leaves.append(_Deferred(self, i, rank, anchor))
+                leaves.append(_Deferred(self, i, unit, anchor))
         return _lazy(tree_unflatten(self.template, leaves))
 
     def begin(self, sink, n_data_ranks=None):
@@ -442,8 +614,8 @@ class ShardedModel:
         else:
             self._sink = sink
         self._bank = {} if self.loopback else None
-        aliases = {i: self.local[i][0].detach().requires_grad_(True)
-                   for i, layout in enumerate(self.layouts) if layout.dim is None}
+        aliases = {i: self.local[i][(0, 0)].detach().requires_grad_(True)
+                   for i, layout in enumerate(self.layouts) if not layout.splits}
         return aliases, torch.zeros((), requires_grad=True)
 
     def hooks(self):
@@ -454,40 +626,36 @@ class ShardedModel:
         return torch.autograd.graph.saved_tensors_hooks(self._pack, self._unpack)
 
     def end(self, aliases):
-        """After every held rank's backward: the loopback's banked
+        """After every forward unit's backward: the loopback's banked
         gradients scattered into the shards, and the replicated leaves'
-        gradients (all-reduced over a process group), into the sink."""
+        gradients (summed over dp, fsdp and sp on a process group), into
+        the sink."""
         if self.loopback:
             for i, bank in self._bank.items():
-                layout = self.layouts[i]
-                n = layout.local_shape[layout.dim]
-                for key in range(layout.parts):
-                    self._sink(i, None, key, bank.narrow(layout.dim, key * n, n))
+                for key in self.local[i]:
+                    self._sink(i, None, key, self.layouts[i].local_of_key(bank, key))
             self._bank = None
         for i, a in aliases.items():
             g = a.grad if a.grad is not None else torch.zeros_like(a)
-            if not self.loopback and dist.is_initialized() and dist.get_world_size() > 1:
-                dist.all_reduce(g, op=dist.ReduceOp.SUM)
-            self._sink(i, None, 0, g)
+            self._reduce(g)
+            self._sink(i, None, (0, 0), g)
         self._sink = None
 
     def forward_backward(self, forward, sink):
-        """Every held rank's forward (``forward(rank, tree) -> loss``, its
-        share of the global mean loss) and backward, the gradients summed
-        over the ranks into ``sink`` (:meth:`begin`). Returns the loss
-        summed over the ranks."""
+        """Every forward unit's forward (``forward(unit, tree) -> loss``,
+        its share of the global mean loss) and backward, the gradients
+        summed over the ranks into ``sink`` (:meth:`begin`). Returns the
+        loss summed over the units (and over dp, fsdp and sp)."""
         aliases, anchor = self.begin(sink)
         total = None
-        for rank in self.ranks:
+        for unit in self.units:
             with torch.enable_grad():
                 with self.hooks():
-                    loss = forward(rank, self.rank_tree(rank, aliases, anchor))
+                    loss = forward(unit, self.rank_tree(unit, aliases, anchor))
                 torch.autograd.backward(loss)
             total = loss.detach() if total is None else total + loss.detach()
         self.end(aliases)
-        if not self.loopback and dist.is_initialized() and dist.get_world_size() > 1:
-            dist.all_reduce(total, op=dist.ReduceOp.SUM)
-        return total
+        return self._reduce(total)
 
     # ------------------------------------------------------------- update
     def global_norm(self, grads=None):
@@ -515,17 +683,21 @@ class ShardedModel:
             total = total + s
         return torch.sqrt(total)
 
-    def _update_operands(self, i):
-        """Per held rank, ``(rank, p, g, in_place)``: the update slices of
-        leaf i's parameter and buffer, copied out contiguous unless they
-        are a base shard no other held rank shares."""
+    def _update_operands(self, i, every_rank=True):
+        """Per held rank (or only per first holder of an update slice),
+        ``(rank, p, g, in_place)``: the update slices of leaf i's parameter
+        and buffer, copied out contiguous unless they are a base shard no
+        other rank updates."""
         layout = self.layouts[i]
         keys = [layout.key(self.coord(r)) for r in self.ranks]
+        leaders = self._leaders(i)
         out = []
-        for rank, key in zip(self.ranks, keys):
+        for rank, key, leader in zip(self.ranks, keys, leaders):
+            if not (every_rank or leader):
+                continue
             coord = self.coord(rank)
             p, g = self.local[i][key], self.accum[i][key]
-            if layout.zero_dim is None and keys.count(key) == 1:
+            if layout.zero_dim is None and (keys.count(key) == 1 or not every_rank):
                 out.append((rank, p, g, True))
             else:
                 out.append((rank, layout.update_slice(p, coord).clone(
@@ -553,20 +725,22 @@ class ShardedModel:
     def update(self, tx, plan, states, factor, kernels=None):
         """One update of every leaf on every held rank with clip factor
         ``factor`` (an f32 device scalar); ``states``: per held rank its
-        optimizer state over its update slices. Returns the new states.
-        The fused kernel runs once per (rank, leaf) when ``plan`` is not
+        optimizer state over its update slices (:meth:`init_states`).
+        Returns the new states. The fused kernel runs once per distinct
+        update slice of a leaf (module docstring) when ``plan`` is not
         None; else the reference chain runs per rank on copies of the
         slices."""
         if plan is None:
             return self._reference_update(tx, states, factor)
-        per_rank = [fused_update_leaves(s, plan=plan) for s in states]
+        per_rank = dict(zip(self.ranks, (fused_update_leaves(s, plan=plan) for s in states)))
         for i in range(len(self.layouts)):
-            operands = self._update_operands(i)
-            for (rank, p, g, _), (moments, scalars, _) in zip(operands, per_rank):
+            operands = self._update_operands(i, every_rank=False)
+            for rank, p, g, _ in operands:
+                moments, scalars, _ = per_rank[rank]
                 dispatch("fused_update", p, g, () if moments is None else moments[i], factor,
                          *scalars, plan=plan, kernels=kernels)
             self._write_back(i, operands)
-        return [new for _, _, new in per_rank]
+        return [per_rank[r][2] for r in self.ranks]
 
     def _reference_update(self, tx, states, factor):
         operands = [self._update_operands(i) for i in range(len(self.layouts))]
@@ -593,9 +767,8 @@ class ShardedModel:
         """Copy the base shards of a full leaf into the parameters, in
         place."""
         layout = self.layouts[i]
-        for r in self.ranks:
-            coord = self.coord(r)
-            self.local[i][layout.key(coord)].copy_(layout.local(full, coord))
+        for key, shard in self.local[i].items():
+            shard.copy_(layout.local_of_key(full, key))
 
     def update_slices_of(self, i, full):
         """Per held rank, rank's update slice of a full leaf (views)."""

@@ -5,21 +5,27 @@ The JAX package makes every parallelism strategy an axis of one
 ``torch.distributed.device_mesh.DeviceMesh`` over the job's ranks with the
 axes it has ported so far: ``dp`` (data parallel: parameters replicated,
 batch rows split), ``fsdp`` (fully sharded: parameters, gradients and
-optimizer state sharded, batch rows split; ``parallel/fsdp.py``) and ``sp``
-(sequence parallel: the sequence split, with ring attention over the axis).
-The axis order is the JAX package's (``accelerate_tpu/utils/constants.py:
-177``: ``dp``, then ``fsdp``, then ``sp``), so
-rank = (dp_index * fsdp + fsdp_index) * sp + sp_index; with fsdp 1 the
-groups and the rank order are those of a ``("dp", "sp")`` mesh. The tp, pp
-and ep axes are not ported yet (ROADMAP.md) and raise when asked for.
+optimizer state sharded, batch rows split; ``parallel/fsdp.py``), ``sp``
+(sequence parallel: the sequence split, with ring or Ulysses attention over
+the axis) and ``tp`` (tensor parallel: the Megatron split of the heads, the
+MLP's columns and the vocab; ``parallel/tensor.py``). The axis order is the
+JAX package's (``accelerate_tpu/utils/constants.py:177``, restricted to the
+ported axes: ``dp``, ``fsdp``, ``sp``, then ``tp`` innermost), so
+rank = ((dp_index * fsdp + fsdp_index) * sp + sp_index) * tp + tp_index.
+The pp and ep axes are not ported yet (ROADMAP.md) and raise when asked
+for.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
-MESH_AXES = ("dp", "fsdp", "sp")
-UNPORTED_AXES = ("tp_size", "pp_size", "ep_size")
+MESH_AXES = ("dp", "fsdp", "sp", "tp")
+UNPORTED_AXES = ("pp_size", "ep_size")
+# The launcher's mesh-shape contract (JAX ``utils/constants.py:39``):
+# ``ACCELERATE_MESH_SHAPE=dp:2,tp:2``.
+ENV_MESH_SHAPE = "ACCELERATE_MESH_SHAPE"
 
 
 @dataclass
@@ -45,30 +51,57 @@ class ParallelismConfig:
             if getattr(self, name) != 1:
                 raise NotImplementedError(
                     f"ParallelismConfig({name}={getattr(self, name)}) is not ported yet "
-                    "(ROADMAP.md, module queue: the tp, pp and ep axes)")
-        if self.sp_size < 1:
-            raise ValueError(f"sp_size must be >= 1, got {self.sp_size}")
+                    "(ROADMAP.md, module queue: the pp and ep axes)")
+        for name in ("sp_size", "tp_size"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
         for name in ("dp_size", "fsdp_size"):
             if getattr(self, name) < 1 and getattr(self, name) != -1:
                 raise ValueError(f"{name} must be >= 1 or -1, got {getattr(self, name)}")
 
+    @classmethod
+    def from_env(cls) -> "ParallelismConfig":
+        """The mesh of ``ACCELERATE_MESH_SHAPE`` (``dp:2,fsdp:2,tp:2``; JAX
+        ``parallel/mesh.py:88-102``): 0 for dp or fsdp means every rank
+        left over. The port has no dcn axis: ``dcn`` is accepted at 1."""
+        spec = os.environ.get(ENV_MESH_SHAPE, "")
+        kwargs = {}
+        for part in (p for p in spec.split(",") if p.strip()):
+            axis, _, size = part.partition(":")
+            axis = axis.strip()
+            if axis not in ("dp", "fsdp", "tp", "pp", "sp", "ep", "dcn"):
+                raise ValueError(f"Unknown mesh axis {axis!r} in {ENV_MESH_SHAPE}")
+            size = int(size)
+            if axis == "dcn":
+                if size not in (0, 1):
+                    raise NotImplementedError(f"{ENV_MESH_SHAPE} dcn:{size}: the port has no "
+                                              "dcn axis (ROADMAP.md)")
+                continue
+            if axis in ("dp", "fsdp") and size == 0:
+                size = -1
+            kwargs[f"{axis}_size"] = size
+        return cls(**kwargs)
+
     def resolved_sizes(self, world_size: int) -> dict:
-        """``{"dp": ..., "fsdp": ..., "sp": ...}`` for a job of ``world_size``
-        ranks (the JAX package's ``resolved_sizes``)."""
-        dp, fsdp, sp = self.dp_size, self.fsdp_size, self.sp_size
+        """``{"dp", "fsdp", "sp", "tp"}`` for a job of ``world_size`` ranks
+        (the JAX package's ``resolved_sizes``: tp and sp are fixed, fsdp
+        and dp take what is left)."""
+        dp, fsdp = self.dp_size, self.fsdp_size
+        other = self.sp_size * self.tp_size
         if fsdp == -1:
             dp = 1 if dp == -1 else dp
-            fsdp = max(world_size // (dp * sp), 1)
+            fsdp = max(world_size // (dp * other), 1)
         if dp == -1:
-            dp = max(world_size // (fsdp * sp), 1)
-        if dp * fsdp * sp != world_size:
+            dp = max(world_size // (fsdp * other), 1)
+        if dp * fsdp * other != world_size:
             raise ValueError(f"{world_size} ranks do not make a dp x sp mesh of "
-                             f"dp={self.dp_size} x sp={self.sp_size} (fsdp={self.fsdp_size})")
-        return {"dp": dp, "fsdp": fsdp, "sp": sp}
+                             f"dp={self.dp_size} x sp={self.sp_size} (fsdp={self.fsdp_size}, "
+                             f"tp={self.tp_size})")
+        return {"dp": dp, "fsdp": fsdp, "sp": self.sp_size, "tp": self.tp_size}
 
     def build_mesh(self, world_size: int, device_type: str):
-        """The job's ``DeviceMesh`` with dims ``("dp", "fsdp", "sp")``; every
-        rank calls this (it creates the axes' process groups)."""
+        """The job's ``DeviceMesh`` with dims ``("dp", "fsdp", "sp", "tp")``;
+        every rank calls this (it creates the axes' process groups)."""
         from torch.distributed.device_mesh import init_device_mesh
 
         sizes = self.resolved_sizes(world_size)

@@ -103,13 +103,18 @@ class PartialState(ProcessView):
 
 
 class AcceleratorState:
-    """The job's rank (:class:`PartialState`), its ``dp`` x ``sp`` mesh (None
-    for a single process without sequence parallelism) and the
-    mixed-precision mode (``no``, ``bf16``, ``fp16`` or ``fp8``)."""
+    """The job's rank (:class:`PartialState`), its ``dp`` x ``fsdp`` x
+    ``sp`` x ``tp`` mesh (None for a single process without sequence
+    parallelism, or one that holds every rank itself, ``loopback``) and the
+    mixed-precision mode (``no``, ``bf16``, ``fp16`` or ``fp8``).
+    ``data_group`` is the process group a batch's rows split over (dp x
+    fsdp; None for the default group, when those are all the ranks): the
+    tp and sp ranks of one data coordinate read the same rows, as the JAX
+    package's ``data_batch_axes`` says."""
 
     def __init__(self, mixed_precision: str | None = None, device=None,
                  parallelism_config: ParallelismConfig | None = None,
-                 init_method: str | None = None):
+                 init_method: str | None = None, loopback: bool = False):
         mode = "no" if mixed_precision is None else str(mixed_precision).lower()
         if mode not in {p.value for p in PrecisionType}:
             raise ValueError(f"Unknown mixed_precision mode: {mixed_precision!r}; "
@@ -120,8 +125,31 @@ class AcceleratorState:
         cfg = parallelism_config or ParallelismConfig()
         self.parallelism_config = cfg
         self.mesh = None
-        if self.partial.distributed or cfg.sp_size > 1:
+        self.data_group = None
+        if self.partial.distributed or (cfg.sp_size > 1 and not loopback):
             self.mesh = cfg.build_mesh(self.partial.num_processes, self.device.type)
+            self.data_group = self._data_group()
+
+    def _data_group(self):
+        """The dp x fsdp process group of this rank (every rank joins every
+        such group's creation, as ``new_group`` asks)."""
+        mesh = self.mesh
+        sizes = {a: mesh[a].size() for a in ("dp", "fsdp", "sp", "tp")}
+        if sizes["sp"] * sizes["tp"] == 1:
+            return None
+        if sizes["fsdp"] == 1:
+            return mesh.get_group("dp")
+        if sizes["dp"] == 1:
+            return mesh.get_group("fsdp")
+        mine, rank = None, dist.get_rank()
+        for s in range(sizes["sp"]):
+            for t in range(sizes["tp"]):
+                ranks = [((d * sizes["fsdp"] + f) * sizes["sp"] + s) * sizes["tp"] + t
+                         for d in range(sizes["dp"]) for f in range(sizes["fsdp"])]
+                group = dist.new_group(ranks)
+                if rank in ranks:
+                    mine = group
+        return mine
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -134,6 +162,10 @@ class AcceleratorState:
     @property
     def sp_size(self) -> int:
         return 1 if self.mesh is None else self.mesh["sp"].size()
+
+    @property
+    def tp_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh["tp"].size()
 
 
 class GradientState:

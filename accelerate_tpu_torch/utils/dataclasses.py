@@ -5,8 +5,8 @@ compute), ``bf16`` (f32 master parameters, bf16 compute), ``fp16`` (fp16
 compute with the dynamic loss scaler of ``optimizer.GradScalerState``) and
 ``fp8`` (bf16 compute with the block projections through the int8 matmul,
 quantization-aware training, as :class:`Fp8RecipeKwargs` describes). Also
-the fp8 recipe, the sequence-parallel plugin, the fully sharded
-data-parallel plugin and the remat policies it turns on, the random streams
+the fp8 recipe, the sequence-parallel, tensor-parallel and Megatron-style
+plugins, the fully sharded data-parallel plugin and the remat policies it turns on, the random streams
 a loader synchronizes, the data-loader configuration and the project
 (checkpoint and logging folder) configuration. The JAX package has no
 tracker-type enum: trackers are named by string
@@ -60,11 +60,46 @@ class Fp8RecipeKwargs(KwargsHandler):
 class SequenceParallelPlugin:
     """Sequence parallelism over the mesh's ``sp`` axis (JAX
     ``utils/dataclasses.py:200-210``). ``ring_attention=True``: ring
-    attention (``parallel/ring.py``); ``False`` asks for Ulysses' all-to-all,
-    which is not ported yet, and the ``Accelerator`` raises for it."""
+    attention (``parallel/ring.py``); ``False``: Ulysses' head-sequence
+    all-to-all (``parallel/ulysses.py``), which needs the heads of a tp rank
+    to divide by ``sp_size``."""
 
     sp_size: int = 1
     ring_attention: bool = True
+
+
+@dataclass
+class TensorParallelPlugin(KwargsHandler):
+    """Tensor parallelism over the mesh's ``tp`` axis (JAX
+    ``utils/dataclasses.py:177-187``): the model's sharding rules put the
+    heads, the MLP's columns and the vocab on ``tp`` (Megatron's split,
+    ``parallel/tensor.py``)."""
+
+    tp_size: int = 1
+
+    def __post_init__(self):
+        if self.tp_size < 1:
+            raise ValueError("tp_size must be >= 1")
+
+
+@dataclass
+class MegatronStylePlugin(KwargsHandler):
+    """Composed parallelism (JAX ``utils/dataclasses.py:213-222``): the
+    mesh's tp, pp, sp and fsdp sizes in one object. ``pp_size > 1`` is not
+    ported yet and raises; ``sequence_parallelism`` is kept for the API
+    (sp is the ``sp_size`` axis)."""
+
+    tp_size: int = 1
+    pp_size: int = 1
+    sp_size: int = 1
+    fsdp_size: int = 1
+    sequence_parallelism: bool = False
+
+    def __post_init__(self):
+        if self.pp_size != 1:
+            raise NotImplementedError(
+                f"MegatronStylePlugin(pp_size={self.pp_size}): the pp axis is not ported yet "
+                "(ROADMAP.md, module queue)")
 
 
 @dataclass

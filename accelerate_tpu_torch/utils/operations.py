@@ -16,7 +16,9 @@ one rank.
   over torch's object collectives;
 - :func:`all_gather_along` and :func:`reduce_scatter_along`: a tensor
   gathered, or summed and scattered, along any dim over a group (the
-  sharded step's collectives, ``parallel/fsdp.py``);
+  sharded step's collectives, ``parallel/fsdp.py``), and
+  :func:`all_to_all_along`, a tensor split along one dim and the ranks'
+  pieces concatenated along another (Ulysses, ``parallel/ulysses.py``);
 - :func:`recursively_apply`, :func:`send_to_device`, :func:`find_batch_size`
   and :func:`concatenate` walk nested lists, tuples and dicts of tensors.
 """
@@ -249,3 +251,22 @@ def reduce_scatter_along(tensor: torch.Tensor, dim: int, group=None) -> torch.Te
     out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
     dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
     return out.movedim(0, dim).contiguous() if dim else out
+
+
+def all_to_all_along(tensor: torch.Tensor, split_dim: int, concat_dim: int,
+                     group=None) -> torch.Tensor:
+    """Chunk ``j`` of ``tensor`` along ``split_dim`` sent to group rank
+    ``j``; the chunks this rank receives concatenated along ``concat_dim``
+    in group-rank order (one ``all_to_all_single`` on a contiguous
+    buffer); ``tensor`` itself on one rank. The size along ``split_dim``
+    must divide by the group's size."""
+    if _single(group):
+        return tensor
+    n = _world(group)
+    if tensor.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of a {tuple(tensor.shape)} tensor does not split "
+                         f"into {n} equal chunks")
+    src = torch.stack(tensor.chunk(n, split_dim)).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return torch.cat(out.unbind(0), concat_dim)

@@ -18,6 +18,9 @@
     python3 chip_smoke.py --precision  # only phase 14: fp16, fp8 (int8
                                      # QAT), the train window and its
                                      # prefetcher, host offload
+    python3 chip_smoke.py --tp       # only phase 15: tensor parallelism
+                                     # (tp, with fsdp, dp and ZeRO), Ulysses
+                                     # and fp16 on shards, on one card
     python3 chip_smoke.py --splash-times  # only the splash kernels' times at
                                      # Gemma-2-9B's layers (to set two trees
                                      # side by side in one run: copy this
@@ -174,9 +177,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    activation_checkpointing=True)`` (remat ``nothing_saveable``) with all
    four ranks on this card (``LoopbackShards(4)``): each layer gathered in
    bf16 from the four shards inside the remat region, its gradient banked
-   in f32 and scattered into the shards, the fused update on every
-   (rank, shard leaf). Arm C: dp 4 with ``zero_sharding=True`` on the
-   loopback: the update on each rank's 1/4 slice of every leaf, the new
+   in f32 and scattered into the shards, the fused update once per
+   distinct slice (the replicated norms once, not once a rank). Arm C: dp 4
+   with ``zero_sharding=True`` on the loopback: the update on each rank's 1/4 slice of every leaf, the new
    slices gathered back. Arm D: arm A with remat, bitwise arm A (losses and
    final parameters). Arms B and C hold their first 3 losses to arm A's
    within ``SHARD_LOSS_ATOL``; each arm's flash and update launches are
@@ -215,6 +218,32 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    holding at least its bytes less; step time and peak memory of both. The
    kernels' table gains rows 3c, 5c and 5d (launches in arms B and A), and
    this phase's bf16 flash and update launches are added to rows 4, 5, 5b.
+
+15. Tensor parallelism and Ulysses on one card, on phase 13's model and
+   batch (Llama-3-8B widths cut to 4 layers, 4 x 2048 seeded ids, bf16,
+   ``adamw(3e-4)``, clip 1.0, 4 steps an arm, all ranks on this card
+   through ``LoopbackShards(4)``). First the flash kernel at a tp rank's
+   shape (B2 S2048, 8 query heads, 2 KV heads repeated, D128) against its
+   plain version under flash's pins. A: unsharded. B: tp 4
+   (``TensorParallelPlugin``): each rank's 8 query heads and quarter of
+   the MLP and the vocab, the all-reduces after wo and w_down summed over
+   the ranks in lockstep (``parallel/tensor.LoopbackTP``). C: tp 2 x fsdp
+   2 with remat. D: dp 2 x tp 2 with ZeRO. B, C and D hold their first 3
+   losses within ``SHARD_LOSS_ATOL`` of A's. E: Ulysses sp 4
+   (``SequenceParallelPlugin(ring_attention=False)``) on 1 x 8192 tokens,
+   2048 a rank, against the unsharded step on that batch (E0), the same
+   pin; the all-to-all bytes a rank moves a layer are computed from the
+   shapes. F: fp16 on C's mesh with step 3 poisoned through ``loss_fn``,
+   against the unsharded fp16 step (F0): the same scales and skips, applied
+   losses within ``TRAIN_LOSS_ATOL``. Every arm's flash and update
+   launches are checked per step (flash forward ranks x layers, twice under
+   remat; the update once per distinct update slice of a leaf on applied
+   steps (ranks that hold the same slice share it), never on a
+   skipped one), and so is the bytes' sum: each distinct shard over the
+   ranks (a base shard, a ZeRO slice of the moments) adds up to the
+   unsharded model's parameters, moments and buffer; each rank's bytes,
+   step time, tokens/s, MFU and peak memory are logged. The kernels'
+   table adds these launches to rows 4, 5, 5b, 5c and 5d.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -304,11 +333,30 @@ SHARD_STEPS, SHARD_WARMUP = 4, 1
 # ranks in f32, so the bf16 losses move in the third decimal at most; no
 # looser than phase 7's kernels-off pin (TRAIN_LOSS_ATOL).
 SHARD_LOSS_ATOL = 1e-2
+# The fused update's launches a step, from the sharding plan of Llama's 12
+# leaves (9 that the rules split, the 3 norms kept whole): one launch per
+# distinct update slice of a leaf over the ranks. A and D unsharded: 12; B
+# fsdp 4: 9 x 4 + 3 = 39 (the norms' slice is the same on every rank); C
+# ZeRO dp 4: 12 x 4 = 48 (every leaf's update, the norms' too, split over dp).
+SHARD_UPDATE_LAUNCHES = {"A": 12, "B": 39, "C": 48, "D": 12}
 # Phase 14: the rest of single-card training at phase 7's cut.
 PREC_FP16_STEPS, PREC_FP8_STEPS, PREC_FP8_OFF_STEPS = 8, 5, 3
 PREC_FP16_POISON = 3  # the fp16 arms' step whose loss_fn returns +inf
 PREC_WINDOW, PREC_WINDOWS, PREC_OFFLOAD_STEPS = 4, 2, 4
 INT8_TRAIN_M = TRAIN_BATCH * TRAIN_SEQ  # rows of every block projection of a step
+# Phase 15: tensor parallelism and Ulysses on one card, on phase 13's model
+# and batch; arm E trains 1 x 8192 tokens (2048 a rank) under Ulysses sp 4.
+TP_RANKS, TP_STEPS, TP_WARMUP = 4, 4, 1
+TP_ULYSSES_SEQ = 8192
+TP_FP16_POISON = 2  # arm F's third step: its loss_fn returns +inf
+# Update launches a step on an applied step, as SHARD_UPDATE_LAUNCHES counts
+# them: B tp 4 and C (F) tp 2 x fsdp 2: 9 x 4 + 3 = 39; D dp 2 x tp 2 under
+# ZeRO: 9 x (2 x 2) + 3 x 2 = 42 (the norms split over dp only); E Ulysses
+# sp 4: the parameters are whole on every sp rank, 12; the unsharded arms 12.
+TP_UPDATE_LAUNCHES = {"A": 12, "B": 39, "C": 39, "D": 42, "E0": 12, "E": 12, "F0": 12,
+                      "F": 39}
+# One tp rank's flash at tp 4: 8 of the 32 query heads, 2 of the 8 KV heads.
+TP_FLASH_CASE = ("tp rank B2 S2048 H8 KV2", 2, 2048, 8, 128, False, 2)
 T_START = time.perf_counter()
 
 
@@ -1044,14 +1092,18 @@ def tile_rel_err(got, ref, real, tile: int = 64) -> float:
     return float((num[den > 0] / den[den > 0]).sqrt().max())
 
 
-def flash_case(B, S, H, D, padded: bool, dtype=None):
+def flash_case(B, S, H, D, padded: bool, dtype=None, kv_heads=None):
     """Inputs of one flash case (bf16 unless ``dtype``), made on the card
-    from the seed."""
+    from the seed; with ``kv_heads`` k and v hold that many heads, each
+    repeated to H (the model repeats them before attention)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     q, k, v, do = (torch.randn((B, S, H, D), generator=g, device="cuda",
                                dtype=dtype or torch.bfloat16) for _ in range(4))
+    if kv_heads is not None:
+        k, v = (t[:, :, :kv_heads].repeat_interleave(H // kv_heads, dim=2).contiguous()
+                for t in (k, v))
     seg = None
     if padded:  # right padding: the last quarter of row 1 is pads
         seg = torch.full((B, S), 2, dtype=torch.int32, device="cuda")
@@ -1078,8 +1130,8 @@ def flash_op_phase(dtype=None, cases=None):
     dtype = dtype or torch.bfloat16
     fwd_name, bwd_name = fk.LAUNCH_NAMES[dtype]
     rows = []
-    for label, B, S, H, D, padded in cases or FLASH_CASES:
-        q, k, v, do, seg = flash_case(B, S, H, D, padded, dtype)
+    for label, B, S, H, D, padded, *kv in cases or FLASH_CASES:
+        q, k, v, do, seg = flash_case(B, S, H, D, padded, dtype, *kv)
         label = f"{label} {str(dtype).split('.')[-1]}"
         scale = 1.0 / math.sqrt(D)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -2582,23 +2634,15 @@ def shard_arm(cfg, label: str, *, fsdp: bool = False, zero: bool = False,
                       tree_leaves(engine.accum_tree(r))) if engine is not None else
                   ((None, p, g) for p, g in zip(tree_leaves(pm.params), tree_leaves(po.grads))))
         for layout, p, g in leaves:
-            split = layout is not None and layout.dim is not None
+            split = layout is not None and bool(layout.splits)
             row["params"][0 if split else 1] += p.numel() * 4
             row["buffer"][0 if split else 1] += g.numel() * 4
         for k, t in moments.items():  # "0.mu.layers.attn.wq"
             layout = None if engine is None else next(
                 lay for lay in engine.layouts if lay.path.replace("/", ".") == k.split(".", 2)[2])
-            split = layout is not None and (layout.dim is not None or layout.zero_dim is not None)
+            split = layout is not None and (bool(layout.splits) or layout.zero_dim is not None)
             row["moments"][0 if split else 1] += t.numel() * 4
         ranks.append(row)
-    # The leaf sizes one step's update launches cover, over the held ranks.
-    if engine is not None:
-        slices = [int(math.prod(lay.update_shape)) for lay in engine.layouts] * len(engine.ranks)
-        # (slice elements * ranks, leaf elements) of each leaf the plan splits
-        split = [(int(math.prod(lay.update_shape)) * len(engine.ranks), int(math.prod(lay.shape)))
-                 for lay in engine.layouts if lay.dim is not None or lay.zero_dim is not None]
-    else:
-        slices, split = [p.numel() for p in tree_leaves(pm.params)], []
     params = None
     if keep_params:
         params = [p.detach().cpu().clone() for p in tree_leaves(pm.params)]
@@ -2607,7 +2651,7 @@ def shard_arm(cfg, label: str, *, fsdp: bool = False, zero: bool = False,
     if cuda:
         free_cuda()
     return {"losses": losses, "times": times, "counts": counts, "sizes": sizes, "ranks": ranks,
-            "peak": peak, "params": params, "slices": slices, "split": split}
+            "peak": peak, "params": params}
 
 
 def shard_phase(card: str) -> dict:
@@ -2619,7 +2663,7 @@ def shard_phase(card: str) -> dict:
     cfg = LlamaConfig.llama3_8b(**TRAIN_CUT)
     probe = Llama(cfg, device="cpu")
     n_params, fpt = probe.num_params(), probe.flops_per_token()
-    layers, tokens, leaves = cfg.num_hidden_layers, SHARD_BATCH * SHARD_SEQ, 12
+    layers, tokens = cfg.num_hidden_layers, SHARD_BATCH * SHARD_SEQ
     full_sizes = [int(math.prod(t.shape)) for t in _leaf_shapes(probe)]
     arms = {}
     for name, kw in (("A", dict(keep_params=True)), ("B", dict(fsdp=True, remat=True)),
@@ -2631,9 +2675,15 @@ def shard_phase(card: str) -> dict:
         sharded = name in "BC"
         fwd_per_rank = layers * (2 if kw.get("remat") else 1)
         n_ranks = SHARD_RANKS if sharded else 1
+        mesh = ({"fsdp": SHARD_RANKS} if name == "B" else {"dp": SHARD_RANKS} if name == "C"
+                else {})
+        plan = planned_update_slices(probe, mesh, zero=name == "C")
+        if sum(n for n, _ in plan) != SHARD_UPDATE_LAUNCHES[name]:
+            raise SystemExit(f"shard {name}: the plan's update slices {plan}, expected "
+                             f"{SHARD_UPDATE_LAUNCHES[name]} launches a step")
         want = {"flash_attention_fwd": SHARD_STEPS * n_ranks * fwd_per_rank,
                 "flash_attention_bwd": SHARD_STEPS * n_ranks * layers,
-                "fused_adamw_update": SHARD_STEPS * n_ranks * leaves}
+                "fused_adamw_update": SHARD_STEPS * SHARD_UPDATE_LAUNCHES[name]}
         step_s = sum(run["times"][SHARD_WARMUP:]) / (SHARD_STEPS - SHARD_WARMUP)
         mfu = fpt * tokens / step_s / BF16_OPS_PER_S
         per_rank = "; ".join(
@@ -2648,18 +2698,20 @@ def shard_phase(card: str) -> dict:
         arms[name]["step_s"], arms[name]["mfu"] = step_s, mfu
         if run["counts"] != want:
             raise SystemExit(f"shard {name}: launch counts {run['counts']}, expected {want}")
-        # Every update launch covers a rank's slice of a leaf, and a leaf the
-        # plan splits (B: 9 of 12, the norms replicated; C: all 12) is cut
-        # into 4 equal slices.
-        split_ok = all(a == b for a, b in run["split"]) and len(run["split"]) == (
-            (9 if name == "B" else 12) if sharded else 0)
-        if sorted(run["sizes"]) != sorted(run["slices"] * SHARD_STEPS) or not split_ok or (
-                not sharded and sorted(run["slices"]) != sorted(full_sizes)):
+        # Every update launch covers one distinct slice of the plan, and a leaf
+        # the plan splits (B: 9 of 12, the norms replicated; C: all 12) is
+        # cut into SHARD_RANKS equal slices that make up the leaf.
+        slices = [elements for n, elements in plan for _ in range(n)]
+        split = [(n, n * elements, full) for (n, elements), full in zip(plan, full_sizes)
+                 if n > 1]
+        split_ok = all(n == SHARD_RANKS and got == full for n, got, full in split) and len(
+            split) == ((9 if name == "B" else 12) if sharded else 0)
+        if sorted(run["sizes"]) != sorted(slices * SHARD_STEPS) or not split_ok or (
+                not sharded and sorted(slices) != sorted(full_sizes)):
             raise SystemExit(f"shard {name}: update launch sizes {sorted(set(run['sizes']))}, "
-                             f"the slices {sorted(set(run['slices']))}, split leaves "
-                             f"{run['split']}")
-        log(f"shard {name}: {len(run['sizes'])} update launches, each on one rank's slice: "
-            f"{len(run['split'])} leaves split {SHARD_RANKS} ways"
+                             f"the plan's slices {sorted(set(slices))}, split leaves {split}")
+        log(f"shard {name}: {len(run['sizes'])} update launches, each on a distinct slice: "
+            f"{len(split)} leaves split {SHARD_RANKS} ways"
             + (" (the norms replicated, as the plan keeps them)" if name == "B" else ""))
     total = n_params * 4
     want = {"params": total, "moments": 2 * total, "buffer": total}
@@ -3051,6 +3103,232 @@ def precision_phase(card: str):
     return [int8_row] + flash_rows, totals
 
 
+# ------------------------------------------------------------------ phase 15
+def _tp_arm(cfg, label: str, accelerator_kw: dict, *, batch, mixed_precision: str = "bf16",
+           remat: bool = False, zero: bool = False, poison=None, device: str = "cuda"):
+    """One arm of phase 15 on a fresh model from the seed: ``TP_STEPS``
+    ``build_train_step`` steps of ``batch`` with clip 1.0 on the
+    Accelerator of ``accelerator_kw``. Returns the losses, step seconds
+    after ``TP_WARMUP``, the launch counts (total and per step), the fp16
+    scales and skips, each rank's bytes (split and whole), the distinct
+    shards' bytes summed over the ranks, and the peak memory. At step
+    ``poison`` the ``loss_fn`` multiplies the loss by +inf."""
+    import dataclasses
+
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, Llama, adamw
+    from accelerate_tpu_torch.ops import registry
+    from accelerate_tpu_torch.utils.tree import flatten_with_paths, tree_leaves
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model = Llama(dataclasses.replace(cfg, remat=remat), device=device)
+    model.init_params(SEED)
+    acc = Accelerator(mixed_precision=mixed_precision, device=device, **accelerator_kw)
+    acc.zero_sharding = zero
+    pm, po = acc.prepare(model, adamw(3e-4, device=device))
+    del model
+    now_at = [0]
+
+    def loss_fn(outputs, batch):
+        return outputs["loss"] * (math.inf if now_at[0] == poison else 1.0)
+
+    step = acc.build_train_step(pm, po, loss_fn=loss_fn if poison is not None else None)
+    engine = pm.handle.sharded
+    if zero != po.zero_active:
+        raise SystemExit(f"tp {label}: zero_active={po.zero_active}, asked {zero}")
+    registry.reset_launch_counts()
+    losses, times, per_step, scales, skipped, before = [], [], [], [], [], {}
+    for i in range(TP_STEPS):
+        now_at[0] = i
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(batch, clip_norm=1.0)))
+        times.append(time.perf_counter() - t0)
+        now = dict(registry.launch_counts)
+        per_step.append(_count_delta(now, before))
+        before = now
+        scales.append(None if acc.scaler is None else acc.scaler.scale)
+        skipped.append(po.step_was_skipped)
+    # Per rank [bytes of leaves split over ranks, bytes held whole]; and the
+    # bytes of the distinct tensors all the held ranks hold (each memory
+    # region once, by its address: the storage itself, not the engine's
+    # bookkeeping, says what is shared).
+    ranks, distinct = [], {"params": {}, "moments": {}, "buffer": {}}
+    held = engine.ranks if engine is not None else (0,)
+    for j, r in enumerate(held):
+        row = {"params": [0, 0], "moments": [0, 0], "buffer": [0, 0]}
+        states = po.rank_states[j] if engine is not None else po.opt_state
+        if engine is None:  # the step's gradient: one tensor a leaf, as the parameters
+            layouts = [None] * len(tree_leaves(pm.params))
+            trees = {"params": tree_leaves(pm.params)}
+            row["buffer"][1] = sum(p.numel() * 4 for p in tree_leaves(pm.params))
+        else:
+            layouts = engine.layouts
+            trees = {"params": tree_leaves(engine.param_tree(r)),
+                     "buffer": tree_leaves(engine.accum_tree(r))}
+        for kind, leaves in trees.items():
+            for layout, t in zip(layouts, leaves):
+                row[kind][0 if layout is not None and layout.splits else 1] += t.numel() * 4
+                distinct[kind][(t.data_ptr(), t.numel())] = t.numel() * 4
+        for k, t in flatten_with_paths(states):
+            if not isinstance(t, torch.Tensor) or t.dim() == 0:
+                continue
+            layout = None if engine is None else next(
+                lay for lay in engine.layouts if lay.path.replace("/", ".") == k.split(".", 2)[2])
+            split = layout is not None and (bool(layout.splits) or layout.zero_dim is not None)
+            row["moments"][0 if split else 1] += t.numel() * 4
+            distinct["moments"][(t.data_ptr(), t.numel())] = t.numel() * 4
+        ranks.append(row)
+    distinct = {kind: sum(regions.values()) for kind, regions in distinct.items()}
+    if engine is None:
+        distinct["buffer"] = distinct["params"]
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    step_s = sum(times[TP_WARMUP:]) / (TP_STEPS - TP_WARMUP)
+    out = dict(losses=losses, step_s=step_s, counts=dict(registry.launch_counts),
+               per_step=per_step, scales=scales, skipped=skipped, ranks=ranks,
+               distinct=distinct, peak=peak, sizes=acc.mesh_sizes)
+    del acc, pm, po, step, engine
+    if cuda:
+        free_cuda()
+    return out
+
+
+def tp_phase(card: str, device: str = "cuda", cut=None) -> dict:
+    """Phase 15; returns the launch counts of its arms (bf16 flash and
+    update for rows 4, 5, 5b; fp16 flash for rows 5c, 5d). ``device="cpu"``
+    with ``cut`` (LlamaConfig fields over the 8B's) rehearses the phase's
+    logic at a small size: the CPU runs no kernel, so no launch is
+    checked there."""
+    import numpy as np
+
+    from accelerate_tpu_torch import (FullyShardedDataParallelPlugin, Llama, LlamaConfig,
+                                      LoopbackShards, ParallelismConfig, SequenceParallelPlugin,
+                                      TensorParallelPlugin)
+
+    cuda = device == "cuda"
+    if cuda:
+        flash_op_phase(cases=[TP_FLASH_CASE])  # a tp rank's flash, under flash's pins
+    cfg = LlamaConfig.llama3_8b(**{**TRAIN_CUT, **(cut or {})})
+    e_cfg = LlamaConfig.llama3_8b(**{**TRAIN_CUT, **(cut or {}),
+                                     "max_position_embeddings": TP_ULYSSES_SEQ})
+    probe = Llama(cfg, device="cpu")
+    n_params, fpt = probe.num_params(), probe.flops_per_token()
+    layers = cfg.num_hidden_layers
+    rng = np.random.default_rng(SEED)
+    ids = rng.integers(0, cfg.vocab_size, (SHARD_BATCH, SHARD_SEQ)).astype(np.int32)
+    e_ids = rng.integers(0, cfg.vocab_size, (1, TP_ULYSSES_SEQ)).astype(np.int32)
+    batch, e_batch = {"input_ids": ids, "labels": ids}, {"input_ids": e_ids, "labels": e_ids}
+
+    def loop():
+        return {"loopback": LoopbackShards(TP_RANKS)}
+
+    def tp_arm(*args, **kw):
+        return _tp_arm(*args, device=device, **kw)
+
+    tp2xfsdp2 = dict(parallelism_config=ParallelismConfig(tp_size=2),
+                     fsdp_plugin=FullyShardedDataParallelPlugin(
+                         fsdp_size=2, activation_checkpointing=True))
+    arms = {
+        "A": tp_arm(cfg, "A", {}, batch=batch),
+        "B": tp_arm(cfg, "B", dict(tp_plugin=TensorParallelPlugin(TP_RANKS), **loop()),
+                    batch=batch),
+        "C": tp_arm(cfg, "C", dict(tp2xfsdp2, **loop()), batch=batch),
+        "D": tp_arm(cfg, "D", dict(parallelism_config=ParallelismConfig(tp_size=2, dp_size=2),
+                                   **loop()), batch=batch, zero=True),
+        "E0": tp_arm(e_cfg, "E0", {}, batch=e_batch),
+        "E": tp_arm(e_cfg, "E", dict(sp_plugin=SequenceParallelPlugin(
+            TP_RANKS, ring_attention=False), **loop()), batch=e_batch),
+        "F0": tp_arm(cfg, "F0", {}, batch=batch, mixed_precision="fp16", poison=TP_FP16_POISON),
+        "F": tp_arm(cfg, "F", dict(tp2xfsdp2, **loop()), batch=batch, mixed_precision="fp16",
+                    poison=TP_FP16_POISON),
+    }
+    want_sizes = {"B": dict(dp=1, fsdp=1, sp=1, tp=4), "C": dict(dp=1, fsdp=2, sp=1, tp=2),
+                  "D": dict(dp=2, fsdp=1, sp=1, tp=2), "E": dict(dp=1, fsdp=1, sp=4, tp=1),
+                  "F": dict(dp=1, fsdp=2, sp=1, tp=2)}
+    remat = {"C", "F"}
+    total = n_params * 4
+    want_bytes = {"params": total, "moments": 2 * total, "buffer": total}
+    for name, run in arms.items():
+        sharded = name in want_sizes
+        if sharded and run["sizes"] != want_sizes[name]:
+            raise SystemExit(f"tp {name}: mesh {run['sizes']}, expected {want_sizes[name]}")
+        fp16 = name.startswith("F")
+        prefix = "flash_attention_fp16" if fp16 else "flash_attention"
+        n_ranks = TP_RANKS if sharded else 1
+        fwd = n_ranks * layers * (2 if name in remat else 1)
+        # At a rehearsal's cut the plan differs (small leaves stay whole).
+        plan = planned_update_slices(probe, run["sizes"], zero=name == "D")
+        updates = sum(n for n, _ in plan)
+        if cut is None and updates != TP_UPDATE_LAUNCHES[name]:
+            raise SystemExit(f"tp {name}: the plan's update slices {plan}, expected "
+                             f"{TP_UPDATE_LAUNCHES[name]} launches a step")
+        for i, counts in enumerate(run["per_step"]):
+            want = {f"{prefix}_fwd": fwd, f"{prefix}_bwd": n_ranks * layers}
+            if not run["skipped"][i]:  # once per distinct update slice of a leaf
+                want["fused_adamw_update"] = updates
+            if cuda and counts != want:
+                raise SystemExit(f"tp {name} step {i}: launches {counts}, expected {want}")
+        applied = [i for i, s in enumerate(run["skipped"]) if not s]
+        if not all(math.isfinite(run["losses"][i]) for i in applied):
+            raise SystemExit(f"tp {name}: losses {run['losses']} not finite on applied steps")
+        if run["distinct"] != want_bytes:
+            raise SystemExit(f"tp {name}: the distinct shards over the ranks hold "
+                             f"{run['distinct']}, the unsharded model {want_bytes}")
+        tokens = (TP_ULYSSES_SEQ if name.startswith("E") else SHARD_BATCH * SHARD_SEQ)
+        mfu = fpt * tokens / run["step_s"] / BF16_OPS_PER_S
+        per_rank = "; ".join(
+            f"rank {r}: params {row['params'][0] / 1e9:.3f} GB split + {row['params'][1] / 1e6:.1f}"
+            f" MB whole, moments {row['moments'][0] / 1e9:.3f} GB + "
+            f"{row['moments'][1] / 1e6:.1f} MB, buffer {row['buffer'][0] / 1e9:.3f} GB + "
+            f"{row['buffer'][1] / 1e6:.1f} MB" for r, row in enumerate(run["ranks"]))
+        log(f"tp {name}: mesh {run['sizes']}; losses {[round(x, 4) for x in run['losses']]}"
+            + (f", scales {run['scales']}, skipped {run['skipped']}" if fp16 else "")
+            + f"; step {run['step_s'] * 1e3:.1f} ms, {tokens / run['step_s']:.0f} tokens/s, "
+            f"MFU {100 * mfu:.2f}% of 989 TFLOP/s (recompute not counted); peak memory "
+            f"{run['peak'] / 2**30:.2f} GiB; launches {run['counts']}; distinct shards "
+            f"{run['distinct']} = the unsharded bytes; {per_rank} [{card}]")
+    for name, ref in (("B", "A"), ("C", "A"), ("D", "A"), ("E", "E0")):
+        diff = max(abs(x - y) for x, y in zip(arms[name]["losses"][:3], arms[ref]["losses"][:3]))
+        if diff > SHARD_LOSS_ATOL:
+            raise SystemExit(f"tp {name}: losses {arms[name]['losses'][:3]} vs arm {ref}'s "
+                             f"{arms[ref]['losses'][:3]} (max |diff| {diff}, pin "
+                             f"{SHARD_LOSS_ATOL})")
+        log(f"tp {name} vs {ref}: first 3 losses max |diff| {diff:.3e} (pin {SHARD_LOSS_ATOL}); "
+            f"step {arms[name]['step_s'] / arms[ref]['step_s']:.2f}x arm {ref}'s, peak "
+            f"{arms[name]['peak'] / 2**30:.2f} vs {arms[ref]['peak'] / 2**30:.2f} GiB")
+    f, f0 = arms["F"], arms["F0"]
+    applied = [i for i, s in enumerate(f["skipped"]) if not s]
+    if f["scales"] != f0["scales"] or f["skipped"] != f0["skipped"] or \
+            not f["skipped"][TP_FP16_POISON] or not applied:
+        raise SystemExit(f"tp F: scales {f['scales']} / skipped {f['skipped']} vs the unsharded "
+                         f"fp16 arm's {f0['scales']} / {f0['skipped']}")
+    diff = max(abs(f["losses"][i] - f0["losses"][i]) for i in applied)
+    if diff > TRAIN_LOSS_ATOL:
+        raise SystemExit(f"tp F: losses {f['losses']} vs {f0['losses']} on applied steps "
+                         f"{applied} (max |diff| {diff}, pin {TRAIN_LOSS_ATOL})")
+    log(f"tp F vs F0 (fp16, step {TP_FP16_POISON + 1} poisoned): scales {f['scales']} and skips "
+        f"{f['skipped']} equal; no update launch on the skipped step on any rank; applied "
+        f"losses max |diff| {diff:.3e} (pin {TRAIN_LOSS_ATOL})")
+    # Ulysses' all-to-alls a layer, per rank: q, k and v (k and v repeated to
+    # the 32 query heads, as the model sends them) in and the output back,
+    # then their gradients; a rank keeps 1/sp of each tensor.
+    heads, hd, sp = cfg.num_attention_heads, cfg.head_dim, TP_RANKS
+    tensor = TP_ULYSSES_SEQ // sp * heads * hd * 2
+    moved = 4 * tensor * (sp - 1) // sp
+    log(f"tp E: Ulysses all-to-all bytes a rank moves a layer: forward {moved / 1e6:.1f} MB "
+        f"(4 all-to-alls of a {tensor / 1e6:.1f} MB bf16 (1, {TP_ULYSSES_SEQ // sp}, {heads}, "
+        f"{hd}) shard, {sp - 1}/{sp} of each leaving), backward {moved / 1e6:.1f} MB")
+    totals = {}
+    for run in arms.values():
+        for k, v in run["counts"].items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
 def _leaf_shapes(model):
     """The parameter leaves of ``model`` as meta tensors (shapes only)."""
     import torch
@@ -3060,6 +3338,32 @@ def _leaf_shapes(model):
     probe = type(model)(model.config, device="cpu")
     probe.device = torch.device("meta")
     return tree_leaves(probe.init())
+
+
+def planned_update_slices(model, sizes: dict, zero: bool = False) -> list:
+    """Per leaf of ``model`` on the mesh ``sizes``: ``(slices, elements)``,
+    the distinct update slices over the ranks and the elements of one, from
+    the sharding plan alone (``parallel/sharding.py``'s planners, which the
+    CPU tests hold to the JAX package's), not from the engine under test: a
+    leaf's update spec (its ZeRO spec under ``zero``) cuts it into one
+    slice per combination of the indices of the axes it names."""
+    import torch
+
+    from accelerate_tpu_torch.parallel.sharding import (axes_size, local_leaf_shape,
+                                                        plan_param_shardings,
+                                                        plan_zero_shardings, spec_axes)
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    probe = type(model)(model.config, device="cpu")
+    probe.device = torch.device("meta")
+    params = probe.init()
+    leaves = tree_leaves(params)
+    specs = plan_param_shardings(params, sizes, rules=model.sharding_rules())
+    if zero:
+        specs = plan_zero_shardings(params, specs, sizes)
+    return [(axes_size(sizes, tuple(spec_axes(spec))),
+             int(math.prod(local_leaf_shape(leaf.shape, spec, sizes))))
+            for leaf, spec in zip(leaves, tree_leaves(specs))]
 
 
 def main(argv) -> int:
@@ -3113,6 +3417,14 @@ def main(argv) -> int:
             f"{time.perf_counter() - t0:.1f} s; device: {card}")
         precision_rows, _ = precision_phase(card)
         log(f"phase 14 rows: {json.dumps(precision_rows)}")
+        print(card)
+        return 0
+    if "--tp" in argv:
+        _build.build(["flash_attention", "fused_update"])
+        card = card_info()
+        log(f"build: flash_attention, fused_update in {time.perf_counter() - t0:.1f} s; "
+            f"device: {card}")
+        log(f"phase 15 launches: {tp_phase(card)}")
         print(card)
         return 0
     if "--splash-times" in argv:
@@ -3191,14 +3503,22 @@ def main(argv) -> int:
     shard_counts = shard_phase(card)
     free_cuda()
     precision_rows, precision_counts = precision_phase(card)
-    for row in rows:  # phase 7's launches plus those of phases 11, 12, 13 and 14
+    free_cuda()
+    tp_counts = tp_phase(card)
+    for row in rows:  # phase 7's launches plus those of phases 11 to 15
         later = [counts.get(row["name"], 0) for counts in (loop_counts, ckpt_counts,
-                                                           shard_counts, precision_counts)]
+                                                           shard_counts, precision_counts,
+                                                           tp_counts)]
         if any(later):
             log(f"kernel {row['name']}: {row['launches']} launches in phase 7, {later[0]} in "
                 f"phase 11, {later[1]} in phase 12, {later[2]} in phase 13, {later[3]} in "
-                f"phase 14")
+                f"phase 14, {later[4]} in phase 15")
             row["launches"] += sum(later)
+    for row in precision_rows:  # phase 14's launches plus phase 15's fp16 arms'
+        if tp_counts.get(row["name"]):
+            log(f"kernel {row['name']}: {row['launches']} launches in phase 14, "
+                f"{tp_counts[row['name']]} in phase 15")
+            row["launches"] += tp_counts[row["name"]]
     rows += precision_rows
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -220,12 +220,12 @@ def test_auto_resolution_and_dispatch():
     assert registry.launch_counts == {}
     torch.testing.assert_close(out, flash_attention_reference(x, x, x, causal=True,
                                                               sm_scale=1 / 8.0))
-    # impl="ring" without a process group is dense attention (the JAX
-    # package's ring on a mesh without an sp axis); ulysses is not ported.
+    # impl="ring" or "ulysses" without a process group is dense attention
+    # here (the JAX package's ring and Ulysses on a mesh without an sp axis).
     torch.testing.assert_close(attention(x, x, x, impl="ring"),
                                dense_attention(x, x, x, causal=True), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        attention(x, x, x, impl="ulysses")
+    torch.testing.assert_close(attention(x, x, x, impl="ulysses"),
+                               dense_attention(x, x, x, causal=True), rtol=0, atol=0)
     with pytest.raises(ValueError, match="dense path"):
         attention(x, x, x, impl="flash", window=8)
 

@@ -268,7 +268,7 @@ def test_each_rank_holds_its_share_of_the_state(fused_runs, layout):
     ranks, _ = fused_runs(layout)
     mesh, zero = LAYOUTS[layout]
     fsdp, dp = mesh["fsdp_size"], mesh["dp_size"]
-    assert [tuple(r["coordinate"]) for r in ranks] == [(i // fsdp, i % fsdp, 0)
+    assert [tuple(r["coordinate"]) for r in ranks] == [(i // fsdp, i % fsdp, 0, 0)
                                                         for i in range(N_RANKS)]
     model = T.Llama(T.LlamaConfig.tiny(**CFG), device="cpu")
     model.device = torch.device("meta")
@@ -387,14 +387,16 @@ def test_reference_chain_runs_on_the_shards(start_params, layout):
 # ------------------------------------------------- configuration and refusals
 @pytest.mark.parametrize("kw", [dict(fsdp_size=4), dict(fsdp_size=-1), dict(fsdp_size=0),
                                 dict(dp_size=2, fsdp_size=-1), dict(fsdp_size=2),
-                                dict(sp_size=2, fsdp_size=2), dict(dp_size=8)],
+                                dict(sp_size=2, fsdp_size=2), dict(dp_size=8),
+                                dict(tp_size=2, fsdp_size=-1), dict(tp_size=4, dp_size=2),
+                                dict(tp_size=2, sp_size=2, dp_size=-1)],
                          ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_mesh_sizes_resolve_as_jax(kw):
     from accelerate_tpu.parallel.mesh import ParallelismConfig as JParallelismConfig
 
     want = JParallelismConfig(**kw).resolved_sizes(8, dcn=1)
     got = T.ParallelismConfig(**kw).resolved_sizes(8)
-    assert got == {a: want[a] for a in ("dp", "fsdp", "sp")}
+    assert got == {a: want[a] for a in ("dp", "fsdp", "sp", "tp")}
 
 
 def test_zero_sharding_env_default_and_setter(monkeypatch):
@@ -420,19 +422,23 @@ def test_zero_sharding_env_default_and_setter(monkeypatch):
 
 
 def test_unported_sharding_options_raise():
-    for axis in ("tp_size", "pp_size", "ep_size"):
+    for axis in ("pp_size", "ep_size"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.ParallelismConfig(**{axis: 2})
+    # The tp axis is ported: a tp 2 x fsdp 2 loopback builds.
+    tp = T.Accelerator(device="cpu", parallelism_config=T.ParallelismConfig(
+        tp_size=2, fsdp_size=2), loopback=LoopbackShards(4))
+    assert tp.mesh_sizes == {"dp": 1, "fsdp": 2, "sp": 1, "tp": 2} and tp.num_data_ranks == 2
     # cpu_offload is ported (the optimizer state in pinned host memory).
     offload = T.Accelerator(device="cpu", fsdp_plugin=T.FullyShardedDataParallelPlugin(
         fsdp_size=2, cpu_offload=True), loopback=LoopbackShards(2))
     assert offload._offload_opt_state
-    with pytest.raises(NotImplementedError, match="sp"):
-        T.Accelerator(device="cpu", parallelism_config=T.ParallelismConfig(sp_size=2),
-                      loopback=LoopbackShards(2))
+    with pytest.raises(NotImplementedError, match="sp"):  # fsdp x sp stays unported
+        T.Accelerator(device="cpu", parallelism_config=T.ParallelismConfig(
+            sp_size=2, fsdp_size=2), loopback=LoopbackShards(4))
     acc = T.Accelerator(device="cpu", fsdp_plugin=T.FullyShardedDataParallelPlugin(fsdp_size=2),
                         loopback=LoopbackShards(2))
-    assert acc.mesh_sizes == {"dp": 1, "fsdp": 2, "sp": 1} and acc.num_data_ranks == 2
+    assert acc.mesh_sizes == {"dp": 1, "fsdp": 2, "sp": 1, "tp": 1} and acc.num_data_ranks == 2
     bert = T.BertForSequenceClassification(T.BertConfig(
         vocab_size=64, hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
         intermediate_size=64, max_position_embeddings=32), device="cpu")
@@ -457,12 +463,17 @@ def _four_cards():
 def _spawn(fn, *args, timeout: float = 900.0):
     """``fn(*args)`` in one process a card over NCCL; a rank that raises
     fails the launch (the others are stopped), and ranks still running
-    after ``timeout`` seconds are killed."""
+    after ``timeout`` seconds are killed. This process's cached card memory
+    (a loopback reference run here before) is handed back first: rank 0
+    shares card 0 with it."""
+    import gc
     import socket
     import time
 
     import torch.multiprocessing as mp
 
+    gc.collect()
+    torch.cuda.empty_cache()
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -482,6 +493,8 @@ def _spawn(fn, *args, timeout: float = 900.0):
 
 def _nccl_entry(rank: int, port: int, fn, args):
     import os
+    import sys
+    import traceback
 
     import torch.distributed as dist
 
@@ -489,9 +502,15 @@ def _nccl_entry(rank: int, port: int, fn, args):
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
     try:
         fn(*args)
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+    except BaseException:
+        # The other ranks may wait in a collective this rank never joins,
+        # and destroy_process_group would wait with them: print the error
+        # and leave now, so that the launch fails at once.
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def full_depth_ranks(out_dir: str):

@@ -188,7 +188,7 @@ def test_rope_and_rms_norm_match_jax(scaling):
 
 def test_unported_rope_types_and_model_options_raise():
     # yarn and dynamic are ported: their tables match JAX's at a length past
-    # the window (dynamic's stretch) and at one inside it; ulysses still raises.
+    # the window (dynamic's stretch) and at one inside it.
     rng = np.random.default_rng(SEED + 6)
     pos = rng.integers(0, 9000, (2, 5)).astype(np.int32)
     for scaling in ({"rope_type": "yarn", "factor": 2.0},
@@ -204,15 +204,18 @@ def test_unported_rope_types_and_model_options_raise():
             np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-5)
     with pytest.raises(ValueError, match="Unsupported rope_type"):
         rope_tables(torch.zeros((1, 2), dtype=torch.int32), 16, 1e4, {"rope_type": "ntk-x"})
-    for kw in (dict(attention_impl="ulysses"),):
-        with pytest.raises(NotImplementedError):
-            Llama(LlamaConfig.tiny(**kw), device="cpu")
     # Labels are ported now: the head adds the shifted-label loss.
     tm = Llama(LlamaConfig.tiny(), device="cpu")
     tm.init_params(0)
     ids = torch.ones((1, 4), dtype=torch.int32)
     out = tm.apply(tm.params, input_ids=ids, labels=ids)
     assert out["loss"].dim() == 0 and bool(torch.isfinite(out["loss"]))
+    # Ulysses is ported: without an sp group it is the plain attention, as
+    # JAX's is without an sp axis. The pipeline schedule still raises.
+    um = Llama(LlamaConfig.tiny(attention_impl="ulysses"), device="cpu")
+    assert torch.equal(um.apply(tm.params, input_ids=ids, labels=ids)["loss"], out["loss"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm.apply(tm.params, input_ids=ids, pipeline=object())
 
 
 def test_llama3_8b_preset_and_param_count_match_jax():

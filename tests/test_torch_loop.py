@@ -30,7 +30,6 @@ another order, and JAX's update is one jitted program that XLA fuses:
 - the count of applied updates and ``step_was_skipped``: exact.
 """
 
-import types
 
 import numpy as np
 import pytest
@@ -214,15 +213,44 @@ def test_non_finite_norm_skips_the_update_as_jax_does():
 
 
 def test_imperative_path_refuses_sequence_parallelism():
-    acc = T.Accelerator(cpu=True)
-    pm, _ = acc.prepare(_tiny(), T.adamw(1e-3, device="cpu"))
-    four = types.SimpleNamespace(size=lambda: 4)
-    acc.state.mesh = types.SimpleNamespace(__getitem__=None)
-    acc.state.mesh = type("Mesh", (), {"__getitem__": lambda self, k: four})()
+    """Under sp the imperative path trains (tests/test_torch_ulysses.py runs
+    it over gloo) and refuses what the JAX package refuses at ``prepare``
+    (``accelerator.py:850-876``): a logit softcap, a sliding window, per-layer
+    windows. Loaders prepare under sp."""
+    from accelerate_tpu import ParallelismConfig as JParallelismConfig
+    from accelerate_tpu.models.llama import Llama as JLlama, LlamaConfig as JLlamaConfig
+    from accelerate_tpu.state import AcceleratorState, GradientState
+
+    refused = [(dict(attn_logit_softcap=50.0), "softcap"), (dict(sliding_window=4), "sliding"),
+               (dict(layer_windows=(4, None)), "per-layer")]
+    for kw, match in refused:
+        acc = T.Accelerator(cpu=True, sp_plugin=T.SequenceParallelPlugin(2),
+                            loopback=T.LoopbackShards(2))
+        model = T.Llama(T.LlamaConfig.tiny(**kw), device="cpu")
+        model.init_params(0)
+        with pytest.raises(ValueError, match=match):
+            acc.prepare(model, T.adamw(1e-3, device="cpu"))
+        AcceleratorState._reset_state(reset_partial_state=True)
+        GradientState._reset_state()
+        try:
+            jacc = JAccelerator(parallelism_config=JParallelismConfig(sp_size=2, dp_size=4))
+            jm = JLlama(JLlamaConfig.tiny(**kw))
+            jm.init_params(jax.random.key(0))
+            with pytest.raises(ValueError, match=match):
+                jacc.prepare(jm, optax.adamw(1e-3))
+        finally:
+            AcceleratorState._reset_state(reset_partial_state=True)
+            GradientState._reset_state()
+    acc = T.Accelerator(cpu=True, sp_plugin=T.SequenceParallelPlugin(2),
+                        loopback=T.LoopbackShards(2))
+    model = T.Llama(T.LlamaConfig.tiny(), device="cpu")
+    model.init_params(0)
+    pm, _ = acc.prepare(model, T.adamw(1e-3, device="cpu"))
+    assert pm.module.config.attention_impl == "ring"
     with pytest.raises(NotImplementedError, match="build_train_step"):
-        pm(input_ids=np.ones((1, 4), np.int32))
-    with pytest.raises(NotImplementedError, match="build_train_step"):
-        acc.prepare(torch.utils.data.DataLoader(list(range(4)), batch_size=2))
+        pm(input_ids=np.ones((1, 4), np.int32))  # a loopback holds every rank
+    dl = acc.prepare(torch.utils.data.DataLoader(list(range(4)), batch_size=2))
+    assert [b.tolist() for b in dl] == [[0, 1], [2, 3]]
 
 
 def test_gather_for_metrics_trims_the_padded_tail_on_one_rank():

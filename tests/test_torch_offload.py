@@ -201,7 +201,15 @@ def test_new_entry_points_default_to_the_card():
             lambda: T.DeviceBatchPrefetcher([{"x": np.zeros(2)}], window=2),
             lambda: T.Llama(T.LlamaConfig.tiny(rope_scaling={"rope_type": "yarn",
                                                              "factor": 2.0})),
-            lambda: T.BertForSequenceClassification(T.BertConfig.tiny(remat=True))):
+            lambda: T.BertForSequenceClassification(T.BertConfig.tiny(remat=True)),
+            # The tp and Ulysses entry points (the tp and Megatron plugins,
+            # the mesh shape from the environment, Ulysses on a loopback).
+            lambda: T.Accelerator(tp_plugin=T.TensorParallelPlugin(2),
+                                  loopback=T.LoopbackShards(2)),
+            lambda: T.Accelerator(megatron_plugin=T.MegatronStylePlugin(tp_size=2, fsdp_size=2),
+                                  loopback=T.LoopbackShards(4)),
+            lambda: T.Accelerator(sp_plugin=T.SequenceParallelPlugin(2, ring_attention=False),
+                                  loopback=T.LoopbackShards(2))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
 
@@ -212,7 +220,7 @@ def test_cpu_offload_from_the_environment(monkeypatch):
     monkeypatch.setenv("ACCELERATE_FSDP_CPU_OFFLOAD", "1")
     acc = T.Accelerator(device="cpu")
     assert acc.fsdp_plugin.cpu_offload and acc._offload_opt_state
-    assert acc.mesh_sizes == {"dp": 1, "fsdp": 1, "sp": 1}
+    assert acc.mesh_sizes == {"dp": 1, "fsdp": 1, "sp": 1, "tp": 1}
     model = T.Llama(T.LlamaConfig.tiny(**CFG), device="cpu")
     model.init_params(0)
     _, po = acc.prepare(model, T.adamw(3e-4, device="cpu"))

@@ -161,14 +161,20 @@ def test_collectives_over_the_ring_ranks(ring_run):
 
 
 def test_unported_sequence_parallel_options_raise():
-    with pytest.raises(NotImplementedError, match="Ulysses"):
-        T.Accelerator(device="cpu", sp_plugin=T.SequenceParallelPlugin(4, ring_attention=False))
-    for axis in ("tp_size", "pp_size", "ep_size"):
+    # Ulysses is ported: the plugin builds (on a loopback of 4 ranks here).
+    acc = T.Accelerator(device="cpu", sp_plugin=T.SequenceParallelPlugin(4, ring_attention=False),
+                        loopback=T.LoopbackShards(4))
+    assert acc.mesh_sizes["sp"] == 4
+    for axis in ("pp_size", "ep_size"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.ParallelismConfig(**{axis: 2})
+    with pytest.raises(NotImplementedError, match="fsdp together with sp"):
+        T.Accelerator(device="cpu", parallelism_config=T.ParallelismConfig(
+            sp_size=2, fsdp_size=2), loopback=T.LoopbackShards(4))
     x = torch.zeros((1, 8, 2, 16))
-    with pytest.raises(NotImplementedError, match="ulysses"):
-        T.ops.attention.attention(x, x, x, impl="ulysses")
+    # Without a process group Ulysses is the plain attention over the sequence.
+    assert torch.equal(T.ops.attention.attention(x, x, x, impl="ulysses"),
+                       T.ops.attention.attention(x, x, x, impl="dense"))
     with pytest.raises(ValueError, match="window"):
         T.ops.attention.attention(x, x, x, impl="ring", window=4)
     # One process cannot make an sp = 4 mesh.
