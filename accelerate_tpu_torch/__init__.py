@@ -37,7 +37,11 @@ scaler, flash in fp16) and ``fp8`` (int8 QAT through the int8 matmul),
 host-offloaded optimizer state, ``build_train_window`` fed by
 ``DeviceBatchPrefetcher``, ``DataLoaderDispatcher``, the train steps of
 ``train_steps.py`` (exported lazily, as in the JAX package) and the yarn and
-dynamic rope types. ROADMAP.md lists what comes next.
+dynamic rope types; pipeline parallelism (the pp axis with the GPipe and
+1F1B schedules, alone and with dp, fsdp and tp: ``PipelineParallelPlugin``,
+``parallel/pipeline.py``), pipelined inference (``prepare_pippy``,
+``inference.py``) and optax's ``adafactor``. ROADMAP.md lists what comes
+next.
 
 Entry points run on the card by default and raise without one unless the
 caller passes ``device="cpu"``.
@@ -52,6 +56,7 @@ from .data_loader import (
     skip_first_batches,
 )
 from .generation import generate
+from .inference import prepare_pippy
 from .launchers import debug_launcher
 from .logging import get_logger
 from .models import (
@@ -71,6 +76,7 @@ from .models import (
 )
 from .ops.paged_attention import init_kv_pool
 from .optim import (
+    adafactor,
     adam,
     adamw,
     constant_schedule,
@@ -93,6 +99,7 @@ from .utils.dataclasses import (
     Fp8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     MegatronStylePlugin,
+    PipelineParallelPlugin,
     ProjectConfiguration,
     SequenceParallelPlugin,
     TensorParallelPlugin,
@@ -137,10 +144,12 @@ __all__ = [
     "LoopbackTP",
     "MegatronStylePlugin",
     "ParallelismConfig",
+    "PipelineParallelPlugin",
     "PartialState",
     "ProjectConfiguration",
     "SequenceParallelPlugin",
     "TensorParallelPlugin",
+    "adafactor",
     "adam",
     "adamw",
     "bert_config_from_hf",
@@ -164,6 +173,7 @@ __all__ = [
     "optim",
     "polynomial_schedule",
     "prepare_data_loader",
+    "prepare_pippy",
     "qwen2_config_from_hf",
     "qwen3_config_from_hf",
     "reduce",

@@ -47,9 +47,8 @@ leaf carries a leading K axis (``DeviceBatchPrefetcher(..., window=K)``
 stacks them on the device), the K losses as one device tensor, bitwise K
 calls of ``build_train_step`` (accumulation included). PyTorch has no
 compiled scan: the window is a host loop over the step, with no read of
-the device inside it (except the fp16 finite flag). Not ported yet: the pp
-and ep axes, adafactor, and the telemetry, audit and health hooks of the
-step.
+the device inside it (except the fp16 finite flag). Not ported yet: the ep
+axis, and the telemetry, audit and health hooks of the step.
 
 The canonical imperative loop (``examples/nlp_example.py``; the port's
 ``accelerate_tpu_torch/examples/nlp_example.py``)::
@@ -161,6 +160,20 @@ read the same rows, and the gradients are summed over dp, fsdp and sp,
 never over tp. Under fp16 the sharded fused step scales the loss, unscales
 each rank's shards and skips the update on every rank when the norm is not
 finite anywhere.
+
+Pipeline parallelism (``pp_plugin=PipelineParallelPlugin(pp_size=,
+num_microbatches=, schedule=)``, ``ParallelismConfig(pp_size=)``,
+``MegatronStylePlugin(pp_size=)``, or ``ACCELERATE_MESH_SHAPE=pp:2,...``
+with ``ACCELERATE_PP_SCHEDULE`` and ``ACCELERATE_PP_MICROBATCHES``) also
+runs on shards: each pp rank holds its stage's block of layers and
+``prepare`` resolves the schedule (``parallel/pipeline.resolve_pipeline_
+spec``, on the model's ``handle.pipeline_spec``; None, with JAX's warning,
+when pp does not divide the layers, and the step then runs unpipelined on
+every pp rank). The fused step and the window route as JAX's
+``_fused_value_and_grads``: GPipe through ``model.apply(..., pipeline=
+spec)``, 1F1B through ``parallel/pipeline.train_1f1b``. The imperative
+loop (``backward`` / ``optimizer.step()``) under pp is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -183,6 +196,8 @@ from .optim import GradientTransformation
 from .optimizer import AcceleratedOptimizer, GradScalerState, clip_factor, global_norm
 from .parallel.fsdp import LoopbackShards, ShardedModel
 from .parallel.mesh import ParallelismConfig, mesh_coordinate
+from .parallel.pipeline import (LoopbackStages, ProcessGroupStages, check_microbatch_grid,
+                                resolve_pipeline_spec, train_1f1b)
 from .parallel.ring import LoopbackRing
 from .parallel.sharding import data_parallel_degree, plan_param_shardings
 from .parallel.ulysses import LoopbackUlysses
@@ -195,6 +210,7 @@ from .utils.dataclasses import (
     FullyShardedDataParallelPlugin,
     KwargsHandler,
     MegatronStylePlugin,
+    PipelineParallelPlugin,
     ProjectConfiguration,
     SequenceParallelPlugin,
     TensorParallelPlugin,
@@ -241,6 +257,7 @@ class TrainHandle:
         self.pending = None
         self.last_grad_norm = None
         self.sharded: ShardedModel | None = None  # the shards, under fsdp, ZeRO or a loopback
+        self.pipeline_spec = None  # parallel/pipeline.PipelineSpec under pp
 
 
 def _loss_of(outputs):
@@ -332,6 +349,11 @@ class PreparedModel:
         over sp)."""
         acc, handle = self.accelerator, self.handle
         engine = handle.sharded
+        if engine.sizes["pp"] > 1:
+            raise NotImplementedError(
+                "the imperative loop (model(...), backward, optimizer.step()) under pp is not "
+                "ported yet (ROADMAP.md, Queue 1: the imperative loop under pp); train with "
+                "build_train_step or build_train_window")
         if engine.loopback:
             raise NotImplementedError("the imperative loop runs one rank a process; a "
                                       "LoopbackShards accelerator trains with build_train_step")
@@ -403,6 +425,14 @@ class PreparedModel:
         module, cast = self.handle.module, self._cast
         kernels = self.accelerator.kernels
         mesh = self.accelerator.mesh
+        spec = self.handle.pipeline_spec
+        if spec is not None and spec.schedule == "1f1b":
+            # JAX accelerator.py:183-191: a custom value-and-grad cannot
+            # honour the 1F1B schedule.
+            raise ValueError(
+                "schedule='1f1b' trains through build_train_step or the "
+                "imperative prepared-model forward only; use "
+                "PipelineParallelPlugin(schedule='gpipe') with this training path.")
 
         def loss_of(params, batch):
             if mesh is not None and "targets" in batch:
@@ -464,8 +494,9 @@ class Accelerator:
     ``chip_smoke.py``). The accumulation steps are fixed at construction (only
     ``load_state(reshard=True)`` rescales them, to keep the global batch).
     ``cpu=True`` is the JAX package's spelling of ``device="cpu"``.
-    ``sp_plugin``, ``fsdp_plugin`` or ``parallelism_config`` ask for a
-    ``("dp", "fsdp", "sp")`` mesh over the job's ranks, or, with
+    ``sp_plugin``, ``fsdp_plugin``, ``tp_plugin``, ``megatron_plugin``,
+    ``pp_plugin`` or ``parallelism_config`` ask for a ``("pp", "dp",
+    "fsdp", "sp", "tp")`` mesh over the job's ranks, or, with
     ``loopback=LoopbackShards(n)``, over n ranks held in this process
     (module docstring); ``init_method`` is handed to ``init_process_group``
     when this process starts the job.
@@ -491,7 +522,8 @@ class Accelerator:
                  loopback: LoopbackShards | None = None,
                  kwargs_handlers: list | None = None,
                  tp_plugin: TensorParallelPlugin | None = None,
-                 megatron_plugin: MegatronStylePlugin | None = None):
+                 megatron_plugin: MegatronStylePlugin | None = None,
+                 pp_plugin: PipelineParallelPlugin | None = None):
         if cpu:
             if device is not None and torch.device(device).type != "cpu":
                 raise ValueError(f"cpu=True contradicts device={device!r}")
@@ -506,6 +538,13 @@ class Accelerator:
                 fsdp_size=-1,
                 min_shard_size=int(os.environ.get("ACCELERATE_FSDP_MIN_SHARD_SIZE", 2**14)),
                 cpu_offload=_flag_from_env("ACCELERATE_FSDP_CPU_OFFLOAD"))
+        if pp_plugin is None and os.environ.get("ACCELERATE_PP_SCHEDULE"):
+            # JAX accelerator.py:374-379: the pp size comes from the mesh shape.
+            pp_plugin = PipelineParallelPlugin(pp_size=max(cfg.pp_size, 1),
+                                               schedule=os.environ["ACCELERATE_PP_SCHEDULE"])
+        if pp_plugin is not None:
+            cfg = dataclasses.replace(cfg, pp_size=pp_plugin.pp_size)
+        self.pp_plugin = pp_plugin
         self.fp8_recipe_handler = None
         seen = set()
         for handler in kwargs_handlers or []:
@@ -540,6 +579,9 @@ class Accelerator:
         if sizes["fsdp"] > 1 and sizes["sp"] > 1:
             raise NotImplementedError("fsdp together with sp is not ported yet (ROADMAP.md, "
                                       "module queue)")
+        if sizes["pp"] > 1 and sizes["sp"] > 1:
+            raise NotImplementedError("pp together with sp is not ported yet (ROADMAP.md, "
+                                      "Queue 1: pp with sp and with ep)")
         self.gradient_state = GradientState(gradient_accumulation_steps)
         self.scaler = GradScalerState() if self.state.mixed_precision == "fp16" else None
         # cpu_offload: the imperative optimizer's state parks in pinned host
@@ -615,14 +657,15 @@ class Accelerator:
 
     @property
     def mesh(self):
-        """The ``("dp", "fsdp", "sp", "tp")`` ``DeviceMesh``, or None for
-        one process without sequence parallelism (or with a loopback)."""
+        """The ``("pp", "dp", "fsdp", "sp", "tp")`` ``DeviceMesh``, or None
+        for one process without sequence parallelism (or with a
+        loopback)."""
         return self.state.mesh
 
     @property
     def mesh_sizes(self) -> dict:
-        """``{"dp", "fsdp", "sp", "tp"}`` of the job: its process mesh, its
-        loopback's ranks, or one rank."""
+        """``{"pp", "dp", "fsdp", "sp", "tp"}`` of the job: its process mesh,
+        its loopback's ranks, or one rank."""
         cfg = self.state.parallelism_config
         if self.loopback is not None:
             return cfg.resolved_sizes(self.loopback.size)
@@ -812,6 +855,8 @@ class Accelerator:
                                                   None) == "default":
             # fp8 as int8 QAT: a new config, as a shared one must not change.
             model.config = dataclasses.replace(model.config, matmul_precision="int8")
+        if self.pp_plugin is not None:  # a schedule's name is checked on any mesh (JAX)
+            resolve_pipeline_spec(model, {}, {}, 0, self.pp_plugin.schedule)
         dev = self.device
         params = tree_map(lambda p: p.detach().to(dev), model.params)
         if self.mesh is not None:  # every rank starts from rank 0's parameters
@@ -819,8 +864,8 @@ class Accelerator:
                 broadcast(leaf, src=0)
         handle = TrainHandle(model, params, self.state.compute_dtype, dev)
         sizes = self.mesh_sizes
-        if sizes["fsdp"] > 1 or sizes["tp"] > 1 or self.loopback is not None or (
-                self.zero_sharding and sizes["dp"] > 1):
+        if sizes["fsdp"] > 1 or sizes["tp"] > 1 or sizes["pp"] > 1 or \
+                self.loopback is not None or (self.zero_sharding and sizes["dp"] > 1):
             self._shard(handle)
         model.params = handle.params  # the user's handle sees the prepared parameters
         prepared = PreparedModel(handle, self)
@@ -847,11 +892,40 @@ class Accelerator:
             reshard_after_forward=plugin.reshard_after_forward if plugin else True,
             sp_loopback=LoopbackUlysses if module.config.attention_impl == "ulysses"
             else LoopbackRing)
+        handle.pipeline_spec = self._pipeline_spec(handle)
         handle.params = handle.sharded.param_tree(handle.sharded.ranks[0])
         if module.params is not None and module.params is not handle.params:
             module.params = handle.params  # drop the full tree: only the shards stay
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
+
+    def _pipeline_spec(self, handle):
+        """The model's pipeline schedule under pp (JAX ``accelerator.py:
+        893-912``): the plugin's microbatches, else ``ACCELERATE_PP_
+        MICROBATCHES``, else one a stage; its transport this process's
+        stage over the pp group, or every stage of the loopback."""
+        plugin, engine = self.pp_plugin, handle.sharded
+        mbs = plugin.num_microbatches if plugin is not None else 0
+        if mbs <= 0:
+            env = os.environ.get("ACCELERATE_PP_MICROBATCHES", "").strip()
+            try:
+                mbs = int(env) if env else 0
+            except ValueError:
+                raise ValueError(f"ACCELERATE_PP_MICROBATCHES={env!r} is not an integer") \
+                    from None
+        schedule = plugin.schedule if plugin is not None else "gpipe"
+        sizes = engine.sizes
+        transport = None
+        if sizes["pp"] > 1 and engine.loopback:
+            transport = LoopbackStages(sizes["pp"])
+        elif sizes["pp"] > 1:
+            coord = engine.coord(engine.ranks[0])
+            stride = self.num_processes // sizes["pp"]
+            rank = engine.ranks[0] - coord["pp"] * stride
+            transport = ProcessGroupStages(self.mesh.get_group("pp"), coord["pp"],
+                                           [rank + s * stride for s in range(sizes["pp"])])
+        return resolve_pipeline_spec(handle.module, engine.template, sizes, mbs, schedule,
+                                     transport=transport)
 
     def _sequence_parallel_config(self, cfg):
         """The model's config under sp > 1: the JAX package's prepare-time
@@ -1349,9 +1423,18 @@ class Accelerator:
         fp16 the loss is scaled before the backward and the boundary
         unscales each rank's shards, then skips the update on every rank
         when the norm is not finite anywhere (the flag MIN-reduced over the
-        job): a skipped step launches no update kernel."""
+        job): a skipped step launches no update kernel. Under pp the forward
+        and backward run the model's pipeline schedule (module docstring)."""
         handle = model.handle
         engine, module = handle.sharded, handle.module
+        spec = handle.pipeline_spec
+        one_f_one_b = spec is not None and spec.schedule == "1f1b"
+        if one_f_one_b and loss_fn is not None:  # JAX accelerator.py:222-229
+            raise ValueError(
+                "schedule='1f1b' computes the loss on the last pipeline stage "
+                "via the model's own head (labels in the batch) — a custom "
+                "loss_fn cannot be honored. Drop set_loss_fn/loss_fn or use "
+                "PipelineParallelPlugin(schedule='gpipe').")
         scaler = optimizer.scaler
         accum = self.gradient_accumulation_steps
         n_data = self.num_data_ranks
@@ -1374,6 +1457,12 @@ class Accelerator:
             self._check_accum(accum, "build_train_step")
             clip = host_to_device(np.float32(clip_norm), dev)
             rows = np.shape(batch["input_ids"])[0]
+            if one_f_one_b and "labels" not in batch:  # JAX pipeline.py:497-502
+                raise ValueError(
+                    "1F1B pipeline training computes the loss on the last stage: the "
+                    "batch must contain 'labels' (the head-loss protocol).")
+            if spec is not None:
+                check_microbatch_grid(rows, n_data, spec.num_microbatches)
             if rows % n_data:
                 raise ValueError(f"global batch dim {rows} not divisible by data-parallel "
                                  f"degree {n_data}; pad the batch or change dp/fsdp.")
@@ -1394,20 +1483,47 @@ class Accelerator:
 
             def forward(unit, tree):
                 out = module.apply(tree, kernels=self.kernels, loss_normalizer=normalizer,
-                                   **engine.unit_context(unit), **shards[unit])
+                                   pipeline=spec, **engine.unit_context(unit), **shards[unit])
                 loss = out["loss"] if loss_fn is None else loss_fn(out, shards[unit])
                 return loss if scale is None else loss * scale
 
             with torch.no_grad():
-                loss = engine.forward_backward(forward, sink)
-                if scale is not None:
-                    loss = loss / scale
+                if one_f_one_b:
+                    loss = self._forward_backward_1f1b(engine, spec, module, shards, normalizer,
+                                                       scale, sink)
+                else:
+                    loss = engine.forward_backward(forward, sink)
+                    if scale is not None:
+                        loss = loss / scale
                 count += 1
                 if count % accum == 0:
                     self._sharded_boundary(engine, optimizer, clip)
             return loss
 
         return step
+
+    def _forward_backward_1f1b(self, engine, spec, module, shards, normalizer, scale, sink):
+        """Every forward unit's 1F1B schedule (``parallel/pipeline.
+        train_1f1b``), the gradients into ``sink`` as
+        ``engine.forward_backward`` delivers them, those of the leaves
+        every stage holds summed over pp too. Returns the loss summed over
+        the units and the ranks."""
+        engine.pp_reduce = True
+        try:
+            aliases, anchor = engine.begin(sink)
+            total = None
+            for unit in engine.units:
+                with torch.enable_grad():
+                    tree = engine.rank_tree(unit, aliases, anchor)
+                loss = train_1f1b(spec, module, tree, shards[unit], normalizer=normalizer,
+                                  dtype=engine.compute_dtype, scale=scale,
+                                  unit_ctx=engine.unit_context(unit), kernels=self.kernels,
+                                  hooks=engine.hooks)
+                total = loss if total is None else total + loss
+            engine.end(aliases)
+            return engine._reduce(total)
+        finally:
+            engine.pp_reduce = False
 
     @staticmethod
     def _sharded_boundary(engine, optimizer, clip):

@@ -343,9 +343,25 @@ def _moment_leaf(engine, path, leaf):
     return None
 
 
+def _check_whole_leaf_state(engine, opt):
+    """A transform with whole-leaf statistics (adafactor) keeps, on a
+    process group, factored rows and columns of each rank's slice, which
+    the full layout cannot be assembled from yet; a loopback keeps the
+    whole leaves' state, which is the full layout."""
+    from .optim import needs_global_stats
+
+    if not engine.loopback and needs_global_stats(opt.tx) and any(
+            layout.splits for layout in engine.layouts):
+        raise NotImplementedError(
+            "the optimizer state of a transform with whole-leaf statistics (adafactor) on "
+            "process-group shards is not checkpointed yet (ROADMAP.md, Queue 1: what pp "
+            "still lacks)")
+
+
 def full_host_opt_state(engine, opt) -> dict:
     """A sharded optimizer's state in the full layout, on the host, keyed
     as the unsharded state's safetensors item (``0.mu.layers.wq``)."""
+    _check_whole_leaf_state(engine, opt)
     per_rank = [dict(flatten_with_paths(s)) for s in opt.rank_states]
     out = {}
     keep = _is_main()
@@ -384,6 +400,7 @@ def _load_sharded_params(engine, tensors: dict, where: str):
 
 
 def _load_sharded_opt_state(engine, opt, tensors: dict, where: str):
+    _check_whole_leaf_state(engine, opt)
     per_rank = [dict(flatten_with_paths(s)) for s in opt.rank_states]
     keys = {k for k, v in per_rank[0].items() if isinstance(v, torch.Tensor)}
     missing, extra = sorted(keys - set(tensors)), sorted(set(tensors) - keys)

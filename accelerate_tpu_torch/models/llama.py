@@ -83,7 +83,16 @@ read. Every replicated value that per-rank work reads goes through
 (``parallel/ulysses.py``): under an ``sp`` axis, ``sp_group`` is handed to
 it as to the ring.
 
-Left out so far, and raising when set: the pipeline schedule and MoE.
+Pipeline parallelism (``pipeline=spec``, a ``parallel/pipeline.PipelineSpec``;
+``pipeline_capable``): the layer stack runs through the GPipe schedule of
+``spec.run`` over :meth:`Llama.run_layers`, each stage on its block of
+layers (Gemma-2's windows read per global layer index, JAX's
+``_window_segments`` per stage); the embedding and the head run around it
+as without the pipeline. The 1F1B schedule drives :meth:`Llama.embed`,
+:meth:`Llama.run_layers` and :meth:`Llama.head` itself
+(``parallel/pipeline.train_1f1b``).
+
+Left out so far, and raising when set: MoE.
 """
 
 from __future__ import annotations
@@ -388,6 +397,8 @@ def _remat_context_fn(policy: str, save_names: tuple):
 
 class Llama(Module):
     _WINDOW_FROM_CONFIG = object()  # sentinel: use cfg.sliding_window
+    # The embed / block / head stage protocol the pipeline schedules drive.
+    pipeline_capable = True
 
     def __init__(self, config: LlamaConfig, device=None):
         resolve_remat_policy(config.remat_policy, config.remat_save_names)
@@ -462,7 +473,6 @@ class Llama(Module):
         split over tp (a list of the held ranks' rows) is looked up
         vocab-parallel."""
         cfg = self.config
-        B, S = input_ids.shape
         table = params["embed"]["weight"]
         if isinstance(table, list):
             x = vocab_parallel_embedding(tp, table, input_ids)
@@ -471,14 +481,23 @@ class Llama(Module):
         if cfg.embedding_multiplier != 1.0:
             # The multiplier rounded to the activation dtype, as jnp.asarray(m, x.dtype).
             x = x * torch.tensor(cfg.embedding_multiplier, dtype=x.dtype).item()
+        return x, self.context(input_ids, positions, attention_mask, rope_seq_len)
+
+    def context(self, input_ids, positions=None, attention_mask=None, rope_seq_len=None):
+        """The blocks' read-only context of a batch (the rotary tables and
+        the mask), without the embedding: what a pipeline stage after the
+        first needs."""
+        cfg = self.config
+        B, S = input_ids.shape
         if positions is None:
-            positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=input_ids.device)[None].expand(B, S)
         cos, sin = rope_tables(
             positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
             seq_len=rope_seq_len if rope_seq_len is not None else S,
             max_position_embeddings=cfg.max_position_embeddings,
         )
-        return x, {"cos": cos, "sin": sin, "attention_mask": attention_mask}
+        return {"cos": cos, "sin": sin, "attention_mask": attention_mask}
 
     def block(self, layer, x, ctx, cache_layer=None, window=_WINDOW_FROM_CONFIG):
         """One decoder layer on the residual stream.
@@ -671,8 +690,7 @@ class Llama(Module):
 
     def sharding_rules(self):
         """The JAX package's rules (``models/llama.py:411-431``): Megatron
-        tp with the complementary fsdp dim, and the layer stack on pp. The
-        port's mesh has no pp axis yet, so that entry has size 1."""
+        tp with the complementary fsdp dim, and the layer stack on pp."""
         return [
             (r"embed/weight", ("tp", "fsdp")),
             (r"attn/w[qkv]", ("pp", "fsdp", "tp")),
@@ -786,9 +804,9 @@ class Llama(Module):
         ops and, with ``matmul_precision="int8"``, the int8 matmul
         (``None``: the CUDA kernels for CUDA tensors; ``"off"``: their plain
         versions). ``targets``, ``loss_normalizer`` and ``sp_group`` serve a
-        sequence shard, ``tp`` a tp rank's pieces (module docstring)."""
-        if kwargs.get("pipeline") is not None:
-            raise NotImplementedError("pipeline schedules are not ported yet (ROADMAP.md)")
+        sequence shard, ``tp`` a tp rank's pieces, ``pipeline`` a
+        ``PipelineSpec`` (module docstring)."""
+        pipeline = kwargs.get("pipeline")
         if cache is not None:
             return self._apply_cached(params, input_ids, attention_mask, cache,
                                       labels=labels, positions=positions, kernels=kernels)
@@ -796,6 +814,18 @@ class Llama(Module):
         ctx["kernels"] = kernels
         ctx["sp_group"] = sp_group
         ctx["tp"] = tp
+        if pipeline is not None:
+            x = pipeline.run(self, params["layers"], x, ctx)
+        else:
+            x = self.run_layers(params["layers"], x, ctx, 0, self.config.num_hidden_layers)
+        return self.head(params, x, labels=labels, attention_mask=attention_mask,
+                         targets=targets, loss_normalizer=loss_normalizer, tp=tp)
+
+    def run_layers(self, layers, x, ctx, start: int, stop: int):
+        """Layers ``start .. stop - 1`` (global indices) of the stack on the
+        residual stream, each with its window; under remat and autograd each
+        block runs inside a checkpoint region, its layer indexed (gathered,
+        when sharded) inside the region."""
         cfg = self.config
         remat = cfg.remat and torch.is_grad_enabled()
         if remat:
@@ -804,17 +834,15 @@ class Llama(Module):
             context_fn = _remat_context_fn(*resolve_remat_policy(cfg.remat_policy,
                                                                  cfg.remat_save_names))
             extra = {} if context_fn is None else {"context_fn": context_fn}
-        layers = params["layers"]
-        for i in range(cfg.num_hidden_layers):
+        for i in range(start, stop):
             window = self._layer_window(i)
-            if remat:  # the layer is indexed (gathered, when sharded) inside the region
+            if remat:
                 x = checkpoint(lambda x, i=i, window=window: self.block(
                     _index_tree(layers, i), x, ctx, window=window), x, use_reentrant=False,
                     **extra)
             else:
                 x = self.block(_index_tree(layers, i), x, ctx, window=window)
-        return self.head(params, x, labels=labels, attention_mask=attention_mask,
-                         targets=targets, loss_normalizer=loss_normalizer, tp=tp)
+        return x
 
     def _apply_cached(self, params, input_ids, attention_mask, cache, labels=None,
                       positions=None, kernels=None):

@@ -1,14 +1,27 @@
 """The port's own copy of the optax pieces the JAX package trains with.
 
-``sgd`` (with or without classic momentum), ``adam``, ``adamw`` and
-``apply_updates``, with optax's defaults, chain structure and op order, so
-the same gradients give the same updates:
+``sgd`` (with or without classic momentum), ``adam``, ``adamw``,
+``adafactor`` and ``apply_updates``, with optax's defaults, chain structure,
+state names and op order, so the same gradients give the same updates:
 
 - ``scale_by_adam``: ``(1-b)·g + b·m`` moments, bias correction
   ``1 - b**count`` taken in f32 on the device, ``m̂/(sqrt(v̂+eps_root)+eps)``;
 - ``add_decayed_weights``: ``u + wd·p`` (adamw's default wd is 1e-4);
 - ``scale``: ``step_size·u``, with ``step_size = -learning_rate``;
 - ``apply_updates``: ``(p + u)`` cast back to the parameter's dtype.
+
+``adafactor`` is optax 0.2.6's chain (``optax/_src/alias.py``):
+``scale_by_factored_rms`` (the factored second moments of the two largest
+dims of at least ``min_dim_size_to_factor``, ``factorized._factored_dims``,
+decay ``1 - (count + 1)**-0.8``), ``clip_by_block_rms(1.0)``,
+``scale_by_learning_rate`` without the sign flip, ``scale_by_param_block_rms``,
+the optional ``ema`` momentum (not debiased) and ``add_decayed_weights``,
+then ``scale(-1)``. Its statistics are sums over a whole leaf (a stacked
+``(L, ...)`` leaf is one block over all L layers). A sharded step on a
+process group runs the chain on its slices inside :func:`leaf_views`, which
+names each leaf's global shape and the groups that split its dims: the
+transforms then all-reduce their partial sums over those groups
+(``parallel/fsdp.py``).
 
 ``torch.optim.AdamW`` is not used: it decays the weights before the moment
 step and folds the learning rate in elsewhere, so its numbers differ.
@@ -37,12 +50,16 @@ the next update. Nesterov and the other optax transforms are not ported.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import contextlib
+import contextvars
+from dataclasses import dataclass, field
 import inspect
 import math
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from .utils.device import resolve_device
 from .utils.tree import tree_map
@@ -72,6 +89,76 @@ class TraceState(NamedTuple):
 
 class EmptyState(NamedTuple):
     pass
+
+
+class FactoredState(NamedTuple):
+    count: torch.Tensor  # int32 device scalar: updates applied so far
+    v_row: dict  # per leaf: the row statistics, or (1,) zeros where unfactored
+    v_col: dict  # per leaf: the column statistics, or (1,) zeros where unfactored
+    v: dict  # per leaf: the unfactored statistics, or (1,) zeros where factored
+
+
+class EmaState(NamedTuple):
+    count: torch.Tensor  # int32 device scalar
+    ema: dict
+
+
+# ------------------------------------------------------------ leaf views
+@dataclass(frozen=True)
+class LeafView:
+    """How a rank's slice of a leaf lies in the global leaf: its global
+    ``shape`` and, per split dim, the process groups whose ranks hold that
+    dim's other pieces (``dims``: ``{dim: [group, ...]}``)."""
+
+    shape: tuple
+    dims: dict = field(default_factory=dict)
+
+    def sum(self, t, over):
+        """``t`` (already summed over the slice's dims ``over`` of the leaf)
+        summed over the ranks that split those dims."""
+        for d in over:
+            for group in self.dims.get(d, ()):
+                dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        return t
+
+
+_LEAF_VIEWS = contextvars.ContextVar("accelerate_tpu_torch_leaf_views", default=None)
+
+
+@contextlib.contextmanager
+def leaf_views(views):
+    """Within the block, transforms with global statistics read ``views``
+    (a tree like the parameters of :class:`LeafView`; None: every tensor is
+    its whole leaf)."""
+    token = _LEAF_VIEWS.set(views)
+    try:
+        yield
+    finally:
+        _LEAF_VIEWS.reset(token)
+
+
+def _views_like(tree):
+    views = _LEAF_VIEWS.get()
+    return views if views is not None else tree_map(lambda _: None, tree)
+
+
+def _global_shape(t, view):
+    return tuple(view.shape) if view is not None else tuple(t.shape)
+
+
+def _global_sum(t, view, dims):
+    """``t`` summed over its dims ``dims`` (``keepdim``) and over the ranks
+    that split them."""
+    out = t.sum(dim=tuple(dims), keepdim=True)
+    return out if view is None else view.sum(out, dims)
+
+
+def _global_mean(t, view, dims):
+    shape = _global_shape(t, view)
+    count = 1
+    for d in dims:
+        count *= shape[d]
+    return _global_sum(t, view, dims) / count
 
 
 def safe_int32_increment(count):
@@ -202,6 +289,166 @@ def chain(*transforms, device=None) -> GradientTransformation:
     return GradientTransformation(*transforms, device=device)
 
 
+# ----------------------------------------------------------------- adafactor
+def _factored_dims(shape, factored: bool, min_dim_size_to_factor: int):
+    """optax's ``factorized._factored_dims``: the two largest dims ``(d1,
+    d0)`` (d0 the largest; ties by numpy's argsort) when the second largest
+    has at least ``min_dim_size_to_factor`` elements, else None."""
+    if not factored or len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < min_dim_size_to_factor:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
+@dataclass(frozen=True)
+class ScaleByFactoredRms:
+    """optax's ``scale_by_factored_rms``: per leaf of global shape with
+    factored dims ``(d1, d0)``, running means of ``g**2 + eps`` over d0
+    (``v_row``) and over d1 (``v_col``), the update ``g * (v_row /
+    mean(v_row))**-0.5 * v_col**-0.5``; an unfactored leaf keeps ``v`` of
+    its shape and updates ``g * v**-0.5``."""
+
+    factored: bool = True
+    decay_rate: float = 0.8
+    step_offset: int = 0
+    min_dim_size_to_factor: int = 128
+    epsilon: float = 1e-30
+    block_stats = True
+
+    def init(self, params, device):
+        def one(p, view):
+            shape = list(p.shape)
+            dims = _factored_dims(_global_shape(p, view), self.factored,
+                                  self.min_dim_size_to_factor)
+            z1 = torch.zeros((1,), dtype=p.dtype, device=device)
+            if dims is None:
+                return z1, z1.clone(), torch.zeros(shape, dtype=p.dtype, device=device)
+            d1, d0 = dims
+            row = [n for d, n in enumerate(shape) if d != d0]
+            col = [n for d, n in enumerate(shape) if d != d1]
+            return (torch.zeros(row, dtype=p.dtype, device=device),
+                    torch.zeros(col, dtype=p.dtype, device=device), z1)
+
+        out = tree_map(one, params, _views_like(params))
+        pick = lambda k: tree_map(lambda o: o[k], out)  # noqa: E731
+        return FactoredState(count=torch.zeros((), dtype=torch.int32, device=device),
+                             v_row=pick(0), v_col=pick(1), v=pick(2))
+
+    def update(self, updates, state, params=None):
+        if params is None:
+            raise ValueError("scale_by_factored_rms needs the parameters")
+        t = (state.count - self.step_offset).to(torch.float32) + 1
+        decay = 1.0 - torch.pow(t, -self.decay_rate)
+
+        def one(g, v_row, v_col, v, p, view):
+            dims = _factored_dims(_global_shape(p, view), self.factored,
+                                  self.min_dim_size_to_factor)
+            grad_sqr = g * g + self.epsilon
+            if dims is None:
+                new_v = (decay * v + (1.0 - decay) * grad_sqr).to(p.dtype)
+                return g * new_v ** -0.5, v_row, v_col, new_v
+            d1, d0 = dims
+            new_v_row = (decay * v_row + (1.0 - decay) * _global_mean(
+                grad_sqr, view, (d0,)).squeeze(d0)).to(p.dtype)
+            new_v_col = (decay * v_col + (1.0 - decay) * _global_mean(
+                grad_sqr, view, (d1,)).squeeze(d1)).to(p.dtype)
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_view = None if view is None else LeafView(
+                tuple(n for d, n in enumerate(view.shape) if d != d0),
+                {(d - (d > d0)): gs for d, gs in view.dims.items() if d != d0})
+            row_col_mean = _global_mean(new_v_row, row_view, (reduced_d1,))
+            row_factor = (new_v_row / row_col_mean) ** -0.5
+            col_factor = new_v_col ** -0.5
+            update = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+            return update, new_v_row, new_v_col, v
+
+        out = tree_map(one, updates, state.v_row, state.v_col, state.v, params,
+                       _views_like(params))
+        pick = lambda k: tree_map(lambda o: o[k], out)  # noqa: E731
+        return pick(0), FactoredState(count=safe_int32_increment(state.count), v_row=pick(1),
+                                      v_col=pick(2), v=pick(3))
+
+
+def _all_dims(t):
+    return tuple(range(t.dim()))
+
+
+def _block_rms(t, view):
+    """``sqrt(mean(t**2))`` over the whole global leaf."""
+    return torch.sqrt(_global_mean(t * t, view, _all_dims(t))).reshape(())
+
+
+@dataclass(frozen=True)
+class ClipByBlockRms:
+    """optax's ``clip_by_block_rms``: each leaf divided by ``max(1,
+    rms / threshold)``."""
+
+    threshold: float
+    block_stats = True
+
+    def init(self, params, device):
+        return EmptyState()
+
+    def update(self, updates, state, params=None):
+        def one(u, view):
+            denom = torch.clamp(_block_rms(u, view) / self.threshold, min=1.0)
+            return u / denom
+
+        return tree_map(one, updates, _views_like(updates)), state
+
+
+@dataclass(frozen=True)
+class ScaleByParamBlockRms:
+    """optax's ``scale_by_param_block_rms``: each update times its
+    parameter's RMS, or ``min_scale`` where that is at most ``min_scale``."""
+
+    min_scale: float = 1e-3
+    block_stats = True
+
+    def init(self, params, device):
+        return EmptyState()
+
+    def update(self, updates, state, params=None):
+        if params is None:
+            raise ValueError("scale_by_param_block_rms needs the parameters")
+
+        def one(u, p, view):
+            rms = _block_rms(p, view)
+            return u * torch.where(rms <= self.min_scale, torch.full_like(rms, self.min_scale),
+                                   rms)
+
+        return tree_map(one, updates, params, _views_like(params)), state
+
+
+@dataclass(frozen=True)
+class Ema:
+    """optax's ``ema`` without debiasing: ``(1 - decay)·u + decay·ema``."""
+
+    decay: float
+    accumulator_dtype: torch.dtype = torch.float32
+
+    def init(self, params, device):
+        return EmaState(count=torch.zeros((), dtype=torch.int32, device=device),
+                        ema=tree_map(lambda p: torch.zeros(p.shape, dtype=self.accumulator_dtype,
+                                                           device=device), params))
+
+    def update(self, updates, state, params=None):
+        ema = tree_map(lambda g, t: (1 - self.decay) * g + self.decay * t, updates, state.ema)
+        return ema, EmaState(count=safe_int32_increment(state.count),
+                             ema=tree_map(lambda t: t.to(self.accumulator_dtype), ema))
+
+
+def needs_global_stats(tx) -> bool:
+    """Whether ``tx`` runs a transform whose statistics are sums over whole
+    leaves (adafactor's), which a sharded update must reduce over the
+    ranks."""
+    if isinstance(tx, InjectHyperparams):
+        tx = tx._inner({**tx.numeric, **{k: 0.0 for k in tx.scheduled}})
+    return any(getattr(t, "block_stats", False) for t in getattr(tx, "transforms", ()))
+
+
 def _scale_by_learning_rate(learning_rate):
     """optax's ``scale_by_learning_rate``: ``-learning_rate`` as a constant
     step, or a schedule of it."""
@@ -227,6 +474,32 @@ def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, weight_decay=
 def sgd(learning_rate, momentum=None, device=None) -> GradientTransformation:
     first = Trace(momentum) if momentum is not None else Identity()
     return chain(first, _scale_by_learning_rate(learning_rate), device=device)
+
+
+def adafactor(learning_rate=None, min_dim_size_to_factor: int = 128, decay_rate: float = 0.8,
+              decay_offset: int = 0, multiply_by_parameter_scale: bool = True,
+              clipping_threshold=1.0, momentum=None, dtype_momentum=torch.float32,
+              weight_decay_rate=None, eps: float = 1e-30, factored: bool = True,
+              device=None) -> GradientTransformation:
+    """optax's ``adafactor`` (module docstring), with its defaults; a
+    ``weight_decay_mask`` is not ported."""
+    tx = [ScaleByFactoredRms(factored, decay_rate, decay_offset, min_dim_size_to_factor, eps)]
+    if clipping_threshold is not None:
+        tx.append(ClipByBlockRms(clipping_threshold))
+    if learning_rate is not None:
+        if callable(learning_rate):
+            tx.append(ScaleBySchedule(learning_rate))
+        else:
+            tx.append(Scale(learning_rate if isinstance(learning_rate, torch.Tensor)
+                            else float(learning_rate)))
+    if multiply_by_parameter_scale:
+        tx.append(ScaleByParamBlockRms())
+    if momentum is not None:
+        tx.append(Ema(momentum, dtype_momentum))
+    if weight_decay_rate is not None:
+        tx.append(AddDecayedWeights(weight_decay_rate))
+    tx.append(Scale(-1))
+    return chain(*tx, device=device)
 
 
 def apply_updates(params, updates):

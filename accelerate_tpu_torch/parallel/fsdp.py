@@ -1,4 +1,4 @@
-"""Sharded training: the fsdp and tp axes, ZeRO over dp, and sp beside them.
+"""Sharded training: the fsdp, tp and pp axes, ZeRO over dp, and sp beside them.
 
 The JAX package lays each parameter out by a ``PartitionSpec`` and lets
 GSPMD insert the collectives (``accelerate_tpu/accelerator.py:884-886,
@@ -12,11 +12,16 @@ of ``parallel/sharding.py`` choose:
   over the fsdp axis and another over the tp axis (the Llama rules: wq
   ``(pp, fsdp, tp)``, wo ``(pp, tp, fsdp)``, the embedding ``(tp, fsdp)``);
   other specs raise. Leaves the plan replicates (the norms, leaves under
-  ``min_shard_size``) are whole on every rank.
+  ``min_shard_size``) are whole on every rank. A stacked ``(L, ...)`` leaf
+  split on its layer dim over pp is the rank's own contiguous block of
+  ``L / pp`` layers (a pipeline stage's, ``parallel/pipeline.py``): it is
+  never gathered over pp, and its layer ``i`` is global layer
+  ``stage * L / pp + i``; its fsdp and tp splits work as without pp.
 - **Forward.** The model receives a tree whose sharded leaves are gathered
   over **fsdp only** when the model reads them: a stacked ``(L, ...)`` leaf
-  one layer at a time (``layers[i]``), the others (the embedding, the LM
-  head) whole. A gather casts the shards to the compute dtype first and
+  one layer at a time (``layers[i]``, i the global layer index, which
+  must lie in a stage this process holds), the others (the embedding, the
+  LM head) whole. A gather casts the shards to the compute dtype first and
   all-gathers them along the fsdp dim (``utils/operations.all_gather_along``).
   A leaf split over tp keeps its tp split: the model receives it as a list
   of the tp ranks' pieces this process holds (one on a process group) and
@@ -30,7 +35,14 @@ of ``parallel/sharding.py`` choose:
   axes of dp, fsdp and sp, and added into the owning shard of the
   accumulation buffer. It is never summed over tp: a tp rank's gradient of
   its own piece is whole, and a replicated leaf's is the same on every tp
-  rank (Megatron's conjugate ops make it so). Each rank's loss is its share
+  rank (Megatron's conjugate ops make it so). Over pp, a stage's layers
+  have their own gradient; a leaf that every stage holds (the embedding,
+  the head, the final norm) is summed over pp under the 1F1B schedule,
+  where only the first and the last stage run those parts
+  (``pp_reduce``; on a process group a sharded one is banked through the
+  schedule and all-reduced over pp at its end by every rank, as the other
+  stages never reach a collective inside its backward), and not under
+  GPipe, where every stage runs them on the same inputs. Each rank's loss is its share
   of the global mean (the rows split over dp x fsdp, the sequence over sp,
   the loss divided by the global count of targets), so the sums are the
   global gradient.
@@ -38,7 +50,8 @@ of ``parallel/sharding.py`` choose:
   it owns, per leaf in the JAX leaf order, one all-reduce of that vector,
   then the leaves summed in order; a rank owns a slice when its coordinate
   is 0 on every axis the slice is replicated over (so a tp-split leaf
-  counts each tp piece once and a norm counts once). Under ZeRO
+  counts each tp piece once, a stage's layers once on each stage, and a
+  norm once). Under ZeRO
   (``plan_zero_shardings``) a leaf's update covers the 1/dp slice of its
   base shard that the ZeRO spec gives this rank: the slice of the
   parameter and of the buffer is copied out contiguous, the fused update
@@ -50,12 +63,21 @@ of ``parallel/sharding.py`` choose:
   hold the same slice (replicas over dp without ZeRO, over tp or sp) would
   each make the same update, so the first of them makes it, and their
   optimizer states share that slice's moments (one card holds them once).
+- **Update statistics.** A transform that is not elementwise (adafactor's
+  factored second moments and block RMS, ``optim.py``) needs sums over the
+  whole global leaf. On a process group each rank runs the chain on its
+  slices with ``optim.leaf_views`` naming, per leaf, its global shape and
+  the process groups that split each of its dims, and the transforms
+  all-reduce their partial sums over those groups (GSPMD's reductions in
+  the JAX package). The loopback holds every slice, so it runs the chain
+  once on the whole leaves and writes the new slices back.
 
 One process holds one rank over a process group (NCCL on cards, gloo on the
 CPU), or all ``n`` ranks with :class:`LoopbackShards` (one card driving the
 kernels as n cards would, ``chip_smoke.py`` phases 13 and 15). The loopback
 runs one forward and backward per data coordinate (dp, fsdp), one after
-another; each covers that coordinate's tp and sp ranks: the tp ranks in
+another; each covers that coordinate's pp, tp and sp ranks: the pp
+stages through the pipeline's loopback transport, the tp ranks in
 lockstep through ``parallel/tensor.LoopbackTP``, the sp ranks as one
 sequence whose position-wise work (the projections, the norms, the MLP)
 runs as one product over their concatenated shards, with ring or Ulysses
@@ -80,6 +102,7 @@ from ..ops.fused_update import fused_update_leaves, reference_update_apply
 from ..ops.registry import dispatch
 from ..utils.operations import all_gather_along, reduce_scatter_along
 from ..utils.tree import flatten_with_paths, map_with_paths, tree_leaves, tree_unflatten
+from ..optim import LeafView, leaf_views, needs_global_stats
 from .mesh import MESH_AXES
 from .sharding import entry_axes, padded_spec
 from .tensor import LoopbackTP, ProcessGroupTP
@@ -87,8 +110,9 @@ from .tensor import LoopbackTP, ProcessGroupTP
 # The axes a gradient is summed over: each rank's loss is its share of the
 # global mean over the rows (dp x fsdp) and the sequence (sp).
 REDUCE_AXES = ("dp", "fsdp", "sp")
-# The axes a base spec may split a parameter over.
-SPLIT_AXES = ("fsdp", "tp")
+# The axes a base spec may split a parameter over (pp only the layer dim of a
+# stacked leaf).
+SPLIT_AXES = ("pp", "fsdp", "tp")
 
 
 class LoopbackShards:
@@ -103,8 +127,9 @@ class LoopbackShards:
 
 
 def rank_coordinate(rank: int, sizes: dict) -> dict:
-    """``{"dp", "fsdp", "sp", "tp"}`` of ``rank`` on the mesh
-    (rank = ((dp * fsdp + fsdp_index) * sp + sp_index) * tp + tp_index)."""
+    """``{"pp", "dp", "fsdp", "sp", "tp"}`` of ``rank`` on the mesh (rank =
+    (((pp_index * dp + dp_index) * fsdp + fsdp_index) * sp + sp_index) * tp
+    + tp_index)."""
     coord = {}
     for axis in reversed(MESH_AXES):
         n = int(sizes.get(axis, 1))
@@ -115,7 +140,7 @@ def rank_coordinate(rank: int, sizes: dict) -> dict:
 
 class _Layout:
     """One leaf's placement: its full shape, the dims its spec splits over
-    the fsdp and tp axes (``splits``, ``{axis: dim}``; empty for a
+    the pp, fsdp and tp axes (``splits``, ``{axis: dim}``; empty for a
     replicated leaf), and, under ZeRO, the dim its update slice further
     splits over dp (``zero_dim``)."""
 
@@ -123,6 +148,7 @@ class _Layout:
         self.path, self.shape, self.sizes = path, tuple(shape), sizes
         self.splits = _split(path, shape, spec, sizes)
         self.fsdp_dim, self.tp_dim = self.splits.get("fsdp"), self.splits.get("tp")
+        self.pp_dim = self.splits.get("pp")
         self.local_shape = list(self.shape)
         for axis, d in self.splits.items():
             self.local_shape[d] //= sizes[axis]
@@ -150,9 +176,9 @@ class _Layout:
             self.update_shape[self.zero_dim] //= sizes["dp"]
 
     def key(self, coord) -> tuple:
-        """Which base shard a rank holds, ``(fsdp index, tp index)`` of the
-        axes the leaf is split over, 0 for the others (ranks with one key
-        share it)."""
+        """Which base shard a rank holds, ``(pp index, fsdp index, tp
+        index)`` of the axes the leaf is split over, 0 for the others (ranks
+        with one key share it)."""
         return tuple(coord[a] if a in self.splits else 0 for a in SPLIT_AXES)
 
     def local_of_key(self, full, key):
@@ -198,7 +224,7 @@ def _split(path, shape, spec, sizes) -> dict:
         if len(axes) > 1 or axes[0] not in SPLIT_AXES or axes[0] in out:
             raise NotImplementedError(
                 f"the spec {spec} of {path} splits a dim over {axes}; the sharded step takes "
-                "at most one dim over fsdp and one over tp")
+                "at most one dim over each of pp, fsdp and tp")
         out[axes[0]] = d
     return out
 
@@ -304,9 +330,14 @@ class ShardedModel:
                              f"{self.sizes}")
         self.ranks = comm.ranks if self.loopback else (int(rank),)
         # A forward unit: a process group's rank, or in the loopback one data
-        # coordinate with all its tp and sp ranks (its sp 0, tp 0 rank).
+        # coordinate with all its pp, tp and sp ranks (its pp 0, sp 0, tp 0
+        # rank).
         self.units = tuple(r for r in self.ranks if not self.loopback or (
-            self.coord(r)["sp"] == 0 and self.coord(r)["tp"] == 0))
+            self.coord(r)["pp"] == 0 and self.coord(r)["sp"] == 0
+            and self.coord(r)["tp"] == 0))
+        # Whether the gradients of the leaves every stage holds sum over pp
+        # (the 1F1B schedule sets it for its steps; module docstring).
+        self.pp_reduce = False
         self.mesh = mesh
         self.sp_loopback = sp_loopback
         self.compute_dtype = compute_dtype
@@ -319,9 +350,14 @@ class ShardedModel:
                         for p, f, s in zip(self.paths, full, tree_leaves(specs))]
         self.stacked = [p.startswith("layers/") for p in self.paths]
         for layout, stacked in zip(self.layouts, self.stacked):
-            if stacked and 0 in layout.splits.values():
-                raise NotImplementedError(f"{layout.path} is sharded on its layer dim; the "
-                                          "sharded step gathers a stacked leaf a layer at a time")
+            if any(d == 0 and a != "pp" for a, d in layout.splits.items()) and stacked:
+                raise NotImplementedError(f"{layout.path} is sharded on its layer dim over fsdp "
+                                          "or tp; the sharded step gathers a stacked leaf a "
+                                          "layer at a time")
+            if layout.pp_dim is not None and (not stacked or layout.pp_dim != 0):
+                raise NotImplementedError(f"{layout.path} is split over pp on dim "
+                                          f"{layout.pp_dim}; pp splits the layer dim of a "
+                                          "stacked leaf only")
         # local[i][key]: base shards (the full tensor itself when replicated).
         self.local = []
         for f, layout in zip(full, self.layouts):
@@ -335,6 +371,7 @@ class ShardedModel:
             self.local.append(shards)
         self.accum = None
         self._bank = None
+        self._pp_bank = None
         self._sink = None
 
     # ------------------------------------------------------------ layout
@@ -368,10 +405,12 @@ class ShardedModel:
             sp = self.sp_loopback(self.sizes["sp"]) if self.loopback else self._group("sp")
         return {"tp": tp, "sp_group": sp}
 
-    def _reduce(self, t, axes=REDUCE_AXES):
+    def _reduce(self, t, axes=None):
         """``t`` summed in place over this process group rank's ``axes`` of
-        size > 1 (nothing in the loopback); the default group when they
-        are all of the job's ranks."""
+        size > 1 (when None: dp, fsdp and sp, and pp under ``pp_reduce``;
+        nothing in the loopback); the default group when they are all of
+        the job's ranks."""
+        axes = (REDUCE_AXES + (("pp",) if self.pp_reduce else ())) if axes is None else axes
         if self.loopback or not dist.is_initialized() or dist.get_world_size() == 1:
             return t
         live = [a for a in axes if self.sizes[a] > 1]
@@ -421,6 +460,14 @@ class ShardedModel:
         held ranks share has one state, its first holder's: the others'
         state tensors for it are that rank's tensors (their own ``tx.init``
         sees an empty placeholder there, so it allocates nothing)."""
+        if needs_global_stats(tx):
+            if self.loopback:  # one state on the whole leaves (_whole_update)
+                return [tx.init(self.template)] * len(self.ranks)
+            with leaf_views(self._leaf_views()):
+                return [tx.init(tree_unflatten(self.template, [
+                    torch.empty(layout.update_shape, dtype=self.local[i][next(iter(
+                        self.local[i]))].dtype, device="meta")
+                    for i, layout in enumerate(self.layouts)]))]
         leaders = [self._leaders(i) for i in range(len(self.layouts))]
         states = [tx.init(tree_unflatten(self.template, [
             torch.empty(layout.update_shape if leaders[i][j] else (0,),
@@ -479,27 +526,42 @@ class ShardedModel:
             return tuple(range(self.sizes["tp"]))
         return (self.coord(unit)["tp"],)
 
+    def stage_layer(self, i, layer, unit=None):
+        """``(stage, local index)`` of global layer ``layer`` of leaf ``i``
+        (stage 0 for a leaf not split over pp); a process group's rank
+        holds only its own stage's layers."""
+        layout = self.layouts[i]
+        if layout.pp_dim is None:
+            return 0, layer
+        n = layout.local_shape[0]
+        stage = layer // n
+        if unit is not None and not self.loopback and stage != self.coord(unit)["pp"]:
+            raise RuntimeError(f"layer {layer} of {layout.path} lies on pipeline stage "
+                               f"{stage}; this rank holds stage {self.coord(unit)['pp']}")
+        return stage, layer % n
+
     def gather(self, i, layer, unit, piece=None, dtype=None):
-        """Leaf ``i`` (layer ``layer`` of it, when not None) gathered over
-        fsdp at ``dtype`` (the compute dtype) for forward unit ``unit``:
-        one tensor, or for a leaf split over tp a tuple of the unit's tp
-        pieces (only piece ``piece`` when given)."""
+        """Leaf ``i`` (global layer ``layer`` of it, when not None) gathered
+        over fsdp at ``dtype`` (the compute dtype) for forward unit
+        ``unit``: one tensor, or for a leaf split over tp a tuple of the
+        unit's tp pieces (only piece ``piece`` when given)."""
         layout = self.layouts[i]
         dtype = self.compute_dtype if dtype is None else dtype
         coord = self.coord(unit)
+        stage, local = (0, None) if layer is None else self.stage_layer(i, layer, unit)
 
         def part(shard):
-            t = shard if layer is None else shard[layer]
+            t = shard if local is None else shard[local]
             return t.to(dtype)
 
         def one(t):
             if layout.fsdp_dim is None:
-                return part(self.local[i][(0, t)])
+                return part(self.local[i][(stage, 0, t)])
             dim = layout.fsdp_dim - (layer is not None)
             if self.loopback:
-                return torch.cat([part(self.local[i][(j, t)])
+                return torch.cat([part(self.local[i][(stage, j, t)])
                                   for j in range(self.sizes["fsdp"])], dim)
-            return all_gather_along(part(self.local[i][(coord["fsdp"], t)]), dim,
+            return all_gather_along(part(self.local[i][(stage, coord["fsdp"], t)]), dim,
                                     self._group("fsdp"))
 
         if layout.tp_dim is None:
@@ -534,15 +596,16 @@ class ShardedModel:
         if not layout.splits:
             return next(iter(base.values()))
         if self.loopback:
-            def along_fsdp(t):
-                if layout.fsdp_dim is None:
-                    return base[(0, t)]
-                return torch.cat([base[(j, t)] for j in range(self.sizes["fsdp"])],
-                                 layout.fsdp_dim)
+            def along(k, key):  # concatenated over SPLIT_AXES[k:], key fixing the others
+                if k == len(SPLIT_AXES):
+                    return base[key]
+                axis = SPLIT_AXES[k]
+                if axis not in layout.splits:
+                    return along(k + 1, key + (0,))
+                return torch.cat([along(k + 1, key + (j,)) for j in range(self.sizes[axis])],
+                                 layout.splits[axis])
 
-            if layout.tp_dim is None:
-                return along_fsdp(0)
-            return torch.cat([along_fsdp(t) for t in range(self.sizes["tp"])], layout.tp_dim)
+            return along(0, ())
         out = base[layout.key(self.coord(self.ranks[0]))]
         for axis in SPLIT_AXES:
             if axis in layout.splits:
@@ -572,7 +635,15 @@ class ShardedModel:
             part = reduce_scatter_along(part, layout.fsdp_dim - (layer is not None),
                                         self._group("fsdp"))
         self._reduce(part, tuple(a for a in REDUCE_AXES if a not in layout.splits))
-        self._sink(i, layer, layout.key(self.coord(unit)), part)
+        local = None if layer is None else self.stage_layer(i, layer)[1]
+        if self._pp_bank is not None and layout.pp_dim is None:
+            # Summed over pp in end(): the stages that do not run this leaf
+            # (1F1B's embedding and head) join that sum with zeros.
+            bank = self._pp_bank.setdefault(i, torch.zeros_like(self.local[i][layout.key(
+                self.coord(unit))], dtype=torch.float32))
+            (bank if local is None else bank[local]).add_(part)
+            return
+        self._sink(i, local, layout.key(self.coord(unit)), part)
 
     def _pack(self, t):
         key = getattr(t, "_fsdp_regather", None)
@@ -614,7 +685,9 @@ class ShardedModel:
         else:
             self._sink = sink
         self._bank = {} if self.loopback else None
-        aliases = {i: self.local[i][(0, 0)].detach().requires_grad_(True)
+        self._pp_bank = {} if (self.pp_reduce and not self.loopback
+                               and self.sizes["pp"] > 1) else None
+        aliases = {i: self.local[i][(0, 0, 0)].detach().requires_grad_(True)
                    for i, layout in enumerate(self.layouts) if not layout.splits}
         return aliases, torch.zeros((), requires_grad=True)
 
@@ -635,10 +708,20 @@ class ShardedModel:
                 for key in self.local[i]:
                     self._sink(i, None, key, self.layouts[i].local_of_key(bank, key))
             self._bank = None
+        if self._pp_bank is not None:  # every rank, every such leaf, in leaf order
+            for i, layout in enumerate(self.layouts):
+                if layout.splits and layout.pp_dim is None:
+                    key = layout.key(self.coord(self.ranks[0]))
+                    g = self._pp_bank.pop(i, None)
+                    if g is None:
+                        g = torch.zeros_like(self.local[i][key], dtype=torch.float32)
+                    dist.all_reduce(g, op=dist.ReduceOp.SUM, group=self._group("pp"))
+                    self._sink(i, None, key, g)
+            self._pp_bank = None
         for i, a in aliases.items():
             g = a.grad if a.grad is not None else torch.zeros_like(a)
             self._reduce(g)
-            self._sink(i, None, (0, 0), g)
+            self._sink(i, None, (0, 0, 0), g)
         self._sink = None
 
     def forward_backward(self, forward, sink):
@@ -731,6 +814,8 @@ class ShardedModel:
         None; else the reference chain runs per rank on copies of the
         slices."""
         if plan is None:
+            if self.loopback and needs_global_stats(tx):
+                return self._whole_update(tx, states, factor)
             return self._reference_update(tx, states, factor)
         per_rank = dict(zip(self.ranks, (fused_update_leaves(s, plan=plan) for s in states)))
         for i in range(len(self.layouts)):
@@ -742,14 +827,49 @@ class ShardedModel:
             self._write_back(i, operands)
         return [per_rank[r][2] for r in self.ranks]
 
+    def _leaf_views(self):
+        """Per leaf (a tree like the parameters), how this process group
+        rank's update slice lies in the global leaf (``optim.LeafView``):
+        its global shape and, per split dim, the groups of the axes that
+        split it (dp too on a ZeRO dim)."""
+        views = []
+        for layout in self.layouts:
+            dims = {}
+            for axis, d in layout.splits.items():
+                dims.setdefault(d, []).append(self._group(axis))
+            if layout.zero_dim is not None:
+                dims.setdefault(layout.zero_dim, []).append(self._group("dp"))
+            views.append(LeafView(layout.shape, dims))
+        return tree_unflatten(self.template, views)
+
+    def _whole_update(self, tx, states, factor):
+        """The loopback's update under a transform with global statistics:
+        the chain once on the whole leaves (assembled from the distinct
+        shards, the buffer's too), the new leaves copied into every shard
+        and the buffer zeroed. Every held rank shares the one state."""
+        n = len(self.layouts)
+        p_tree = tree_unflatten(self.template, [self.full_leaf(i) for i in range(n)])
+        g_tree = tree_unflatten(self.template, [self.full_leaf(i, shards=self.accum[i])
+                                                for i in range(n)])
+        new_p, new_state, _ = reference_update_apply(p_tree, states[0], g_tree, tx=tx,
+                                                     clip_factor=factor)
+        del p_tree, g_tree
+        for i, leaf in enumerate(tree_leaves(new_p)):
+            self.load_full(i, leaf)
+            for g in self.accum[i].values():
+                g.zero_()
+        return [new_state] * len(self.ranks)
+
     def _reference_update(self, tx, states, factor):
         operands = [self._update_operands(i) for i in range(len(self.layouts))]
         new_states = []
+        views = self._leaf_views() if needs_global_stats(tx) else None
         for j, state in enumerate(states):
             p_tree = tree_unflatten(self.template, [ops[j][1] for ops in operands])
             g_tree = tree_unflatten(self.template, [ops[j][2] for ops in operands])
-            new_p, new_state, _ = reference_update_apply(p_tree, state, g_tree, tx=tx,
-                                                         clip_factor=factor)
+            with leaf_views(views):
+                new_p, new_state, _ = reference_update_apply(p_tree, state, g_tree, tx=tx,
+                                                             clip_factor=factor)
             for ops, leaf in zip(operands, tree_leaves(new_p)):
                 rank, p, g, in_place = ops[j]
                 if in_place:

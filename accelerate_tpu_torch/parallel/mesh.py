@@ -3,17 +3,18 @@
 The JAX package makes every parallelism strategy an axis of one
 ``jax.sharding.Mesh``. The port runs one process per rank and builds a
 ``torch.distributed.device_mesh.DeviceMesh`` over the job's ranks with the
-axes it has ported so far: ``dp`` (data parallel: parameters replicated,
-batch rows split), ``fsdp`` (fully sharded: parameters, gradients and
+axes it has ported so far: ``pp`` (pipeline stages: each rank holds a
+contiguous block of the layer stack, ``parallel/pipeline.py``), ``dp``
+(data parallel: parameters replicated, batch rows split), ``fsdp`` (fully sharded: parameters, gradients and
 optimizer state sharded, batch rows split; ``parallel/fsdp.py``), ``sp``
 (sequence parallel: the sequence split, with ring or Ulysses attention over
 the axis) and ``tp`` (tensor parallel: the Megatron split of the heads, the
 MLP's columns and the vocab; ``parallel/tensor.py``). The axis order is the
-JAX package's (``accelerate_tpu/utils/constants.py:177``, restricted to the
-ported axes: ``dp``, ``fsdp``, ``sp``, then ``tp`` innermost), so
-rank = ((dp_index * fsdp + fsdp_index) * sp + sp_index) * tp + tp_index.
-The pp and ep axes are not ported yet (ROADMAP.md) and raise when asked
-for.
+JAX package's (``accelerate_tpu/parallel/mesh.py:136``, restricted to the
+ported axes: ``pp`` outermost, then ``dp``, ``fsdp``, ``sp``, and ``tp``
+innermost), so rank = (((pp_index * dp + dp_index) * fsdp + fsdp_index)
+* sp + sp_index) * tp + tp_index. The ep axis is not ported yet
+(ROADMAP.md) and raises when asked for.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 
-MESH_AXES = ("dp", "fsdp", "sp", "tp")
-UNPORTED_AXES = ("pp_size", "ep_size")
+MESH_AXES = ("pp", "dp", "fsdp", "sp", "tp")
+UNPORTED_AXES = ("ep_size",)
 # The launcher's mesh-shape contract (JAX ``utils/constants.py:39``):
 # ``ACCELERATE_MESH_SHAPE=dp:2,tp:2``.
 ENV_MESH_SHAPE = "ACCELERATE_MESH_SHAPE"
@@ -51,8 +52,8 @@ class ParallelismConfig:
             if getattr(self, name) != 1:
                 raise NotImplementedError(
                     f"ParallelismConfig({name}={getattr(self, name)}) is not ported yet "
-                    "(ROADMAP.md, module queue: the pp and ep axes)")
-        for name in ("sp_size", "tp_size"):
+                    "(ROADMAP.md, module queue: the ep axis)")
+        for name in ("pp_size", "sp_size", "tp_size"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
         for name in ("dp_size", "fsdp_size"):
@@ -61,7 +62,7 @@ class ParallelismConfig:
 
     @classmethod
     def from_env(cls) -> "ParallelismConfig":
-        """The mesh of ``ACCELERATE_MESH_SHAPE`` (``dp:2,fsdp:2,tp:2``; JAX
+        """The mesh of ``ACCELERATE_MESH_SHAPE`` (``pp:2,dp:2,fsdp:2,tp:2``; JAX
         ``parallel/mesh.py:88-102``): 0 for dp or fsdp means every rank
         left over. The port has no dcn axis: ``dcn`` is accepted at 1."""
         spec = os.environ.get(ENV_MESH_SHAPE, "")
@@ -83,11 +84,11 @@ class ParallelismConfig:
         return cls(**kwargs)
 
     def resolved_sizes(self, world_size: int) -> dict:
-        """``{"dp", "fsdp", "sp", "tp"}`` for a job of ``world_size`` ranks
-        (the JAX package's ``resolved_sizes``: tp and sp are fixed, fsdp
-        and dp take what is left)."""
+        """``{"pp", "dp", "fsdp", "sp", "tp"}`` for a job of ``world_size``
+        ranks (the JAX package's ``resolved_sizes``: pp, tp and sp are
+        fixed, fsdp and dp take what is left)."""
         dp, fsdp = self.dp_size, self.fsdp_size
-        other = self.sp_size * self.tp_size
+        other = self.pp_size * self.sp_size * self.tp_size
         if fsdp == -1:
             dp = 1 if dp == -1 else dp
             fsdp = max(world_size // (dp * other), 1)
@@ -96,11 +97,12 @@ class ParallelismConfig:
         if dp * fsdp * other != world_size:
             raise ValueError(f"{world_size} ranks do not make a dp x sp mesh of "
                              f"dp={self.dp_size} x sp={self.sp_size} (fsdp={self.fsdp_size}, "
-                             f"tp={self.tp_size})")
-        return {"dp": dp, "fsdp": fsdp, "sp": self.sp_size, "tp": self.tp_size}
+                             f"tp={self.tp_size}, pp={self.pp_size})")
+        return {"pp": self.pp_size, "dp": dp, "fsdp": fsdp, "sp": self.sp_size,
+                "tp": self.tp_size}
 
     def build_mesh(self, world_size: int, device_type: str):
-        """The job's ``DeviceMesh`` with dims ``("dp", "fsdp", "sp", "tp")``;
+        """The job's ``DeviceMesh`` with dims ``("pp", "dp", "fsdp", "sp", "tp")``;
         every rank calls this (it creates the axes' process groups)."""
         from torch.distributed.device_mesh import init_device_mesh
 

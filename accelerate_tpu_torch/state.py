@@ -29,7 +29,7 @@ import weakref
 import torch
 import torch.distributed as dist
 
-from .parallel.mesh import ParallelismConfig
+from .parallel.mesh import MESH_AXES, ParallelismConfig
 from .utils.dataclasses import PrecisionType
 from .utils.device import resolve_device
 
@@ -103,14 +103,15 @@ class PartialState(ProcessView):
 
 
 class AcceleratorState:
-    """The job's rank (:class:`PartialState`), its ``dp`` x ``fsdp`` x
-    ``sp`` x ``tp`` mesh (None for a single process without sequence
-    parallelism, or one that holds every rank itself, ``loopback``) and the
-    mixed-precision mode (``no``, ``bf16``, ``fp16`` or ``fp8``).
-    ``data_group`` is the process group a batch's rows split over (dp x
-    fsdp; None for the default group, when those are all the ranks): the
-    tp and sp ranks of one data coordinate read the same rows, as the JAX
-    package's ``data_batch_axes`` says."""
+    """The job's rank (:class:`PartialState`), its ``pp`` x ``dp`` x
+    ``fsdp`` x ``sp`` x ``tp`` mesh (None for a single process without
+    sequence parallelism, or one that holds every rank itself,
+    ``loopback``) and the mixed-precision mode (``no``, ``bf16``, ``fp16``
+    or ``fp8``). ``data_group`` is the process group a batch's rows split
+    over (dp x fsdp; None for the default group, when those are all the
+    ranks): the pp, tp and sp ranks of one data coordinate read the same
+    rows, as the JAX package's ``data_batch_axes`` says. ``pp_group`` is the
+    pipeline's stage group (None without a pp axis)."""
 
     def __init__(self, mixed_precision: str | None = None, device=None,
                  parallelism_config: ParallelismConfig | None = None,
@@ -134,22 +135,28 @@ class AcceleratorState:
         """The dp x fsdp process group of this rank (every rank joins every
         such group's creation, as ``new_group`` asks)."""
         mesh = self.mesh
-        sizes = {a: mesh[a].size() for a in ("dp", "fsdp", "sp", "tp")}
-        if sizes["sp"] * sizes["tp"] == 1:
+        sizes = {a: mesh[a].size() for a in MESH_AXES}
+        if sizes["pp"] * sizes["sp"] * sizes["tp"] == 1:
             return None
         if sizes["fsdp"] == 1:
             return mesh.get_group("dp")
         if sizes["dp"] == 1:
             return mesh.get_group("fsdp")
         mine, rank = None, dist.get_rank()
-        for s in range(sizes["sp"]):
-            for t in range(sizes["tp"]):
-                ranks = [((d * sizes["fsdp"] + f) * sizes["sp"] + s) * sizes["tp"] + t
-                         for d in range(sizes["dp"]) for f in range(sizes["fsdp"])]
-                group = dist.new_group(ranks)
-                if rank in ranks:
-                    mine = group
+        for p in range(sizes["pp"]):
+            for s in range(sizes["sp"]):
+                for t in range(sizes["tp"]):
+                    ranks = [(((p * sizes["dp"] + d) * sizes["fsdp"] + f) * sizes["sp"] + s)
+                             * sizes["tp"] + t
+                             for d in range(sizes["dp"]) for f in range(sizes["fsdp"])]
+                    group = dist.new_group(ranks)
+                    if rank in ranks:
+                        mine = group
         return mine
+
+    @property
+    def pp_group(self):
+        return None if self.mesh is None or self.pp_size == 1 else self.mesh.get_group("pp")
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -166,6 +173,12 @@ class AcceleratorState:
     @property
     def tp_size(self) -> int:
         return 1 if self.mesh is None else self.mesh["tp"].size()
+
+    @property
+    def pp_size(self) -> int:
+        """The pipeline's stages: the mesh's pp axis, or the configuration's
+        (a loopback holds every stage in this process)."""
+        return self.parallelism_config.pp_size if self.mesh is None else self.mesh["pp"].size()
 
 
 class GradientState:

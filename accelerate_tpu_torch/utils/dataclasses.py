@@ -5,10 +5,11 @@ compute), ``bf16`` (f32 master parameters, bf16 compute), ``fp16`` (fp16
 compute with the dynamic loss scaler of ``optimizer.GradScalerState``) and
 ``fp8`` (bf16 compute with the block projections through the int8 matmul,
 quantization-aware training, as :class:`Fp8RecipeKwargs` describes). Also
-the fp8 recipe, the sequence-parallel, tensor-parallel and Megatron-style
-plugins, the fully sharded data-parallel plugin and the remat policies it turns on, the random streams
-a loader synchronizes, the data-loader configuration and the project
-(checkpoint and logging folder) configuration. The JAX package has no
+the fp8 recipe, the sequence-parallel, tensor-parallel, pipeline-parallel
+and Megatron-style plugins, the fully sharded data-parallel plugin and the
+remat policies it turns on, the random streams a loader synchronizes, the
+data-loader configuration and the project (checkpoint and logging folder)
+configuration. The JAX package has no
 tracker-type enum: trackers are named by string
 (``tracking.LOGGER_TYPE_TO_CLASS``), and so are the port's.
 """
@@ -83,23 +84,33 @@ class TensorParallelPlugin(KwargsHandler):
 
 
 @dataclass
+class PipelineParallelPlugin(KwargsHandler):
+    """Pipeline stages over the mesh's ``pp`` axis (JAX ``utils/dataclasses.py:
+    189-196``; ``parallel/pipeline.py`` runs them): ``num_microbatches`` 0
+    means one microbatch a stage, ``schedule`` is ``"gpipe"`` (every
+    forward, then every backward) or ``"1f1b"`` (one forward and one
+    backward a tick, at most 2 x pp saved stage inputs a stage)."""
+
+    pp_size: int = 1
+    num_microbatches: int = 0
+    schedule: str = "gpipe"
+
+    def __post_init__(self):
+        if self.pp_size < 1:
+            raise ValueError("pp_size must be >= 1")
+
+
+@dataclass
 class MegatronStylePlugin(KwargsHandler):
     """Composed parallelism (JAX ``utils/dataclasses.py:213-222``): the
-    mesh's tp, pp, sp and fsdp sizes in one object. ``pp_size > 1`` is not
-    ported yet and raises; ``sequence_parallelism`` is kept for the API
-    (sp is the ``sp_size`` axis)."""
+    mesh's tp, pp, sp and fsdp sizes in one object; ``sequence_parallelism``
+    is kept for the API (sp is the ``sp_size`` axis)."""
 
     tp_size: int = 1
     pp_size: int = 1
     sp_size: int = 1
     fsdp_size: int = 1
     sequence_parallelism: bool = False
-
-    def __post_init__(self):
-        if self.pp_size != 1:
-            raise NotImplementedError(
-                f"MegatronStylePlugin(pp_size={self.pp_size}): the pp axis is not ported yet "
-                "(ROADMAP.md, module queue)")
 
 
 @dataclass

@@ -21,6 +21,9 @@
     python3 chip_smoke.py --tp       # only phase 15: tensor parallelism
                                      # (tp, with fsdp, dp and ZeRO), Ulysses
                                      # and fp16 on shards, on one card
+    python3 chip_smoke.py --pp       # only phase 16: pipeline parallelism
+                                     # (GPipe, 1F1B, with tp and fsdp),
+                                     # adafactor and prepare_pippy
     python3 chip_smoke.py --splash-times  # only the splash kernels' times at
                                      # Gemma-2-9B's layers (to set two trees
                                      # side by side in one run: copy this
@@ -244,6 +247,28 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    unsharded model's parameters, moments and buffer; each rank's bytes,
    step time, tokens/s, MFU and peak memory are logged. The kernels'
    table adds these launches to rows 4, 5, 5b, 5c and 5d.
+16. Pipeline parallelism, adafactor and ``prepare_pippy`` on one card, on
+   phase 13's model and batch (Llama-3-8B widths cut to 4 layers, 4 x 2048
+   seeded ids, bf16, clip 1.0, 3 steps an arm, the stages on this card
+   through ``LoopbackShards``: the tick loop of the process-group path
+   with the loopback transport handing each stage's output to the next).
+   A: unsharded, ``adamw(3e-4)``. B: pp 4 GPipe, 4 microbatches (one layer
+   a stage). C: pp 4 1F1B. D: pp 2 x tp 2 1F1B. E: pp 2 x fsdp 2 GPipe with
+   remat (2 microbatches a data coordinate). F0: ``adafactor(1e-2)``
+   unsharded; F: F0 under pp 2 1F1B. B-E hold their first 3 losses within
+   ``SHARD_LOSS_ATOL`` of A's, F of F0's. Per step the flash forward and
+   backward and the fused update launches equal counts from the schedule
+   (a layer's forward once a microbatch and tp rank, twice under 1F1B,
+   whose backward unit runs the block again, and under remat; the update
+   once per distinct update slice of the plan, none under adafactor, which
+   runs the reference chain); the stage-to-stage messages and bytes equal
+   2 (P - 1) M a data coordinate of one microbatch's bf16 residual stream;
+   each arm's step time, tokens/s, MFU, peak memory and its stages' most
+   saved inputs are logged. G: ``prepare_pippy`` of the full 32-layer model
+   in bf16 (one stage on one card, 4 chunks of a 4 x 2048 batch): its
+   logits against the unpipelined forward's (``PIPPY_LOGITS_ATOL``), its
+   flash launches 32 x 4. The kernels' table adds B-F's launches to rows
+   4, 5 and 5b.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -357,6 +382,15 @@ TP_UPDATE_LAUNCHES = {"A": 12, "B": 39, "C": 39, "D": 42, "E0": 12, "E": 12, "F0
                       "F": 39}
 # One tp rank's flash at tp 4: 8 of the 32 query heads, 2 of the 8 KV heads.
 TP_FLASH_CASE = ("tp rank B2 S2048 H8 KV2", 2, 2048, 8, 128, False, 2)
+# Phase 16: pipeline parallelism on phase 13's model and batch, and
+# prepare_pippy of the full model; PP_MICRO microbatches unless named (E:
+# 2 a data coordinate, its 2 rows of the 4).
+PP_STEPS, PP_WARMUP, PP_MICRO = 3, 1, 4
+PP_PIPPY_CHUNKS = 4
+# prepare_pippy on one card runs the forward's ops on the same inputs as
+# the unpipelined forward, a chunk of rows at a time: bf16 logits of a few
+# units; a dropped or misplaced layer moves them by whole units.
+PIPPY_LOGITS_ATOL = 5e-2
 T_START = time.perf_counter()
 
 
@@ -3246,9 +3280,11 @@ def tp_phase(card: str, device: str = "cuda", cut=None) -> dict:
         "F": tp_arm(cfg, "F", dict(tp2xfsdp2, **loop()), batch=batch, mixed_precision="fp16",
                     poison=TP_FP16_POISON),
     }
-    want_sizes = {"B": dict(dp=1, fsdp=1, sp=1, tp=4), "C": dict(dp=1, fsdp=2, sp=1, tp=2),
-                  "D": dict(dp=2, fsdp=1, sp=1, tp=2), "E": dict(dp=1, fsdp=1, sp=4, tp=1),
-                  "F": dict(dp=1, fsdp=2, sp=1, tp=2)}
+    want_sizes = {"B": dict(pp=1, dp=1, fsdp=1, sp=1, tp=4),
+                  "C": dict(pp=1, dp=1, fsdp=2, sp=1, tp=2),
+                  "D": dict(pp=1, dp=2, fsdp=1, sp=1, tp=2),
+                  "E": dict(pp=1, dp=1, fsdp=1, sp=4, tp=1),
+                  "F": dict(pp=1, dp=1, fsdp=2, sp=1, tp=2)}
     remat = {"C", "F"}
     total = n_params * 4
     want_bytes = {"params": total, "moments": 2 * total, "buffer": total}
@@ -3326,6 +3362,214 @@ def tp_phase(card: str, device: str = "cuda", cut=None) -> dict:
     for run in arms.values():
         for k, v in run["counts"].items():
             totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+# ------------------------------------------------------------------ phase 16
+def _pp_arm(cfg, label: str, accelerator_kw: dict, *, batch, tx: str = "adamw",
+            remat: bool = False, device: str = "cuda"):
+    """One arm of phase 16 on a fresh model from the seed: ``PP_STEPS``
+    ``build_train_step`` steps of ``batch`` with clip 1.0. Returns the
+    losses, step seconds after ``PP_WARMUP``, the launch counts per step,
+    the peak memory, the mesh and, under pp, the schedule's most saved
+    stage inputs and the stage-to-stage messages and bytes of one step."""
+    import dataclasses
+
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, Llama, adafactor, adamw
+    from accelerate_tpu_torch.ops import registry
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model = Llama(dataclasses.replace(cfg, remat=remat), device=device)
+    model.init_params(SEED)
+    acc = Accelerator(mixed_precision="bf16", device=device, **accelerator_kw)
+    opt = adafactor(1e-2, device=device) if tx == "adafactor" else adamw(3e-4, device=device)
+    pm, po = acc.prepare(model, opt)
+    del model
+    step = acc.build_train_step(pm, po)
+    spec = pm.handle.pipeline_spec
+    registry.reset_launch_counts()
+    losses, times, per_step, before, sent = [], [], [], {}, None
+    for i in range(PP_STEPS):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(batch, clip_norm=1.0)))
+        times.append(time.perf_counter() - t0)
+        now = dict(registry.launch_counts)
+        per_step.append(_count_delta(now, before))
+        before = now
+        if spec is not None and i == 0:
+            sent = (spec.transport.messages, spec.transport.sent_bytes)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    out = dict(losses=losses, step_s=sum(times[PP_WARMUP:]) / (PP_STEPS - PP_WARMUP),
+               per_step=per_step, counts=dict(registry.launch_counts), peak=peak,
+               sizes=acc.mesh_sizes, spec=None if spec is None else (
+                   spec.stages, spec.num_microbatches, spec.schedule),
+               saved=None if spec is None else dict(spec.peak_saved), sent=sent)
+    del acc, pm, po, step, spec
+    if cuda:
+        free_cuda()
+    return out
+
+
+def pippy_arm(card: str, device: str = "cuda", cut=None) -> dict:
+    """Arm G of phase 16: ``prepare_pippy`` of Llama-3-8B (all 32 layers,
+    bf16) on this card against the unpipelined forward; the flash
+    launches of the pipelined forward."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Llama, LlamaConfig, prepare_pippy
+    from accelerate_tpu_torch.ops import registry
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    cfg = LlamaConfig.llama3_8b(**{"max_position_embeddings": SHARD_SEQ, **(cut or {})})
+    model = Llama(cfg, device=device)
+    model.init_params(SEED, dtype=torch.bfloat16)
+    ids = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (SHARD_BATCH, SHARD_SEQ)).astype(np.int32), device=device)
+    piped = prepare_pippy(model, split_points="auto", num_chunks=PP_PIPPY_CHUNKS)
+    if len(piped.stage_ranges) != 1 or piped.stage_ranges[0] != (0, cfg.num_hidden_layers):
+        raise SystemExit(f"pippy G: stages {piped.stage_ranges} on one card")
+    registry.reset_launch_counts()
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = piped(input_ids=ids)["logits"]
+    if cuda:
+        torch.cuda.synchronize()
+    piped_s = time.perf_counter() - t0
+    counts = dict(registry.launch_counts)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = model.apply(model.params, input_ids=ids)["logits"]
+    if cuda:
+        torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    diff = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    scale = float(want.float().abs().max())
+    layers = cfg.num_hidden_layers
+    want_counts = {"flash_attention_fwd": layers * PP_PIPPY_CHUNKS}
+    if cuda and counts != want_counts:
+        raise SystemExit(f"pippy G: launches {counts}, expected {want_counts}")
+    if not diff <= PIPPY_LOGITS_ATOL:
+        raise SystemExit(f"pippy G: logits max |diff| {diff} vs the unpipelined forward "
+                         f"(pin {PIPPY_LOGITS_ATOL})")
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    log(f"pp G: prepare_pippy of {layers} layers ({model.num_params() / 1e9:.2f}B parameters, "
+        f"bf16), 1 stage, {PP_PIPPY_CHUNKS} chunks of a {SHARD_BATCH} x {SHARD_SEQ} batch: "
+        f"logits max |diff| {diff:.3e} vs the unpipelined forward (max |logit| {scale:.2f}, "
+        f"pin {PIPPY_LOGITS_ATOL}); {piped_s * 1e3:.1f} ms vs {plain_s * 1e3:.1f} ms "
+        f"unpipelined (first calls); launches {counts}; peak {peak / 2**30:.2f} GiB [{card}]")
+    del model, piped, got, want
+    if cuda:
+        free_cuda()
+    return counts
+
+
+def pp_phase(card: str, device: str = "cuda", cut=None) -> dict:
+    """Phase 16; returns the launch counts of its training arms (bf16 flash
+    and the adamw update, rows 4, 5 and 5b). ``device="cpu"`` with ``cut``
+    (LlamaConfig fields over the 8B's) rehearses the phase's logic at a
+    small size; the CPU runs no kernel, so no launch is checked there."""
+    import numpy as np
+
+    from accelerate_tpu_torch import (Llama, LlamaConfig, LoopbackShards, ParallelismConfig,
+                                      PipelineParallelPlugin)
+
+    cuda = device == "cuda"
+    cfg = LlamaConfig.llama3_8b(**{**TRAIN_CUT, **(cut or {})})
+    probe = Llama(cfg, device="cpu")
+    fpt = probe.flops_per_token()
+    layers, hidden = cfg.num_hidden_layers, cfg.hidden_size
+    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                               (SHARD_BATCH, SHARD_SEQ)).astype(np.int32)
+    batch = {"input_ids": ids, "labels": ids}
+    tokens = SHARD_BATCH * SHARD_SEQ
+
+    def piped(n, mesh, mb, schedule):
+        return dict(parallelism_config=ParallelismConfig(**mesh),
+                    pp_plugin=PipelineParallelPlugin(mesh["pp_size"], mb, schedule),
+                    loopback=LoopbackShards(n))
+
+    # name: (accelerator kwargs, tx, remat, (P, M, data coordinates, tp) or None)
+    plan = {
+        "A": ({}, "adamw", False, None),
+        "B": (piped(4, dict(pp_size=4), PP_MICRO, "gpipe"), "adamw", False, (4, PP_MICRO, 1, 1)),
+        "C": (piped(4, dict(pp_size=4), PP_MICRO, "1f1b"), "adamw", False, (4, PP_MICRO, 1, 1)),
+        "D": (piped(4, dict(pp_size=2, tp_size=2), PP_MICRO, "1f1b"), "adamw", False,
+              (2, PP_MICRO, 1, 2)),
+        "E": (piped(4, dict(pp_size=2, fsdp_size=2), 2, "gpipe"), "adamw", True, (2, 2, 2, 1)),
+        "F0": ({}, "adafactor", False, None),
+        "F": (piped(2, dict(pp_size=2), PP_MICRO, "1f1b"), "adafactor", False,
+              (2, PP_MICRO, 1, 1)),
+    }
+    arms = {}
+    for name, (kw, tx, remat, shape) in plan.items():
+        run = arms[name] = _pp_arm(cfg, name, kw, batch=batch, tx=tx, remat=remat,
+                                   device=device)
+        if not all(math.isfinite(x) for x in run["losses"]):
+            raise SystemExit(f"pp {name}: losses not finite: {run['losses']}")
+        if shape is None:
+            fwd = bwd = layers
+            units = 1
+        else:
+            P, M, units, tp = shape
+            if run["spec"] is None or run["spec"][:2] != (P, M):
+                raise SystemExit(f"pp {name}: pipeline {run['spec']}, expected {P} stages x "
+                                 f"{M} microbatches")
+            # Every layer once a microbatch, data coordinate and tp rank; 1F1B's
+            # backward unit and remat run each block's forward again.
+            again = run["spec"][2] == "1f1b" or remat
+            fwd = layers * M * units * tp * (2 if again else 1)
+            bwd = layers * M * units * tp
+            mb_rows = SHARD_BATCH // units // M
+            want_msgs = 2 * (P - 1) * M * units
+            want_bytes = want_msgs * mb_rows * SHARD_SEQ * hidden * 2
+            if run["sent"] != (want_msgs, want_bytes):
+                raise SystemExit(f"pp {name}: one step's stage-to-stage (messages, bytes) "
+                                 f"{run['sent']}, the schedule's {(want_msgs, want_bytes)}")
+            if run["spec"][2] == "1f1b" and max(run["saved"].values()) > 2 * P:
+                raise SystemExit(f"pp {name}: saved stage inputs {run['saved']} > 2P")
+        slices = planned_update_slices(probe, run["sizes"])
+        updates = 0 if tx == "adafactor" else sum(n for n, _ in slices)
+        for i, counts in enumerate(run["per_step"]):
+            want = {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd}
+            if updates:
+                want["fused_adamw_update"] = updates
+            if cuda and counts != want:
+                raise SystemExit(f"pp {name} step {i}: launches {counts}, expected {want}")
+        mfu = fpt * tokens / run["step_s"] / BF16_OPS_PER_S
+        log(f"pp {name}: mesh {run['sizes']}, pipeline {run['spec']}, {tx}"
+            + (", remat" if remat else "") + f"; losses {[round(x, 4) for x in run['losses']]}; "
+            f"step {run['step_s'] * 1e3:.1f} ms, {tokens / run['step_s']:.0f} tokens/s, MFU "
+            f"{100 * mfu:.2f}% of 989 TFLOP/s (recompute not counted); peak memory "
+            f"{run['peak'] / 2**30:.2f} GiB; launches a step {run['per_step'][-1]} (the "
+            f"schedule's: flash fwd {fwd}, bwd {bwd}, update {updates}); saved stage inputs "
+            f"{run['saved']}; stage-to-stage messages, bytes a step {run['sent']} [{card}]")
+    for name, ref in (("B", "A"), ("C", "A"), ("D", "A"), ("E", "A"), ("F", "F0")):
+        diff = max(abs(x - y) for x, y in zip(arms[name]["losses"], arms[ref]["losses"]))
+        if diff > SHARD_LOSS_ATOL:
+            raise SystemExit(f"pp {name}: losses {arms[name]['losses']} vs arm {ref}'s "
+                             f"{arms[ref]['losses']} (max |diff| {diff}, pin "
+                             f"{SHARD_LOSS_ATOL})")
+        log(f"pp {name} vs {ref}: {PP_STEPS} losses max |diff| {diff:.3e} (pin "
+            f"{SHARD_LOSS_ATOL}); step {arms[name]['step_s'] / arms[ref]['step_s']:.2f}x arm "
+            f"{ref}'s, peak {arms[name]['peak'] / 2**30:.2f} vs {arms[ref]['peak'] / 2**30:.2f} "
+            "GiB")
+    pippy = pippy_arm(card, device=device, cut=cut)
+    totals = {}
+    for run in arms.values():
+        for k, v in run["counts"].items():
+            totals[k] = totals.get(k, 0) + v
+    for k, v in pippy.items():
+        totals[k] = totals.get(k, 0) + v
     return totals
 
 
@@ -3427,6 +3671,14 @@ def main(argv) -> int:
         log(f"phase 15 launches: {tp_phase(card)}")
         print(card)
         return 0
+    if "--pp" in argv:
+        _build.build(["flash_attention", "fused_update"])
+        card = card_info()
+        log(f"build: flash_attention, fused_update in {time.perf_counter() - t0:.1f} s; "
+            f"device: {card}")
+        log(f"phase 16 launches: {pp_phase(card)}")
+        print(card)
+        return 0
     if "--splash-times" in argv:
         _build.build(["splash_attention"])
         card = card_info()
@@ -3505,14 +3757,16 @@ def main(argv) -> int:
     precision_rows, precision_counts = precision_phase(card)
     free_cuda()
     tp_counts = tp_phase(card)
-    for row in rows:  # phase 7's launches plus those of phases 11 to 15
+    free_cuda()
+    pp_counts = pp_phase(card)
+    for row in rows:  # phase 7's launches plus those of phases 11 to 16
         later = [counts.get(row["name"], 0) for counts in (loop_counts, ckpt_counts,
                                                            shard_counts, precision_counts,
-                                                           tp_counts)]
+                                                           tp_counts, pp_counts)]
         if any(later):
             log(f"kernel {row['name']}: {row['launches']} launches in phase 7, {later[0]} in "
                 f"phase 11, {later[1]} in phase 12, {later[2]} in phase 13, {later[3]} in "
-                f"phase 14, {later[4]} in phase 15")
+                f"phase 14, {later[4]} in phase 15, {later[5]} in phase 16")
             row["launches"] += sum(later)
     for row in precision_rows:  # phase 14's launches plus phase 15's fp16 arms'
         if tp_counts.get(row["name"]):

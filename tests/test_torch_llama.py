@@ -211,11 +211,15 @@ def test_unported_rope_types_and_model_options_raise():
     out = tm.apply(tm.params, input_ids=ids, labels=ids)
     assert out["loss"].dim() == 0 and bool(torch.isfinite(out["loss"]))
     # Ulysses is ported: without an sp group it is the plain attention, as
-    # JAX's is without an sp axis. The pipeline schedule still raises.
+    # JAX's is without an sp axis. The pipeline schedule is ported: a spec
+    # of 2 stages on this process gives the plain forward's loss.
     um = Llama(LlamaConfig.tiny(attention_impl="ulysses"), device="cpu")
     assert torch.equal(um.apply(tm.params, input_ids=ids, labels=ids)["loss"], out["loss"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.apply(tm.params, input_ids=ids, pipeline=object())
+    from accelerate_tpu_torch.parallel.pipeline import PipelineSpec
+
+    piped = tm.apply(tm.params, input_ids=ids, labels=ids,
+                     pipeline=PipelineSpec(stages=2, num_microbatches=1))
+    torch.testing.assert_close(piped["loss"], out["loss"], rtol=1e-6, atol=0)
 
 
 def test_llama3_8b_preset_and_param_count_match_jax():

@@ -209,7 +209,10 @@ def test_new_entry_points_default_to_the_card():
             lambda: T.Accelerator(megatron_plugin=T.MegatronStylePlugin(tp_size=2, fsdp_size=2),
                                   loopback=T.LoopbackShards(4)),
             lambda: T.Accelerator(sp_plugin=T.SequenceParallelPlugin(2, ring_attention=False),
-                                  loopback=T.LoopbackShards(2))):
+                                  loopback=T.LoopbackShards(2)),
+            # The pp entry points: the pipeline plugin and prepare_pippy's model.
+            lambda: T.Accelerator(pp_plugin=T.PipelineParallelPlugin(pp_size=2)),
+            lambda: T.prepare_pippy(T.Llama(T.LlamaConfig.tiny()))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
 
@@ -220,7 +223,7 @@ def test_cpu_offload_from_the_environment(monkeypatch):
     monkeypatch.setenv("ACCELERATE_FSDP_CPU_OFFLOAD", "1")
     acc = T.Accelerator(device="cpu")
     assert acc.fsdp_plugin.cpu_offload and acc._offload_opt_state
-    assert acc.mesh_sizes == {"dp": 1, "fsdp": 1, "sp": 1, "tp": 1}
+    assert acc.mesh_sizes == {"pp": 1, "dp": 1, "fsdp": 1, "sp": 1, "tp": 1}
     model = T.Llama(T.LlamaConfig.tiny(**CFG), device="cpu")
     model.init_params(0)
     _, po = acc.prepare(model, T.adamw(3e-4, device="cpu"))

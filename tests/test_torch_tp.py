@@ -322,7 +322,7 @@ def test_mesh_shape_env_resolves_as_jax(monkeypatch, shape, n):
     monkeypatch.setenv("ACCELERATE_MESH_SHAPE", shape)
     want = JParallelismConfig.from_env().resolved_sizes(n, dcn=1)
     got = T.ParallelismConfig.from_env().resolved_sizes(n)
-    assert got == {a: want[a] for a in ("dp", "fsdp", "sp", "tp")}
+    assert got == {a: want[a] for a in ("pp", "dp", "fsdp", "sp", "tp")}
     acc = T.Accelerator(device="cpu", loopback=T.LoopbackShards(n))
     assert acc.mesh_sizes == got
 
@@ -330,18 +330,19 @@ def test_mesh_shape_env_resolves_as_jax(monkeypatch, shape, n):
 def test_plugins_build_the_mesh_and_unported_axes_raise(monkeypatch):
     acc = T.Accelerator(device="cpu", tp_plugin=T.TensorParallelPlugin(2),
                         loopback=T.LoopbackShards(4))
-    assert acc.mesh_sizes == {"dp": 2, "fsdp": 1, "sp": 1, "tp": 2}
+    assert acc.mesh_sizes == {"pp": 1, "dp": 2, "fsdp": 1, "sp": 1, "tp": 2}
     acc = T.Accelerator(device="cpu", megatron_plugin=T.MegatronStylePlugin(
         tp_size=2, fsdp_size=2, sp_size=1), loopback=T.LoopbackShards(4))
-    assert acc.mesh_sizes == {"dp": 1, "fsdp": 2, "sp": 1, "tp": 2}
+    assert acc.mesh_sizes == {"pp": 1, "dp": 1, "fsdp": 2, "sp": 1, "tp": 2}
     with pytest.raises(ValueError, match="tp_size"):
         T.TensorParallelPlugin(0)
+    # pp is ported: the Megatron plugin's pp size reaches the mesh.
+    acc = T.Accelerator(device="cpu", megatron_plugin=T.MegatronStylePlugin(pp_size=2),
+                        loopback=T.LoopbackShards(4))
+    assert acc.mesh_sizes == {"pp": 2, "dp": 2, "fsdp": 1, "sp": 1, "tp": 1}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.MegatronStylePlugin(pp_size=2)
-    for axis in ("pp_size", "ep_size"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.ParallelismConfig(**{axis: 2})
-    monkeypatch.setenv("ACCELERATE_MESH_SHAPE", "pp:2,dp:2")
+        T.ParallelismConfig(ep_size=2)
+    monkeypatch.setenv("ACCELERATE_MESH_SHAPE", "ep:2,dp:2")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.Accelerator(device="cpu")
     monkeypatch.setenv("ACCELERATE_MESH_SHAPE", "dcn:2,tp:2")
