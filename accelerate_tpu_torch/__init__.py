@@ -40,8 +40,14 @@ host-offloaded optimizer state, ``build_train_window`` fed by
 dynamic rope types; pipeline parallelism (the pp axis with the GPipe and
 1F1B schedules, alone and with dp, fsdp and tp: ``PipelineParallelPlugin``,
 ``parallel/pipeline.py``), pipelined inference (``prepare_pippy``,
-``inference.py``) and optax's ``adafactor``. ROADMAP.md lists what comes
-next.
+``inference.py``) and optax's ``adafactor``; big-model loading and
+offloaded inference (``init_empty_weights``, ``infer_auto_device_map``,
+``dispatch_model`` with layers streamed from the host or disk or spread over
+cards, ``load_checkpoint_and_dispatch``, weight-only int8/int4
+quantization: ``big_modeling.py``, ``hooks.py``, ``utils/modeling.py``,
+``utils/offload.py``, ``utils/quantization.py``, exported lazily as in the
+JAX package) and the CV examples' convnet (``models/vision.py``,
+``examples/cv_example.py``). ROADMAP.md lists what comes next.
 
 Entry points run on the card by default and raise without one unless the
 caller passes ``device="cpu"``.
@@ -62,10 +68,13 @@ from .logging import get_logger
 from .models import (
     BertConfig,
     BertForSequenceClassification,
+    ConvNetConfig,
+    ConvNetForImageClassification,
     Llama,
     LlamaConfig,
     bert_config_from_hf,
     bert_params_from_numpy,
+    convnet_params_from_numpy,
     gemma2_config_from_hf,
     gemma_config_from_hf,
     llama_config_from_hf,
@@ -113,14 +122,29 @@ from .utils.transfer import reset_transfer_stats, transfer_stats
 
 _TRAIN_STEPS = ("GPTTrainStep", "BertTrainStep", "T5TrainStep", "RegressionTrainStep",
                 "get_train_step")
+_BIG_MODELING = ("init_empty_weights", "init_on_device", "dispatch_model",
+                 "load_checkpoint_and_dispatch", "cpu_offload", "disk_offload")
 
 
 def __getattr__(name):
-    # The train steps load on first use, as in the JAX package.
+    # The train steps and the big-model entry points load on first use, as
+    # in the JAX package (accelerate_tpu/__init__.py:39-57).
     if name in _TRAIN_STEPS:
         from . import train_steps
 
         return getattr(train_steps, name)
+    if name in _BIG_MODELING:
+        from . import big_modeling
+
+        return getattr(big_modeling, name)
+    if name == "infer_auto_device_map":
+        from .utils.modeling import infer_auto_device_map
+
+        return infer_auto_device_map
+    if name in ("load_and_quantize_model", "QuantizationConfig"):
+        from .utils import quantization
+
+        return getattr(quantization, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -130,6 +154,8 @@ __all__ = [
     "BertConfig",
     "BertForSequenceClassification",
     "ContinuousBatcher",
+    "ConvNetConfig",
+    "ConvNetForImageClassification",
     "DataLoaderConfiguration",
     "DataLoaderDispatcher",
     "DeviceBatchPrefetcher",
@@ -147,6 +173,7 @@ __all__ = [
     "PipelineParallelPlugin",
     "PartialState",
     "ProjectConfiguration",
+    "QuantizationConfig",
     "SequenceParallelPlugin",
     "TensorParallelPlugin",
     "adafactor",
@@ -155,8 +182,12 @@ __all__ = [
     "bert_config_from_hf",
     "bert_params_from_numpy",
     "constant_schedule",
+    "convnet_params_from_numpy",
+    "cpu_offload",
     "cosine_decay_schedule",
     "debug_launcher",
+    "disk_offload",
+    "dispatch_model",
     "find_executable_batch_size",
     "gather",
     "gather_object",
@@ -164,11 +195,16 @@ __all__ = [
     "gemma_config_from_hf",
     "generate",
     "get_logger",
+    "infer_auto_device_map",
+    "init_empty_weights",
     "init_kv_pool",
+    "init_on_device",
     "inject_hyperparams",
     "linear_schedule",
     "llama_config_from_hf",
     "llama_params_from_numpy",
+    "load_and_quantize_model",
+    "load_checkpoint_and_dispatch",
     "optax_state_from_numpy",
     "optim",
     "polynomial_schedule",

@@ -10,9 +10,15 @@ with token positions taken from the attention mask.
 
 ``matmul_precision="int8"`` runs the model's block projections through the
 int8 matmul (``ops/int8.py``) on a memoized config variant of the module
-(:func:`_precision_variant`); the parameters are shared. Beam search,
-assisted (speculative) decoding and streamed (offloaded) models are not
-ported yet and raise.
+(:func:`_precision_variant`); the parameters are shared. Beam search and
+assisted (speculative) decoding are not ported yet and raise.
+
+A ``big_modeling.StreamedScanModel`` (an offloaded or card-spread model)
+decodes through the same loop over its per-layer cache (the JAX package's
+``_generate_streamed``): every forward streams the layers in. It refuses
+``matmul_precision``, beam search and assisted decoding with the JAX
+package's messages. A hooked model (``load_and_quantize_model``,
+``cpu_offload``, ``disk_offload``) decodes through its hooked ``apply``.
 """
 
 from __future__ import annotations
@@ -132,6 +138,18 @@ def generate(
     (B, max_new_tokens). Sampling draws from ``generator``.
     ``matmul_precision="int8"`` quantizes the block projections' operands
     dynamically (``ops/int8.py``); ``"default"`` or None leaves them exact."""
+    from .big_modeling import StreamedScanModel
+
+    streamed = isinstance(model, StreamedScanModel)
+    if streamed:  # the JAX package's refusals (generation.py:735-773)
+        if matmul_precision not in (None, "", "default"):
+            raise ValueError("matmul_precision supports the plain decoder-only generate path "
+                             "(no assistant_model/num_beams/StreamedScanModel)")
+        if assistant_model is not None:
+            raise ValueError("assisted generation supports decoder-only cached models "
+                             "(not StreamedScanModel or encoder-decoder)")
+        if num_beams > 1:
+            raise ValueError("beam search supports decoder-only cached models")
     if assistant_model is not None:
         raise NotImplementedError("assisted (speculative) generation is not ported yet (ROADMAP.md)")
     if num_beams > 1:
@@ -164,7 +182,8 @@ def generate(
     out = module.apply(params, input_ids=ids, attention_mask=amask, cache=cache,
                        positions=mask_positions(amask))
     pos = amask.sum(dim=-1).to(torch.int32)  # each row's next token position
-    tok = sample_logits(out["logits"][:, -1], generator, temperature, top_k, top_p)
+    # .to(dev): a model spread over cards returns its logits from the last card.
+    tok = sample_logits(out["logits"][:, -1].to(dev), generator, temperature, top_k, top_p)
     # HF convention: the eos itself is emitted; only tokens AFTER it are pad.
     finished = tok == eos
     tokens = [tok]
@@ -172,7 +191,7 @@ def generate(
     for _ in range(max_new_tokens - 1):
         feed = torch.where(finished, pad_token_id, tok)
         out = module.apply(params, input_ids=feed[:, None], cache=cache, positions=pos[:, None])
-        nxt = sample_logits(out["logits"][:, -1], generator, temperature, top_k, top_p)
+        nxt = sample_logits(out["logits"][:, -1].to(dev), generator, temperature, top_k, top_p)
         nxt = torch.where(finished, pad_token_id, nxt).to(torch.int32)
         cache, pos = out["cache"], pos + 1
         finished = finished | (nxt == eos)
@@ -182,3 +201,4 @@ def generate(
     if include_prompt:
         return torch.cat([input_ids, new_tokens], dim=1)
     return new_tokens
+

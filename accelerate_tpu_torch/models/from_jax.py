@@ -9,6 +9,10 @@ returns the port's parameter dictionary. The layouts are the same by design
 LM head), so the conversion is a shape check and a copy; both packages then
 compute the same function on the same inputs.
 
+``convnet_params_from_numpy`` does it for the CV examples' convnet, whose
+stage list becomes a dict keyed by index and whose HWIO kernels become
+OIHW (``models/vision.py``).
+
 ``optax_state_from_numpy`` does the same for an optax chain state (adamw's
 ``count``/``mu``/``nu``, sgd's momentum ``trace``), converted to numpy the
 same way, into the state of the port's matching ``optim`` chain.
@@ -24,6 +28,7 @@ from ..utils.device import resolve_device
 from ..utils.tree import tree_map
 from .bert import BertConfig, BertForSequenceClassification
 from .llama import Llama, LlamaConfig
+from .vision import ConvNetConfig, ConvNetForImageClassification
 
 
 def _expected_shapes(model_cls, config) -> dict:
@@ -68,6 +73,17 @@ def bert_params_from_numpy(tree, config: BertConfig, device=None, dtype=torch.fl
     :func:`llama_params_from_numpy` checks."""
     return _params_from_numpy(tree, _expected_shapes(BertForSequenceClassification, config),
                               device, dtype)
+
+
+def convnet_params_from_numpy(tree, config: ConvNetConfig, device=None, dtype=torch.float32):
+    """Numpy convnet parameters (the JAX package's ``ConvNetForImageClassification``
+    layout: a list of stages with HWIO kernels) → the port's: stages keyed
+    ``"0"``, ``"1"``, ..., kernels OIHW; checked leaf by leaf."""
+    stages = {str(i): dict(stage, kernel=np.transpose(np.asarray(stage["kernel"]), (3, 2, 0, 1)))
+              for i, stage in enumerate(tree["stages"])}
+    return _params_from_numpy({"stages": stages, "head": tree["head"]},
+                              _expected_shapes(ConvNetForImageClassification, config), device,
+                              dtype)
 
 
 def optax_state_from_numpy(tx, state, params, device=None):

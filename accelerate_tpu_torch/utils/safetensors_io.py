@@ -131,3 +131,39 @@ def load_file(filename) -> dict:
             flat = flat.clone()
         out[name] = flat.view(dtype).reshape(shape)
     return out
+
+
+# The numpy dtype a memory map reads each format dtype as (bf16 as its bits).
+_MEMMAP = {"F32": np.float32, "BF16": np.uint16, "F16": np.float16, "I64": np.int64,
+           "I32": np.int32, "U8": np.uint8, "BOOL": np.bool_}
+
+
+def load_file_lazy(filename) -> dict:
+    """Every tensor of ``filename`` as a CPU tensor over its own copy-on-write
+    memory map of the file: nothing is read until a tensor is used, and a
+    slice (one layer of a stacked weight) reads only its own pages. For
+    checkpoints larger than the host's memory."""
+    header = read_header(filename)
+    with open(filename, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+    base = 8 + n
+    out = {}
+    for name, entry in header.items():
+        if name == "__metadata__":
+            continue
+        if entry["dtype"] not in _MEMMAP:
+            raise TypeError(f"tensor {name!r}: safetensors dtype {entry['dtype']} is not "
+                            f"supported here; supported: {sorted(_MEMMAP)}")
+        dtype, shape = DTYPES[entry["dtype"]], tuple(entry["shape"])
+        begin, end = entry["data_offsets"]
+        count = int(np.prod(shape, dtype=np.int64))
+        if end - begin != count * np.dtype(_MEMMAP[entry["dtype"]]).itemsize:
+            raise ValueError(f"tensor {name!r}: {end - begin} bytes for shape {shape} of "
+                             f"{entry['dtype']}")
+        if count == 0:
+            out[name] = torch.empty(shape, dtype=dtype)
+            continue
+        arr = np.memmap(filename, dtype=_MEMMAP[entry["dtype"]], mode="c", offset=base + begin,
+                        shape=shape or (1,))
+        out[name] = torch.from_numpy(arr).view(dtype).reshape(shape)
+    return out

@@ -24,6 +24,9 @@
     python3 chip_smoke.py --pp       # only phase 16: pipeline parallelism
                                      # (GPipe, 1F1B, with tp and fsdp),
                                      # adafactor and prepare_pippy
+    python3 chip_smoke.py --big-model  # only phase 17: big-model loading and
+                                     # offloaded inference at 8B widths
+    python3 chip_smoke.py --cv       # only phase 18: the CV examples
     python3 chip_smoke.py --splash-times  # only the splash kernels' times at
                                      # Gemma-2-9B's layers (to set two trees
                                      # side by side in one run: copy this
@@ -269,6 +272,33 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    logits against the unpipelined forward's (``PIPPY_LOGITS_ATOL``), its
    flash launches 32 x 4. The kernels' table adds B-F's launches to rows
    4, 5 and 5b.
+17. Big-model loading and offloaded inference at Llama-3-8B widths (32
+   layers, bf16, seeded), in a temporary folder removed at the end; the
+   depth (never the width) is cut when free disk or host memory is short of
+   the checkpoint plus one offloaded copy of the layers. A:
+   ``init_empty_weights`` → every leaf on ``meta``, no card memory taken,
+   16.06 GB planned. B: the seeded weights written as sharded safetensors
+   with an index. C: ``load_checkpoint_and_dispatch(device_map="auto")``
+   resident on the card, no meta leaf left; 16 greedy tokens of a 4 x 64
+   batch (the reference tokens, timed after a 2-token warm-up, as in D) and
+   a 1 x 2048 scoring forward with labels, 32 flash launches. D: the layers pinned on the host, a
+   ``StreamedScanModel``: the same 16 tokens, the layers' bytes streamed a
+   token, the scoring forward's 32 flash launches and its logits within
+   1e-2 (relative Frobenius) of C's. E: the layers in an offload folder: 4
+   tokens equal to C's first 4. F: ``"auto"`` under 6 GiB on the card: the
+   planner's map and the runtime that ran it, logits within 1e-2 of C's.
+   G: ``load_and_quantize_model`` in int8 and int4: bytes at rest, the
+   peak in a forward, the logits' correlation with C's above 0.99 (int8) and
+   0.5 (int4), 16 greedy tokens logged. Each arm's seconds are logged. The
+   kernels' table adds C and D's flash launches to row 5.
+18. The CV examples: ``examples/cv_example.py`` in bf16 at its own
+   settings (3 epochs, batch 32, 1024 train and 256 eval images): the
+   final accuracy above 0.9, steps/s, step 1's loss against the same
+   example in f32 on the CPU (within 2e-2), no kernel launched
+   (``inject_hyperparams(adam)`` runs the reference chain);
+   ``complete_cv_example.py --checkpointing_steps 16`` uninterrupted and
+   resumed from ``step_48`` (mid-epoch): the last checkpoint's model and
+   optimizer bitwise equal, cuDNN held deterministic.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -391,6 +421,31 @@ PP_PIPPY_CHUNKS = 4
 # the unpipelined forward, a chunk of rows at a time: bf16 logits of a few
 # units; a dropped or misplaced layer moves them by whole units.
 PIPPY_LOGITS_ATOL = 5e-2
+# Phase 17: big-model loading and offloaded inference at Llama-3-8B widths:
+# greedy generation of BIG_NEW_TOKENS from a BIG_BATCH x BIG_PROMPT batch
+# (BIG_DISK_TOKENS from disk), a scoring forward of one BIG_SCORE_SEQ row,
+# the checkpoint in shards of BIG_SHARD, the tight card budget of arm F.
+BIG_BATCH, BIG_PROMPT, BIG_NEW_TOKENS, BIG_DISK_TOKENS = 4, 64, 16, 4
+BIG_SCORE_SEQ, BIG_SHARD, BIG_TIGHT_CARD = 2048, "5GB", "6GiB"
+BIG_LAYERS_ON_HOST = {"embed": "cuda:0", "layers": "cpu", "final_norm": "cuda:0",
+                      "lm_head": "cuda:0"}
+BIG_LAYERS_ON_DISK = dict(BIG_LAYERS_ON_HOST, layers="disk")
+# A streamed or hooked forward runs the resident forward's bf16 ops on the
+# same weights, one layer at a time: relative Frobenius of the logits.
+BIG_LOGITS_REL = 1e-2
+# Weight-only quantized logits against the resident bf16 ones, correlation:
+# int8 at the JAX package's bar (tests/test_quantization.py:92-94, its int8
+# case); int4's step (absmax / 7) is a third of a random weight's std, which
+# leaves its logits far below 0.99 on random weights (the CPU test
+# tests/test_torch_quantization.py::test_int4_on_random_weights_correlates_
+# below_int8 holds it between 0.5 and 0.99 at 2 layers), so its floor only
+# tells a working int4 path from a broken one.
+QUANT_CORR_FLOOR = {8: 0.99, 4: 0.5}
+# Phase 18: the CV example at its own settings; complete_cv_example saves
+# every CV_CKPT_EVERY steps and resumes from step CV_RESUME_AT (mid-epoch:
+# 32 steps an epoch). Step 1's loss in bf16 on the card vs f32 on the CPU
+# (the same weights from the seed; bf16 rounds the parameters only).
+CV_CKPT_EVERY, CV_RESUME_AT, CV_LOSS_REL, CV_MIN_ACCURACY = 16, 48, 2e-2, 0.9
 T_START = time.perf_counter()
 
 
@@ -3573,6 +3628,359 @@ def pp_phase(card: str, device: str = "cuda", cut=None) -> dict:
     return totals
 
 
+def _available_host_bytes() -> int:
+    """Host memory a phase may take: MemAvailable (free plus reclaimable
+    cache), or the free pages where /proc/meminfo is missing."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def _timed(fn, cuda: bool):
+    import torch
+
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def big_model_phase(card: str, device: str = "cuda", cut=None) -> dict:
+    """Phase 17: big-model loading and offloaded inference at Llama-3-8B
+    widths (module docstring); returns the flash launches of its scoring
+    forwards (row 5). ``device="cpu"`` with ``cut`` (LlamaConfig fields
+    over the 8B's) rehearses the phase at a small size: card targets then
+    resolve to the CPU (``main_device="cpu"``) and no launch is checked."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import accelerate_tpu_torch as T
+    from accelerate_tpu_torch.big_modeling import StreamedScanModel
+    from accelerate_tpu_torch.checkpointing import export_full_weights
+    from accelerate_tpu_torch.ops import registry
+    from accelerate_tpu_torch.utils.modeling import compute_module_sizes, convert_file_size_to_int
+    from accelerate_tpu_torch.utils.quantization import quantized_nbytes
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    cuda = device == "cuda"
+    main = None if cuda else "cpu"
+    cfg = T.LlamaConfig.llama3_8b(**{"max_position_embeddings": BIG_SCORE_SEQ,
+                                     **(cut or {})})
+    t_phase = time.perf_counter()
+
+    def empty(config):
+        with T.init_empty_weights():
+            model = T.Llama(config, device=device)
+            model.init_params(dtype=torch.bfloat16)
+        return model
+
+    def no_meta(model, label):
+        left = [leaf for leaf in tree_leaves(model.params) if leaf.device.type == "meta"]
+        if left:
+            raise SystemExit(f"big {label}: {len(left)} meta leaves left after loading")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_big_")
+    try:
+        # Resources: the checkpoint and one offloaded copy of the layers on
+        # disk, the layers pinned on the host; depth is cut to fit, never width.
+        sizes = compute_module_sizes(empty(cfg).params)
+        layers = cfg.num_hidden_layers
+        per_layer, nonlayer = sizes["layers"] // layers, sizes[""] - sizes["layers"]
+        disk, ram = shutil.disk_usage(tmp).free, _available_host_bytes()
+        fit = min(layers, int((0.9 * disk - nonlayer) // (2 * per_layer)),
+                  int((0.9 * ram - nonlayer) // per_layer))
+        log(f"big: {disk / 1e9:.1f} GB free on disk under {tmp}, {ram / 1e9:.1f} GB of host "
+            f"memory available; the phase needs {(nonlayer + 2 * layers * per_layer) / 1e9:.2f} "
+            f"GB of disk and {(nonlayer + layers * per_layer) / 1e9:.2f} GB of host memory")
+        if fit < 1:
+            raise SystemExit("big: not enough disk or host memory for one layer")
+        if fit < layers:
+            log(f"big: depth cut {layers} -> {fit} layers to fit (widths kept)")
+            cfg = dataclasses.replace(cfg, num_hidden_layers=fit)
+            layers = fit
+        rng = np.random.default_rng(SEED)
+        ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (BIG_BATCH, BIG_PROMPT)),
+                              dtype=torch.int32, device=device)
+        long = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, BIG_SCORE_SEQ)),
+                               dtype=torch.int32, device=device)
+        secs = {}
+
+        # A: empty init.
+        before = torch.cuda.memory_allocated() if cuda else 0
+        model, secs["A"] = _timed(lambda: empty(cfg), cuda)
+        after = torch.cuda.memory_allocated() if cuda else 0
+        kinds = {leaf.device.type for leaf in tree_leaves(model.params)}
+        sizes = compute_module_sizes(model.params)
+        if kinds != {"meta"} or after != before or sizes[""] != 2 * model.num_params():
+            raise SystemExit(f"big A: leaves on {kinds}, memory_allocated {before} -> {after}, "
+                             f"{sizes['']} B for {model.num_params()} bf16 parameters")
+        log(f"big A: init_empty_weights + init_params of {layers} layers: "
+            f"{len(tree_leaves(model.params))} leaves, all on meta; memory_allocated {before} -> "
+            f"{after} B; compute_module_sizes {sizes[''] / 1e9:.2f} GB "
+            f"({model.num_params() / 1e9:.2f}B bf16 parameters; layers "
+            f"{sizes['layers'] / 1e9:.2f} GB) in {secs['A']:.3f} s [{card}]")
+
+        # B: the checkpoint, seeded weights written as sharded safetensors.
+        ckpt = os.path.join(tmp, "checkpoint")
+        src = T.Llama(cfg, device=device)
+        src.init_params(SEED, dtype=torch.bfloat16)
+        _, secs["B"] = _timed(lambda: export_full_weights(src.params, ckpt,
+                                                           max_shard_size=BIG_SHARD), cuda)
+        del src
+        free_cuda()
+        ckpt_bytes = dir_bytes(ckpt)
+        log(f"big B: checkpoint of {ckpt_bytes / 1e9:.2f} GB in "
+            f"{len([f for f in os.listdir(ckpt) if f.endswith('.safetensors')])} shards of "
+            f"<= {BIG_SHARD} written in {secs['B']:.2f} s ({ckpt_bytes / 1e9 / secs['B']:.2f} "
+            f"GB/s, from the card)")
+
+        # C: resident, "auto" under the default budget (a CPU rehearsal names a
+        # card budget: without a card the default lists only the host).
+        budget = None if cuda else {"cuda:0": 2 * sizes[""], "cpu": sizes[""]}
+        c, secs["C load"] = _timed(lambda: T.load_checkpoint_and_dispatch(
+            empty(cfg), ckpt, device_map="auto", max_memory=budget, main_device=main), cuda)
+        if not isinstance(c, T.Llama) or set(c._at_device_map.values()) != {"cuda:0"}:
+            raise SystemExit(f"big C: 'auto' gave {type(c).__name__} with map "
+                             f"{c._at_device_map}, not all on cuda:0")
+        no_meta(c, "C")
+        T.generate(c, ids, max_new_tokens=2, device=device)  # the first call's costs, untimed
+        tokens_c, secs["C gen"] = _timed(lambda: T.generate(
+            c, ids, max_new_tokens=BIG_NEW_TOKENS, device=device), cuda)
+        with torch.no_grad():
+            logits_c = c.apply(c.params, input_ids=ids)["logits"]
+            registry.reset_launch_counts()
+            score_c, secs["C score"] = _timed(
+                lambda: c.apply(c.params, input_ids=long, labels=long), cuda)
+        counts_c = dict(registry.launch_counts)
+        if cuda and counts_c != {"flash_attention_fwd": layers}:
+            raise SystemExit(f"big C: scoring forward launches {counts_c}, expected "
+                             f"{layers} flash forwards")
+        log(f"big C: load_checkpoint_and_dispatch(device_map='auto') -> {c._at_device_map}, "
+            f"resident on the card, no meta leaf: load {secs['C load']:.2f} s "
+            f"({ckpt_bytes / 1e9 / secs['C load']:.2f} GB/s); generate {BIG_NEW_TOKENS} tokens "
+            f"of {BIG_BATCH} x {BIG_PROMPT}: {secs['C gen'] / BIG_NEW_TOKENS * 1e3:.1f} ms a "
+            f"token; scoring 1 x {BIG_SCORE_SEQ} with labels: loss {float(score_c['loss']):.4f}, "
+            f"{secs['C score'] * 1e3:.1f} ms, launches {counts_c} [{card}]")
+        del c
+        free_cuda()
+
+        # D: the layers streamed from pinned host memory.
+        d, secs["D load"] = _timed(lambda: T.load_checkpoint_and_dispatch(
+            empty(cfg), ckpt, device_map=BIG_LAYERS_ON_HOST, main_device=main), cuda)
+        if not isinstance(d, StreamedScanModel):
+            raise SystemExit(f"big D: dispatch gave {type(d).__name__}, not a StreamedScanModel")
+        T.generate(d, ids, max_new_tokens=2, device=device)  # the first call's costs, untimed
+        streamed_before = d.bytes_streamed
+        tokens_d, secs["D gen"] = _timed(lambda: T.generate(
+            d, ids, max_new_tokens=BIG_NEW_TOKENS, device=device), cuda)
+        per_forward = (d.bytes_streamed - streamed_before) / BIG_NEW_TOKENS
+        if not torch.equal(tokens_d, tokens_c):
+            raise SystemExit(f"big D: streamed tokens differ from the resident ones:\n"
+                             f"{tokens_d[:, BIG_PROMPT:]}\n{tokens_c[:, BIG_PROMPT:]}")
+        if per_forward != sizes["layers"]:
+            raise SystemExit(f"big D: {per_forward} B streamed a forward, the layers hold "
+                             f"{sizes['layers']} B")
+        registry.reset_launch_counts()
+        score_d, secs["D score"] = _timed(lambda: d(input_ids=long, labels=long), cuda)
+        counts_d = dict(registry.launch_counts)
+        if cuda and counts_d != {"flash_attention_fwd": layers}:
+            raise SystemExit(f"big D: scoring forward launches {counts_d}, expected "
+                             f"{layers} flash forwards")
+        rel_d = rel_fro(score_d["logits"], score_c["logits"])
+        bitwise_d = torch.equal(score_d["logits"], score_c["logits"])
+        if not rel_d <= BIG_LOGITS_REL:
+            raise SystemExit(f"big D: scoring logits rel Frobenius {rel_d} vs resident (pin "
+                             f"{BIG_LOGITS_REL})")
+        token_s = secs["D gen"] / BIG_NEW_TOKENS
+        log(f"big D: layers on the host (pinned), StreamedScanModel: load {secs['D load']:.2f} s; "
+            f"{BIG_NEW_TOKENS} tokens identical to C's, {token_s * 1e3:.1f} ms a token "
+            f"({token_s / (secs['C gen'] / BIG_NEW_TOKENS):.1f}x C), {per_forward / 1e9:.2f} GB "
+            f"streamed a token, {per_forward / 1e9 / token_s:.2f} GB/s; scoring "
+            f"{secs['D score'] * 1e3:.1f} ms, launches {counts_d}, logits rel Frobenius "
+            f"{rel_d:.3e} vs C ({'bitwise' if bitwise_d else 'not bitwise'}) [{card}]")
+        del d, score_d
+        free_cuda()
+
+        # E: the layers streamed from an offload folder on disk.
+        offload = os.path.join(tmp, "offload")
+        e, secs["E load"] = _timed(lambda: T.load_checkpoint_and_dispatch(
+            empty(cfg), ckpt, device_map=BIG_LAYERS_ON_DISK, offload_folder=offload,
+            main_device=main), cuda)
+        if not isinstance(e, StreamedScanModel):
+            raise SystemExit(f"big E: dispatch gave {type(e).__name__}")
+        tokens_e, secs["E gen"] = _timed(lambda: T.generate(
+            e, ids, max_new_tokens=BIG_DISK_TOKENS, device=device), cuda)
+        if not torch.equal(tokens_e, tokens_c[:, :BIG_PROMPT + BIG_DISK_TOKENS]):
+            raise SystemExit(f"big E: disk-streamed tokens differ from C's first "
+                             f"{BIG_DISK_TOKENS}")
+        token_s = secs["E gen"] / BIG_DISK_TOKENS
+        log(f"big E: layers on disk ({dir_bytes(offload) / 1e9:.2f} GB offload folder written "
+            f"in the {secs['E load']:.2f} s load): {BIG_DISK_TOKENS} tokens identical to C's, "
+            f"{token_s * 1e3:.1f} ms a token, {sizes['layers'] / 1e9 / token_s:.2f} GB/s "
+            f"(the folder was just written: warm page cache) [{card}]")
+        del e
+        shutil.rmtree(offload)
+        free_cuda()
+
+        # F: "auto" under a tight card budget.
+        tight = convert_file_size_to_int(BIG_TIGHT_CARD) if cut is None else sizes["embed"] * 3 // 2
+        f, secs["F load"] = _timed(lambda: T.load_checkpoint_and_dispatch(
+            empty(cfg), ckpt, device_map="auto", max_memory={"cuda:0": tight, "cpu": sizes[""]},
+            main_device=main), cuda)
+        fmap = (f.model if isinstance(f, StreamedScanModel) else f)._at_device_map
+        runtime = type(f).__name__ + ("" if isinstance(f, StreamedScanModel) else
+                                      f" under {type(f._at_hook).__name__}")
+        with torch.no_grad():
+            logits_f, secs["F fwd"] = _timed(
+                lambda: (f(input_ids=ids) if isinstance(f, StreamedScanModel)
+                         else f.apply(f.params, input_ids=ids))["logits"], cuda)
+        rel_f = rel_fro(logits_f, logits_c)
+        if not rel_f <= BIG_LOGITS_REL:
+            raise SystemExit(f"big F: logits rel Frobenius {rel_f} vs C (pin {BIG_LOGITS_REL})")
+        log(f"big F: 'auto' with max_memory cuda:0 {tight / 2**30:.2f} GiB: map {fmap}, run by "
+            f"{runtime}; load {secs['F load']:.2f} s, a {BIG_BATCH} x {BIG_PROMPT} forward "
+            f"{secs['F fwd']:.2f} s, logits rel Frobenius {rel_f:.3e} vs C [{card}]")
+        del f, logits_f
+        free_cuda()
+
+        # G: weight-only int8 and int4.
+        for bits in (8, 4):
+            flag = {"load_in_8bit": True} if bits == 8 else {"load_in_4bit": True}
+            if cuda:
+                base = torch.cuda.memory_allocated()
+            q, secs[f"G{bits} load"] = _timed(lambda: T.load_and_quantize_model(
+                empty(cfg), weights_location=ckpt,
+                quantization_config=T.QuantizationConfig(**flag)), cuda)
+            at_rest = quantized_nbytes(q.params)
+            if cuda:
+                held = torch.cuda.memory_allocated() - base
+                torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                logits_q = q.apply(q.params, input_ids=ids)["logits"]
+            peak = torch.cuda.max_memory_allocated() - base if cuda else 0
+            corr = float(np.corrcoef(logits_q.float().cpu().numpy().ravel(),
+                                     logits_c.float().cpu().numpy().ravel())[0, 1])
+            tokens_q, secs[f"G{bits} gen"] = _timed(lambda: T.generate(
+                q, ids, max_new_tokens=BIG_NEW_TOKENS, device=device), cuda)
+            same = float((tokens_q[:, BIG_PROMPT:] == tokens_c[:, BIG_PROMPT:]).float().mean())
+            if not corr > QUANT_CORR_FLOOR[bits]:
+                raise SystemExit(f"big G int{bits}: logits correlation {corr} vs C (floor "
+                                 f"{QUANT_CORR_FLOOR[bits]})")
+            log(f"big G int{bits}: load_and_quantize_model {secs[f'G{bits} load']:.2f} s; "
+                f"{at_rest / 1e9:.2f} GB at rest (quantized_nbytes; bf16 {sizes[''] / 1e9:.2f}), "
+                + (f"{held / 1e9:.2f} GB held on the card, peak {peak / 1e9:.2f} GB during a "
+                   f"{BIG_BATCH} x {BIG_PROMPT} forward (the whole tree dequantized); " if cuda
+                   else "")
+                + f"logits correlation {corr:.5f} vs C (floor {QUANT_CORR_FLOOR[bits]}); "
+                f"{BIG_NEW_TOKENS} greedy tokens, {same:.1%} equal to C's, "
+                f"{secs[f'G{bits} gen'] / BIG_NEW_TOKENS * 1e3:.1f} ms a token [{card}]")
+            del q, logits_q
+            free_cuda()
+        log(f"big: phase 17 in {time.perf_counter() - t_phase:.1f} s; arms (s): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+        return {"flash_attention_fwd": sum(n.get("flash_attention_fwd", 0)
+                                           for n in (counts_c, counts_d))}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cv_phase(card: str, device: str = "cuda") -> dict:
+    """Phase 18: the port's CV examples (module docstring); returns the
+    registry's launches (none: the convolutions are cuDNN's and
+    ``inject_hyperparams(adam)`` runs the reference chain)."""
+    import tempfile
+    from argparse import Namespace
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.examples import complete_cv_example, cv_example
+    from accelerate_tpu_torch.ops import registry
+
+    cuda = device == "cuda"
+    # A resumed run is bitwise an uninterrupted one only on deterministic kernels.
+    saved_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = {}
+    original = cv_example.Accelerator
+
+    def recording(key):
+        class Recording(original):
+            def backward(self, loss, **kw):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize()
+                runs[key]["stamps"].append(time.perf_counter())
+                runs[key]["losses"].append(loss.detach())
+                return super().backward(loss, **kw)
+        return Recording
+
+    config = {"lr": 3e-3, "num_epochs": 3, "seed": 42, "batch_size": 32}
+    try:
+        runs["card"] = {"stamps": [], "losses": []}
+        cv_example.Accelerator = recording("card")
+        registry.reset_launch_counts()
+        accuracy = cv_example.training_function(config, Namespace(
+            mixed_precision="bf16" if cuda else "no", cpu=not cuda))
+        counts = dict(registry.launch_counts)
+        runs["cpu"] = {"stamps": [], "losses": []}
+        cv_example.Accelerator = recording("cpu")
+        cv_example.training_function(dict(config, num_epochs=1),
+                                     Namespace(mixed_precision="no", cpu=True))
+    finally:
+        cv_example.Accelerator = original
+    card_run = runs["card"]
+    step_s = float(np.median(np.diff(card_run["stamps"])))
+    first, first_cpu = float(card_run["losses"][0]), float(runs["cpu"]["losses"][0])
+    rel = abs(first - first_cpu) / abs(first_cpu)
+    if counts:
+        raise SystemExit(f"cv: the example launched {counts}; inject_hyperparams runs the "
+                         "reference chain")
+    if not accuracy > CV_MIN_ACCURACY or not rel <= CV_LOSS_REL:
+        raise SystemExit(f"cv: accuracy {accuracy} (floor {CV_MIN_ACCURACY}), step-1 loss "
+                         f"{first} vs {first_cpu} on the CPU in f32 (rel {rel}, pin "
+                         f"{CV_LOSS_REL})")
+    log(f"cv: cv_example, {'bf16 on the card' if cuda else 'f32 on the CPU'}, "
+        f"{config['num_epochs']} epochs of {len(card_run['losses']) // config['num_epochs']} "
+        f"steps (batch 32, 1024 train and 256 eval images): final accuracy {accuracy:.4f}; "
+        f"{1 / step_s:.1f} steps/s (median step, host clock, synchronised at each backward); "
+        f"losses {float(card_run['losses'][0]):.4f} -> {float(card_run['losses'][-1]):.4f}; "
+        f"step 1's loss {first:.6f} vs {first_cpu:.6f} in f32 on the CPU (rel {rel:.2e}); "
+        f"launches {counts} [{card}]")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cv_") as tmp:
+        flags = ["--mixed_precision", "bf16"] if cuda else ["--cpu"]
+        whole, resumed = os.path.join(tmp, "whole"), os.path.join(tmp, "resumed")
+        _, whole_s = _timed(lambda: complete_cv_example.main(flags + [
+            "--checkpointing_steps", str(CV_CKPT_EVERY), "--output_dir", whole]), cuda)
+        _, resumed_s = _timed(lambda: complete_cv_example.main(flags + [
+            "--checkpointing_steps", str(CV_CKPT_EVERY), "--output_dir", resumed,
+            "--resume_from_checkpoint", os.path.join(whole, f"step_{CV_RESUME_AT}")]), cuda)
+        last = f"step_{config['num_epochs'] * 32}"
+        files = [os.path.join(last, item, "arrays.safetensors") for item in ("model", "optimizer")]
+        differ = [f for f in files if open(os.path.join(whole, f), "rb").read()
+                  != open(os.path.join(resumed, f), "rb").read()]
+        if differ:
+            raise SystemExit(f"cv: resumed from step {CV_RESUME_AT}, {differ} differ from the "
+                             "uninterrupted run's")
+    log(f"cv: complete_cv_example --checkpointing_steps {CV_CKPT_EVERY}: the run resumed from "
+        f"step_{CV_RESUME_AT} (mid-epoch) ends bitwise the uninterrupted run ({last}'s model "
+        f"and optimizer); {whole_s:.2f} s and {resumed_s:.2f} s [{card}]")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
+    return counts
+
+
 def _leaf_shapes(model):
     """The parameter leaves of ``model`` as meta tensors (shapes only)."""
     import torch
@@ -3679,6 +4087,19 @@ def main(argv) -> int:
         log(f"phase 16 launches: {pp_phase(card)}")
         print(card)
         return 0
+    if "--big-model" in argv:
+        _build.build(["flash_attention"])
+        card = card_info()
+        log(f"build: flash_attention in {time.perf_counter() - t0:.1f} s; device: {card}")
+        log(f"phase 17 launches: {big_model_phase(card)}")
+        print(card)
+        return 0
+    if "--cv" in argv:
+        card = card_info()
+        log(f"device: {card} (the CV examples launch no kernel of the port)")
+        cv_phase(card)
+        print(card)
+        return 0
     if "--splash-times" in argv:
         _build.build(["splash_attention"])
         card = card_info()
@@ -3759,14 +4180,20 @@ def main(argv) -> int:
     tp_counts = tp_phase(card)
     free_cuda()
     pp_counts = pp_phase(card)
-    for row in rows:  # phase 7's launches plus those of phases 11 to 16
+    free_cuda()
+    big_counts = big_model_phase(card)
+    free_cuda()
+    cv_counts = cv_phase(card)
+    for row in rows:  # phase 7's launches plus those of phases 11 to 18
         later = [counts.get(row["name"], 0) for counts in (loop_counts, ckpt_counts,
                                                            shard_counts, precision_counts,
-                                                           tp_counts, pp_counts)]
+                                                           tp_counts, pp_counts, big_counts,
+                                                           cv_counts)]
         if any(later):
             log(f"kernel {row['name']}: {row['launches']} launches in phase 7, {later[0]} in "
                 f"phase 11, {later[1]} in phase 12, {later[2]} in phase 13, {later[3]} in "
-                f"phase 14, {later[4]} in phase 15, {later[5]} in phase 16")
+                f"phase 14, {later[4]} in phase 15, {later[5]} in phase 16, {later[6]} in "
+                f"phase 17, {later[7]} in phase 18")
             row["launches"] += sum(later)
     for row in precision_rows:  # phase 14's launches plus phase 15's fp16 arms'
         if tp_counts.get(row["name"]):

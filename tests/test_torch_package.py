@@ -84,7 +84,10 @@ def test_port_never_imports_jax_or_the_jax_package():
             "utils/operations.py", "utils/tqdm.py", "utils/memory.py", "utils/random.py",
             "examples/nlp_example.py", "checkpointing.py", "tracking.py", "logging.py",
             "utils/other.py", "utils/safetensors_io.py", "utils/constants.py",
-            "examples/complete_nlp_example.py"} <= scanned
+            "examples/complete_nlp_example.py", "big_modeling.py", "hooks.py",
+            "utils/modeling.py", "utils/offload.py", "utils/quantization.py",
+            "models/vision.py", "examples/cv_example.py",
+            "examples/complete_cv_example.py"} <= scanned
     bad = [(f.relative_to(ROOT).as_posix(), mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "accelerate_tpu")]
     assert bad == []
