@@ -63,7 +63,7 @@ from .data_loader import (
 )
 from .generation import generate
 from .inference import prepare_pippy
-from .launchers import debug_launcher
+from .launchers import debug_launcher, notebook_launcher
 from .logging import get_logger
 from .models import (
     BertConfig,
@@ -104,9 +104,11 @@ from .serving import ContinuousBatcher
 from .optimizer import GradScalerState
 from .state import AcceleratorState, GradientState, PartialState
 from .utils.dataclasses import (
+    AutocastKwargs,
     DataLoaderConfiguration,
     Fp8RecipeKwargs,
     FullyShardedDataParallelPlugin,
+    GradientAccumulationPlugin,
     MegatronStylePlugin,
     PipelineParallelPlugin,
     ProjectConfiguration,
@@ -151,6 +153,7 @@ def __getattr__(name):
 __all__ = [
     "Accelerator",
     "AcceleratorState",
+    "AutocastKwargs",
     "BertConfig",
     "BertForSequenceClassification",
     "ContinuousBatcher",
@@ -162,6 +165,7 @@ __all__ = [
     "Fp8RecipeKwargs",
     "FullyShardedDataParallelPlugin",
     "GradScalerState",
+    "GradientAccumulationPlugin",
     "GradientState",
     "Llama",
     "LlamaConfig",
@@ -201,6 +205,7 @@ __all__ = [
     "init_on_device",
     "inject_hyperparams",
     "linear_schedule",
+    "notebook_launcher",
     "llama_config_from_hf",
     "llama_params_from_numpy",
     "load_and_quantize_model",

@@ -106,8 +106,8 @@ writes the handle's parameters and the optimizer's state in place, which
 ``build_train_step`` and ``optimizer.step()`` share; the dropout generator
 of each prepared model travels in ``random_states_<rank>.pkl``.
 
-Sequence parallelism, one process per rank (``torchrun`` on cards,
-``launchers.debug_launcher`` over gloo on the CPU)::
+Sequence parallelism, one process per rank (``accelerate-tpu-torch launch``
+on cards, ``launchers.debug_launcher`` over gloo on the CPU)::
 
     accelerator = Accelerator(mixed_precision="bf16",
                               sp_plugin=SequenceParallelPlugin(sp_size=N))
@@ -128,8 +128,9 @@ accumulation, clip and the fused update, so every rank keeps identical
 parameters; the step returns the global mean loss. With one process and no
 ``sp`` axis none of this runs: the step is the single-process one above.
 
-Sharded training, one process per rank (``torchrun --nproc_per_node=4`` on
-cards), or all ranks on one device with ``loopback=LoopbackShards(n)``::
+Sharded training, one process per rank (``accelerate-tpu-torch launch
+--num_processes 4`` on cards), or all ranks on one device with
+``loopback=LoopbackShards(n)``::
 
     accelerator = Accelerator(mixed_precision="bf16", fsdp_plugin=
         FullyShardedDataParallelPlugin(fsdp_size=4, activation_checkpointing=True))
@@ -174,6 +175,16 @@ every pp rank). The fused step and the window route as JAX's
 spec)``, 1F1B through ``parallel/pipeline.train_1f1b``. The imperative
 loop (``backward`` / ``optimizer.step()``) under pp is not ported yet and
 raises.
+
+The process controls of the JAX package (``accelerator.py:671-689, 1033-1052,
+1751-1762``) delegate to the state (``state.ProcessView``):
+``split_between_processes``, ``main_process_first``,
+``local_main_process_first`` and the ``on_*`` decorators; ``set_trigger`` /
+``check_trigger`` sum a flag over the job's ranks; ``join_uneven_inputs`` is
+a no-op (the prepared loaders even the ranks' tails); ``autocast(handler)``
+sets the dtype policy of the models prepared inside it. A process started by
+``accelerate-tpu-torch launch`` reads the launch contract: a bare
+``Accelerator()`` takes its precision, device and accumulation from it.
 """
 
 from __future__ import annotations
@@ -204,10 +215,25 @@ from .parallel.ulysses import LoopbackUlysses
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils import operations as ops
+from .utils.constants import (
+    ENV_CHECKPOINT_AUTO_NAMING,
+    ENV_CHECKPOINT_TOTAL_LIMIT,
+    ENV_FSDP_CPU_OFFLOAD,
+    ENV_FSDP_MIN_SHARD_SIZE,
+    ENV_GRADIENT_ACCUMULATION_STEPS,
+    ENV_LOG_WITH,
+    ENV_PP_MICROBATCHES,
+    ENV_PP_SCHEDULE,
+    ENV_PROJECT_DIR,
+    ENV_TRAIN_WINDOW,
+    ENV_ZERO_SHARDING,
+)
 from .utils.dataclasses import (
+    AutocastKwargs,
     DataLoaderConfiguration,
     Fp8RecipeKwargs,
     FullyShardedDataParallelPlugin,
+    GradientAccumulationPlugin,
     KwargsHandler,
     MegatronStylePlugin,
     PipelineParallelPlugin,
@@ -216,25 +242,10 @@ from .utils.dataclasses import (
     TensorParallelPlugin,
 )
 from .utils.device import host_to_device
+from .utils.environment import parse_flag_from_env
 from .utils.operations import all_gather_along, broadcast, reduce
-from .utils.transfer import place_batch, shard_batch
+from .utils.transfer import place_batch, shard_batch, split_rows
 from .utils.tree import tree_leaves, tree_map, tree_unflatten
-
-_TRUE, _FALSE = ("y", "yes", "t", "true", "on", "1"), ("n", "no", "f", "false", "off", "0")
-
-
-def _flag_from_env(key: str, default: bool = False) -> bool:
-    """A yes/no environment variable (the JAX package's
-    ``parse_flag_from_env``)."""
-    value = os.environ.get(key, str(default)).lower()
-    if value in _TRUE:
-        return True
-    if value in _FALSE:
-        return False
-    raise ValueError(f"If set, {key} must be yes/no/1/0/true/false, got {value!r}.")
-
-# The launcher contract of the train window (JAX ``utils/constants.py:134``).
-ENV_TRAIN_WINDOW = "ACCELERATE_TRAIN_WINDOW"
 
 # The seed of a prepared model's dropout generator (the JAX package seeds its
 # dropout key with ACCELERATE_SEED + 7919; no environment variable sets it).
@@ -258,6 +269,15 @@ class TrainHandle:
         self.last_grad_norm = None
         self.sharded: ShardedModel | None = None  # the shards, under fsdp, ZeRO or a loopback
         self.pipeline_spec = None  # parallel/pipeline.PipelineSpec under pp
+
+
+def _is_causal_lm(module) -> bool:
+    """Whether ``module`` trains on a token stream, as the port's causal LMs
+    do (they carry the ``_shift_labels`` that ``shard_batch`` needs): under a
+    mesh its batch is sharded with shifted labels and each rank's loss is its
+    share of the global mean, summed over the ranks. Any other model's rows
+    split over the data ranks and its gradients average."""
+    return hasattr(module, "_shift_labels")
 
 
 def _loss_of(outputs):
@@ -506,9 +526,13 @@ class Accelerator:
     checkpoints and tracker logs; without either, ``ACCELERATE_PROJECT_DIR``
     with ``ACCELERATE_CHECKPOINT_AUTO_NAMING`` and
     ``ACCELERATE_CHECKPOINT_TOTAL_LIMIT`` do. ``log_with`` names the
-    trackers (``ACCELERATE_LOG_WITH``, comma-separated, when not given)."""
+    trackers (``ACCELERATE_LOG_WITH``, comma-separated, when not given).
+    ``gradient_accumulation_steps`` (None: ``ACCELERATE_GRADIENT_ACCUMULATION_
+    STEPS``, else 1) or a ``GradientAccumulationPlugin``, not both;
+    ``kwargs_handlers`` take ``Fp8RecipeKwargs`` and ``AutocastKwargs``."""
 
-    def __init__(self, mixed_precision: str | None = None, gradient_accumulation_steps: int = 1,
+    def __init__(self, mixed_precision: str | None = None,
+                 gradient_accumulation_steps: int | None = None,
                  kernels: str | None = None, device=None,
                  sp_plugin: SequenceParallelPlugin | None = None,
                  parallelism_config: ParallelismConfig | None = None,
@@ -523,29 +547,31 @@ class Accelerator:
                  kwargs_handlers: list | None = None,
                  tp_plugin: TensorParallelPlugin | None = None,
                  megatron_plugin: MegatronStylePlugin | None = None,
-                 pp_plugin: PipelineParallelPlugin | None = None):
+                 pp_plugin: PipelineParallelPlugin | None = None,
+                 gradient_accumulation_plugin: GradientAccumulationPlugin | None = None):
         if cpu:
             if device is not None and torch.device(device).type != "cpu":
                 raise ValueError(f"cpu=True contradicts device={device!r}")
             device = "cpu"
         cfg = parallelism_config or self._resolve_parallelism(tp_plugin, megatron_plugin)
-        if fsdp_plugin is None and (os.environ.get("ACCELERATE_FSDP_MIN_SHARD_SIZE")
-                                    or os.environ.get("ACCELERATE_FSDP_CPU_OFFLOAD")):
+        if fsdp_plugin is None and (os.environ.get(ENV_FSDP_MIN_SHARD_SIZE)
+                                    or os.environ.get(ENV_FSDP_CPU_OFFLOAD)):
             # JAX accelerator.py:361-373: the per-feature options from the env.
             # The fsdp axis takes every rank the other axes leave (JAX sizes
             # it from ACCELERATE_MESH_SHAPE's fsdp entry instead).
             fsdp_plugin = FullyShardedDataParallelPlugin(
                 fsdp_size=-1,
-                min_shard_size=int(os.environ.get("ACCELERATE_FSDP_MIN_SHARD_SIZE", 2**14)),
-                cpu_offload=_flag_from_env("ACCELERATE_FSDP_CPU_OFFLOAD"))
-        if pp_plugin is None and os.environ.get("ACCELERATE_PP_SCHEDULE"):
+                min_shard_size=int(os.environ.get(ENV_FSDP_MIN_SHARD_SIZE, 2**14)),
+                cpu_offload=parse_flag_from_env(ENV_FSDP_CPU_OFFLOAD))
+        if pp_plugin is None and os.environ.get(ENV_PP_SCHEDULE):
             # JAX accelerator.py:374-379: the pp size comes from the mesh shape.
             pp_plugin = PipelineParallelPlugin(pp_size=max(cfg.pp_size, 1),
-                                               schedule=os.environ["ACCELERATE_PP_SCHEDULE"])
+                                               schedule=os.environ[ENV_PP_SCHEDULE])
         if pp_plugin is not None:
             cfg = dataclasses.replace(cfg, pp_size=pp_plugin.pp_size)
         self.pp_plugin = pp_plugin
         self.fp8_recipe_handler = None
+        self.autocast_handler = None
         seen = set()
         for handler in kwargs_handlers or []:
             if not isinstance(handler, KwargsHandler):
@@ -558,6 +584,8 @@ class Accelerator:
             seen.add(type(handler))
             if isinstance(handler, Fp8RecipeKwargs):
                 self.fp8_recipe_handler = handler
+            elif isinstance(handler, AutocastKwargs):
+                self.autocast_handler = handler
         self.sp_plugin = sp_plugin
         if sp_plugin is not None:
             cfg = dataclasses.replace(cfg, sp_size=sp_plugin.sp_size)
@@ -582,7 +610,23 @@ class Accelerator:
         if sizes["pp"] > 1 and sizes["sp"] > 1:
             raise NotImplementedError("pp together with sp is not ported yet (ROADMAP.md, "
                                       "Queue 1: pp with sp and with ep)")
-        self.gradient_state = GradientState(gradient_accumulation_steps)
+        if gradient_accumulation_plugin is None:
+            # JAX accelerator.py:422-436: the environment is a default, not an
+            # override; any value passed (1 too) wins over the launcher's.
+            steps = gradient_accumulation_steps
+            if steps is None:
+                steps = int(os.environ.get(ENV_GRADIENT_ACCUMULATION_STEPS, 1))
+            gradient_accumulation_plugin = GradientAccumulationPlugin(num_steps=steps)
+        elif gradient_accumulation_steps is not None and gradient_accumulation_steps > 1:
+            raise ValueError(
+                "You can only pass one of `gradient_accumulation_steps` and "
+                "`gradient_accumulation_plugin`. Please only pass in the created "
+                "`GradientAccumulationPlugin` object.")
+        self.gradient_accumulation_plugin = gradient_accumulation_plugin
+        self.gradient_state = GradientState(
+            gradient_accumulation_plugin.num_steps or 1,
+            sync_with_dataloader=gradient_accumulation_plugin.sync_with_dataloader)
+        self.flag_tensor = None  # set_trigger's flag, cleared when check_trigger fires
         self.scaler = GradScalerState() if self.state.mixed_precision == "fp16" else None
         # cpu_offload: the imperative optimizer's state parks in pinned host
         # memory between steps; the fused step keeps it on the device.
@@ -601,20 +645,20 @@ class Accelerator:
         self._dataloaders: list = []
         self._custom_objects: list = []
         if project_config is None and project_dir is None:
-            env_dir = os.environ.get("ACCELERATE_PROJECT_DIR")
+            env_dir = os.environ.get(ENV_PROJECT_DIR)
             if env_dir:
-                limit = os.environ.get("ACCELERATE_CHECKPOINT_TOTAL_LIMIT")
+                limit = os.environ.get(ENV_CHECKPOINT_TOTAL_LIMIT)
                 project_config = ProjectConfiguration(
                     project_dir=env_dir,
-                    automatic_checkpoint_naming=_flag_from_env(
-                        "ACCELERATE_CHECKPOINT_AUTO_NAMING"),
+                    automatic_checkpoint_naming=parse_flag_from_env(
+                        ENV_CHECKPOINT_AUTO_NAMING),
                     total_limit=int(limit) if limit else None)
         self.project_configuration = project_config or ProjectConfiguration(
             project_dir=project_dir)
         if project_dir is not None and self.project_configuration.project_dir is None:
             self.project_configuration.set_directories(project_dir)
-        if log_with is None and os.environ.get("ACCELERATE_LOG_WITH"):
-            log_with = [t.strip() for t in os.environ["ACCELERATE_LOG_WITH"].split(",")
+        if log_with is None and os.environ.get(ENV_LOG_WITH):
+            log_with = [t.strip() for t in os.environ[ENV_LOG_WITH].split(",")
                         if t.strip()]
         from .tracking import filter_trackers
 
@@ -716,7 +760,7 @@ class Accelerator:
         optimizers prepared before, as long as their state does not exist
         yet."""
         if self._zero_sharding is None:
-            self._zero_sharding = _flag_from_env("ACCELERATE_ZERO_SHARDING")
+            self._zero_sharding = parse_flag_from_env(ENV_ZERO_SHARDING)
         return self._zero_sharding
 
     @zero_sharding.setter
@@ -754,11 +798,64 @@ class Accelerator:
     def is_local_main_process(self) -> bool:
         return self.state.partial.is_local_main_process
 
+    @property
+    def is_last_process(self) -> bool:
+        return self.state.partial.is_last_process
+
+    @property
+    def mixed_precision(self) -> str:
+        return self.state.mixed_precision
+
     def print(self, *args, **kwargs):
         self.state.partial.print(*args, **kwargs)
 
     def wait_for_everyone(self):
         self.state.partial.wait_for_everyone()
+
+    # The process-control surface of the state (JAX accelerator.py:671-689).
+    def on_main_process(self, function=None):
+        return self.state.partial.on_main_process(function)
+
+    def on_local_main_process(self, function=None):
+        return self.state.partial.on_local_main_process(function)
+
+    def on_last_process(self, function):
+        return self.state.partial.on_last_process(function)
+
+    def on_process(self, function=None, process_index=None):
+        return self.state.partial.on_process(function, process_index)
+
+    def on_local_process(self, function=None, local_process_index=None):
+        return self.state.partial.on_local_process(function, local_process_index)
+
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        return self.state.partial.split_between_processes(inputs, apply_padding=apply_padding)
+
+    @contextlib.contextmanager
+    def main_process_first(self):
+        with self.state.partial.main_process_first():
+            yield
+
+    @contextlib.contextmanager
+    def local_main_process_first(self):
+        with self.state.partial.local_main_process_first():
+            yield
+
+    def set_trigger(self):
+        """Raise this rank's early-stop flag; :meth:`check_trigger` on every
+        rank then sees it (JAX ``accelerator.py:1751-1762``)."""
+        self.flag_tensor = torch.ones((), dtype=torch.int32, device=self.device)
+
+    def check_trigger(self) -> bool:
+        """Whether any rank raised its flag since the last check that fired:
+        a sum all-reduce of the ranks' flags over the job, read on the host
+        (every rank must call it). The flag is cleared when it fires."""
+        flag = self.flag_tensor if self.flag_tensor is not None else torch.zeros(
+            (), dtype=torch.int32, device=self.device)
+        if int(ops.reduce(flag.clone(), reduction="sum").item()) >= 1:
+            self.flag_tensor = None
+            return True
+        return False
 
     def _dp_group(self):
         """The process group a batch's rows are split over (dp x fsdp): the
@@ -780,6 +877,14 @@ class Accelerator:
         if mesh is None:
             return place_batch(batch, self.device)
         coord = mesh_coordinate(mesh)
+        if not _is_causal_lm(module):
+            # Every leaf's rows split over dp x fsdp, as JAX's batch sharding
+            # splits them.
+            if mesh["sp"].size() > 1:
+                raise ValueError(f"{type(module).__name__} has no token stream to split over "
+                                 "sp; sequence parallelism trains the causal LMs")
+            return place_batch(split_rows(batch, self._data_index(coord), self.num_data_ranks),
+                               self.device)
         return shard_batch(batch, self.device, dp_index=self._data_index(coord),
                            dp_size=self.num_data_ranks, sp_index=coord["sp"],
                            sp_size=mesh["sp"].size(), shift_labels=module._shift_labels)
@@ -862,7 +967,10 @@ class Accelerator:
         if self.mesh is not None:  # every rank starts from rank 0's parameters
             for leaf in tree_leaves(params):
                 broadcast(leaf, src=0)
-        handle = TrainHandle(model, params, self.state.compute_dtype, dev)
+        compute_dtype = self.state.compute_dtype
+        if self.autocast_handler is not None and not self.autocast_handler.enabled:
+            compute_dtype = torch.float32  # AutocastKwargs(enabled=False): f32 compute
+        handle = TrainHandle(model, params, compute_dtype, dev)
         sizes = self.mesh_sizes
         if sizes["fsdp"] > 1 or sizes["tp"] > 1 or sizes["pp"] > 1 or \
                 self.loopback is not None or (self.zero_sharding and sizes["dp"] > 1):
@@ -907,7 +1015,7 @@ class Accelerator:
         plugin, engine = self.pp_plugin, handle.sharded
         mbs = plugin.num_microbatches if plugin is not None else 0
         if mbs <= 0:
-            env = os.environ.get("ACCELERATE_PP_MICROBATCHES", "").strip()
+            env = os.environ.get(ENV_PP_MICROBATCHES, "").strip()
             try:
                 mbs = int(env) if env else 0
             except ValueError:
@@ -1072,6 +1180,28 @@ class Accelerator:
     def accumulate(self, *models):
         self._do_sync()
         yield
+
+    @contextlib.contextmanager
+    def join_uneven_inputs(self, joinables, even_batches=None):
+        """A no-op context, as in JAX (``accelerator.py:1033``): a prepared
+        loader evens the ranks' tails already (``even_batches``, the short
+        last batch padded by wrap-around), so no rank runs out of batches
+        before the others."""
+        yield
+
+    @contextlib.contextmanager
+    def autocast(self, autocast_handler: AutocastKwargs | None = None):
+        """Models prepared inside the block follow ``autocast_handler``
+        (``AutocastKwargs(enabled=False)``: f32 compute), as JAX's
+        ``prepare`` consults it (``accelerator.py:1040-1052``); a model
+        prepared before keeps its dtype policy."""
+        prev = self.autocast_handler
+        if autocast_handler is not None:
+            self.autocast_handler = autocast_handler
+        try:
+            yield
+        finally:
+            self.autocast_handler = prev
 
     @contextlib.contextmanager
     def no_sync(self, model):
@@ -1277,6 +1407,7 @@ class Accelerator:
         ``(loss * scale) / scale``, as JAX's ``train_fwd`` returns it."""
         loss_of = model.training_loss_fn(loss_fn)
         summed = self.mesh is not None
+        reduction = "sum" if _is_causal_lm(model.handle.module) else "mean"
 
         def value_and_grads(params, batch, scale=None):
             leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
@@ -1286,10 +1417,10 @@ class Accelerator:
                     loss = loss * scale
             grads = torch.autograd.grad(loss, leaves)
             loss = loss.detach() if scale is None else loss.detach() / scale
-            if summed:  # each rank's loss is its share of the global mean
+            if summed:
                 for g in grads:
-                    reduce(g, reduction="sum")
-                return reduce(loss, reduction="sum"), grads
+                    reduce(g, reduction=reduction)
+                return reduce(loss, reduction=reduction), grads
             return loss, grads
 
         return value_and_grads

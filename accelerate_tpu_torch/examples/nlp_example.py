@@ -20,6 +20,7 @@ Run::
 
     python -m accelerate_tpu_torch.examples.nlp_example          # on the card
     python -m accelerate_tpu_torch.examples.nlp_example --cpu    # on the CPU
+    accelerate-tpu-torch launch --num_processes 4 -m accelerate_tpu_torch.examples.nlp_example
 """
 
 from __future__ import annotations

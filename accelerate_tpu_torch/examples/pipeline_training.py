@@ -14,7 +14,7 @@ Run::
     python -m accelerate_tpu_torch.examples.pipeline_training --pp 2 --microbatches 4
     python -m accelerate_tpu_torch.examples.pipeline_training --cpu --schedule 1f1b
     # one process a stage (and data rank), NCCL between the cards
-    torchrun --nproc_per_node=4 -m accelerate_tpu_torch.examples.pipeline_training --pp 2
+    accelerate-tpu-torch launch --num_processes 4 -m accelerate_tpu_torch.examples.pipeline_training --pp 2
 """
 
 from __future__ import annotations

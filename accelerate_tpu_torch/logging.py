@@ -6,7 +6,7 @@ unless the call passes ``main_process_only=False``; ``in_order=True`` has
 every rank walk the same sequence of barriers and emit on its own turn, in
 rank order; ``log_every_n`` rate-limits a call site; ``warning_once``
 deduplicates. The rank comes from ``state.ProcessView`` (the process group,
-or torchrun's environment), so logging never touches a device.
+or the launcher's environment), so logging never touches a device.
 """
 
 from __future__ import annotations

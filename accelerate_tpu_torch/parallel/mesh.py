@@ -22,11 +22,10 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 
+from ..utils.constants import ENV_MESH_SHAPE
+
 MESH_AXES = ("pp", "dp", "fsdp", "sp", "tp")
 UNPORTED_AXES = ("ep_size",)
-# The launcher's mesh-shape contract (JAX ``utils/constants.py:39``):
-# ``ACCELERATE_MESH_SHAPE=dp:2,tp:2``.
-ENV_MESH_SHAPE = "ACCELERATE_MESH_SHAPE"
 
 
 @dataclass

@@ -8,32 +8,88 @@ group is process-wide, as torch keeps it.
 
 :class:`PartialState` joins the job (the counterpart of the JAX package's
 ``PartialState``, ``state.py:113``). Rank and world size come from the
-launcher's ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` (``torchrun`` sets them),
-or from a process group the launcher already initialised; the rendezvous is
-``init_method`` (default ``env://``, torchrun's address). A world of one rank
-is today's single process: no process group, nothing initialised. Otherwise
-card ``LOCAL_RANK`` becomes the current CUDA device (set before
-``init_process_group``), so the port's ``"cuda"`` defaults (the model, the
-optimizer transforms) land on the rank's card, with the NCCL backend; or,
-for ``device="cpu"``, the CPU with gloo: the backend
-follows the device, never an environment variable. A process group that a
-launcher already initialised (``launchers.debug_launcher``) is joined as it
-is.
+launcher's ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` (``commands/launch.py``
+sets them), or from a process group the launcher already initialised; the
+rendezvous is ``init_method`` (default ``env://``: ``MASTER_ADDR`` and
+``MASTER_PORT``). A world of one rank is today's single process: no process
+group, nothing initialised. Otherwise card ``LOCAL_RANK`` becomes the
+current CUDA device (set before ``init_process_group``), so the port's
+``"cuda"`` defaults (the model, the optimizer transforms) land on the
+rank's card, with the NCCL backend; or, for ``device="cpu"``, the CPU with
+gloo: the backend follows the device (the launch contract's
+``ACCELERATE_USE_CPU`` is the launcher's ``--cpu``, which asks for
+``device="cpu"``). A process group that a launcher already initialised
+(``launchers.debug_launcher``) is joined as it is. A launched rank leaves
+its group through :func:`teardown_process_group` when its script finishes
+cleanly (``commands/rank.py``).
+
+The launch contract (``commands/launch.py``; JAX ``state.py:139-140,
+527-533``): ``ACCELERATE_USE_CPU`` means ``device="cpu"`` with gloo when no
+device is passed, ``ACCELERATE_DEBUG_MODE`` turns on debug mode (the
+collectives of ``utils/operations.py`` first check that every rank brings
+the same shapes), and ``ACCELERATE_MIXED_PRECISION`` is the precision when
+none is passed. The process-control surface of the JAX package's
+``PartialState`` (``state.py:319-450``) is :class:`ProcessView`'s:
+``is_last_process``, ``main_process_first``, ``local_main_process_first``,
+``split_between_processes`` and the ``on_*`` decorators.
 """
 
 from __future__ import annotations
 
 import os
+import time
 import weakref
+from contextlib import contextmanager
+from functools import wraps
+from typing import Callable
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from .parallel.mesh import MESH_AXES, ParallelismConfig
+from .utils import operations as ops
+from .utils.constants import ENV_CPU, ENV_DEBUG_MODE, ENV_MIXED_PRECISION
 from .utils.dataclasses import PrecisionType
 from .utils.device import resolve_device
+from .utils.environment import parse_choice_from_env, parse_flag_from_env
 
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+_EXIT_KEY = "accelerate_tpu_torch/exit"
+_LEFT_KEY = "accelerate_tpu_torch/left"
+
+
+def _store_count(store, key: str, add: int = 0) -> int:
+    return int(store.add(key, add))
+
+
+def teardown_process_group(timeout: float = 60.0) -> None:
+    """Leave the job cleanly: wait until every rank has come here (through
+    the rendezvous store, at most ``timeout`` seconds), so that no rank
+    destroys its groups while a peer still works in a collective with it,
+    then destroy every group. The store's host (rank 0) leaves last, after
+    every other rank is past its last read of the store. A rank that does
+    not come in time leaves the groups as they are: the launcher stops the
+    job. Nothing on a job of one rank but the destroy."""
+    if not dist.is_initialized():
+        return
+    if dist.get_backend() == "nccl":
+        torch.cuda.synchronize()
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world > 1:
+        store = dist.distributed_c10d._get_default_store()
+        _store_count(store, _EXIT_KEY, 1)
+        deadline = time.monotonic() + timeout
+        while _store_count(store, _EXIT_KEY) < world:
+            if time.monotonic() > deadline:
+                return
+            time.sleep(0.005)
+        if rank == 0:
+            while _store_count(store, _LEFT_KEY) < world - 1 and time.monotonic() < deadline:
+                time.sleep(0.005)
+        else:
+            _store_count(store, _LEFT_KEY, 1)
+    dist.destroy_process_group()
 
 
 def _env_int(name: str, default: int) -> int:
@@ -43,7 +99,7 @@ def _env_int(name: str, default: int) -> int:
 
 class ProcessView:
     """This process's rank of the job as ``torch.distributed`` (or, before
-    a process group exists, torchrun's environment) reports it, without a
+    a process group exists, the launcher's environment) reports it, without a
     device: what logging and the trackers read to decide who writes (the
     JAX package reads its ``PartialState`` singleton there).
     :class:`PartialState` adds the device and the process group."""
@@ -64,10 +120,117 @@ class ProcessView:
     def is_local_main_process(self) -> bool:
         return self.local_process_index == 0
 
+    @property
+    def is_last_process(self) -> bool:
+        return self.process_index == self.num_processes - 1
+
     def wait_for_everyone(self) -> None:
         """A barrier over the job's ranks; nothing on one rank."""
         if dist.is_initialized() and dist.get_world_size() > 1:
             dist.barrier()
+
+    def _goes_first(self, is_main: bool):
+        if not is_main:
+            self.wait_for_everyone()
+        yield
+        if is_main:
+            self.wait_for_everyone()
+
+    @contextmanager
+    def main_process_first(self):
+        """The main process runs the block first; the others wait for it,
+        then run it."""
+        yield from self._goes_first(self.is_main_process)
+
+    @contextmanager
+    def local_main_process_first(self):
+        """The same for each node's main process."""
+        yield from self._goes_first(self.is_local_main_process)
+
+    @contextmanager
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        """This rank's contiguous share of a list, tuple, array, tensor or
+        dict of equal-length values (each value split by rows). The first
+        ``length % num_processes`` ranks take one element more; with
+        ``apply_padding`` a short share is padded with the input's last
+        element, so every rank holds the same length (JAX ``state.py:
+        362-406``)."""
+        if self.num_processes == 1:
+            yield inputs
+            return
+        if isinstance(inputs, dict):
+            lengths = {k: len(v) for k, v in inputs.items()}
+            if not lengths:
+                yield inputs
+                return
+            if len(set(lengths.values())) > 1:
+                raise ValueError(f"All dict values must share a length to split; got {lengths}")
+            length = next(iter(lengths.values()))
+        else:
+            length = len(inputs)
+        split_sizes = [length // self.num_processes] * self.num_processes
+        for i in range(length % self.num_processes):
+            split_sizes[i] += 1
+        start = sum(split_sizes[: self.process_index])
+        end = start + split_sizes[self.process_index]
+        if isinstance(inputs, dict):
+            shard = {k: v[start:end] for k, v in inputs.items()}
+        else:
+            shard = inputs[start:end]
+        if apply_padding and split_sizes[self.process_index] < max(split_sizes):
+            pad = max(split_sizes) - split_sizes[self.process_index]
+            if isinstance(inputs, dict):
+                shard = {k: _pad_with_last(shard[k], pad, fallback=inputs[k]) for k in inputs}
+            else:
+                shard = _pad_with_last(shard, pad, fallback=inputs)
+        yield shard
+
+    def _only_if(self, function: Callable, cond: Callable[[], bool]):
+        @wraps(function)
+        def wrapper(*args, **kwargs):
+            if cond():
+                return function(*args, **kwargs)
+
+        return wrapper
+
+    def on_main_process(self, function: Callable = None):
+        """Decorator: run ``function`` on the main process only."""
+        return self._only_if(function, lambda: self.is_main_process)
+
+    def on_local_main_process(self, function: Callable = None):
+        return self._only_if(function, lambda: self.is_local_main_process)
+
+    def on_last_process(self, function: Callable):
+        return self._only_if(function, lambda: self.is_last_process)
+
+    def on_process(self, function: Callable = None, process_index: int = None):
+        """Decorator: run ``function`` on rank ``process_index`` only
+        (``@state.on_process(process_index=1)`` works too)."""
+        if function is None:
+            return lambda f: self.on_process(f, process_index)
+        return self._only_if(function, lambda: self.process_index == process_index)
+
+    def on_local_process(self, function: Callable = None, local_process_index: int = None):
+        if function is None:
+            return lambda f: self.on_local_process(f, local_process_index)
+        return self._only_if(function,
+                             lambda: self.local_process_index == local_process_index)
+
+
+def _pad_with_last(seq, pad: int, fallback=None):
+    """``seq`` with ``pad`` copies of its last element; an empty share
+    borrows the last element of ``fallback`` (the whole input). Arrays come
+    back as numpy arrays, tensors as tensors, anything else as a list (JAX
+    ``state.py:475-482``)."""
+    source = seq if len(seq) else fallback
+    if isinstance(seq, torch.Tensor):
+        reps = [torch.as_tensor(source[-1:])] * pad
+        return torch.cat([seq, *reps]) if len(seq) else torch.cat(reps)
+    if isinstance(seq, np.ndarray) or hasattr(seq, "shape"):
+        reps = [np.asarray(source[-1:])] * pad
+        return (np.concatenate([np.asarray(seq), *reps], axis=0) if len(seq)
+                else np.concatenate(reps, axis=0))
+    return list(seq) + [source[-1]] * pad
 
 
 class PartialState(ProcessView):
@@ -75,8 +238,11 @@ class PartialState(ProcessView):
     ``local_process_index`` and ``device``."""
 
     def __init__(self, device=None, *, init_method: str | None = None):
+        if device is None and parse_flag_from_env(ENV_CPU):
+            device = "cpu"
         dev = resolve_device(device)
         super().__init__()
+        self.debug = ops.debug_mode = parse_flag_from_env(ENV_DEBUG_MODE)
         rank, world_size = self.process_index, self.num_processes
         if world_size == 1 and not dist.is_initialized():
             self.device = dev
@@ -107,7 +273,8 @@ class AcceleratorState:
     ``fsdp`` x ``sp`` x ``tp`` mesh (None for a single process without
     sequence parallelism, or one that holds every rank itself,
     ``loopback``) and the mixed-precision mode (``no``, ``bf16``, ``fp16``
-    or ``fp8``). ``data_group`` is the process group a batch's rows split
+    or ``fp8``; ``ACCELERATE_MIXED_PRECISION`` when none is passed, else
+    ``no``). ``data_group`` is the process group a batch's rows split
     over (dp x fsdp; None for the default group, when those are all the
     ranks): the pp, tp and sp ranks of one data coordinate read the same
     rows, as the JAX package's ``data_batch_axes`` says. ``pp_group`` is the
@@ -116,7 +283,9 @@ class AcceleratorState:
     def __init__(self, mixed_precision: str | None = None, device=None,
                  parallelism_config: ParallelismConfig | None = None,
                  init_method: str | None = None, loopback: bool = False):
-        mode = "no" if mixed_precision is None else str(mixed_precision).lower()
+        if mixed_precision is None:
+            mixed_precision = parse_choice_from_env(ENV_MIXED_PRECISION, "no")
+        mode = str(mixed_precision).lower()
         if mode not in {p.value for p in PrecisionType}:
             raise ValueError(f"Unknown mixed_precision mode: {mixed_precision!r}; "
                              f"choose from {[p.value for p in PrecisionType]}")
@@ -191,11 +360,13 @@ class GradientState:
     schedulers it prepares (the JAX package keeps a process-wide singleton).
     Loaders are held by weak reference, as the JAX package holds them."""
 
-    def __init__(self, num_steps: int = 1):
+    def __init__(self, num_steps: int = 1, sync_with_dataloader: bool = True):
         if int(num_steps) < 1:
             raise ValueError(f"gradient_accumulation_steps must be >= 1, got {num_steps}")
         self.num_steps = int(num_steps)
-        self.sync_with_dataloader = True  # the last batch of a loader always syncs
+        # True: the last batch of a loader always syncs
+        # (GradientAccumulationPlugin.sync_with_dataloader).
+        self.sync_with_dataloader = bool(sync_with_dataloader)
         self.sync_gradients = True
         self._dataloader_refs = []
 

@@ -15,8 +15,6 @@ it runs on the host; methods run on the main process only.
 
 from __future__ import annotations
 
-import importlib.metadata
-import importlib.util
 import json
 import os
 import time
@@ -24,22 +22,11 @@ from functools import wraps
 
 from .logging import get_logger
 from .state import ProcessView
+from .utils import imports
 
 logger = get_logger(__name__)
 
 _available_trackers = []
-
-
-def _is_package_available(pkg_name: str, metadata_name: str | None = None) -> bool:
-    """Whether ``pkg_name`` can be imported (the JAX package's
-    ``utils/imports.py`` test)."""
-    if importlib.util.find_spec(pkg_name) is None:
-        return False
-    try:
-        importlib.metadata.version(metadata_name or pkg_name)
-        return True
-    except importlib.metadata.PackageNotFoundError:
-        return True
 
 
 def _register(cls):
@@ -304,7 +291,7 @@ class WandBTracker(GeneralTracker):
 
     @classmethod
     def is_available(cls) -> bool:
-        return _is_package_available("wandb")
+        return imports.is_wandb_available()
 
     @property
     def tracker(self):
@@ -356,7 +343,7 @@ class MLflowTracker(GeneralTracker):
 
     @classmethod
     def is_available(cls) -> bool:
-        return _is_package_available("mlflow")
+        return imports.is_mlflow_available()
 
     @property
     def tracker(self):
@@ -400,7 +387,7 @@ class CometMLTracker(GeneralTracker):
 
     @classmethod
     def is_available(cls) -> bool:
-        return _is_package_available("comet_ml")
+        return imports.is_comet_ml_available()
 
     @property
     def tracker(self):
@@ -445,7 +432,7 @@ class AimTracker(GeneralTracker):
 
     @classmethod
     def is_available(cls) -> bool:
-        return _is_package_available("aim")
+        return imports.is_aim_available()
 
     @property
     def tracker(self):
@@ -483,7 +470,7 @@ class ClearMLTracker(GeneralTracker):
 
     @classmethod
     def is_available(cls) -> bool:
-        return _is_package_available("clearml")
+        return imports.is_clearml_available()
 
     @property
     def tracker(self):
@@ -536,7 +523,7 @@ class DVCLiveTracker(GeneralTracker):
 
     @classmethod
     def is_available(cls) -> bool:
-        return _is_package_available("dvclive")
+        return imports.is_dvclive_available()
 
     @property
     def tracker(self):

@@ -58,6 +58,35 @@ class Fp8RecipeKwargs(KwargsHandler):
 
 
 @dataclass
+class GradientAccumulationPlugin(KwargsHandler):
+    """Gradient accumulation (JAX ``utils/dataclasses.py:105-118``):
+    ``num_steps`` micro-steps per update, ``sync_with_dataloader`` (the
+    last batch of a loader always ends a window); ``adjust_scheduler`` and
+    ``sync_each_batch`` are kept for the API, as in the JAX package, whose
+    reads of them the port mirrors (none)."""
+
+    num_steps: int = None
+    adjust_scheduler: bool = True
+    sync_with_dataloader: bool = True
+    sync_each_batch: bool = False
+
+    def __post_init__(self):
+        if self.sync_with_dataloader is None:
+            self.sync_with_dataloader = True
+
+
+@dataclass
+class AutocastKwargs(KwargsHandler):
+    """The dtype policy of models prepared while it is active (JAX
+    ``utils/dataclasses.py:121-130``): ``enabled=False`` computes in f32
+    whatever the mixed-precision mode. ``cache_enabled`` is kept for the
+    API."""
+
+    enabled: bool = True
+    cache_enabled: bool = None
+
+
+@dataclass
 class SequenceParallelPlugin:
     """Sequence parallelism over the mesh's ``sp`` axis (JAX
     ``utils/dataclasses.py:200-210``). ``ring_attention=True``: ring

@@ -21,10 +21,18 @@ one rank.
   pieces concatenated along another (Ulysses, ``parallel/ulysses.py``);
 - :func:`recursively_apply`, :func:`send_to_device`, :func:`find_batch_size`
   and :func:`concatenate` walk nested lists, tuples and dicts of tensors.
+
+In debug mode (:data:`debug_mode`, which ``state.PartialState`` sets from
+``ACCELERATE_DEBUG_MODE``, the launcher's ``--debug``, when it starts),
+:func:`gather`, :func:`broadcast` and :func:`reduce` first gather every
+rank's leaf shapes and dtypes and raise
+:class:`DistributedOperationException` where they differ, instead of
+hanging in the collective (JAX ``utils/operations.py:218-240``).
 """
 
 from __future__ import annotations
 
+from functools import wraps
 from typing import Any, Callable, Mapping
 
 import numpy as np
@@ -32,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 REDUCTIONS = ("sum", "mean", "none")
+debug_mode = False  # the last PartialState's debug flag (module docstring)
 
 
 def _single(group) -> bool:
@@ -124,6 +133,32 @@ def concatenate(data, dim: int = 0):
     return torch.cat([torch.as_tensor(d) for d in data], dim=dim)
 
 
+class DistributedOperationException(Exception):
+    """Ranks brought different shapes or dtypes to one collective."""
+
+
+def verify_operation(function):
+    """In debug mode (:data:`debug_mode`), check that every rank of the
+    group brings the same leaf shapes and dtypes before running the
+    collective ``function``."""
+
+    @wraps(function)
+    def wrapper(tensor, *args, group=None, **kwargs):
+        if debug_mode and not _single(group):
+            sig = [(tuple(t.shape), str(t.dtype)) for t in _leaves(tensor)
+                   if isinstance(t, torch.Tensor)]
+            out = [None] * _world(group)
+            dist.all_gather_object(out, sig, group=group)
+            if any(s != out[0] for s in out):
+                raise DistributedOperationException(
+                    f"Cannot apply {function.__name__}: process shapes/dtypes mismatch.\n"
+                    + "\n".join(f"  - Process {i}: {s}" for i, s in enumerate(out)))
+        return function(tensor, *args, group=group, **kwargs)
+
+    return wrapper
+
+
+@verify_operation
 def reduce(tensor, reduction: str = "mean", scale: float = 1.0, group=None):
     """Every tensor leaf summed (``"sum"``) or averaged (``"mean"``) over the
     group's ranks, then multiplied by ``scale`` — the JAX package's
@@ -147,6 +182,7 @@ def reduce(tensor, reduction: str = "mean", scale: float = 1.0, group=None):
     return recursively_apply(one, tensor, test_type=lambda x: isinstance(x, torch.Tensor))
 
 
+@verify_operation
 def broadcast(tensor: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     """``tensor`` of the group's rank ``src`` on every rank, in place;
     returns it."""
@@ -157,6 +193,7 @@ def broadcast(tensor: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     return tensor
 
 
+@verify_operation
 def gather(tensor, group=None):
     """Every tensor leaf all-gathered along dim 0 over the group's ranks, in
     rank order (shape ``(world * B, ...)``); unchanged on one rank. A 0-d

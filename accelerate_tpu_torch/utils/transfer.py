@@ -73,6 +73,19 @@ def place_batch(batch, device):
     return batch
 
 
+def split_rows(batch, index: int, parts: int):
+    """Rows ``[i·B/n, (i+1)·B/n)`` of every numpy or tensor leaf of a dict
+    batch (nested or not): rank ``index`` of ``parts`` data ranks."""
+    if isinstance(batch, dict):
+        return {k: split_rows(v, index, parts) for k, v in batch.items()}
+    if not isinstance(batch, (np.ndarray, torch.Tensor)):
+        return batch
+    rows = batch.shape[0]
+    if rows % parts:
+        raise ValueError(f"a batch of {rows} rows does not split into {parts} equal shards")
+    return batch[index * rows // parts:(index + 1) * rows // parts]
+
+
 def shard_batch(batch, device, *, dp_index: int, dp_size: int, sp_index: int, sp_size: int,
                 shift_labels):
     """This rank's shard of a GLOBAL batch (``input_ids`` (B, S), optional

@@ -27,6 +27,7 @@
     python3 chip_smoke.py --big-model  # only phase 17: big-model loading and
                                      # offloaded inference at 8B widths
     python3 chip_smoke.py --cv       # only phase 18: the CV examples
+    python3 chip_smoke.py --launch   # only phase 19: the launcher and the CLI
     python3 chip_smoke.py --splash-times  # only the splash kernels' times at
                                      # Gemma-2-9B's layers (to set two trees
                                      # side by side in one run: copy this
@@ -299,6 +300,24 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    ``complete_cv_example.py --checkpointing_steps 16`` uninterrupted and
    resumed from ``step_48`` (mid-epoch): the last checkpoint's model and
    optimizer bitwise equal, cuDNN held deterministic.
+19. The launcher and the CLI, through ``python -m
+   accelerate_tpu_torch.commands.accelerate_cli`` (the
+   ``accelerate-tpu-torch`` entry point). A: ``launch --num_processes 1
+   --mixed_precision bf16 chip_smoke.py --launched-worker`` runs phase 11's
+   arm B loop (bert-base-cased widths, a constant ``adamw``) for 10 steps in
+   a child whose ``Accelerator()`` takes no precision: it must report bf16
+   from the contract, ``cuda:0`` with ``RANK=0``, ``WORLD_SIZE=1``,
+   ``LOCAL_RANK=0``, 25 fused-update launches a step, and losses bitwise
+   the same 10 steps run in this process. B: ``accelerate-tpu-torch test``
+   passes ("All distributed asserts passed.") and its script reports the
+   sgd update's launches (row 4b) above 0. C: a 2-rank ``--cpu`` gang whose
+   rank 1 exits 3 returns 3 within 30 s, its other rank stopped; on the
+   card, with ``--max_restarts 1``, a script that exits 3 only on attempt 0
+   (it reads ``ACCELERATE_RESTART_ATTEMPT``) is seen to fail with 3, runs
+   again and passes. D: ``estimate-memory
+   llama-3-8b`` in bf16 equals ``num_params`` x 2 to the byte (phase 17's
+   16.06 GB). The kernels' table adds the launched children's launches to
+   rows 4 and 4b.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -446,6 +465,11 @@ QUANT_CORR_FLOOR = {8: 0.99, 4: 0.5}
 # 32 steps an epoch). Step 1's loss in bf16 on the card vs f32 on the CPU
 # (the same weights from the seed; bf16 rounds the parameters only).
 CV_CKPT_EVERY, CV_RESUME_AT, CV_LOSS_REL, CV_MIN_ACCURACY = 16, 48, 2e-2, 0.9
+# Phase 19: the launcher and the CLI. A launched child runs LAUNCH_STEPS
+# steps of phase 11's loop (arm B: a constant adamw, one fused update launch
+# a BERT leaf a step); a gang whose rank exits nonzero must come back within
+# FAIL_FAST_S seconds.
+LAUNCH_STEPS, BERT_LEAVES, FAIL_FAST_S = 10, 25, 30.0
 T_START = time.perf_counter()
 
 
@@ -2142,12 +2166,13 @@ def bert_base_config():
 
 
 def loop_arm(cfg, inject: bool, steps=None, kernels=None, accum: int = 1, evaluate=False,
-             profile=False):
+             profile=False, acc=None):
     """The canonical loop on a fresh model from the seed; returns a dict of
     the losses, launch counts (all steps, and after each step), the wall
     seconds of steps [LOOP_WARMUP, LOOP_WARMUP + LOOP_TIMED), the peak
     bytes, the learning rates and, with ``evaluate``, the eval's rows and
-    accuracy."""
+    accuracy. ``acc``: an ``Accelerator`` made by the caller (phase 19's
+    launched child), else ``Accelerator(mixed_precision="bf16")``."""
     import torch
 
     from accelerate_tpu_torch import (
@@ -2162,7 +2187,9 @@ def loop_arm(cfg, inject: bool, steps=None, kernels=None, accum: int = 1, evalua
     from accelerate_tpu_torch.ops import registry
 
     torch.cuda.reset_peak_memory_stats()
-    acc = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=accum, kernels=kernels)
+    if acc is None:
+        acc = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=accum,
+                          kernels=kernels)
     set_seed(SEED)
     model = BertForSequenceClassification(cfg)
     model.init_params(SEED)
@@ -2280,7 +2307,7 @@ def loop_phase(card, profile: bool = False) -> dict:
 
     b = loop_arm(cfg, inject=False, steps=LOOP_B_STEPS, profile=profile)
     per_step = [c.get("fused_adamw_update", 0) for c in b["per_step"]]
-    leaves = 25
+    leaves = BERT_LEAVES
     if (b["counts"] != {"fused_adamw_update": leaves * LOOP_B_STEPS}
             or per_step != [leaves * (i + 1) for i in range(LOOP_B_STEPS)]
             or not all(math.isfinite(x) for x in b["losses"])):
@@ -3981,6 +4008,162 @@ def cv_phase(card: str, device: str = "cuda") -> dict:
     return counts
 
 
+def cli(args: list, cwd: str | None = None, timeout: float = 600.0):
+    """``python -m accelerate_tpu_torch.commands.accelerate_cli <args>``, the
+    ``accelerate-tpu-torch`` entry point, with the repository on
+    ``PYTHONPATH``; returns the finished process (output captured)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    return subprocess.run([sys.executable, "-m", "accelerate_tpu_torch.commands.accelerate_cli",
+                           *args], cwd=cwd or root, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def json_line(text: str, key: str):
+    """The value under ``key`` of the first JSON line of ``text`` that has it."""
+    for line in text.splitlines():
+        if line.startswith("{") and f'"{key}"' in line:
+            return json.loads(line)[key]
+    return None
+
+
+def _cli_failed(label: str, out) -> SystemExit:
+    return SystemExit(f"{label}: rc {out.returncode}\n--- stdout\n{out.stdout[-6000:]}\n"
+                      f"--- stderr\n{out.stderr[-6000:]}")
+
+
+def launched_worker() -> int:
+    """Phase 19 A's child, started by ``accelerate-tpu-torch launch
+    --num_processes 1 --mixed_precision bf16 chip_smoke.py --launched-worker``:
+    its ``Accelerator()`` takes no precision argument, so bf16 comes from the
+    launch contract. Runs phase 11's arm B loop for LAUNCH_STEPS steps and
+    prints one JSON line: the precision, the device, the rank keys, the
+    losses and the kernel launches."""
+    import torch
+
+    from accelerate_tpu_torch import Accelerator
+
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "ACCELERATE_MIXED_PRECISION")
+    env = {k: os.environ.get(k) for k in keys}
+    acc = Accelerator()
+    precision, device = acc.mixed_precision, str(acc.device)
+    run = loop_arm(bert_base_config(), inject=False, steps=LAUNCH_STEPS, acc=acc)
+    print(json.dumps({"launched_worker": {
+        "mixed_precision": precision, "device": device,
+        "current_device": torch.cuda.current_device(), "env": env, "losses": run["losses"],
+        "launches": run["counts"], "wall": run["wall"]}}), flush=True)
+    return 0
+
+
+def launch_phase(card: str) -> dict:
+    """Phase 19: the launcher and the CLI (module docstring); returns the
+    launched children's kernel launches (rows 4 and 4b)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from accelerate_tpu_torch import Llama, LlamaConfig
+    from accelerate_tpu_torch.commands import estimate
+
+    t_phase = time.perf_counter()
+    counts = {}
+
+    # A: phase 11's loop in a launched child, bf16 from the contract.
+    t0 = time.perf_counter()
+    out = cli(["launch", "--num_processes", "1", "--mixed_precision", "bf16", "chip_smoke.py",
+               "--launched-worker"])
+    a_s = time.perf_counter() - t0
+    child = json_line(out.stdout, "launched_worker")
+    if out.returncode != 0 or child is None:
+        raise _cli_failed("launch A", out)
+    want_launches = {"fused_adamw_update": BERT_LEAVES * LAUNCH_STEPS}
+    want_env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+                "ACCELERATE_MIXED_PRECISION": "bf16"}
+    if (child["mixed_precision"] != "bf16" or not child["device"].startswith("cuda")
+            or child["current_device"] != 0 or child["env"] != want_env
+            or child["launches"] != want_launches):
+        raise SystemExit(f"launch A: the child reports {child} (want bf16 on cuda:0, "
+                         f"{want_env}, launches {want_launches})")
+    ref = loop_arm(bert_base_config(), inject=False, steps=LAUNCH_STEPS)
+    if child["losses"] != ref["losses"] or ref["counts"] != want_launches:
+        raise SystemExit(f"launch A: the launched losses {child['losses']} are not bitwise the "
+                         f"in-process run's {ref['losses']} (in-process launches "
+                         f"{ref['counts']})")
+    counts["fused_adamw_update"] = child["launches"]["fused_adamw_update"]
+    log(f"launch A: `launch --num_processes 1 --mixed_precision bf16 chip_smoke.py "
+        f"--launched-worker`: the child's Accelerator() read bf16 from the contract, ran on "
+        f"cuda:{child['current_device']} with {child['env']}; {LAUNCH_STEPS} steps of phase "
+        f"11's loop (bert-base-cased widths, constant adamw), losses bitwise the in-process "
+        f"run's ({child['losses'][0]:.6f} -> {child['losses'][-1]:.6f}), fused_adamw_update "
+        f"{child['launches']['fused_adamw_update']} launches ({BERT_LEAVES} a step); the "
+        f"launch took {a_s:.1f} s [{card}]")
+
+    # B: the test command on the card.
+    t0 = time.perf_counter()
+    out = cli(["test"])
+    b_s = time.perf_counter() - t0
+    launches = json_line(out.stdout, "test_script_launches")
+    if (out.returncode != 0 or "All distributed asserts passed." not in out.stdout
+            or launches is None or not launches.get("fused_sgd_update", 0) > 0):
+        raise _cli_failed(f"launch B (accelerate-tpu-torch test; launches {launches})", out)
+    counts["fused_sgd_update"] = launches["fused_sgd_update"]
+    log(f"launch B: `accelerate-tpu-torch test` passed in {b_s:.1f} s (\"All distributed "
+        f"asserts passed.\"); the script's launches {launches} (the sgd update, row 4b) "
+        f"[{card}]")
+
+    # C: fail fast, and one restart on the card.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as tmp:
+        def script(name, body):
+            path = os.path.join(tmp, name)
+            with open(path, "w") as f:
+                f.write(body)
+            return path
+
+        gang = script("gang.py", "import os, sys, time\n"
+                                 "if os.environ['RANK'] == '1':\n    sys.exit(3)\n"
+                                 "time.sleep(600)\n")
+        flaky = script("flaky.py", "import json, os, sys\n"
+                                   "attempt = int(os.environ['ACCELERATE_RESTART_ATTEMPT'])\n"
+                                   "print(json.dumps({'attempt': attempt, 'cpu': os.environ.get("
+                                   "'ACCELERATE_USE_CPU'), 'rank': os.environ['RANK']}), "
+                                   "flush=True)\n"
+                                   "sys.exit(3 if attempt == 0 else 0)\n")
+        t0 = time.perf_counter()
+        out = cli(["launch", "--cpu", "--num_processes", "2", gang])
+        gang_s = time.perf_counter() - t0
+        if out.returncode != 3 or gang_s > FAIL_FAST_S:
+            raise _cli_failed(f"launch C (rank 1 of 2 exits 3, rank 0 sleeps; want rc 3 within "
+                              f"{FAIL_FAST_S} s, took {gang_s:.1f} s)", out)
+        out = cli(["launch", "--num_processes", "1", "--max_restarts", "1", flaky])
+        attempts = [json.loads(line) for line in out.stdout.splitlines()
+                    if line.startswith('{"attempt"')]
+        if (out.returncode != 0 or attempts != [{"attempt": a, "cpu": None, "rank": "0"}
+                                                for a in (0, 1)]
+                or "failed (rc=3)" not in out.stderr):
+            raise _cli_failed(f"launch C (--max_restarts 1, attempt 0 exits 3; attempts "
+                              f"{attempts})", out)
+    log(f"launch C: a 2-rank --cpu gang whose rank 1 exits 3 returned 3 in {gang_s:.1f} s "
+        f"(rank 0 stopped); on the card, --max_restarts 1 saw attempt 0 exit 3, ran attempt "
+        f"1 and passed")
+
+    # D: the memory estimate of the Llama-3-8B preset.
+    n_params = Llama(LlamaConfig.llama3_8b(), device="cpu").num_params()
+    args = estimate.estimate_command_parser().parse_args(["llama-3-8b", "--dtypes", "bf16"])
+    rows, largest = estimate.gather_data(args)
+    if rows[0][2] != 2 * n_params:
+        raise SystemExit(f"launch D: estimate bf16 {rows[0][2]} B vs num_params x 2 = "
+                         f"{2 * n_params} B")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        estimate.estimate_command(args)
+    log(f"launch D: estimate-memory llama-3-8b: bf16 {rows[0][2]} B ({rows[0][2] / 1e9:.2f} "
+        f"GB) = {n_params} parameters x 2, largest block {largest[1]!r}; the command prints "
+        f"{printed.getvalue().strip().splitlines()[-1].split()}")
+    log(f"launch: phase 19 in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return counts
+
+
 def _leaf_shapes(model):
     """The parameter leaves of ``model`` as meta tensors (shapes only)."""
     import torch
@@ -4027,6 +4210,9 @@ def main(argv) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from accelerate_tpu_torch import Llama, LlamaConfig
     from accelerate_tpu_torch.ops.kernels import _build
+
+    if "--launched-worker" in argv:  # phase 19 A's child, under the launcher
+        return launched_worker()
 
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
@@ -4098,6 +4284,13 @@ def main(argv) -> int:
         card = card_info()
         log(f"device: {card} (the CV examples launch no kernel of the port)")
         cv_phase(card)
+        print(card)
+        return 0
+    if "--launch" in argv:
+        _build.build(["fused_update"])
+        card = card_info()
+        log(f"build: fused_update in {time.perf_counter() - t0:.1f} s; device: {card}")
+        log(f"phase 19 launches: {launch_phase(card)}")
         print(card)
         return 0
     if "--splash-times" in argv:
@@ -4184,16 +4377,18 @@ def main(argv) -> int:
     big_counts = big_model_phase(card)
     free_cuda()
     cv_counts = cv_phase(card)
-    for row in rows:  # phase 7's launches plus those of phases 11 to 18
+    free_cuda()
+    launch_counts = launch_phase(card)
+    for row in rows:  # phase 7's launches plus those of phases 11 to 19
         later = [counts.get(row["name"], 0) for counts in (loop_counts, ckpt_counts,
                                                            shard_counts, precision_counts,
                                                            tp_counts, pp_counts, big_counts,
-                                                           cv_counts)]
+                                                           cv_counts, launch_counts)]
         if any(later):
             log(f"kernel {row['name']}: {row['launches']} launches in phase 7, {later[0]} in "
                 f"phase 11, {later[1]} in phase 12, {later[2]} in phase 13, {later[3]} in "
                 f"phase 14, {later[4]} in phase 15, {later[5]} in phase 16, {later[6]} in "
-                f"phase 17, {later[7]} in phase 18")
+                f"phase 17, {later[7]} in phase 18, {later[8]} in phase 19")
             row["launches"] += sum(later)
     for row in precision_rows:  # phase 14's launches plus phase 15's fp16 arms'
         if tp_counts.get(row["name"]):

@@ -429,6 +429,34 @@ def test_entry_points_default_to_the_card(pair, checkpoint, tmp_path):
             lambda: tbm.cpu_offload_with_hook(Llama(tm.config, device="cpu")),
             lambda: T.init_on_device("cuda").__enter__(),
             lambda: T.Llama(T.LlamaConfig.tiny()),
-            lambda: T.ConvNetForImageClassification(T.ConvNetConfig.tiny())):
+            lambda: T.ConvNetForImageClassification(T.ConvNetConfig.tiny()),
+            # The launcher's entry points (slice 18): a notebook gang and a
+            # process of a launched gang (the contract without --cpu).
+            lambda: T.notebook_launcher(_noop, num_processes=2),
+            lambda: _contract_state()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
+    from accelerate_tpu_torch.commands import launch
+
+    with pytest.raises(RuntimeError, match="pass --cpu"):  # one process per card: none here
+        launch.launch(launch._merge_config(launch.launch_command_parser().parse_args(
+            ["script.py"])), ["true"])
+
+
+def _noop():
+    pass
+
+
+def _contract_state():
+    """``PartialState()`` as a launched process makes it: rank 0 of 2, no
+    ``ACCELERATE_USE_CPU``."""
+    from accelerate_tpu_torch.utils.environment import patch_environment
+
+    with patch_environment(RANK="0", WORLD_SIZE="2", LOCAL_RANK="0",
+                           MASTER_ADDR="127.0.0.1", MASTER_PORT="1"):
+        saved = os.environ.pop("ACCELERATE_USE_CPU", None)
+        try:
+            return T.PartialState()
+        finally:
+            if saved is not None:
+                os.environ["ACCELERATE_USE_CPU"] = saved
