@@ -47,7 +47,10 @@ cards, ``load_checkpoint_and_dispatch``, weight-only int8/int4
 quantization: ``big_modeling.py``, ``hooks.py``, ``utils/modeling.py``,
 ``utils/offload.py``, ``utils/quantization.py``, exported lazily as in the
 JAX package) and the CV examples' convnet (``models/vision.py``,
-``examples/cv_example.py``). ROADMAP.md lists what comes next.
+``examples/cv_example.py``); the launcher and the CLI (``commands/``); and
+mixture of experts with the ep axis (``MoELlama``, ``models/moe.py``,
+``ops/moe.py``, ``mixtral_config_from_hf``, ``ParallelismConfig(ep_size=)``).
+ROADMAP.md lists what comes next.
 
 Entry points run on the card by default and raise without one unless the
 caller passes ``device="cpu"``.
@@ -72,6 +75,8 @@ from .models import (
     ConvNetForImageClassification,
     Llama,
     LlamaConfig,
+    MoELlama,
+    MoELlamaConfig,
     bert_config_from_hf,
     bert_params_from_numpy,
     convnet_params_from_numpy,
@@ -79,6 +84,8 @@ from .models import (
     gemma_config_from_hf,
     llama_config_from_hf,
     llama_params_from_numpy,
+    mixtral_config_from_hf,
+    moe_llama_params_from_numpy,
     optax_state_from_numpy,
     qwen2_config_from_hf,
     qwen3_config_from_hf,
@@ -173,6 +180,8 @@ __all__ = [
     "LoopbackShards",
     "LoopbackTP",
     "MegatronStylePlugin",
+    "MoELlama",
+    "MoELlamaConfig",
     "ParallelismConfig",
     "PipelineParallelPlugin",
     "PartialState",
@@ -210,6 +219,8 @@ __all__ = [
     "llama_params_from_numpy",
     "load_and_quantize_model",
     "load_checkpoint_and_dispatch",
+    "mixtral_config_from_hf",
+    "moe_llama_params_from_numpy",
     "optax_state_from_numpy",
     "optim",
     "polynomial_schedule",

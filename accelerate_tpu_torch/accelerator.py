@@ -176,6 +176,18 @@ spec)``, 1F1B through ``parallel/pipeline.train_1f1b``. The imperative
 loop (``backward`` / ``optimizer.step()``) under pp is not ported yet and
 raises.
 
+Expert parallelism (``ParallelismConfig(ep_size=)`` or
+``ACCELERATE_MESH_SHAPE=ep:N``, alone or with dp, fsdp and tp; a
+``MoELlama``, ``models/moe.py``) runs on shards too: the expert stacks
+split over ep on their expert dim, the ep ranks of one data coordinate
+read the same rows, every rank routes every token and runs its own
+experts, and the layer's partial outputs meet in one all-reduce over the
+expert group (``ops/moe.py``); gradients are never summed over ep. With
+the rows split over data ranks, the router loss's top-1 fractions are
+those of the global batch (``ops/moe.py``: an all-reduce a layer on a
+process group; in the loopback, a first forward of every data
+coordinate without autograd records them). ep with pp or with sp raises.
+
 The process controls of the JAX package (``accelerator.py:671-689, 1033-1052,
 1751-1762``) delegate to the state (``state.ProcessView``):
 ``split_between_processes``, ``main_process_first``,
@@ -202,6 +214,7 @@ from .data_loader import DataLoaderShard, prepare_data_loader, skip_first_batche
 from .models.llama import Llama
 from .modules import Module
 from .ops.fused_update import fused_update_apply, reference_update_apply
+from .ops.moe import DataRouterStats, RecordedRouterStats
 from .ops.registry import resolve_spec
 from .optim import GradientTransformation
 from .optimizer import AcceleratedOptimizer, GradScalerState, clip_factor, global_norm
@@ -322,6 +335,9 @@ class PreparedModel:
             return self._sharded_call(args, kwargs)
         if acc.state.sp_size > 1:
             return self._sequence_parallel_call(args, kwargs)
+        stats = acc._router_stats(module, share=False) if acc.mesh is not None else None
+        if stats is not None:
+            kwargs = dict(kwargs, router_stats=stats)
         if not self.training:
             with torch.no_grad():
                 return module.apply(self._cast(handle.params), *args, train=False,
@@ -386,6 +402,9 @@ class PreparedModel:
         if sp_group is not None:
             kwargs = self._sequence_shard(args, kwargs, engine.coord(rank)["sp"],
                                           engine.sizes["sp"], sp_group)
+        stats = acc._router_stats(handle.module, share=False)
+        if stats is not None:
+            kwargs = dict(kwargs, router_stats=stats)
         if not self.training:
             aliases, anchor = engine.begin(None)
             with torch.no_grad():
@@ -454,11 +473,15 @@ class PreparedModel:
                 "imperative prepared-model forward only; use "
                 "PipelineParallelPlugin(schedule='gpipe') with this training path.")
 
+        stats = self.accelerator._router_stats(module, share=True) if mesh is not None else None
+
         def loss_of(params, batch):
             if mesh is not None and "targets" in batch:
                 count = (batch["targets"] != -100).sum()
                 batch = dict(batch, sp_group=mesh.get_group("sp"),
                              loss_normalizer=reduce(count, reduction="sum").clamp(min=1))
+                if stats is not None:
+                    batch["router_stats"] = stats
             outputs = module.apply(cast(params), kernels=kernels, **batch)
             if loss_fn is not None:
                 return loss_fn(outputs, batch)
@@ -610,6 +633,13 @@ class Accelerator:
         if sizes["pp"] > 1 and sizes["sp"] > 1:
             raise NotImplementedError("pp together with sp is not ported yet (ROADMAP.md, "
                                       "Queue 1: pp with sp and with ep)")
+        if sizes["ep"] > 1 and sizes["pp"] > 1:
+            raise NotImplementedError("ep together with pp is not ported (the JAX package "
+                                      "tests MoE under pp only without ep; ROADMAP.md, "
+                                      "Queue 1: pp with sp and with ep)")
+        if sizes["ep"] > 1 and sizes["sp"] > 1:
+            raise NotImplementedError("ep together with sp is not ported (ROADMAP.md, "
+                                      "Queue 1 item 5)")
         if gradient_accumulation_plugin is None:
             # JAX accelerator.py:422-436: the environment is a default, not an
             # override; any value passed (1 too) wins over the launcher's.
@@ -701,14 +731,14 @@ class Accelerator:
 
     @property
     def mesh(self):
-        """The ``("pp", "dp", "fsdp", "sp", "tp")`` ``DeviceMesh``, or None
+        """The ``("pp", "dp", "fsdp", "ep", "sp", "tp")`` ``DeviceMesh``, or None
         for one process without sequence parallelism (or with a
         loopback)."""
         return self.state.mesh
 
     @property
     def mesh_sizes(self) -> dict:
-        """``{"pp", "dp", "fsdp", "sp", "tp"}`` of the job: its process mesh,
+        """``{"pp", "dp", "fsdp", "ep", "sp", "tp"}`` of the job: its process mesh,
         its loopback's ranks, or one rank."""
         cfg = self.state.parallelism_config
         if self.loopback is not None:
@@ -719,6 +749,20 @@ class Accelerator:
     def num_data_ranks(self) -> int:
         """How many ways a batch's rows split: dp x fsdp."""
         return data_parallel_degree(self.mesh_sizes)
+
+    def _router_stats(self, module, share: bool):
+        """The router loss's statistics over the data ranks
+        (``ops/moe.py``) for a model that sows auxiliary losses, or None
+        when the rows are whole. ``share``: each rank's loss is its share
+        of the global mean (the fused steps), else the mean of its rows
+        (the imperative loop)."""
+        n = self.num_data_ranks
+        if n == 1 or not getattr(module, "scan_aux_keys", ()):
+            return None
+        scale = 1.0 / n if share else 1.0
+        if self.loopback is not None:
+            return RecordedRouterStats(scale)
+        return DataRouterStats(self.state.data_group, n, scale)
 
     @property
     def fp8_backend(self):
@@ -972,7 +1016,7 @@ class Accelerator:
             compute_dtype = torch.float32  # AutocastKwargs(enabled=False): f32 compute
         handle = TrainHandle(model, params, compute_dtype, dev)
         sizes = self.mesh_sizes
-        if sizes["fsdp"] > 1 or sizes["tp"] > 1 or sizes["pp"] > 1 or \
+        if sizes["fsdp"] > 1 or sizes["tp"] > 1 or sizes["pp"] > 1 or sizes["ep"] > 1 or \
                 self.loopback is not None or (self.zero_sharding and sizes["dp"] > 1):
             self._shard(handle)
         model.params = handle.params  # the user's handle sees the prepared parameters
@@ -990,6 +1034,13 @@ class Accelerator:
                 f"stacked layers one index at a time, as Llama does; {type(module).__name__} "
                 "is not ported to it yet (ROADMAP.md, module queue)")
         sizes = self.mesh_sizes
+        n_experts = getattr(module.config, "num_experts", None)
+        if n_experts is not None and (n_experts % sizes["ep"]
+                                      or module.config.intermediate_size % sizes["tp"]):
+            raise NotImplementedError(
+                f"{n_experts} experts of width {module.config.intermediate_size} do not split "
+                f"over ep={sizes['ep']} and tp={sizes['tp']}; the expert group takes the "
+                "experts split over ep and their columns over tp")
         plugin = self.fsdp_plugin
         specs = plan_param_shardings(handle.params, sizes, rules=module.sharding_rules(),
                                      min_shard_size=plugin.min_shard_size if plugin else 2**14)
@@ -999,7 +1050,7 @@ class Accelerator:
             compute_dtype=handle.compute_dtype,
             reshard_after_forward=plugin.reshard_after_forward if plugin else True,
             sp_loopback=LoopbackUlysses if module.config.attention_impl == "ulysses"
-            else LoopbackRing)
+            else LoopbackRing, expert_group=self.state.expert_group)
         handle.pipeline_spec = self._pipeline_spec(handle)
         handle.params = handle.sharded.param_tree(handle.sharded.ranks[0])
         if module.params is not None and module.params is not handle.params:
@@ -1612,16 +1663,27 @@ class Accelerator:
             scale = None if scaler is None else torch.full((), scaler.scale,
                                                            dtype=torch.float32, device=dev)
 
+            stats = self._router_stats(module, share=True)
+
             def forward(unit, tree):
                 out = module.apply(tree, kernels=self.kernels, loss_normalizer=normalizer,
-                                   pipeline=spec, **engine.unit_context(unit), **shards[unit])
+                                   pipeline=spec, router_stats=stats,
+                                   **engine.unit_context(unit), **shards[unit])
                 loss = out["loss"] if loss_fn is None else loss_fn(out, shards[unit])
                 return loss if scale is None else loss * scale
 
             with torch.no_grad():
+                if isinstance(stats, RecordedRouterStats):  # every data coordinate's routing
+                    aliases, anchor = engine.begin(None)
+                    for u in engine.units:
+                        module.apply(engine.rank_tree(u, aliases, anchor), kernels=self.kernels,
+                                     loss_normalizer=normalizer, pipeline=spec,
+                                     router_stats=stats, **engine.unit_context(u), **shards[u])
+                    engine._sink = engine._bank = None
+                    stats.replay = True
                 if one_f_one_b:
                     loss = self._forward_backward_1f1b(engine, spec, module, shards, normalizer,
-                                                       scale, sink)
+                                                       scale, sink, stats)
                 else:
                     loss = engine.forward_backward(forward, sink)
                     if scale is not None:
@@ -1633,7 +1695,8 @@ class Accelerator:
 
         return step
 
-    def _forward_backward_1f1b(self, engine, spec, module, shards, normalizer, scale, sink):
+    def _forward_backward_1f1b(self, engine, spec, module, shards, normalizer, scale, sink,
+                               stats=None):
         """Every forward unit's 1F1B schedule (``parallel/pipeline.
         train_1f1b``), the gradients into ``sink`` as
         ``engine.forward_backward`` delivers them, those of the leaves
@@ -1648,7 +1711,8 @@ class Accelerator:
                     tree = engine.rank_tree(unit, aliases, anchor)
                 loss = train_1f1b(spec, module, tree, shards[unit], normalizer=normalizer,
                                   dtype=engine.compute_dtype, scale=scale,
-                                  unit_ctx=engine.unit_context(unit), kernels=self.kernels,
+                                  unit_ctx=dict(engine.unit_context(unit), router_stats=stats),
+                                  kernels=self.kernels,
                                   hooks=engine.hooks)
                 total = loss if total is None else total + loss
             engine.end(aliases)

@@ -3,9 +3,9 @@ counterpart of ``accelerate_tpu/commands/config.py``.
 
 The wizard asks what the port can honour: the machines and the processes
 of each (one per card, or gloo ranks on the CPU), the mesh sizes (dp,
-fsdp, tp, pp, sp), the fsdp and pipeline options, gradient accumulation,
+fsdp, tp, pp, sp, ep), the fsdp and pipeline options, gradient accumulation,
 checkpointing, trackers, the train window, ZeRO and the precision. It does
-not ask about the JAX package's multi-slice pods, ep axis, compilation
+not ask about the JAX package's multi-slice pods, compilation
 cache, preemption and elastic training, health guards, telemetry, serving
 tiers and levers, Pallas kernels or autotuner (``config_args.UNPORTED_FIELDS``).
 """
@@ -71,6 +71,7 @@ def get_user_input() -> ClusterConfig:
     tp = _ask("  tensor-parallel (tp) size", 1, int)
     pp = _ask("  pipeline-parallel (pp) size", 1, int)
     sp = _ask("  sequence-parallel (sp) size", 1, int)
+    ep = _ask("  expert-parallel (ep) size", 1, int)
     min_shard, cpu_offload = 0, False
     if fsdp > 1 or fsdp in (0, -1):
         if _yesno("Do you want to configure FSDP options?", False):
@@ -108,7 +109,7 @@ def get_user_input() -> ClusterConfig:
         num_machines=num_machines, machine_rank=machine_rank, num_processes=num_processes,
         main_process_ip=ip, main_process_port=port, mixed_precision=mixed_precision,
         use_cpu=use_cpu, dp_size=dp, fsdp_size=fsdp, tp_size=tp, pp_size=pp, sp_size=sp,
-        gradient_accumulation_steps=accum, fsdp_min_shard_size=min_shard,
+        ep_size=ep, gradient_accumulation_steps=accum, fsdp_min_shard_size=min_shard,
         fsdp_cpu_offload=cpu_offload, pp_schedule=pp_schedule, pp_microbatches=pp_mbs,
         project_dir=project_dir, checkpoint_total_limit=ckpt_limit,
         checkpoint_auto_naming=ckpt_auto, log_with=log_with, train_window=train_window,

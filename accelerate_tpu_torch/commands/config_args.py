@@ -41,7 +41,6 @@ UNPORTED_FIELDS = {
     "downcast_bf16": _XLA,
     "compile_cache_dir": _XLA,
     "xla_preset": _XLA,
-    "ep_size": "the ep axis is not ported yet (ROADMAP.md, Queue 1 item 5)",
     "dcn_size": "the dcn axis is not ported yet (ROADMAP.md, Queue 1 item 5)",
     "handle_preemption": _RESILIENCE,
     "fault_plan": _RESILIENCE,
@@ -204,12 +203,12 @@ class ClusterConfig:
 
 def check_ported(cfg: ClusterConfig) -> None:
     """Raise for a field the port cannot honour (:data:`UNPORTED_FIELDS`)
-    set to anything but its default, and for unknown keys. The mesh's ep
-    and dcn axes pass at their neutral sizes (ep 1, dcn 0 or 1)."""
+    set to anything but its default, and for unknown keys. The mesh's dcn
+    axis passes at its neutral sizes (0 or 1)."""
     defaults = ClusterConfig()
     for name, why in UNPORTED_FIELDS.items():
         value = getattr(cfg, name)
-        if name == "ep_size" and value == 1 or name == "dcn_size" and value in (0, 1):
+        if name == "dcn_size" and value in (0, 1):
             continue
         if value != getattr(defaults, name):
             raise NotImplementedError(f"launch: `{name}` = {value!r} cannot be honoured by the "

@@ -8,11 +8,12 @@ under ``big_modeling.init_empty_weights`` (the JAX package's
 a zoo preset (the JAX package's Llama and BERT presets, and
 ``llama-3-8b`` and ``gemma-2-9b`` at their published widths), a local
 Hugging Face ``config.json`` of a family the port has (Llama, Mistral,
-Gemma, Gemma-2, Qwen2, Qwen3 and BERT), or a Hub id whose ``config.json``
-is in the local Hugging Face cache: nothing is fetched from the network.
-The JAX package's t5, gpt-j, gpt-neox and opt presets, and configs of the
-other families (gpt2, gptx, t5, whisper, vit, phi3, mixtral), raise
-``NotImplementedError``: those models are not ported yet.
+Gemma, Gemma-2, Qwen2, Qwen3, Mixtral, the last as ``MoELlama``, and
+BERT), or a Hub id whose ``config.json`` is in the local Hugging Face
+cache: nothing is fetched from the network. The JAX package's t5, gpt-j,
+gpt-neox and opt presets, and configs of the other families (gpt2, gptx,
+t5, whisper, vit, phi3), raise ``NotImplementedError``: those models are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ UNPORTED_PRESETS = {"t5-small": "t5", "t5-base": "t5", "t5-large": "t5", "gpt-j-
                     "gpt-neox-20b": "gpt_neox", "opt-30b": "opt"}
 _UNPORTED_FAMILIES = {
     "gpt2": "item 8", "gpt_neox": "item 8", "gptj": "item 8", "opt": "item 8", "t5": "item 8",
-    "whisper": "item 8", "vit": "item 8", "phi3": "item 8", "mixtral": "item 5 (the ep axis)",
+    "whisper": "item 8", "vit": "item 8", "phi3": "item 8",
 }
 # config.json "architectures" names -> model_type (the JAX package's list).
 _ARCHITECTURES = (("mixtral", "mixtral"), ("gemma2", "gemma2"), ("gemma", "gemma"),
@@ -86,7 +87,7 @@ def _model_from_hf_config(hf: dict):
     the config converters; a Llama-family config that its converter refuses
     for a feature the shapes do not need (an activation, a rope recipe) is
     sized from its size keys alone, as in the JAX package."""
-    from ..models import BertForSequenceClassification, Llama, LlamaConfig
+    from ..models import BertForSequenceClassification, Llama, LlamaConfig, MoELlama
     from ..models.convert import _get_converter
 
     model_type = hf.get("model_type")
@@ -99,12 +100,17 @@ def _model_from_hf_config(hf: dict):
     if model_type == "bert":
         return BertForSequenceClassification(config_fn(hf), device="cpu")
     try:
-        return Llama(config_fn(hf), device="cpu")
-    except (ValueError, KeyError):
+        return (MoELlama if model_type == "mixtral" else Llama)(config_fn(hf), device="cpu")
+    except (ValueError, KeyError) as exc:
         size_keys = ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
                      "num_attention_heads")
         if not all(k in hf for k in size_keys):
             raise
+        if "num_local_experts" in hf or "num_experts" in hf:
+            raise ValueError(
+                "MoE config rejected by its converter and the dense-Llama size fallback would "
+                "silently drop the expert FFNs (Mixtral-8x7B would read ~3.6x small) — fix "
+                f"the config feature the converter flagged: {exc}") from exc
         return Llama(LlamaConfig(
             **{k: hf[k] for k in size_keys},
             num_key_value_heads=hf.get("num_key_value_heads", hf["num_attention_heads"]),

@@ -69,7 +69,7 @@ from .config_args import UNPORTED_FIELDS, ClusterConfig, check_ported, load_conf
 # honour (config_args.UNPORTED_FIELDS): they parse, and the launch raises.
 _UNPORTED_SWITCHES = ("handle_preemption", "guard_numerics")
 _UNPORTED_TRISTATES = ("elastic", "telemetry", "fleet_metrics")
-_NO_FLAG = ("compute_environment", "downcast_bf16", "ep_size", "dcn_size")
+_NO_FLAG = ("compute_environment", "downcast_bf16", "dcn_size")
 _UNPORTED_FLAGS = tuple(f for f in UNPORTED_FIELDS if f not in _NO_FLAG)
 # Flags that set a field of the same name (--cpu sets use_cpu).
 _PORTED_FLAGS = ("num_processes", "num_machines", "machine_rank", "main_process_ip",

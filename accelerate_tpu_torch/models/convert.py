@@ -4,8 +4,8 @@ Maps a Hugging Face ``config.json`` (a ``transformers`` config object or a
 plain dict) onto the port's :class:`LlamaConfig`, with the JAX package's
 names and behaviour: the Llama recipe (also Mistral's), Gemma, Gemma-2
 (alternating local and global layers, score and logit softcaps,
-``query_pre_attn_scalar``, sandwich norms), Qwen2 and Qwen3; and BERT onto
-:class:`BertConfig`. Features the model does not implement raise instead of
+``query_pre_attn_scalar``, sandwich norms), Qwen2 and Qwen3; Mixtral onto
+:class:`MoELlamaConfig`; and BERT onto :class:`BertConfig`. Features the model does not implement raise instead of
 converting silently.
 
 The state-dict converters (``*_params_from_hf``) are not ported yet
@@ -19,6 +19,7 @@ import dataclasses
 
 from .bert import BertConfig
 from .llama import SUPPORTED_ROPE_TYPES, LlamaConfig
+from .moe import MoELlamaConfig
 
 # Rope types a config may name: the five both packages' models compute.
 CONFIG_ROPE_TYPES = SUPPORTED_ROPE_TYPES
@@ -210,6 +211,45 @@ def bert_config_from_hf(hf_config) -> BertConfig:
 # ----------------------------------------------------------------- dispatcher
 # model_type -> config converter. Mistral is the Llama recipe with a sliding
 # window, which the Llama converter carries from the config.
+# -------------------------------------------------------------------- mixtral
+def mixtral_config_from_hf(hf_config) -> MoELlamaConfig:
+    """Mixtral: Llama attention and norms with a top-k sparse MoE FFN (JAX
+    ``models/convert.py:551-589``). The renormalised top-k gate equals
+    Mixtral's softmax over the top-k logits, and ``capacity_factor =
+    num_experts / top_k`` drops no token, so converted inference is exact.
+    ``router_aux_loss_coef`` defaults to 0.001; an unsupported rope type
+    raises."""
+    get = _getter(hf_config)
+    rope_scaling = get("rope_scaling")
+    if rope_scaling:
+        rope_scaling = dict(rope_scaling)
+        rope_type = rope_scaling.get("rope_type", rope_scaling.get("type", "default"))
+        if rope_type not in SUPPORTED_ROPE_TYPES:
+            raise ValueError(f"rope_type={rope_type!r} is not supported by the zoo MoE Llama "
+                             f"(supported: {SUPPORTED_ROPE_TYPES})")
+    E = get("num_local_experts", 8)
+    k = get("num_experts_per_tok", 2)
+    coef = get("router_aux_loss_coef")
+    return MoELlamaConfig(
+        vocab_size=get("vocab_size"),
+        hidden_size=get("hidden_size"),
+        intermediate_size=get("intermediate_size"),
+        num_hidden_layers=get("num_hidden_layers"),
+        num_attention_heads=get("num_attention_heads"),
+        num_key_value_heads=get("num_key_value_heads") or get("num_attention_heads"),
+        max_position_embeddings=get("max_position_embeddings", 2048),
+        rms_norm_eps=get("rms_norm_eps", 1e-5),
+        rope_theta=get("rope_theta", 10000.0),
+        tie_word_embeddings=bool(get("tie_word_embeddings", False)),
+        num_experts=E,
+        moe_top_k=k,
+        capacity_factor=float(E) / k,
+        router_aux_coef=coef if coef is not None else 0.001,
+        rope_scaling=rope_scaling,
+        sliding_window=get("sliding_window"),
+    )
+
+
 _CONVERTERS = {
     "llama": llama_config_from_hf,
     "mistral": llama_config_from_hf,
@@ -218,4 +258,5 @@ _CONVERTERS = {
     "qwen2": qwen2_config_from_hf,
     "qwen3": qwen3_config_from_hf,
     "bert": bert_config_from_hf,
+    "mixtral": mixtral_config_from_hf,
 }

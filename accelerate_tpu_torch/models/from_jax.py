@@ -28,6 +28,7 @@ from ..utils.device import resolve_device
 from ..utils.tree import tree_map
 from .bert import BertConfig, BertForSequenceClassification
 from .llama import Llama, LlamaConfig
+from .moe import MoELlama, MoELlamaConfig
 from .vision import ConvNetConfig, ConvNetForImageClassification
 
 
@@ -64,6 +65,15 @@ def llama_params_from_numpy(tree, config: LlamaConfig, device=None, dtype=torch.
     on ``device`` in ``dtype``. Raises on a missing, extra or mis-shaped
     leaf instead of loading a partial model."""
     return _params_from_numpy(tree, _expected_shapes(Llama, config), device, dtype)
+
+
+def moe_llama_params_from_numpy(tree, config: MoELlamaConfig, device=None,
+                                dtype=torch.float32):
+    """Numpy MoELlama parameter tree (the JAX layout: ``layers/mlp`` holds
+    ``router`` (L,h,E), ``w_gate``/``w_up`` (L,E,h,i), ``w_down`` (L,E,i,h))
+    → the port's parameters, leaf for leaf; raises as
+    :func:`llama_params_from_numpy` does."""
+    return _params_from_numpy(tree, _expected_shapes(MoELlama, config), device, dtype)
 
 
 def bert_params_from_numpy(tree, config: BertConfig, device=None, dtype=torch.float32):

@@ -92,7 +92,15 @@ as without the pipeline. The 1F1B schedule drives :meth:`Llama.embed`,
 :meth:`Llama.run_layers` and :meth:`Llama.head` itself
 (``parallel/pipeline.train_1f1b``).
 
-Left out so far, and raising when set: MoE.
+Auxiliary losses (JAX ``models/llama.py:335-340, 545-550, 667-676,
+735-742``): a model whose block sows per-layer values (the MoE router loss,
+``models/moe.py``) names their keys in ``scan_aux_keys``; the block's MLP
+writes each into the per-layer context it is given, :meth:`Llama.run_layers`
+returns their sums over its layers (out of the remat region, as the JAX scan
+returns them), :meth:`Llama.apply` divides by the layer count (GPipe: by
+layers times microbatches) and :meth:`Llama.finalize_aux` folds them into the
+output. ``aux_loss_coefs`` tells the 1F1B schedule how each enters the loss.
+The dense model has none.
 """
 
 from __future__ import annotations
@@ -399,6 +407,19 @@ class Llama(Module):
     _WINDOW_FROM_CONFIG = object()  # sentinel: use cfg.sliding_window
     # The embed / block / head stage protocol the pipeline schedules drive.
     pipeline_capable = True
+    # Context keys a block sows per layer (the MoE router loss); none here.
+    scan_aux_keys: tuple = ()
+
+    def aux_loss_coefs(self) -> dict:
+        """How each ``scan_aux_keys`` entry enters the total loss (its
+        coefficient); the 1F1B schedule reads it. It must agree with
+        :meth:`finalize_aux`."""
+        return {}
+
+    def finalize_aux(self, out, aux: dict):
+        """Fold the per-layer means of the sown values into the output (the
+        dense model has none)."""
+        return out
 
     def __init__(self, config: LlamaConfig, device=None):
         resolve_remat_policy(config.remat_policy, config.remat_save_names)
@@ -798,35 +819,42 @@ class Llama(Module):
 
     def apply(self, params, input_ids=None, labels=None, attention_mask=None,
               positions=None, cache=None, kernels=None, targets=None, loss_normalizer=None,
-              sp_group=None, tp=None, **kwargs):
+              sp_group=None, tp=None, experts=None, router_stats=None, **kwargs):
         """Forward. ``kernels`` is the registry spec for the kernels the
         forward runs: the uncached attention's flash, splash or ring-block
         ops and, with ``matmul_precision="int8"``, the int8 matmul
         (``None``: the CUDA kernels for CUDA tensors; ``"off"``: their plain
         versions). ``targets``, ``loss_normalizer`` and ``sp_group`` serve a
-        sequence shard, ``tp`` a tp rank's pieces, ``pipeline`` a
+        sequence shard, ``tp`` a tp rank's pieces, ``experts`` the expert
+        group of a mixture-of-experts layer and ``router_stats`` its router
+        loss over data ranks (``ops/moe.py``), ``pipeline`` a
         ``PipelineSpec`` (module docstring)."""
         pipeline = kwargs.get("pipeline")
         if cache is not None:
             return self._apply_cached(params, input_ids, attention_mask, cache,
                                       labels=labels, positions=positions, kernels=kernels)
         x, ctx = self.embed(params, input_ids, positions, attention_mask, tp=tp)
-        ctx["kernels"] = kernels
-        ctx["sp_group"] = sp_group
-        ctx["tp"] = tp
+        ctx.update(kernels=kernels, sp_group=sp_group, tp=tp, experts=experts,
+                   router_stats=router_stats)
+        L = self.config.num_hidden_layers
         if pipeline is not None:
-            x = pipeline.run(self, params["layers"], x, ctx)
+            x, aux = pipeline.run(self, params["layers"], x, ctx)
         else:
-            x = self.run_layers(params["layers"], x, ctx, 0, self.config.num_hidden_layers)
-        return self.head(params, x, labels=labels, attention_mask=attention_mask,
-                         targets=targets, loss_normalizer=loss_normalizer, tp=tp)
+            x, aux = self.run_layers(params["layers"], x, ctx, 0, L)
+            aux = {k: v / L for k, v in aux.items()}
+        out = self.head(params, x, labels=labels, attention_mask=attention_mask,
+                        targets=targets, loss_normalizer=loss_normalizer, tp=tp)
+        return self.finalize_aux(out, aux)
 
     def run_layers(self, layers, x, ctx, start: int, stop: int):
         """Layers ``start .. stop - 1`` (global indices) of the stack on the
         residual stream, each with its window; under remat and autograd each
         block runs inside a checkpoint region, its layer indexed (gathered,
-        when sharded) inside the region."""
+        when sharded) inside the region. Returns ``(x, aux)``: each
+        ``scan_aux_keys`` value summed over these layers (each block sows
+        into its own copy of ``ctx``, which names its ``layer``)."""
         cfg = self.config
+        keys = tuple(self.scan_aux_keys)
         remat = cfg.remat and torch.is_grad_enabled()
         if remat:
             from torch.utils.checkpoint import checkpoint
@@ -834,15 +862,23 @@ class Llama(Module):
             context_fn = _remat_context_fn(*resolve_remat_policy(cfg.remat_policy,
                                                                  cfg.remat_save_names))
             extra = {} if context_fn is None else {"context_fn": context_fn}
+
+        def layer_fn(x, i, window):
+            ctx_call = dict(ctx, layer=i)
+            x = self.block(_index_tree(layers, i), x, ctx_call, window=window)
+            return (x,) + tuple(ctx_call.pop(k) for k in keys)
+
+        sums = {}
         for i in range(start, stop):
             window = self._layer_window(i)
             if remat:
-                x = checkpoint(lambda x, i=i, window=window: self.block(
-                    _index_tree(layers, i), x, ctx, window=window), x, use_reentrant=False,
-                    **extra)
+                got = checkpoint(layer_fn, x, i, window, use_reentrant=False, **extra)
             else:
-                x = self.block(_index_tree(layers, i), x, ctx, window=window)
-        return x
+                got = layer_fn(x, i, window)
+            x = got[0]
+            for k, v in zip(keys, got[1:]):
+                sums[k] = v if k not in sums else sums[k] + v
+        return x, sums
 
     def _apply_cached(self, params, input_ids, attention_mask, cache, labels=None,
                       positions=None, kernels=None):

@@ -1,4 +1,4 @@
-"""Sharded training: the fsdp, tp and pp axes, ZeRO over dp, and sp beside them.
+"""Sharded training: the fsdp, tp, ep and pp axes, ZeRO over dp, and sp beside them.
 
 The JAX package lays each parameter out by a ``PartitionSpec`` and lets
 GSPMD insert the collectives (``accelerate_tpu/accelerator.py:884-886,
@@ -10,8 +10,10 @@ of ``parallel/sharding.py`` choose:
   ``plan_param_shardings``) as its own contiguous f32 tensor, and its
   accumulation buffer in the same layout. A base spec may split one dim
   over the fsdp axis and another over the tp axis (the Llama rules: wq
-  ``(pp, fsdp, tp)``, wo ``(pp, tp, fsdp)``, the embedding ``(tp, fsdp)``);
-  other specs raise. Leaves the plan replicates (the norms, leaves under
+  ``(pp, fsdp, tp)``, wo ``(pp, tp, fsdp)``, the embedding ``(tp, fsdp)``),
+  and one more over the ep axis (a mixture-of-experts layer's expert dim:
+  ``w_gate`` ``(pp, ep, fsdp, tp)``); other specs raise. Leaves the plan
+  replicates (the norms, leaves under
   ``min_shard_size``) are whole on every rank. A stacked ``(L, ...)`` leaf
   split on its layer dim over pp is the rank's own contiguous block of
   ``L / pp`` layers (a pipeline stage's, ``parallel/pipeline.py``): it is
@@ -23,9 +25,10 @@ of ``parallel/sharding.py`` choose:
   must lie in a stage this process holds), the others (the embedding, the
   LM head) whole. A gather casts the shards to the compute dtype first and
   all-gathers them along the fsdp dim (``utils/operations.all_gather_along``).
-  A leaf split over tp keeps its tp split: the model receives it as a list
-  of the tp ranks' pieces this process holds (one on a process group) and
-  runs Megatron's split on it (``parallel/tensor.py``, ``models/llama.py``).
+  A leaf split over tp or ep keeps that split: the model receives it as a
+  list of the pieces this process holds (one on a process group; over ep
+  and tp, ep major) and runs Megatron's split, or its experts, on it
+  (``parallel/tensor.py``, ``models/llama.py``, ``ops/moe.py``).
   With ``reshard_after_forward`` a gathered tensor that autograd would keep
   for the backward is dropped and gathered again when the backward reads it
   (``saved_tensors_hooks``); under remat the whole layer is gathered again
@@ -33,9 +36,10 @@ of ``parallel/sharding.py`` choose:
 - **Backward.** A gathered leaf's gradient, in f32, is reduce-scattered over
   fsdp (summed) when the leaf is split there, all-reduced over the other
   axes of dp, fsdp and sp, and added into the owning shard of the
-  accumulation buffer. It is never summed over tp: a tp rank's gradient of
-  its own piece is whole, and a replicated leaf's is the same on every tp
-  rank (Megatron's conjugate ops make it so). Over pp, a stage's layers
+  accumulation buffer. It is never summed over tp or ep: a rank's gradient
+  of its own piece is whole, and a replicated leaf's is the same on every tp
+  and ep rank (Megatron's conjugate ops make it so; the ep ranks see the
+  same rows). Over pp, a stage's layers
   have their own gradient; a leaf that every stage holds (the embedding,
   the head, the final norm) is summed over pp under the 1F1B schedule,
   where only the first and the last stage run those parts
@@ -50,8 +54,8 @@ of ``parallel/sharding.py`` choose:
   it owns, per leaf in the JAX leaf order, one all-reduce of that vector,
   then the leaves summed in order; a rank owns a slice when its coordinate
   is 0 on every axis the slice is replicated over (so a tp-split leaf
-  counts each tp piece once, a stage's layers once on each stage, and a
-  norm once). Under ZeRO
+  counts each tp or ep piece once, a stage's layers once on each stage, and
+  a norm once). Under ZeRO
   (``plan_zero_shardings``) a leaf's update covers the 1/dp slice of its
   base shard that the ZeRO spec gives this rank: the slice of the
   parameter and of the buffer is copied out contiguous, the fused update
@@ -60,7 +64,7 @@ of ``parallel/sharding.py`` choose:
   shard; the buffer is zeroed. Without ZeRO the kernel runs in place on the
   base shard. Either way it launches once per (rank, leaf), on shards only;
   in the loopback, once per distinct update slice of a leaf: ranks that
-  hold the same slice (replicas over dp without ZeRO, over tp or sp) would
+  hold the same slice (replicas over dp without ZeRO, over tp, ep or sp) would
   each make the same update, so the first of them makes it, and their
   optimizer states share that slice's moments (one card holds them once).
 - **Update statistics.** A transform that is not elementwise (adafactor's
@@ -76,9 +80,10 @@ One process holds one rank over a process group (NCCL on cards, gloo on the
 CPU), or all ``n`` ranks with :class:`LoopbackShards` (one card driving the
 kernels as n cards would, ``chip_smoke.py`` phases 13 and 15). The loopback
 runs one forward and backward per data coordinate (dp, fsdp), one after
-another; each covers that coordinate's pp, tp and sp ranks: the pp
-stages through the pipeline's loopback transport, the tp ranks in
-lockstep through ``parallel/tensor.LoopbackTP``, the sp ranks as one
+another; each covers that coordinate's pp, ep, tp and sp ranks: the pp
+stages through the pipeline's loopback transport, the tp and ep ranks in
+lockstep through ``parallel/tensor.LoopbackTP`` (each ep rank's partial
+combine through its own reduce), the sp ranks as one
 sequence whose position-wise work (the projections, the norms, the MLP)
 runs as one product over their concatenated shards, with ring or Ulysses
 attention over ``LoopbackRing`` / ``LoopbackUlysses`` in the middle. A
@@ -112,7 +117,9 @@ from .tensor import LoopbackTP, ProcessGroupTP
 REDUCE_AXES = ("dp", "fsdp", "sp")
 # The axes a base spec may split a parameter over (pp only the layer dim of a
 # stacked leaf).
-SPLIT_AXES = ("pp", "fsdp", "tp")
+SPLIT_AXES = ("pp", "fsdp", "ep", "tp")
+# The axes whose pieces a forward unit receives as a list (ep major).
+PIECE_AXES = ("ep", "tp")
 
 
 class LoopbackShards:
@@ -127,9 +134,8 @@ class LoopbackShards:
 
 
 def rank_coordinate(rank: int, sizes: dict) -> dict:
-    """``{"pp", "dp", "fsdp", "sp", "tp"}`` of ``rank`` on the mesh (rank =
-    (((pp_index * dp + dp_index) * fsdp + fsdp_index) * sp + sp_index) * tp
-    + tp_index)."""
+    """``{"pp", "dp", "fsdp", "ep", "sp", "tp"}`` of ``rank`` on the mesh
+    (``parallel/mesh.py``'s rank order, tp innermost)."""
     coord = {}
     for axis in reversed(MESH_AXES):
         n = int(sizes.get(axis, 1))
@@ -140,15 +146,14 @@ def rank_coordinate(rank: int, sizes: dict) -> dict:
 
 class _Layout:
     """One leaf's placement: its full shape, the dims its spec splits over
-    the pp, fsdp and tp axes (``splits``, ``{axis: dim}``; empty for a
+    the pp, fsdp, ep and tp axes (``splits``, ``{axis: dim}``; empty for a
     replicated leaf), and, under ZeRO, the dim its update slice further
     splits over dp (``zero_dim``)."""
 
     def __init__(self, path, shape, spec, sizes):
         self.path, self.shape, self.sizes = path, tuple(shape), sizes
         self.splits = _split(path, shape, spec, sizes)
-        self.fsdp_dim, self.tp_dim = self.splits.get("fsdp"), self.splits.get("tp")
-        self.pp_dim = self.splits.get("pp")
+        self.fsdp_dim, self.pp_dim = self.splits.get("fsdp"), self.splits.get("pp")
         self.local_shape = list(self.shape)
         for axis, d in self.splits.items():
             self.local_shape[d] //= sizes[axis]
@@ -176,9 +181,9 @@ class _Layout:
             self.update_shape[self.zero_dim] //= sizes["dp"]
 
     def key(self, coord) -> tuple:
-        """Which base shard a rank holds, ``(pp index, fsdp index, tp
-        index)`` of the axes the leaf is split over, 0 for the others (ranks
-        with one key share it)."""
+        """Which base shard a rank holds, ``(pp index, fsdp index, ep index,
+        tp index)`` of the axes the leaf is split over, 0 for the others
+        (ranks with one key share it)."""
         return tuple(coord[a] if a in self.splits else 0 for a in SPLIT_AXES)
 
     def local_of_key(self, full, key):
@@ -224,7 +229,7 @@ def _split(path, shape, spec, sizes) -> dict:
         if len(axes) > 1 or axes[0] not in SPLIT_AXES or axes[0] in out:
             raise NotImplementedError(
                 f"the spec {spec} of {path} splits a dim over {axes}; the sharded step takes "
-                "at most one dim over each of pp, fsdp and tp")
+                "at most one dim over each of pp, fsdp, ep and tp")
         out[axes[0]] = d
     return out
 
@@ -312,14 +317,17 @@ class ShardedModel:
     """The sharded parameters and accumulation buffer of one prepared model,
     and the collectives of its step (module docstring). ``params``: the full
     f32 tree, the same on every rank (rank 0's); ``specs``: the base plan's
-    tree (:meth:`set_zero_specs` adds ZeRO's); ``sizes``: the mesh's
-    ``{"dp", "fsdp", "sp", "tp"}``; ``comm``: a :class:`LoopbackShards`, or
-    None for this process's rank ``rank`` of ``mesh``, the job's
-    ``DeviceMesh``. ``sp_loopback``: the class of the loopback sp group a
-    forward unit hands the model (``LoopbackRing`` or ``LoopbackUlysses``)."""
+    tree (:meth:`set_zero_specs` adds ZeRO's); ``sizes``: the mesh's axis
+    sizes; ``comm``: a :class:`LoopbackShards`, or None for this process's
+    rank ``rank`` of ``mesh``, the job's ``DeviceMesh``. ``sp_loopback``:
+    the class of the loopback sp group a forward unit hands the model
+    (``LoopbackRing`` or ``LoopbackUlysses``). ``expert_group``: under ep x
+    tp on a process group, this rank's joint ep x tp group
+    (``parallel/tensor.py``)."""
 
     def __init__(self, params, specs, sizes, *, comm=None, mesh=None, rank=0,
-                 compute_dtype=torch.float32, reshard_after_forward=True, sp_loopback=None):
+                 compute_dtype=torch.float32, reshard_after_forward=True, sp_loopback=None,
+                 expert_group=None):
         self.sizes = {a: int(sizes.get(a, 1)) for a in MESH_AXES}
         self.loopback = isinstance(comm, LoopbackShards)
         world = 1
@@ -330,11 +338,11 @@ class ShardedModel:
                              f"{self.sizes}")
         self.ranks = comm.ranks if self.loopback else (int(rank),)
         # A forward unit: a process group's rank, or in the loopback one data
-        # coordinate with all its pp, tp and sp ranks (its pp 0, sp 0, tp 0
-        # rank).
-        self.units = tuple(r for r in self.ranks if not self.loopback or (
-            self.coord(r)["pp"] == 0 and self.coord(r)["sp"] == 0
-            and self.coord(r)["tp"] == 0))
+        # coordinate with all its pp, ep, tp and sp ranks (its rank at 0 on
+        # those axes).
+        self.units = tuple(r for r in self.ranks if not self.loopback or all(
+            self.coord(r)[a] == 0 for a in ("pp", "ep", "sp", "tp")))
+        self.expert_group = expert_group
         # Whether the gradients of the leaves every stage holds sum over pp
         # (the 1F1B schedule sets it for its steps; module docstring).
         self.pp_reduce = False
@@ -395,15 +403,24 @@ class ShardedModel:
 
     def unit_context(self, unit) -> dict:
         """What the model's forward of ``unit`` needs besides the tree:
-        ``tp`` (a ``parallel/tensor`` context, None without a tp axis) and
-        ``sp_group`` (the sp process group, a loopback sp group, or None)."""
-        tp = sp = None
-        if self.sizes["tp"] > 1:
-            tp = LoopbackTP(self.sizes["tp"]) if self.loopback else ProcessGroupTP(
-                self._group("tp"))
+        ``tp`` (a ``parallel/tensor`` context, None without a tp axis),
+        ``sp_group`` (the sp process group, a loopback sp group, or None)
+        and ``experts`` (the expert group over ep x tp, None when both have
+        size 1)."""
+        tp = sp = experts = None
+        n_tp, n_ep = self.sizes["tp"], self.sizes["ep"]
+        if n_tp > 1:
+            tp = LoopbackTP(n_tp) if self.loopback else ProcessGroupTP(self._group("tp"))
+        if n_ep * n_tp > 1:
+            if self.loopback:
+                experts = LoopbackTP(n_ep * n_tp, minor=n_tp)
+            else:
+                group = self.expert_group if n_ep > 1 and n_tp > 1 else self._group(
+                    "ep" if n_ep > 1 else "tp")
+                experts = ProcessGroupTP(group, minor=n_tp)
         if self.sizes["sp"] > 1:
             sp = self.sp_loopback(self.sizes["sp"]) if self.loopback else self._group("sp")
-        return {"tp": tp, "sp_group": sp}
+        return {"tp": tp, "sp_group": sp, "experts": experts}
 
     def _reduce(self, t, axes=None):
         """``t`` summed in place over this process group rank's ``axes`` of
@@ -520,11 +537,17 @@ class ShardedModel:
         return [r for r in self.ranks
                 if all(self.coord(r)[a] == coord[a] for a in MESH_AXES if a != axis)]
 
-    def _tp_indices(self, unit):
-        """The tp indices forward unit ``unit`` runs."""
-        if self.loopback:
-            return tuple(range(self.sizes["tp"]))
-        return (self.coord(unit)["tp"],)
+    def _pieces(self, unit, layout):
+        """The ``(ep index, tp index)`` of each piece of a leaf split over ep
+        or tp that forward unit ``unit`` receives, ep major (every index in
+        the loopback, the unit's own on a process group; 0 on an axis the
+        leaf is not split over); None for a leaf split over neither."""
+        if not any(a in layout.splits for a in PIECE_AXES):
+            return None
+        coord = self.coord(unit)
+        e_idx, t_idx = ((range(self.sizes[a]) if self.loopback else (coord[a],))
+                        if a in layout.splits else (0,) for a in PIECE_AXES)
+        return [(e, t) for e in e_idx for t in t_idx]
 
     def stage_layer(self, i, layer, unit=None):
         """``(stage, local index)`` of global layer ``layer`` of leaf ``i``
@@ -543,8 +566,9 @@ class ShardedModel:
     def gather(self, i, layer, unit, piece=None, dtype=None):
         """Leaf ``i`` (global layer ``layer`` of it, when not None) gathered
         over fsdp at ``dtype`` (the compute dtype) for forward unit
-        ``unit``: one tensor, or for a leaf split over tp a tuple of the
-        unit's tp pieces (only piece ``piece`` when given)."""
+        ``unit``: one tensor, or for a leaf split over ep or tp a tuple of
+        the unit's pieces (:meth:`_pieces`; only piece ``piece`` when
+        given)."""
         layout = self.layouts[i]
         dtype = self.compute_dtype if dtype is None else dtype
         coord = self.coord(unit)
@@ -554,22 +578,22 @@ class ShardedModel:
             t = shard if local is None else shard[local]
             return t.to(dtype)
 
-        def one(t):
+        def one(e, t):
             if layout.fsdp_dim is None:
-                return part(self.local[i][(stage, 0, t)])
+                return part(self.local[i][(stage, 0, e, t)])
             dim = layout.fsdp_dim - (layer is not None)
             if self.loopback:
-                return torch.cat([part(self.local[i][(stage, j, t)])
+                return torch.cat([part(self.local[i][(stage, j, e, t)])
                                   for j in range(self.sizes["fsdp"])], dim)
-            return all_gather_along(part(self.local[i][(stage, coord["fsdp"], t)]), dim,
+            return all_gather_along(part(self.local[i][(stage, coord["fsdp"], e, t)]), dim,
                                     self._group("fsdp"))
 
-        if layout.tp_dim is None:
-            return one(0)
-        indices = self._tp_indices(unit)
+        pieces = self._pieces(unit, layout)
+        if pieces is None:
+            return one(0, 0)
         if piece is not None:
-            return one(indices[piece])
-        return tuple(one(t) for t in indices)
+            return one(*pieces[piece])
+        return tuple(one(e, t) for e, t in pieces)
 
     @torch.no_grad()
     def full_leaf(self, i, update_slices=None, shards=None):
@@ -622,13 +646,18 @@ class ShardedModel:
                 self._bank[i] = torch.zeros(layout.shape, dtype=torch.float32,
                                             device=grads[0].device)
             bank = self._bank[i] if layer is None else self._bank[i][layer]
-            if layout.tp_dim is None:
+            pieces = self._pieces(unit, layout)
+            if pieces is None:
                 bank.add_(grads[0].float())
                 return
-            tp_dim = layout.tp_dim - (layer is not None)
-            n = layout.local_shape[layout.tp_dim]
-            for t, g in zip(self._tp_indices(unit), grads):
-                bank.narrow(tp_dim, t * n, n).add_(g.float())
+            for index, g in zip(pieces, grads):
+                view = bank
+                for axis, j in zip(PIECE_AXES, index):
+                    if axis in layout.splits:
+                        d = layout.splits[axis]
+                        n = layout.local_shape[d]
+                        view = view.narrow(d - (layer is not None), j * n, n)
+                view.add_(g.float())
             return
         part = grads[0].float()
         if layout.fsdp_dim is not None:
@@ -687,7 +716,7 @@ class ShardedModel:
         self._bank = {} if self.loopback else None
         self._pp_bank = {} if (self.pp_reduce and not self.loopback
                                and self.sizes["pp"] > 1) else None
-        aliases = {i: self.local[i][(0, 0, 0)].detach().requires_grad_(True)
+        aliases = {i: self.local[i][(0, 0, 0, 0)].detach().requires_grad_(True)
                    for i, layout in enumerate(self.layouts) if not layout.splits}
         return aliases, torch.zeros((), requires_grad=True)
 
@@ -721,7 +750,7 @@ class ShardedModel:
         for i, a in aliases.items():
             g = a.grad if a.grad is not None else torch.zeros_like(a)
             self._reduce(g)
-            self._sink(i, None, (0, 0, 0), g)
+            self._sink(i, None, (0, 0, 0, 0), g)
         self._sink = None
 
     def forward_backward(self, forward, sink):

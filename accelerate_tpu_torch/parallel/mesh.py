@@ -9,12 +9,13 @@ contiguous block of the layer stack, ``parallel/pipeline.py``), ``dp``
 optimizer state sharded, batch rows split; ``parallel/fsdp.py``), ``sp``
 (sequence parallel: the sequence split, with ring or Ulysses attention over
 the axis) and ``tp`` (tensor parallel: the Megatron split of the heads, the
-MLP's columns and the vocab; ``parallel/tensor.py``). The axis order is the
-JAX package's (``accelerate_tpu/parallel/mesh.py:136``, restricted to the
-ported axes: ``pp`` outermost, then ``dp``, ``fsdp``, ``sp``, and ``tp``
-innermost), so rank = (((pp_index * dp + dp_index) * fsdp + fsdp_index)
-* sp + sp_index) * tp + tp_index. The ep axis is not ported yet
-(ROADMAP.md) and raises when asked for.
+MLP's columns and the vocab; ``parallel/tensor.py``) and ``ep`` (expert
+parallel: each rank holds ``E / ep`` of a mixture-of-experts layer's experts
+and sees the same tokens as the other ep ranks; ``ops/moe.py``). The axis
+order is the JAX package's (``accelerate_tpu/utils/constants.py:177``
+without its ``dcn`` axis: ``pp`` outermost, then ``dp``, ``fsdp``, ``ep``,
+``sp``, and ``tp`` innermost), so rank = ((((pp_index * dp + dp_index) *
+fsdp + fsdp_index) * ep + ep_index) * sp + sp_index) * tp + tp_index.
 """
 
 from __future__ import annotations
@@ -24,8 +25,7 @@ from dataclasses import dataclass
 
 from ..utils.constants import ENV_MESH_SHAPE
 
-MESH_AXES = ("pp", "dp", "fsdp", "sp", "tp")
-UNPORTED_AXES = ("ep_size",)
+MESH_AXES = ("pp", "dp", "fsdp", "ep", "sp", "tp")
 
 
 @dataclass
@@ -47,12 +47,7 @@ class ParallelismConfig:
             self.dp_size = -1
         if self.fsdp_size == 0:
             self.fsdp_size = -1
-        for name in UNPORTED_AXES:
-            if getattr(self, name) != 1:
-                raise NotImplementedError(
-                    f"ParallelismConfig({name}={getattr(self, name)}) is not ported yet "
-                    "(ROADMAP.md, module queue: the ep axis)")
-        for name in ("pp_size", "sp_size", "tp_size"):
+        for name in ("pp_size", "sp_size", "tp_size", "ep_size"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
         for name in ("dp_size", "fsdp_size"):
@@ -61,7 +56,7 @@ class ParallelismConfig:
 
     @classmethod
     def from_env(cls) -> "ParallelismConfig":
-        """The mesh of ``ACCELERATE_MESH_SHAPE`` (``pp:2,dp:2,fsdp:2,tp:2``; JAX
+        """The mesh of ``ACCELERATE_MESH_SHAPE`` (``pp:2,dp:2,fsdp:2,ep:2,tp:2``; JAX
         ``parallel/mesh.py:88-102``): 0 for dp or fsdp means every rank
         left over. The port has no dcn axis: ``dcn`` is accepted at 1."""
         spec = os.environ.get(ENV_MESH_SHAPE, "")
@@ -83,11 +78,11 @@ class ParallelismConfig:
         return cls(**kwargs)
 
     def resolved_sizes(self, world_size: int) -> dict:
-        """``{"pp", "dp", "fsdp", "sp", "tp"}`` for a job of ``world_size``
-        ranks (the JAX package's ``resolved_sizes``: pp, tp and sp are
-        fixed, fsdp and dp take what is left)."""
+        """``{"pp", "dp", "fsdp", "ep", "sp", "tp"}`` for a job of
+        ``world_size`` ranks (the JAX package's ``resolved_sizes``: pp, ep,
+        tp and sp are fixed, fsdp and dp take what is left)."""
         dp, fsdp = self.dp_size, self.fsdp_size
-        other = self.pp_size * self.sp_size * self.tp_size
+        other = self.pp_size * self.sp_size * self.tp_size * self.ep_size
         if fsdp == -1:
             dp = 1 if dp == -1 else dp
             fsdp = max(world_size // (dp * other), 1)
@@ -96,12 +91,12 @@ class ParallelismConfig:
         if dp * fsdp * other != world_size:
             raise ValueError(f"{world_size} ranks do not make a dp x sp mesh of "
                              f"dp={self.dp_size} x sp={self.sp_size} (fsdp={self.fsdp_size}, "
-                             f"tp={self.tp_size}, pp={self.pp_size})")
-        return {"pp": self.pp_size, "dp": dp, "fsdp": fsdp, "sp": self.sp_size,
-                "tp": self.tp_size}
+                             f"tp={self.tp_size}, pp={self.pp_size}, ep={self.ep_size})")
+        return {"pp": self.pp_size, "dp": dp, "fsdp": fsdp, "ep": self.ep_size,
+                "sp": self.sp_size, "tp": self.tp_size}
 
     def build_mesh(self, world_size: int, device_type: str):
-        """The job's ``DeviceMesh`` with dims ``("pp", "dp", "fsdp", "sp", "tp")``;
+        """The job's ``DeviceMesh`` with dims ``("pp", "dp", "fsdp", "ep", "sp", "tp")``;
         every rank calls this (it creates the axes' process groups)."""
         from torch.distributed.device_mesh import init_device_mesh
 

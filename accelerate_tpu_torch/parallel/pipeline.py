@@ -50,6 +50,16 @@ loss on the last stage; each microbatch's loss is its share of the full
 batch's mean (the head divides by the global count of targets, JAX's
 renormalisation at ``:728-735``), and the gradients of the leaves every
 stage holds (the embedding, the final norm, the head) are summed over pp.
+
+**Auxiliary losses** (the MoE router loss; JAX ``:263-271, 492-508``): each
+stage's blocks sow per-layer values for each microbatch (the microbatch and
+the layer name the context a block gets). GPipe returns, with the output,
+each key's sum over the stages, layers and microbatches (summed over pp
+by the transport), which ``Llama.apply`` turns into the mean over layers
+and microbatches; its gradient reaches every unit's values in the
+backward. 1F1B adds ``coef · value / (M · L)`` (``module.aux_loss_coefs()``)
+to each backward unit's objective on every stage, so the router loss's
+gradients flow stage-locally, and to the unit's loss.
 """
 
 from __future__ import annotations
@@ -100,7 +110,7 @@ def check_microbatch_grid(batch: int, data_degree: int, num_microbatches: int):
 def _split_ctx(ctx: dict, B: int, M: int) -> list:
     """Per microbatch, the model's read-only context: entries with a leading
     batch dim are cut into the microbatches' rows, the others shared."""
-    out = [dict(ctx) for _ in range(M)]
+    out = [dict(ctx, microbatch=m) for m in range(M)]
     for key, value in ctx.items():
         if isinstance(value, torch.Tensor) and value.dim() > 0 and value.shape[0] == B:
             for m, part in enumerate(value.chunk(M)):
@@ -130,6 +140,10 @@ class LoopbackStages:
         return ({s: fwd[s - 1] for s in want_fwd}, {s: bwd[s + 1] for s in want_bwd})
 
     def broadcast(self, t, src: int, like=None):
+        return t
+
+    def sum(self, t):
+        """``t`` summed over the stages: every stage is held here."""
         return t
 
 
@@ -181,6 +195,12 @@ class ProcessGroupStages:
         dist.broadcast(t, src=self.ranks[src], group=self.group)
         return t
 
+    def sum(self, t):
+        """``t`` summed over the stages (an all-reduce over the pp group)."""
+        t = t.contiguous().clone()
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return t
+
 
 # -------------------------------------------------------------------- spec
 @dataclass
@@ -209,32 +229,42 @@ class PipelineSpec:
     def run(self, module, layers, x, ctx):
         """GPipe over ``module.run_layers`` (module docstring): ``x`` the
         ``(B, S, H)`` residual stream of this forward unit, ``ctx`` the
-        model's context; returns the last stage's output on every stage."""
+        model's context. Returns the last stage's output on every stage and
+        ``{key: mean over layers and microbatches}`` of the module's
+        ``scan_aux_keys``."""
         M = self.num_microbatches
         check_microbatch_grid(x.shape[0], 1, M)
         n_layers = module.config.num_hidden_layers
         ctx_mb = _split_ctx(ctx, x.shape[0], M)
+        keys = tuple(getattr(module, "scan_aux_keys", ()))
 
         def stage_fn(s, x_in, m):
             r = self.stage_layers(n_layers, s)
-            return module.run_layers(layers, x_in, ctx_mb[m], r.start, r.stop)
+            y, aux = module.run_layers(layers, x_in, ctx_mb[m], r.start, r.stop)
+            return y, (torch.stack([aux[k].float().reshape(()) for k in keys]) if keys
+                       else None)
 
         if not torch.is_grad_enabled():
-            return _gpipe_forward(self, stage_fn, x, None)
-        # Layer leaves that are tensors of autograd (an unsharded tree) are
-        # inputs of the node, so torch.autograd.grad reaches them; a shard
-        # engine's leaves hand their gradients to its sinks themselves.
-        leaves = [t for t in tree_leaves(layers)
-                  if isinstance(t, torch.Tensor) and t.requires_grad]
-        return _GPipe.apply(self, stage_fn, x, *leaves)
+            out, aux = _gpipe_forward(self, stage_fn, x, None, bool(keys))
+        else:
+            # Layer leaves that are tensors of autograd (an unsharded tree)
+            # are inputs of the node, so torch.autograd.grad reaches them; a
+            # shard engine's leaves hand their gradients to its sinks
+            # themselves.
+            leaves = [t for t in tree_leaves(layers)
+                      if isinstance(t, torch.Tensor) and t.requires_grad]
+            out, aux = _GPipe.apply(self, stage_fn, x, bool(keys), *leaves)
+        return out, {k: aux[j] / (M * n_layers) for j, k in enumerate(keys)}
 
 
-def _gpipe_forward(spec, stage_fn, x, saved):
+def _gpipe_forward(spec, stage_fn, x, saved, has_aux):
     """The forward ticks; with ``saved`` (a dict) each unit's ``(input,
-    output)`` is kept with its autograd graph under ``saved[(s, m)]``."""
+    output, aux)`` is kept with its autograd graph under ``saved[(s, m)]``.
+    Returns the output and the aux values summed over every unit and stage
+    (an empty tensor without aux)."""
     M, P, tr = spec.num_microbatches, spec.stages, spec.transport
     xs = x.detach().chunk(M)
-    outs, rx = [None] * M, {}
+    outs, rx, aux_sum = [None] * M, {}, None
     for t in range(M + P - 1):
         sends = {}
         for s in tr.stages:
@@ -245,12 +275,14 @@ def _gpipe_forward(spec, stage_fn, x, saved):
             if saved is not None:
                 x_in = x_in.detach().requires_grad_(True)
                 with torch.enable_grad():
-                    y = stage_fn(s, x_in, m)
-                saved[(s, m)] = (x_in, y)
+                    y, aux = stage_fn(s, x_in, m)
+                saved[(s, m)] = (x_in, y, aux)
                 spec.peak_saved[s] = max(spec.peak_saved.get(s, 0),
                                          sum(1 for k in saved if k[0] == s))
             else:
-                y = stage_fn(s, x_in, m)
+                y, aux = stage_fn(s, x_in, m)
+            if aux is not None:
+                aux_sum = aux.detach() if aux_sum is None else aux_sum + aux.detach()
             if s < P - 1:
                 sends[s] = y.detach()
             else:
@@ -258,7 +290,10 @@ def _gpipe_forward(spec, stage_fn, x, saved):
         want = [s for s in tr.stages if s > 0 and 0 <= t - (s - 1) < M]
         rx, _ = tr.exchange(sends, {}, want, (), xs[0])
     out = torch.cat(outs) if outs[0] is not None else None
-    return tr.broadcast(out, P - 1, like=x.detach())
+    out = tr.broadcast(out, P - 1, like=x.detach())
+    if not has_aux:
+        return out, torch.zeros(0, device=x.device)
+    return out, tr.sum(aux_sum)
 
 
 class _GPipe(torch.autograd.Function):
@@ -266,13 +301,13 @@ class _GPipe(torch.autograd.Function):
     the backward runs the ticks in reverse (module docstring)."""
 
     @staticmethod
-    def forward(ctx, spec, stage_fn, x, *leaves):
+    def forward(ctx, spec, stage_fn, x, has_aux, *leaves):
         ctx.spec, ctx.saved, ctx.leaves = spec, {}, leaves
         spec.peak_saved = {}
-        return _gpipe_forward(spec, stage_fn, x, ctx.saved)
+        return _gpipe_forward(spec, stage_fn, x, ctx.saved, has_aux)
 
     @staticmethod
-    def backward(ctx, dout):
+    def backward(ctx, dout, daux):
         spec, saved, leaves = ctx.spec, ctx.saved, ctx.leaves
         M, P, tr = spec.num_microbatches, spec.stages, spec.transport
         douts = dout.chunk(M)
@@ -289,15 +324,18 @@ class _GPipe(torch.autograd.Function):
                 m = unit(t, s)
                 if m is None:
                     continue
-                x_in, y = saved.pop((s, m))
+                x_in, y, aux = saved.pop((s, m))
                 dy = (douts[m] if s == P - 1 else rx[s]).to(y.dtype)
+                outs, grads = (y,), (dy,)
+                if aux is not None and daux is not None:
+                    outs, grads = (y, aux), (dy, daux)
                 if leaves:
-                    got = torch.autograd.grad(y, (x_in,) + leaves, dy, allow_unused=True)
+                    got = torch.autograd.grad(outs, (x_in,) + leaves, grads, allow_unused=True)
                     g = got[0]
                     leaf_grads = [a if b is None else b if a is None else a + b
                                   for a, b in zip(leaf_grads, got[1:])]
                 else:
-                    torch.autograd.backward(y, dy)
+                    torch.autograd.backward(outs, grads)
                     g = x_in.grad
                 g = g if g is not None else torch.zeros_like(x_in)
                 if s > 0:
@@ -307,7 +345,7 @@ class _GPipe(torch.autograd.Function):
             want = [s for s in tr.stages if s < P - 1 and unit(t, s + 1) is not None]
             _, rx = tr.exchange({}, sends, (), want, douts[0])
         dx = torch.cat(dxs) if dxs[0] is not None else None
-        return (None, None, tr.broadcast(dx, 0, like=dout), *leaf_grads)
+        return (None, None, tr.broadcast(dx, 0, like=dout), None, *leaf_grads)
 
 
 # --------------------------------------------------------------------- 1F1B
@@ -319,7 +357,8 @@ def train_1f1b(spec, module, tree, batch, *, normalizer, dtype, scale=None, unit
     ``positions``), ``normalizer`` the global count of targets. Every
     gradient reaches the parameters' leaves through autograd (the shard
     engine's sinks); returns the loss this unit's held stages computed (the
-    last stage's share of the global mean; 0 elsewhere). ``dtype`` is the
+    last stage's share of the global mean, and every stage's router-loss
+    terms). ``dtype`` is the
     compute dtype, the wire's. Under fp16 ``scale`` multiplies the loss
     before each backward. ``hooks`` is the context each recomputed forward
     runs in (the engine's ``reshard_after_forward``)."""
@@ -331,6 +370,9 @@ def train_1f1b(spec, module, tree, batch, *, normalizer, dtype, scale=None, unit
     unit_ctx = dict(unit_ctx or {})
     tp = unit_ctx.get("tp")
     n_layers = module.config.num_hidden_layers
+    coefs = module.aux_loss_coefs() if hasattr(module, "aux_loss_coefs") else {}
+    aux_scale = {k: float(coefs.get(k, 0.0)) / (M * n_layers)
+                 for k in getattr(module, "scan_aux_keys", ())}
 
     def cut(t):
         return [None] * M if t is None else list(t.chunk(M))
@@ -339,7 +381,9 @@ def train_1f1b(spec, module, tree, batch, *, normalizer, dtype, scale=None, unit
     ctx_mb = []
     for m in range(M):
         c = module.context(ids_mb[m], pos_mb[m], mask_mb[m])
-        c.update(kernels=kernels, tp=tp, sp_group=unit_ctx.get("sp_group"))
+        c.update(kernels=kernels, tp=tp, sp_group=unit_ctx.get("sp_group"),
+                 experts=unit_ctx.get("experts"), router_stats=unit_ctx.get("router_stats"),
+                 microbatch=m)
         ctx_mb.append(c)
 
     def embed(m):
@@ -349,6 +393,13 @@ def train_1f1b(spec, module, tree, batch, *, normalizer, dtype, scale=None, unit
     def stage_fn(s, x_in, m):
         r = spec.stage_layers(n_layers, s)
         return module.run_layers(tree["layers"], x_in, ctx_mb[m], r.start, r.stop)
+
+    def aux_term(aux):  # the unit's router-loss terms: coef * value / (M * L)
+        term = None
+        for k, c in aux_scale.items():
+            v = c * aux[k].float()
+            term = v if term is None else term + v
+        return term
 
     R = 2 * P
     ring = {s: [None] * R for s in tr.stages}
@@ -364,7 +415,7 @@ def train_1f1b(spec, module, tree, batch, *, normalizer, dtype, scale=None, unit
             if 0 <= f < M:  # the forward unit, without autograd
                 with torch.no_grad():
                     x_in = embed(f) if s == 0 else rx_f[s]
-                    y = stage_fn(s, x_in, f)
+                    y, _ = stage_fn(s, x_in, f)
                 ring[s][f % R] = None if s == 0 else x_in
                 spec.peak_saved[s] = max(spec.peak_saved.get(s, 0),
                                          sum(1 for v in ring[s] if v is not None) + (s == 0))
@@ -378,16 +429,23 @@ def train_1f1b(spec, module, tree, batch, *, normalizer, dtype, scale=None, unit
                     else:
                         x_b = ring[s][b % R].detach().requires_grad_(True)
                     ring[s][b % R] = None
-                    y_b = stage_fn(s, x_b, b)
+                    y_b, aux_b = stage_fn(s, x_b, b)
+                    term = aux_term(aux_b)
                     if s == P - 1:
                         out = module.head(tree, y_b, targets=tgt_mb[b],
                                           loss_normalizer=normalizer, tp=tp)
-                        mb_loss = out["loss"]
+                        mb_loss = out["loss"] if term is None else out["loss"] + term
                         torch.autograd.backward(mb_loss if scale is None else mb_loss * scale)
+                    else:
+                        outs, grads = [y_b], [rx_b[s].to(y_b.dtype)]
+                        if term is not None:
+                            outs.append(term if scale is None else term * scale)
+                            grads.append(torch.ones_like(term))
+                        torch.autograd.backward(outs, grads)
+                        mb_loss = None if term is None else term
+                    if mb_loss is not None:
                         mb_loss = mb_loss.detach().float()
                         loss = mb_loss if loss is None else loss + mb_loss
-                    else:
-                        torch.autograd.backward(y_b, rx_b[s].to(y_b.dtype))
                 if s > 0:
                     sends_b[s] = x_b.grad if x_b.grad is not None else torch.zeros_like(x_b)
         want_f = [s for s in tr.stages if s > 0 and 0 <= t - (s - 1) < M]

@@ -35,6 +35,17 @@ Two implementations, as ``parallel/ring.py`` has:
   order and :meth:`gather` concatenates them: the ranks advance in lockstep
   through each layer by construction.
 
+The same two classes carry expert parallelism (``ops/moe.py``): over the
+**expert group**, the ep ranks, the tp ranks, or under ep x tp the joint
+group of one data coordinate's ep and tp ranks (ep major, so ``minor`` is
+the tp size and a rank's index in the group is ``ep_index * tp +
+tp_index``). The routing is replicated over the group; each rank's experts
+read the layer's input and the gates through :meth:`copy`, so their
+gradients sum over the ranks while the router loss's stays counted once,
+and the ranks' partial combines meet in :meth:`reduce`: the one all-reduce
+a layer that GSPMD inserts for the JAX package (``ops/moe.py:12-17``).
+:meth:`expert_index` names the ep rank of a held piece.
+
 :func:`vocab_parallel_embedding` is the lookup in a table whose rows (the
 vocab) are split over tp. ``ops/losses.py`` holds the vocab-parallel
 cross-entropies.
@@ -88,12 +99,18 @@ class _GatherFromTP(torch.autograd.Function):
 
 
 class ProcessGroupTP:
-    """This process's rank of the tp process group ``group``."""
+    """This process's rank of the tp process group ``group`` (or of an
+    expert group, ``minor`` its tp size; module docstring)."""
 
-    def __init__(self, group):
+    def __init__(self, group, minor: int = 1):
         self.group = group
         self.size = dist.get_world_size(group)
         self.indices = (dist.get_rank(group),)
+        self.minor = int(minor)
+
+    def expert_index(self, piece: int) -> int:
+        """The ep index of held piece ``piece``."""
+        return self.indices[piece] // self.minor
 
     def copy(self, x):
         return [_CopyToTP.apply(x, self.group)]
@@ -114,13 +131,18 @@ class ProcessGroupTP:
 
 
 class LoopbackTP:
-    """All ``n`` tp ranks in one process (module docstring)."""
+    """All ``n`` tp ranks (or expert-group ranks, ``minor`` the tp size) in
+    one process (module docstring)."""
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, minor: int = 1):
         if int(n) < 1:
             raise ValueError(f"a tp group needs at least one rank, got {n}")
         self.size = int(n)
         self.indices = tuple(range(self.size))
+        self.minor = int(minor)
+
+    def expert_index(self, piece: int) -> int:
+        return self.indices[piece] // self.minor
 
     def _check(self, parts):
         if len(parts) != self.size:

@@ -270,15 +270,17 @@ class PartialState(ProcessView):
 
 class AcceleratorState:
     """The job's rank (:class:`PartialState`), its ``pp`` x ``dp`` x
-    ``fsdp`` x ``sp`` x ``tp`` mesh (None for a single process without
+    ``fsdp`` x ``ep`` x ``sp`` x ``tp`` mesh (None for a single process without
     sequence parallelism, or one that holds every rank itself,
     ``loopback``) and the mixed-precision mode (``no``, ``bf16``, ``fp16``
     or ``fp8``; ``ACCELERATE_MIXED_PRECISION`` when none is passed, else
     ``no``). ``data_group`` is the process group a batch's rows split
     over (dp x fsdp; None for the default group, when those are all the
-    ranks): the pp, tp and sp ranks of one data coordinate read the same
-    rows, as the JAX package's ``data_batch_axes`` says. ``pp_group`` is the
-    pipeline's stage group (None without a pp axis)."""
+    ranks): the pp, ep, tp and sp ranks of one data coordinate read the
+    same rows, as the JAX package's ``data_batch_axes`` says.
+    ``expert_group`` is the joint ep x tp group under ep x tp (None
+    otherwise). ``pp_group`` is the pipeline's stage group (None without a
+    pp axis)."""
 
     def __init__(self, mixed_precision: str | None = None, device=None,
                  parallelism_config: ParallelismConfig | None = None,
@@ -295,33 +297,57 @@ class AcceleratorState:
         cfg = parallelism_config or ParallelismConfig()
         self.parallelism_config = cfg
         self.mesh = None
-        self.data_group = None
+        self.data_group = self.expert_group = None
         if self.partial.distributed or (cfg.sp_size > 1 and not loopback):
             self.mesh = cfg.build_mesh(self.partial.num_processes, self.device.type)
             self.data_group = self._data_group()
+            self.expert_group = self._expert_group()
 
     def _data_group(self):
         """The dp x fsdp process group of this rank (every rank joins every
         such group's creation, as ``new_group`` asks)."""
         mesh = self.mesh
         sizes = {a: mesh[a].size() for a in MESH_AXES}
-        if sizes["pp"] * sizes["sp"] * sizes["tp"] == 1:
+        if sizes["pp"] * sizes["ep"] * sizes["sp"] * sizes["tp"] == 1:
             return None
         if sizes["fsdp"] == 1:
             return mesh.get_group("dp")
         if sizes["dp"] == 1:
             return mesh.get_group("fsdp")
+        return self._product_group(sizes, ("dp", "fsdp"))
+
+    @staticmethod
+    def _product_group(sizes: dict, axes: tuple):
+        """This rank's group over the product of the mesh axes ``axes``
+        (every rank joins every such group's creation)."""
+        others = [a for a in MESH_AXES if a not in axes]
         mine, rank = None, dist.get_rank()
-        for p in range(sizes["pp"]):
-            for s in range(sizes["sp"]):
-                for t in range(sizes["tp"]):
-                    ranks = [(((p * sizes["dp"] + d) * sizes["fsdp"] + f) * sizes["sp"] + s)
-                             * sizes["tp"] + t
-                             for d in range(sizes["dp"]) for f in range(sizes["fsdp"])]
-                    group = dist.new_group(ranks)
-                    if rank in ranks:
-                        mine = group
+
+        def coords(names):
+            out = [{}]
+            for a in names:
+                out = [dict(c, **{a: j}) for c in out for j in range(sizes[a])]
+            return out
+
+        for fixed in coords(others):
+            ranks = []
+            for varied in coords(axes):
+                c, r = {**fixed, **varied}, 0
+                for a in MESH_AXES:
+                    r = r * sizes[a] + c[a]
+                ranks.append(r)
+            group = dist.new_group(sorted(ranks))
+            if rank in ranks:
+                mine = group
         return mine
+
+    def _expert_group(self):
+        """Under ep x tp, this rank's joint ep x tp group (ep major, as in
+        ``parallel/tensor.py``); None otherwise."""
+        sizes = {a: self.mesh[a].size() for a in MESH_AXES}
+        if sizes["ep"] == 1 or sizes["tp"] == 1:
+            return None
+        return self._product_group(sizes, ("ep", "tp"))
 
     @property
     def pp_group(self):

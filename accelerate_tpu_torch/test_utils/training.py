@@ -4,7 +4,8 @@
 ``RegressionDataset`` / ``RegressionModel`` fit ``y = a*x + b``, so a
 check can hold exact parameter values; the data are the JAX package's
 (numpy, the same seed), the model the port's (a ``Module`` with explicit
-f32 parameters).
+f32 parameters). :func:`unsharded_loss` is the reference a check of any
+layout holds a step to on the parameters the layout holds.
 """
 
 from __future__ import annotations
@@ -85,3 +86,29 @@ def regression_batches(dataset: RegressionDataset, batch_size: int, drop_last: b
         idx = slice(start, min(start + batch_size, len(dataset)))
         batches.append({"x": dataset.x[idx], "y": dataset.y[idx]})
     return batches
+
+
+def unsharded_loss(pm, batch, microbatches: int = 0) -> float:
+    """A prepared causal LM's loss on ``batch`` (``input_ids`` as labels) at
+    its current parameters, computed unsharded: the full parameters (every
+    rank of a process group joins the gathers), in the model's compute
+    dtype, through the plain versions of the kernels (``kernels="off"``:
+    nothing is launched). With ``microbatches`` the forward runs through a
+    GPipe of 2 stages in this process, so a router loss is the mean over
+    the microbatches, as a pipelined step's. Two free-running trajectories
+    of a routed model in bf16 part within a few steps, so a layout is held
+    step by step to this on its own parameters."""
+    from ..parallel.pipeline import PipelineSpec
+    from ..utils.tree import tree_map, tree_unflatten
+
+    engine, dtype = pm.handle.sharded, pm.handle.compute_dtype
+    if engine is None:
+        tree = tree_map(lambda p: p.to(dtype), pm.params)
+    else:
+        tree = tree_unflatten(engine.template, [engine.full_leaf(i).to(dtype)
+                                                for i in range(len(engine.layouts))])
+    ids = torch.as_tensor(np.asarray(batch["input_ids"]), device=pm.handle.device)
+    spec = PipelineSpec(stages=2, num_microbatches=microbatches) if microbatches else None
+    with torch.no_grad():
+        return float(pm.module.apply(tree, input_ids=ids, labels=ids, kernels="off",
+                                     pipeline=spec)["loss"])

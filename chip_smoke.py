@@ -28,6 +28,8 @@
                                      # offloaded inference at 8B widths
     python3 chip_smoke.py --cv       # only phase 18: the CV examples
     python3 chip_smoke.py --launch   # only phase 19: the launcher and the CLI
+    python3 chip_smoke.py --moe      # only phase 20: mixture of experts at
+                                     # Mixtral-8x7B widths, the ep axis
     python3 chip_smoke.py --splash-times  # only the splash kernels' times at
                                      # Gemma-2-9B's layers (to set two trees
                                      # side by side in one run: copy this
@@ -319,6 +321,34 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    16.06 GB). The kernels' table adds the launched children's launches to
    rows 4 and 4b.
 
+20. Mixture of experts: ``mixtral_config_from_hf`` of the published
+   mistralai/Mixtral-8x7B-v0.1 config (8 experts, top-2, drop-free capacity
+   factor 4, router loss coefficient 0.02, no sliding window: flash), depth
+   cut. A: ``ContinuousBatcher(paged=True)`` on 8 layers in bf16 (11.87B
+   parameters), phase 3's wave: tokens equal a ``kernels="off"`` engine's,
+   the gather kernel launched, tokens/s and TTFT logged with the dispatch
+   back-end the layers ran (sorted: cf 4 > 2); ``generate`` on a ragged
+   batch equals its ``kernels="off"`` run. B: ``build_train_step`` on 2
+   layers (3.16B parameters), 2 x 2048, bf16, ``adamw(3e-4)``, clip 1.0, 5
+   steps: every loss within ``TRAIN_LOSS_ATOL`` of the ``kernels="off"``
+   loss on the same parameters, ``aux_loss`` finite and >= 1 - 1e-3 on every
+   step, flash 2 + 2 launches and the update once a leaf (13) a step; step
+   ms, tokens/s, active MFU against 989 TFLOP/s, peak memory. C: the
+   imperative loop, 3 steps on B's model and batch. D: ep on one card
+   through ``LoopbackShards(4)``: ep 4, ep 2 x dp 2 (ZeRO off), ep 2 x tp 2,
+   ep 2 x fsdp 2, 3 steps each; the distinct shards over the ranks hold the
+   unsharded bytes; the back-end is einsum; the update launches once per
+   distinct update slice of the plan. E: pp 2 with 1F1B on the loopback
+   (the router loss through the schedule), 3 steps. Every step of C, D and E
+   within ``MOE_LOSS_ATOL`` of the unsharded ``kernels="off"`` loss on the
+   parameters the arm holds (``MOE_LOSS_ATOL`` says why), and its
+   free-running distance from arm B logged. F: the sorted, einsum and indexed back-ends at the layer's
+   shapes (B 2, S 2048, h 4096, i 14336, E 8, k 2; cf 4 and 1.25, bf16)
+   agree within ``MOE_OP_TILE_REL``; each one's forward and backward ms,
+   and the sorted path's device-to-host read of the group sizes. G:
+   ``estimate-memory`` on the literal: exactly 46,702,792,704 parameters,
+   93.41 GB in bf16.
+
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script exits non-zero before printing any result.
@@ -470,6 +500,37 @@ CV_CKPT_EVERY, CV_RESUME_AT, CV_LOSS_REL, CV_MIN_ACCURACY = 16, 48, 2e-2, 0.9
 # a BERT leaf a step); a gang whose rank exits nonzero must come back within
 # FAIL_FAST_S seconds.
 LAUNCH_STEPS, BERT_LEAVES, FAIL_FAST_S = 10, 25, 30.0
+# Phase 20: mistralai/Mixtral-8x7B-v0.1 on the Hugging Face hub, config.json:
+# the published widths; only the depth is cut (MOE_SERVE_LAYERS for arm A,
+# MOE_TRAIN_LAYERS for arms B-E), and the attention FLOPs count the step's
+# sequence (TRAIN_CUT's max_position_embeddings), not the 32768 window.
+MIXTRAL_8X7B = dict(architectures=["MixtralForCausalLM"], model_type="mixtral",
+                    vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+                    num_local_experts=8, num_experts_per_tok=2, rope_theta=1e6,
+                    rms_norm_eps=1e-5, router_aux_loss_coef=0.02,
+                    max_position_embeddings=32768, tie_word_embeddings=False,
+                    sliding_window=None, hidden_act="silu")
+MIXTRAL_8X7B_PARAMS = 46_702_792_704
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = 8, 2
+MOE_BATCH, MOE_SEQ, MOE_STEPS, MOE_SHARD_STEPS = 2, 2048, 5, 3
+MOE_LEAVES = 13  # the update's leaves: Llama's 12 with the MLP's 3 as router + 3 stacks
+# Arms C (the imperative loop), D (ep on one card) and E (pp 2, 1F1B): each
+# step's loss against the unsharded kernels="off" loss on the parameters the
+# arm holds at that step (the products split over ranks or microbatches, the
+# router loss per microbatch under pp): phase 13's pin. Two free-running bf16
+# trajectories of this model part within three adamw steps on a repeated
+# batch (a top-2 choice that flips changes a token's experts, and adamw's
+# first steps move every parameter by about the learning rate whatever its
+# gradient's size), so phase 20 logs them and holds each step to its own
+# parameters; arm B's kernels against kernels="off" the same way, at
+# TRAIN_LOSS_ATOL.
+MOE_LOSS_ATOL = SHARD_LOSS_ATOL
+# Arm F: the three dispatch back-ends against each other in bf16, the
+# output's relative Frobenius error per 64-token block (the expert products
+# and the combine sum in another order; a dropped or misrouted token moves
+# its block by far more) and the router loss's relative error.
+MOE_OP_TILE_REL = 1e-2
 T_START = time.perf_counter()
 
 
@@ -3221,44 +3282,57 @@ def precision_phase(card: str):
 
 # ------------------------------------------------------------------ phase 15
 def _tp_arm(cfg, label: str, accelerator_kw: dict, *, batch, mixed_precision: str = "bf16",
-           remat: bool = False, zero: bool = False, poison=None, device: str = "cuda"):
-    """One arm of phase 15 on a fresh model from the seed: ``TP_STEPS``
+           remat: bool = False, zero: bool = False, poison=None, device: str = "cuda",
+           steps: int = None, kernels=None, record_aux: bool = False, reference=None):
+    """One arm of phase 15 (and 20) on a fresh model from the seed (a
+    ``MoELlama`` for a ``MoELlamaConfig``): ``steps`` (``TP_STEPS``)
     ``build_train_step`` steps of ``batch`` with clip 1.0 on the
-    Accelerator of ``accelerator_kw``. Returns the losses, step seconds
-    after ``TP_WARMUP``, the launch counts (total and per step), the fp16
-    scales and skips, each rank's bytes (split and whole), the distinct
-    shards' bytes summed over the ranks, and the peak memory. At step
-    ``poison`` the ``loss_fn`` multiplies the loss by +inf."""
+    Accelerator of ``accelerator_kw`` (and ``kernels``). Returns the losses,
+    step seconds after ``TP_WARMUP``, the launch counts (total and per
+    step), the fp16 scales and skips, each rank's bytes (split and whole),
+    the distinct shards' bytes summed over the ranks, the peak memory and,
+    with ``record_aux``, each step's ``aux_loss``; ``reference(pm)`` runs
+    before each step, outside its time, and its values are returned
+    (``refs``). At step ``poison`` the ``loss_fn`` multiplies the loss by
+    +inf."""
     import dataclasses
 
     import torch
 
-    from accelerate_tpu_torch import Accelerator, Llama, adamw
+    from accelerate_tpu_torch import Accelerator, Llama, MoELlama, MoELlamaConfig, adamw
     from accelerate_tpu_torch.ops import registry
     from accelerate_tpu_torch.utils.tree import flatten_with_paths, tree_leaves
 
+    steps = TP_STEPS if steps is None else steps
     cuda = device == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    model = Llama(dataclasses.replace(cfg, remat=remat), device=device)
+    model = (MoELlama if isinstance(cfg, MoELlamaConfig) else Llama)(
+        dataclasses.replace(cfg, remat=remat), device=device)
     model.init_params(SEED)
-    acc = Accelerator(mixed_precision=mixed_precision, device=device, **accelerator_kw)
+    acc = Accelerator(mixed_precision=mixed_precision, device=device, kernels=kernels,
+                      **accelerator_kw)
     acc.zero_sharding = zero
     pm, po = acc.prepare(model, adamw(3e-4, device=device))
     del model
-    now_at = [0]
+    now_at, aux = [0], []
 
     def loss_fn(outputs, batch):
+        if record_aux:
+            aux.append(outputs["aux_loss"].detach())
         return outputs["loss"] * (math.inf if now_at[0] == poison else 1.0)
 
-    step = acc.build_train_step(pm, po, loss_fn=loss_fn if poison is not None else None)
+    step = acc.build_train_step(pm, po, loss_fn=loss_fn if poison is not None or record_aux
+                                else None)
     engine = pm.handle.sharded
     if zero != po.zero_active:
         raise SystemExit(f"tp {label}: zero_active={po.zero_active}, asked {zero}")
     registry.reset_launch_counts()
-    losses, times, per_step, scales, skipped, before = [], [], [], [], [], {}
-    for i in range(TP_STEPS):
+    losses, times, per_step, scales, skipped, before, refs = [], [], [], [], [], {}, []
+    for i in range(steps):
         now_at[0] = i
+        if reference is not None:
+            refs.append(reference(pm))
         if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3303,10 +3377,11 @@ def _tp_arm(cfg, label: str, accelerator_kw: dict, *, batch, mixed_precision: st
     if engine is None:
         distinct["buffer"] = distinct["params"]
     peak = torch.cuda.max_memory_allocated() if cuda else 0
-    step_s = sum(times[TP_WARMUP:]) / (TP_STEPS - TP_WARMUP)
+    step_s = sum(times[TP_WARMUP:]) / (steps - TP_WARMUP)
     out = dict(losses=losses, step_s=step_s, counts=dict(registry.launch_counts),
                per_step=per_step, scales=scales, skipped=skipped, ranks=ranks,
-               distinct=distinct, peak=peak, sizes=acc.mesh_sizes)
+               distinct=distinct, peak=peak, sizes=acc.mesh_sizes,
+               aux=[float(a) for a in aux], refs=refs)
     del acc, pm, po, step, engine
     if cuda:
         free_cuda()
@@ -3362,11 +3437,11 @@ def tp_phase(card: str, device: str = "cuda", cut=None) -> dict:
         "F": tp_arm(cfg, "F", dict(tp2xfsdp2, **loop()), batch=batch, mixed_precision="fp16",
                     poison=TP_FP16_POISON),
     }
-    want_sizes = {"B": dict(pp=1, dp=1, fsdp=1, sp=1, tp=4),
-                  "C": dict(pp=1, dp=1, fsdp=2, sp=1, tp=2),
-                  "D": dict(pp=1, dp=2, fsdp=1, sp=1, tp=2),
-                  "E": dict(pp=1, dp=1, fsdp=1, sp=4, tp=1),
-                  "F": dict(pp=1, dp=1, fsdp=2, sp=1, tp=2)}
+    want_sizes = {"B": dict(pp=1, dp=1, fsdp=1, ep=1, sp=1, tp=4),
+                  "C": dict(pp=1, dp=1, fsdp=2, ep=1, sp=1, tp=2),
+                  "D": dict(pp=1, dp=2, fsdp=1, ep=1, sp=1, tp=2),
+                  "E": dict(pp=1, dp=1, fsdp=1, ep=1, sp=4, tp=1),
+                  "F": dict(pp=1, dp=1, fsdp=2, ep=1, sp=1, tp=2)}
     remat = {"C", "F"}
     total = n_params * 4
     want_bytes = {"params": total, "moments": 2 * total, "buffer": total}
@@ -4164,6 +4239,410 @@ def launch_phase(card: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ phase 20
+def mixtral_config(layers: int, cut=None):
+    """The published Mixtral-8x7B config through ``mixtral_config_from_hf``
+    at ``layers`` layers, the attention FLOPs at the step's sequence;
+    ``cut`` (config fields) shrinks it for a rehearsal on the CPU."""
+    import dataclasses
+
+    from accelerate_tpu_torch import mixtral_config_from_hf
+
+    return dataclasses.replace(mixtral_config_from_hf(MIXTRAL_8X7B), num_hidden_layers=layers,
+                               max_position_embeddings=MOE_SEQ, **(cut or {}))
+
+
+class counted_dispatch:
+    """The dispatch back-ends (``ops/moe.BACKENDS``) the layers run inside
+    the block, counted by name (``self.counts``); not while ``paused``."""
+
+    paused = False
+
+    def __enter__(self):
+        from accelerate_tpu_torch.ops import moe
+
+        self.saved, self.counts = dict(moe.BACKENDS), {}
+
+        def wrap(name, fn):
+            def run(*args, **kwargs):
+                if not counted_dispatch.paused:
+                    self.counts[name] = self.counts.get(name, 0) + 1
+                return fn(*args, **kwargs)
+            return run
+
+        moe.BACKENDS.update({n: wrap(n, f) for n, f in self.saved.items()})
+        return self
+
+    def __exit__(self, *exc):
+        from accelerate_tpu_torch.ops import moe
+
+        moe.BACKENDS.update(self.saved)
+
+
+def moe_serving_arm(card: str, device: str, cut) -> dict:
+    """Phase 20 A: the paged engine (phase 3's wave, against a
+    ``kernels="off"`` engine) and ``generate`` on 8 layers in bf16; returns
+    the engine's launch counts."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import MoELlama, generate
+
+    cfg = mixtral_config(MOE_SERVE_LAYERS, cut)
+    model = MoELlama(cfg, device=device)
+    t0 = time.perf_counter()
+    model.init_params(SEED, dtype=torch.bfloat16)
+    log(f"moe A: Mixtral-8x7B widths, {cfg.num_hidden_layers} layers, bf16, "
+        f"{model.num_params() / 1e9:.3f}B parameters, random init (seed {SEED}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = {}
+    if device == "cuda":
+        with counted_dispatch() as impls:
+            run = engine_phase(model, None, ("paged_gather",), card)
+        launches = run["launches"]
+        log(f"moe A: engine {run['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+            f"{run['ttft_s'] * 1e3:.1f} ms over {run['forwards']} forwards; dispatch back-end "
+            f"calls {impls.counts} ({cfg.num_hidden_layers} a forward) [{card}]")
+        if set(impls.counts) != {"sorted"}:
+            raise SystemExit(f"moe A: the engine's layers ran {impls.counts}; Mixtral's "
+                             "drop-free cf 4 picks sorted on one card")
+    rng = np.random.default_rng(SEED)
+    lengths = (12, 7, 20)
+    ids = np.zeros((len(lengths), max(lengths)), np.int32)
+    mask = np.zeros_like(ids)
+    for b, n in enumerate(lengths):
+        ids[b, :n] = rng.integers(1, cfg.vocab_size, (n,))
+        mask[b, :n] = 1
+    new = 16
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = generate(model, ids, attention_mask=mask, max_new_tokens=new, include_prompt=False,
+                   device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    again = generate(model, ids, attention_mask=mask, max_new_tokens=new, include_prompt=False,
+                     device=device)
+    tokens = got.cpu().numpy()
+    if tokens.shape != (len(lengths), new) or ((tokens < 0) | (tokens >= cfg.vocab_size)).any() \
+            or not torch.equal(got, again):
+        raise SystemExit(f"moe A generate: tokens {tokens.tolist()} (shape {tokens.shape}), "
+                         "or a second run differs")
+    with torch.no_grad():  # each row's first new token: the uncached forward's argmax
+        logits = model.apply(model.params, input_ids=torch.tensor(ids, device=device),
+                             attention_mask=torch.tensor(mask, device=device))["logits"].float()
+    for b, n in enumerate(lengths):
+        row = logits[b, n - 1]
+        top2 = torch.topk(row, 2).values
+        if int(row.argmax()) != int(tokens[b, 0]) and float(top2[0] - top2[1]) > 0.5:
+            raise SystemExit(f"moe A generate: row {b}'s first token {tokens[b, 0]} is not the "
+                             f"uncached forward's {int(row.argmax())} (top-2 gap "
+                             f"{float(top2[0] - top2[1]):.3f})")
+    log(f"moe A: generate of a ragged batch {lengths} -> {new} greedy tokens a row in "
+        f"{wall:.3f} s ({len(lengths) * new / wall:.1f} tokens/s), the first tokens the uncached "
+        f"forward's argmax; tokens {tokens.tolist()}")
+    del model, logits
+    if device == "cuda":
+        free_cuda()
+    return launches
+
+
+def moe_reference_loss(pm, batch, microbatches: int = 0) -> float:
+    """``test_utils.training.unsharded_loss``: the function a step of every
+    arm of phase 20 must compute on the parameters it holds (its dispatch
+    calls not counted)."""
+    from accelerate_tpu_torch.test_utils.training import unsharded_loss
+
+    counted_dispatch.paused = True
+    try:
+        return unsharded_loss(pm, batch, microbatches)
+    finally:
+        counted_dispatch.paused = False
+
+
+def _moe_imperative_arm(cfg, batch, steps: int, device: str, precision: str) -> dict:
+    """Phase 20 C: ``model(**batch)``, ``backward``, ``clip_grad_norm_``,
+    ``optimizer.step()`` on a fresh model from the seed; before each step,
+    ``moe_reference_loss`` on its parameters."""
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, MoELlama, adamw
+    from accelerate_tpu_torch.ops import registry
+
+    model = MoELlama(cfg, device=device)
+    model.init_params(SEED)
+    acc = Accelerator(mixed_precision=precision, device=device)
+    pm, po = acc.prepare(model, adamw(3e-4, device=device))
+    del model
+    registry.reset_launch_counts()
+    losses, aux, refs = [], [], []
+    for _ in range(steps):
+        refs.append(moe_reference_loss(pm, batch))
+        out = pm(**batch)
+        acc.backward(out["loss"])
+        acc.clip_grad_norm_(pm, 1.0)
+        po.step()
+        po.zero_grad()
+        losses.append(float(out["loss"].detach()))
+        aux.append(float(out["aux_loss"].detach()))
+    counts = dict(registry.launch_counts)
+    del acc, pm, po, out
+    if device == "cuda":
+        free_cuda()
+    return dict(losses=losses, aux=aux, counts=counts, refs=refs)
+
+
+def moe_op_arm(cf: float, device: str, cut) -> dict:
+    """Phase 20 F at one capacity factor: the three back-ends' outputs and
+    router losses against einsum's, and each one's forward and backward
+    ms."""
+    import torch
+
+    from accelerate_tpu_torch.ops import moe
+
+    cfg = mixtral_config(1, cut)
+    h, i, E, k = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts, cfg.moe_top_k
+    B, S = MOE_BATCH, MOE_SEQ if cut is None else 64
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        t = torch.randn(shape, generator=g, device=device) * scale
+        return t.to(torch.bfloat16).requires_grad_(True)
+
+    x = randn(B, S, h)
+    router, wg, wu = randn(h, E, scale=h ** -0.5), randn(E, h, i, scale=h ** -0.5), \
+        randn(E, h, i, scale=h ** -0.5)
+    wd = randn(E, i, h, scale=i ** -0.5)
+    dout = torch.randn((B, S, h), generator=g, device=device).to(torch.bfloat16)
+    args = (x, router, wg, wu, wd)
+    kw = dict(k=k, capacity_factor=cf)
+    outs, times = {}, {}
+    cuda = device == "cuda"
+    for name, fn in moe.BACKENDS.items():
+        with torch.no_grad():
+            out, aux = fn(*args, **kw)
+        outs[name] = (out.float(), float(aux))
+        if cuda:
+            with torch.no_grad():
+                fwd = cuda_ms(lambda: fn(*args, **kw), iters=5, warmup=1)
+            both = cuda_ms(lambda: torch.autograd.backward(fn(*args, **kw)[0], dout), iters=5,
+                           warmup=1)
+            times[name] = (fwd, both - fwd)
+        for t in args:
+            t.grad = None
+    ref, ref_aux = outs["einsum"]
+    real = torch.ones((B, S), device=device)
+    errs = {}
+    for name, (out, aux) in outs.items():
+        errs[name] = (tile_rel_err(out[:, :, None], ref[:, :, None], real),
+                      abs(aux - ref_aux) / abs(ref_aux))
+        if errs[name][0] > MOE_OP_TILE_REL or errs[name][1] > MOE_OP_TILE_REL:
+            raise SystemExit(f"moe F cf {cf}: {name} vs einsum: output tile rel "
+                             f"{errs[name][0]:.3e}, aux rel {errs[name][1]:.3e} (pin "
+                             f"{MOE_OP_TILE_REL})")
+    C = moe.router_capacity(S, E, k, cf)
+    log(f"moe F cf {cf}: B{B} S{S} h{h} i{i} E{E} k{k}, capacity {C} a row, bf16; vs einsum "
+        f"(output rel per 64-token block, aux rel): "
+        + ", ".join(f"{n} {e[0]:.2e}/{e[1]:.2e}" for n, e in errs.items())
+        + ("; ms forward / backward: " + ", ".join(
+            f"{n} {t[0]:.3f} / {t[1]:.3f}" for n, t in times.items()) if cuda else ""))
+    if cuda:  # the sorted layer's one device-to-host read, on an idle stream
+        sizes = torch.zeros((E,), dtype=torch.long, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            sizes.tolist()
+        sync_us = (time.perf_counter() - t0) / 100 * 1e6
+        log(f"moe F cf {cf}: the sorted layer's group-size read (E={E} int64 to the host) "
+            f"takes {sync_us:.1f} us on an idle stream, once a layer; the layer's forward "
+            f"{times['sorted'][0]:.3f} ms")
+    del args, x, router, wg, wu, wd, outs, ref
+    if cuda:
+        free_cuda()
+    return {"times": times, "errs": errs}
+
+
+def moe_phase(card: str, device: str = "cuda", cut=None) -> dict:
+    """Phase 20; returns the launch counts of its arms (the gather for row
+    1, flash for rows 5 and 5b, the fused update for row 4). ``device=
+    "cpu"`` with ``cut`` (config fields over Mixtral's) rehearses the
+    phase's logic at a small size: the CPU runs no kernel, so no launch is
+    checked there, and arm A's engine needs the card."""
+    import numpy as np
+
+    from accelerate_tpu_torch import (LoopbackShards, MoELlama, ParallelismConfig,
+                                      PipelineParallelPlugin)
+    from accelerate_tpu_torch.commands import estimate
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    add(moe_serving_arm(card, device, cut))
+
+    cfg = mixtral_config(MOE_TRAIN_LAYERS, cut)
+    probe = MoELlama(cfg, device="cpu")
+    n_params, fpt, layers = probe.num_params(), probe.flops_per_token(), cfg.num_hidden_layers
+    rng = np.random.default_rng(SEED)
+    seq = MOE_SEQ if cut is None else 512
+    ids = rng.integers(0, cfg.vocab_size, (MOE_BATCH, seq)).astype(np.int32)
+    batch = {"input_ids": ids, "labels": ids}
+    tokens = MOE_BATCH * seq
+
+    # The rehearsal computes in f32: at its tiny widths a bf16 step's
+    # rounding moves the losses by more than the pins within three steps.
+    precision = "bf16" if cut is None else "no"
+
+    def arm(label, kw, steps, **extra):
+        with counted_dispatch() as impls:
+            run = _tp_arm(cfg, label, kw, batch=batch, steps=steps, device=device,
+                          mixed_precision=precision, **extra)
+        run["impls"] = impls.counts
+        return run
+
+    def reference(pm):
+        return moe_reference_loss(pm, batch)
+
+    def held(label, run, pin):
+        """Each step's loss against ``moe_reference_loss`` on the
+        parameters the arm held at that step (the free-running losses of
+        two arms part within a few steps: module docstring, phase 20)."""
+        diff = max(abs(x - y) for x, y in zip(run["losses"], run["refs"]))
+        if diff > pin or not all(math.isfinite(x) for x in run["losses"]):
+            raise SystemExit(f"moe {label}: losses {run['losses']} vs the unsharded "
+                             f"kernels='off' loss on the same parameters {run['refs']} (max "
+                             f"|diff| {diff}, pin {pin})")
+        return diff
+
+    # B: the fused step.
+    b = arm("B", {}, MOE_STEPS, record_aux=True, reference=reference)
+    b_diff = held("B", b, TRAIN_LOSS_ATOL)
+    if len(b["aux"]) != MOE_STEPS or not all(math.isfinite(a) and a >= 1 - 1e-3
+                                             for a in b["aux"]):
+        raise SystemExit(f"moe B: aux_loss {b['aux']}, expected finite and >= 1 - 1e-3 on "
+                         f"each of {MOE_STEPS} steps")
+    for i, counts in enumerate(b["per_step"]):
+        want = {"flash_attention_fwd": layers, "flash_attention_bwd": layers,
+                "fused_adamw_update": MOE_LEAVES}
+        if cuda and counts != want:
+            raise SystemExit(f"moe B step {i}: launches {counts}, expected {want}")
+    add(b["counts"])
+    mfu = fpt * tokens / b["step_s"] / BF16_OPS_PER_S
+    log(f"moe B: Mixtral-8x7B widths, {layers} layers, {n_params / 1e9:.3f}B parameters, bf16 "
+        f"compute on f32 masters, adamw(3e-4), clip 1.0, batch {MOE_BATCH}x{seq}; losses "
+        f"{[round(x, 4) for x in b['losses']]}, aux_loss {[round(a, 4) for a in b['aux']]}; "
+        f"kernels='off' on the same parameters {[round(x, 4) for x in b['refs']]} (max |diff| "
+        f"{b_diff:.3e}, pin {TRAIN_LOSS_ATOL}); step {b['step_s'] * 1e3:.1f} ms, "
+        f"{tokens / b['step_s']:.0f} tokens/s, active MFU {100 * mfu:.2f}% of 989 TFLOP/s "
+        f"({fpt:.4g} FLOP/token, {fpt * tokens / 1e12:.2f} TFLOP a step); back-end calls "
+        f"{b['impls']}; launches {b['counts']}; peak memory {b['peak'] / 2**30:.2f} GiB "
+        f"[{card}]")
+
+    def apart(run):  # the free-running losses against arm B's, logged, not held
+        return max(abs(x - y) for x, y in zip(run["losses"], b["losses"]))
+
+    # C: the imperative loop on B's model and batch.
+    c = _moe_imperative_arm(cfg, batch, MOE_SHARD_STEPS, device, precision)
+    c_diff = held("C", c, MOE_LOSS_ATOL)
+    if cuda and c["counts"].get("fused_adamw_update") != MOE_LEAVES * MOE_SHARD_STEPS:
+        raise SystemExit(f"moe C: launches {c['counts']}, expected the update "
+                         f"{MOE_LEAVES * MOE_SHARD_STEPS} times")
+    add(c["counts"])
+    log(f"moe C: imperative loop losses {[round(x, 4) for x in c['losses']]}, aux_loss "
+        f"{[round(a, 4) for a in c['aux']]}; the unsharded loss on the same parameters max "
+        f"|diff| {c_diff:.3e} (pin {MOE_LOSS_ATOL}); free-running against arm B's max |diff| "
+        f"{apart(c):.3e}; launches {c['counts']}")
+
+    # D: ep on one card; E: the router loss through 1F1B at pp 2.
+    loop = LoopbackShards(SHARD_RANKS)
+    plans = {
+        "ep4": dict(parallelism_config=ParallelismConfig(ep_size=4, dp_size=1), loopback=loop),
+        "ep2xdp2": dict(parallelism_config=ParallelismConfig(ep_size=2, dp_size=2),
+                        loopback=loop),
+        "ep2xtp2": dict(parallelism_config=ParallelismConfig(ep_size=2, tp_size=2, dp_size=1),
+                        loopback=loop),
+        "ep2xfsdp2": dict(parallelism_config=ParallelismConfig(ep_size=2, fsdp_size=2,
+                                                               dp_size=1), loopback=loop),
+        "E-pp2-1f1b": dict(parallelism_config=ParallelismConfig(pp_size=2, dp_size=1),
+                           pp_plugin=PipelineParallelPlugin(2, 2, "1f1b"),
+                           loopback=LoopbackShards(2)),
+    }
+    total = n_params * 4
+    want_bytes = {"params": total, "moments": 2 * total, "buffer": total}
+    whole = []  # E's unpipelined reference: the router loss of the whole batch
+
+    def piped_reference(pm):
+        whole.append(reference(pm))
+        return moe_reference_loss(pm, batch, microbatches=2)
+
+    for name, kw in plans.items():
+        piped = "pp_plugin" in kw  # the reference's router loss per microbatch too
+        run = arm(name, kw, MOE_SHARD_STEPS, reference=piped_reference if piped else reference)
+        diff = held(name, run, MOE_LOSS_ATOL)
+        sizes = run["sizes"]
+        n_data, tp = sizes["dp"] * sizes["fsdp"], sizes["tp"]
+        if sizes["pp"] > 1:  # 1F1B: each microbatch's blocks forward, again, and backward
+            M = 2
+            fwd, bwd = 2 * layers * M, layers * M
+        else:  # the loopback's first forward of every data coordinate when rows split
+            fwd, bwd = layers * n_data * tp * (2 if n_data > 1 else 1), layers * n_data * tp
+        updates = sum(n for n, _ in planned_update_slices(probe, sizes))
+        for i, counts in enumerate(run["per_step"]):
+            want = {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd,
+                    "fused_adamw_update": updates}
+            if cuda and counts != want:
+                raise SystemExit(f"moe {name} step {i}: launches {counts}, expected {want}")
+        if run["distinct"] != want_bytes:
+            raise SystemExit(f"moe {name}: the distinct shards over the ranks hold "
+                             f"{run['distinct']}, the unsharded model {want_bytes}")
+        want_impl = "einsum" if sizes["ep"] > 1 else "sorted"
+        if set(run["impls"]) != {want_impl}:
+            raise SystemExit(f"moe {name}: back-end calls {run['impls']}, expected "
+                             f"{want_impl} only")
+        add(run["counts"])
+        log(f"moe {name}: mesh {sizes}; losses {[round(x, 4) for x in run['losses']]}; the "
+            f"unsharded loss{' of 2 microbatches' if piped else ''} on the same parameters "
+            f"{[round(x, 4) for x in run['refs']]} (max "
+            f"|diff| {diff:.3e}, pin {MOE_LOSS_ATOL}); free-running against arm B's max |diff| "
+            f"{apart(run):.3e}; back-end calls {run['impls']}; update launches {updates} a "
+            f"step (the plan's distinct slices); distinct shards {run['distinct']} = the "
+            f"unsharded bytes; step {run['step_s'] * 1e3:.1f} ms; peak memory "
+            f"{run['peak'] / 2**30:.2f} GiB [{card}]")
+        if piped:
+            log(f"moe {name}: the unpipelined loss (the router loss of the whole batch) on "
+                f"the same parameters {[round(x, 4) for x in whole]}, max |diff| "
+                f"{max(abs(x - y) for x, y in zip(run['losses'], whole)):.3e}")
+
+    # F: the dispatch back-ends at the layer's shapes.
+    for cf in (4.0, 1.25):
+        moe_op_arm(cf, device, cut)
+
+    # G: the memory estimate of the published config.
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="moe_estimate_") as tmp:
+        path = os.path.join(tmp, "config.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(MIXTRAL_8X7B, f)
+        args = estimate.estimate_command_parser().parse_args([path, "--dtypes", "bf16"])
+        rows, largest = estimate.gather_data(args)
+        out = cli(["estimate-memory", path, "--dtypes", "bf16"])
+    if rows[0][2] != 2 * MIXTRAL_8X7B_PARAMS or out.returncode != 0:
+        raise SystemExit(f"moe G: estimate bf16 {rows[0][2]} B, expected "
+                         f"{2 * MIXTRAL_8X7B_PARAMS} B (rc {out.returncode}: {out.stderr[-2000:]})")
+    log(f"moe G: estimate-memory of the Mixtral-8x7B config.json: {MIXTRAL_8X7B_PARAMS} "
+        f"parameters, bf16 {rows[0][2]} B ({rows[0][2] / 1e9:.2f} GB), largest block "
+        f"{largest[1]!r}; the command prints {out.stdout.strip().splitlines()[-1].split()}")
+    log(f"moe: phase 20 in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return totals
+
+
 def _leaf_shapes(model):
     """The parameter leaves of ``model`` as meta tensors (shapes only)."""
     import torch
@@ -4293,6 +4772,14 @@ def main(argv) -> int:
         log(f"phase 19 launches: {launch_phase(card)}")
         print(card)
         return 0
+    if "--moe" in argv:
+        _build.build(["flash_attention", "fused_update", "paged_gather"])
+        card = card_info()
+        log(f"build: flash_attention, fused_update, paged_gather in "
+            f"{time.perf_counter() - t0:.1f} s; device: {card}")
+        log(f"phase 20 launches: {moe_phase(card)}")
+        print(card)
+        return 0
     if "--splash-times" in argv:
         _build.build(["splash_attention"])
         card = card_info()
@@ -4379,16 +4866,20 @@ def main(argv) -> int:
     cv_counts = cv_phase(card)
     free_cuda()
     launch_counts = launch_phase(card)
-    for row in rows:  # phase 7's launches plus those of phases 11 to 19
+    free_cuda()
+    moe_counts = moe_phase(card)
+    for row in rows:  # phase 3's or 7's launches plus those of phases 11 to 20
         later = [counts.get(row["name"], 0) for counts in (loop_counts, ckpt_counts,
                                                            shard_counts, precision_counts,
                                                            tp_counts, pp_counts, big_counts,
-                                                           cv_counts, launch_counts)]
+                                                           cv_counts, launch_counts,
+                                                           moe_counts)]
         if any(later):
-            log(f"kernel {row['name']}: {row['launches']} launches in phase 7, {later[0]} in "
-                f"phase 11, {later[1]} in phase 12, {later[2]} in phase 13, {later[3]} in "
-                f"phase 14, {later[4]} in phase 15, {later[5]} in phase 16, {later[6]} in "
-                f"phase 17, {later[7]} in phase 18, {later[8]} in phase 19")
+            log(f"kernel {row['name']}: {row['launches']} launches in phase 3 or 7, "
+                f"{later[0]} in phase 11, {later[1]} in phase 12, {later[2]} in phase 13, "
+                f"{later[3]} in phase 14, {later[4]} in phase 15, {later[5]} in phase 16, "
+                f"{later[6]} in phase 17, {later[7]} in phase 18, {later[8]} in phase 19, "
+                f"{later[9]} in phase 20")
             row["launches"] += sum(later)
     for row in precision_rows:  # phase 14's launches plus phase 15's fp16 arms'
         if tp_counts.get(row["name"]):

@@ -506,7 +506,7 @@ def test_mesh_mismatch_raises_without_reshard(tmp_path):
     step = acc.build_train_step(pm, po)
     path = acc.save_state(str(tmp_path / "ck"))
     manifest = json.loads(open(os.path.join(path, "manifest.json")).read())
-    assert manifest["mesh"] == {"axes": {"pp": 1, "dp": 1, "fsdp": 1, "sp": 1, "tp": 1},
+    assert manifest["mesh"] == {"axes": {"pp": 1, "dp": 1, "fsdp": 1, "ep": 1, "sp": 1, "tp": 1},
                                 "process_count": 1,
                                 "data_parallel": 1, "gradient_accumulation_steps": 2,
                                 "zero_sharding": False}

@@ -7,9 +7,11 @@ package's (``accelerate_tpu/commands/``), on the CPU:
 - the launch contract: for the same configuration the ``ACCELERATE_*`` keys
   the port reads equal those of the JAX ``prepare_launch_env``, bitwise; the
   rank keys of 2 machines x 2 processes; flags over the config; every field
-  and flag the port cannot honour raises by name;
+  and flag the port cannot honour raises by name; ``ep_size`` in a config
+  and ``--ep_size`` reach ``ACCELERATE_MESH_SHAPE`` as JAX's;
 - ``estimate-memory``: the bytes equal the JAX package's
-  ``abstract_param_bytes`` exactly (presets and config.json files), and the
+  ``abstract_param_bytes`` exactly (presets and config.json files, Mixtral
+  among them, with Mixtral-8x7B's 46,702,792,704 parameters), and the
   families not ported raise;
 - ``merge-weights`` of a ``save_state`` folder: bitwise the model's state
   dict, in the JAX ``export_full_weights`` file names and index;
@@ -102,9 +104,10 @@ def test_default_config_and_the_wizard(tmp_path, monkeypatch):
     cfg = tconfig_args.load_config_from_file(path)
     assert _fields(cfg) == _fields(tconfig_args.ClusterConfig())
     # The wizard's plain prompts (no terminal): CPU, 1 machine, 2 ranks, dp 0,
-    # fsdp 2 with options, then defaults, accumulation 2, bf16.
-    answers = iter(["yes", "1", "2", "0", "2", "1", "1", "1", "yes", "4096", "yes", "2", "no",
-                    "no", "no", "bf16"])
+    # fsdp 2, tp, pp, sp and ep 1, fsdp options, then defaults, accumulation
+    # 2, bf16.
+    answers = iter(["yes", "1", "2", "0", "2", "1", "1", "1", "1", "yes", "4096", "yes", "2",
+                    "no", "no", "no", "bf16"])
     monkeypatch.setattr("builtins.input", lambda prompt="": next(answers))
     got = tconfig.get_user_input()
     assert (got.use_cpu, got.num_processes, got.fsdp_size, got.fsdp_min_shard_size,
@@ -123,6 +126,7 @@ CONTRACT_CASES = {
                      checkpoint_auto_naming=True, log_with="json", train_window=4,
                      zero_sharding=True),
     "explicit_defaults": dict(train_window=1, zero_sharding=False, mixed_precision="fp8"),
+    "ep_mesh": dict(use_cpu=True, dp_size=2, ep_size=2, tp_size=2),
 }
 
 
@@ -170,7 +174,7 @@ def test_flags_override_the_config(tmp_path):
 
 UNPORTED_VALUES = {
     "compute_environment": "TPU_POD", "cpu_virtual_devices": 8, "downcast_bf16": True,
-    "compile_cache_dir": "/tmp/c", "xla_preset": "off", "ep_size": 2, "dcn_size": 2,
+    "compile_cache_dir": "/tmp/c", "xla_preset": "off", "dcn_size": 2,
     "handle_preemption": True, "fault_plan": "step:3=kill", "elastic": False,
     "min_data_parallel": 2, "guard_numerics": True, "spike_zscore": 0.0, "hang_timeout": 5.0,
     "telemetry": True, "metrics_port": 9000, "straggler_threshold": 2.0,
@@ -199,7 +203,7 @@ def test_unported_config_fields_raise_by_name(tmp_path, field):
 @pytest.mark.parametrize("flags", [["--xla_preset", "latency"], ["--telemetry"],
                                    ["--no-elastic"], ["--handle_preemption"],
                                    ["--kernels", "off"], ["--metrics_port", "9000"],
-                                   ["--ep_size", "2"], ["--dcn_size", "4"],
+                                   ["--dcn_size", "4"],
                                    ["--cpu_virtual_devices", "8"]])
 def test_unported_flags_raise_by_name(flags):
     args = tlaunch.launch_command_parser().parse_args(["--cpu", *flags, "script.py"])
@@ -242,6 +246,17 @@ CONFIG_FILES = {
                                     num_key_value_heads=1, sliding_window=32),
     "bert-small": dict(model_type="bert", vocab_size=500, hidden_size=64,
                        num_hidden_layers=2, num_attention_heads=4, intermediate_size=128),
+    # mistralai/Mixtral-8x7B-v0.1's published config.json (its size keys).
+    "mixtral-8x7b": dict(architectures=["MixtralForCausalLM"], model_type="mixtral",
+                         vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                         num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+                         num_local_experts=8, num_experts_per_tok=2, rope_theta=1e6,
+                         rms_norm_eps=1e-5, router_aux_loss_coef=0.02,
+                         max_position_embeddings=32768, tie_word_embeddings=False,
+                         sliding_window=None),
+    "mixtral-small": dict(model_type="mixtral", vocab_size=300, hidden_size=64,
+                          intermediate_size=96, num_hidden_layers=2, num_attention_heads=4,
+                          num_key_value_heads=2, num_local_experts=4, num_experts_per_tok=2),
 }
 
 
@@ -280,6 +295,40 @@ def test_estimate_table_and_the_families_not_ported(tmp_path, monkeypatch, capsy
     (tmp_path / "hub" / "models--org--model" / "refs" / "main").write_text("abc123")
     assert testimate.abstract_param_bytes("org/model") == testimate.abstract_param_bytes(
         str(snapshot / "config.json"))
+
+
+def test_ep_size_in_the_config_and_the_launch_flag(clean_env, tmp_path):
+    """``ep_size`` is a config field the wizard writes and a launch flag;
+    both export JAX's ``ACCELERATE_MESH_SHAPE``."""
+    path = tmp_path / "cfg.yaml"
+    tconfig_args.ClusterConfig(use_cpu=True, num_processes=4, ep_size=2).to_yaml_file(str(path))
+    cfg = tconfig_args.load_config_from_file(str(path))
+    assert cfg.ep_size == 2
+    tconfig_args.check_ported(cfg)
+    args = tlaunch.launch_command_parser().parse_args(
+        ["--config_file", str(path), "--ep_size", "4", "--dp_size", "1", "script.py"])
+    merged = tlaunch._merge_config(args)
+    assert (merged.ep_size, merged.dp_size) == (4, 1)
+    tenv = tlaunch.prepare_launch_env(merged, local_rank=0)
+    jenv = j_env(jconfig.ClusterConfig(**{k: getattr(merged, k) for k in (
+        "use_cpu", "num_processes", "ep_size", "dp_size")}), process_id=0)
+    assert tenv["ACCELERATE_MESH_SHAPE"] == jenv["ACCELERATE_MESH_SHAPE"]
+    assert "ep:4" in tenv["ACCELERATE_MESH_SHAPE"].split(",")
+
+
+def test_estimate_of_mixtral_8x7b(tmp_path, capsys):
+    """Mixtral-8x7B: ``MoELlama.num_params``' 46,702,792,704 parameters,
+    93.41 GB in bf16, the JAX package's count."""
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps(CONFIG_FILES["mixtral-8x7b"]))
+    n = T.MoELlama(T.mixtral_config_from_hf(CONFIG_FILES["mixtral-8x7b"]),
+                   device="cpu").num_params()
+    assert n == 46_702_792_704
+    args = testimate.estimate_command_parser().parse_args([str(path), "--dtypes", "bf16"])
+    rows, _ = testimate.gather_data(args)
+    assert rows[0][2] == 2 * n == j_bytes(str(path)) // 2
+    testimate.estimate_command(args)
+    assert "bf16" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("shard", ["10GB", "40KB"])

@@ -268,7 +268,7 @@ def test_each_rank_holds_its_share_of_the_state(fused_runs, layout):
     ranks, _ = fused_runs(layout)
     mesh, zero = LAYOUTS[layout]
     fsdp, dp = mesh["fsdp_size"], mesh["dp_size"]
-    assert [tuple(r["coordinate"]) for r in ranks] == [(0, i // fsdp, i % fsdp, 0, 0)
+    assert [tuple(r["coordinate"]) for r in ranks] == [(0, i // fsdp, i % fsdp, 0, 0, 0)
                                                         for i in range(N_RANKS)]
     model = T.Llama(T.LlamaConfig.tiny(**CFG), device="cpu")
     model.device = torch.device("meta")
@@ -396,7 +396,7 @@ def test_mesh_sizes_resolve_as_jax(kw):
 
     want = JParallelismConfig(**kw).resolved_sizes(8, dcn=1)
     got = T.ParallelismConfig(**kw).resolved_sizes(8)
-    assert got == {a: want[a] for a in ("pp", "dp", "fsdp", "sp", "tp")}
+    assert got == {a: want[a] for a in ("pp", "dp", "fsdp", "ep", "sp", "tp")}
 
 
 def test_zero_sharding_env_default_and_setter(monkeypatch):
@@ -422,13 +422,12 @@ def test_zero_sharding_env_default_and_setter(monkeypatch):
 
 
 def test_unported_sharding_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.ParallelismConfig(ep_size=2)
+    assert T.ParallelismConfig(ep_size=2).ep_size == 2  # ep is ported
     assert T.ParallelismConfig(pp_size=2).pp_size == 2  # pp is ported
     # The tp axis is ported: a tp 2 x fsdp 2 loopback builds.
     tp = T.Accelerator(device="cpu", parallelism_config=T.ParallelismConfig(
         tp_size=2, fsdp_size=2), loopback=LoopbackShards(4))
-    assert tp.mesh_sizes == {"pp": 1, "dp": 1, "fsdp": 2, "sp": 1, "tp": 2} and \
+    assert tp.mesh_sizes == {"pp": 1, "dp": 1, "fsdp": 2, "ep": 1, "sp": 1, "tp": 2} and \
         tp.num_data_ranks == 2
     # cpu_offload is ported (the optimizer state in pinned host memory).
     offload = T.Accelerator(device="cpu", fsdp_plugin=T.FullyShardedDataParallelPlugin(
@@ -439,7 +438,7 @@ def test_unported_sharding_options_raise():
             sp_size=2, fsdp_size=2), loopback=LoopbackShards(4))
     acc = T.Accelerator(device="cpu", fsdp_plugin=T.FullyShardedDataParallelPlugin(fsdp_size=2),
                         loopback=LoopbackShards(2))
-    assert acc.mesh_sizes == {"pp": 1, "dp": 1, "fsdp": 2, "sp": 1, "tp": 1} and \
+    assert acc.mesh_sizes == {"pp": 1, "dp": 1, "fsdp": 2, "ep": 1, "sp": 1, "tp": 1} and \
         acc.num_data_ranks == 2
     bert = T.BertForSequenceClassification(T.BertConfig(
         vocab_size=64, hidden_size=32, num_hidden_layers=2, num_attention_heads=2,

@@ -223,7 +223,7 @@ def test_cpu_offload_from_the_environment(monkeypatch):
     monkeypatch.setenv("ACCELERATE_FSDP_CPU_OFFLOAD", "1")
     acc = T.Accelerator(device="cpu")
     assert acc.fsdp_plugin.cpu_offload and acc._offload_opt_state
-    assert acc.mesh_sizes == {"pp": 1, "dp": 1, "fsdp": 1, "sp": 1, "tp": 1}
+    assert acc.mesh_sizes == {"pp": 1, "dp": 1, "fsdp": 1, "ep": 1, "sp": 1, "tp": 1}
     model = T.Llama(T.LlamaConfig.tiny(**CFG), device="cpu")
     model.init_params(0)
     _, po = acc.prepare(model, T.adamw(3e-4, device="cpu"))

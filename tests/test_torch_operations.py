@@ -315,5 +315,5 @@ def test_two_ranks_save_state_shares_one_folder(tmp_path):
         "random_states_0.pkl", "random_states_1.pkl", "sampler.bin"]
     assert pickle.loads((ckpt / "custom_checkpoint_0.pkl").read_bytes()) == {"n": 10}
     manifest = json.loads((ckpt / "manifest.json").read_text())
-    assert manifest["mesh"]["axes"] == {"pp": 1, "dp": 2, "fsdp": 1, "sp": 1, "tp": 1}
+    assert manifest["mesh"]["axes"] == {"pp": 1, "dp": 2, "fsdp": 1, "ep": 1, "sp": 1, "tp": 1}
     assert manifest["mesh"]["process_count"] == 2

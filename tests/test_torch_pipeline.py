@@ -165,7 +165,7 @@ def test_pipeline_matches_jax_pipeline(schedule, batch, mb):
     losses, params, pm, _ = _port_run(dict(pp_size=2), _plugin(2, mb, schedule), batch=batch)
     spec = pm.handle.pipeline_spec
     assert spec.schedule == schedule and spec.num_microbatches == (mb or 2)
-    assert pm.handle.sharded.sizes == {"pp": 2, "dp": 4, "fsdp": 1, "sp": 1, "tp": 1}
+    assert pm.handle.sharded.sizes == {"pp": 2, "dp": 4, "fsdp": 1, "ep": 1, "sp": 1, "tp": 1}
     np.testing.assert_allclose(losses, want_losses, rtol=LOSS_RTOL)
     _assert_params(params, want, PARAM_ATOL)
 
@@ -302,7 +302,7 @@ def test_mesh_sizes_with_pp_resolve_as_jax(kw):
 
     want = JPC(**kw).resolved_sizes(8, dcn=1)
     got = T.ParallelismConfig(**kw).resolved_sizes(8)
-    assert got == {a: want[a] for a in ("pp", "dp", "fsdp", "sp", "tp")}
+    assert got == {a: want[a] for a in ("pp", "dp", "fsdp", "ep", "sp", "tp")}
     from accelerate_tpu_torch.parallel.fsdp import rank_coordinate
 
     # pp is the outermost axis: stage s holds ranks s * 8 / pp ...
@@ -314,7 +314,7 @@ def test_mesh_sizes_with_pp_resolve_as_jax(kw):
 def test_pp_entry_points_build_the_pipeline(monkeypatch):
     acc = T.Accelerator(device="cpu", megatron_plugin=T.MegatronStylePlugin(pp_size=2, tp_size=2),
                         loopback=T.LoopbackShards(4))
-    assert acc.mesh_sizes == {"pp": 2, "dp": 1, "fsdp": 1, "sp": 1, "tp": 2}
+    assert acc.mesh_sizes == {"pp": 2, "dp": 1, "fsdp": 1, "ep": 1, "sp": 1, "tp": 2}
     assert T.ParallelismConfig(pp_size=2).pp_size == 2
     monkeypatch.setenv("ACCELERATE_MESH_SHAPE", "pp:2,dp:2")
     monkeypatch.setenv("ACCELERATE_PP_SCHEDULE", "1f1b")
@@ -329,8 +329,9 @@ def test_pp_entry_points_build_the_pipeline(monkeypatch):
     with pytest.raises(ValueError, match="ACCELERATE_PP_MICROBATCHES"):
         T.Accelerator(device="cpu", loopback=T.LoopbackShards(4)).prepare(
             _port_model(), T.sgd(0.1, device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.ParallelismConfig(ep_size=2)
+    with pytest.raises(NotImplementedError, match="ep together with pp"):
+        T.Accelerator(device="cpu", parallelism_config=T.ParallelismConfig(ep_size=2, pp_size=2),
+                      loopback=T.LoopbackShards(4))
 
 
 def test_direct_apply_with_a_pipeline_spec_equals_the_plain_forward():

@@ -285,8 +285,8 @@ def test_sp_step_every_rank_holds_identical_params(port_sp_runs, layout):
     ranks = port_sp_runs(layout)
     sp, dp = LAYOUTS[layout]
     # rank = dp_index * sp + sp_index, the JAX package's axis order (the
-    # mesh's pp axis before them and fsdp axis between them have size 1).
-    assert [tuple(r["coordinate"]) for r in ranks] == [(0, i // sp, 0, i % sp, 0)
+    # mesh's pp axis before them and fsdp and ep axes between them have size 1).
+    assert [tuple(r["coordinate"]) for r in ranks] == [(0, i // sp, 0, 0, i % sp, 0)
                                                         for i in range(4)]
     for saved in ranks[1:]:
         for key, value in ranks[0].items():

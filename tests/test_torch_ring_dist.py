@@ -165,8 +165,9 @@ def test_unported_sequence_parallel_options_raise():
     acc = T.Accelerator(device="cpu", sp_plugin=T.SequenceParallelPlugin(4, ring_attention=False),
                         loopback=T.LoopbackShards(4))
     assert acc.mesh_sizes["sp"] == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.ParallelismConfig(ep_size=2)
+    with pytest.raises(NotImplementedError, match="ep together with sp"):
+        T.Accelerator(device="cpu", parallelism_config=T.ParallelismConfig(
+            sp_size=2, ep_size=2), loopback=T.LoopbackShards(4))
     with pytest.raises(NotImplementedError, match="pp together with sp"):
         T.Accelerator(device="cpu", parallelism_config=T.ParallelismConfig(
             sp_size=2, pp_size=2), loopback=T.LoopbackShards(4))

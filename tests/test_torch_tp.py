@@ -19,7 +19,7 @@ layouts against the unsharded step, and the entry points.
   with remat, Ulysses sp 2 x tp 2, the ring sp 4) train as the unsharded
   step (f32, losses 1e-5, parameters 5e-5: the remat tests' pins).
 - ``ACCELERATE_MESH_SHAPE`` resolves as JAX's; the tp and Megatron plugins
-  build the mesh; pp and ep still raise naming ROADMAP.
+  build the mesh; ep reaches it, and ep with pp or with sp raises.
 """
 
 import numpy as np
@@ -317,12 +317,13 @@ def test_loopback_layouts_train_as_the_unsharded_step(name):
 # ------------------------------------------------------------- entry points
 @pytest.mark.parametrize("shape,n", [("dp:2,tp:2", 4), ("tp:4", 8), ("fsdp:0,tp:2", 8),
                                      ("dp:2,fsdp:2,tp:2", 8), ("sp:2,tp:2", 8),
-                                     ("dp:0,sp:4", 8), ("tp:2,dcn:1", 8)])
+                                     ("dp:0,sp:4", 8), ("tp:2,dcn:1", 8),
+                                     ("dp:2,ep:2,tp:2", 8)])
 def test_mesh_shape_env_resolves_as_jax(monkeypatch, shape, n):
     monkeypatch.setenv("ACCELERATE_MESH_SHAPE", shape)
     want = JParallelismConfig.from_env().resolved_sizes(n, dcn=1)
     got = T.ParallelismConfig.from_env().resolved_sizes(n)
-    assert got == {a: want[a] for a in ("pp", "dp", "fsdp", "sp", "tp")}
+    assert got == {a: want[a] for a in ("pp", "dp", "fsdp", "ep", "sp", "tp")}
     acc = T.Accelerator(device="cpu", loopback=T.LoopbackShards(n))
     assert acc.mesh_sizes == got
 
@@ -330,21 +331,30 @@ def test_mesh_shape_env_resolves_as_jax(monkeypatch, shape, n):
 def test_plugins_build_the_mesh_and_unported_axes_raise(monkeypatch):
     acc = T.Accelerator(device="cpu", tp_plugin=T.TensorParallelPlugin(2),
                         loopback=T.LoopbackShards(4))
-    assert acc.mesh_sizes == {"pp": 1, "dp": 2, "fsdp": 1, "sp": 1, "tp": 2}
+    assert acc.mesh_sizes == {"pp": 1, "dp": 2, "fsdp": 1, "ep": 1, "sp": 1, "tp": 2}
     acc = T.Accelerator(device="cpu", megatron_plugin=T.MegatronStylePlugin(
         tp_size=2, fsdp_size=2, sp_size=1), loopback=T.LoopbackShards(4))
-    assert acc.mesh_sizes == {"pp": 1, "dp": 1, "fsdp": 2, "sp": 1, "tp": 2}
+    assert acc.mesh_sizes == {"pp": 1, "dp": 1, "fsdp": 2, "ep": 1, "sp": 1, "tp": 2}
     with pytest.raises(ValueError, match="tp_size"):
         T.TensorParallelPlugin(0)
     # pp is ported: the Megatron plugin's pp size reaches the mesh.
     acc = T.Accelerator(device="cpu", megatron_plugin=T.MegatronStylePlugin(pp_size=2),
                         loopback=T.LoopbackShards(4))
-    assert acc.mesh_sizes == {"pp": 2, "dp": 2, "fsdp": 1, "sp": 1, "tp": 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.ParallelismConfig(ep_size=2)
+    assert acc.mesh_sizes == {"pp": 2, "dp": 2, "fsdp": 1, "ep": 1, "sp": 1, "tp": 1}
+    # ep is ported: the config and the env reach the mesh; ep with pp or sp raises.
+    acc = T.Accelerator(device="cpu", parallelism_config=T.ParallelismConfig(ep_size=2),
+                        loopback=T.LoopbackShards(4))
+    assert acc.mesh_sizes == {"pp": 1, "dp": 2, "fsdp": 1, "ep": 2, "sp": 1, "tp": 1}
     monkeypatch.setenv("ACCELERATE_MESH_SHAPE", "ep:2,dp:2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.Accelerator(device="cpu")
+    acc = T.Accelerator(device="cpu", loopback=T.LoopbackShards(4))
+    assert acc.mesh_sizes == {"pp": 1, "dp": 2, "fsdp": 1, "ep": 2, "sp": 1, "tp": 1}
+    monkeypatch.delenv("ACCELERATE_MESH_SHAPE")
+    with pytest.raises(NotImplementedError, match="ep together with pp"):
+        T.Accelerator(device="cpu", parallelism_config=T.ParallelismConfig(ep_size=2, pp_size=2),
+                      loopback=T.LoopbackShards(4))
+    with pytest.raises(NotImplementedError, match="ep together with sp"):
+        T.Accelerator(device="cpu", parallelism_config=T.ParallelismConfig(ep_size=2, dp_size=1),
+                      sp_plugin=T.SequenceParallelPlugin(2), loopback=T.LoopbackShards(4))
     monkeypatch.setenv("ACCELERATE_MESH_SHAPE", "dcn:2,tp:2")
     with pytest.raises(NotImplementedError, match="dcn"):
         T.Accelerator(device="cpu")
