@@ -49,7 +49,12 @@ quantization: ``big_modeling.py``, ``hooks.py``, ``utils/modeling.py``,
 JAX package) and the CV examples' convnet (``models/vision.py``,
 ``examples/cv_example.py``); the launcher and the CLI (``commands/``); and
 mixture of experts with the ep axis (``MoELlama``, ``models/moe.py``,
-``ops/moe.py``, ``mixtral_config_from_hf``, ``ParallelismConfig(ep_size=)``).
+``ops/moe.py``, ``mixtral_config_from_hf``, ``ParallelismConfig(ep_size=)``);
+and Hugging Face checkpoints with the classic-GPT decoders: the state-dict
+converters of ``models/convert.py`` for every decoder family the port has
+and BERT (``from_hf``, ``from_hf_checkpoint``), GPT-2 (``models/gpt2.py``)
+and GPT-NeoX / GPT-J / OPT (``GPTX``, ``models/gptx.py``), served, trained,
+sharded and streamed as Llama is.
 ROADMAP.md lists what comes next.
 
 Entry points run on the card by default and raise without one unless the
@@ -69,26 +74,52 @@ from .inference import prepare_pippy
 from .launchers import debug_launcher, notebook_launcher
 from .logging import get_logger
 from .models import (
+    GPT2,
+    GPTX,
+    HF_CONVERTERS,
     BertConfig,
     BertForSequenceClassification,
     ConvNetConfig,
     ConvNetForImageClassification,
+    GPT2Config,
+    GPTXConfig,
     Llama,
     LlamaConfig,
     MoELlama,
     MoELlamaConfig,
     bert_config_from_hf,
+    bert_params_from_hf,
     bert_params_from_numpy,
     convnet_params_from_numpy,
+    from_hf,
+    from_hf_checkpoint,
     gemma2_config_from_hf,
+    gemma2_params_from_hf,
     gemma_config_from_hf,
+    gemma_params_from_hf,
+    gpt2_config_from_hf,
+    gpt2_params_from_hf,
+    gpt2_params_from_numpy,
+    gpt_neox_config_from_hf,
+    gpt_neox_params_from_hf,
+    gptj_config_from_hf,
+    gptj_params_from_hf,
+    gptx_params_from_numpy,
     llama_config_from_hf,
+    llama_params_from_hf,
     llama_params_from_numpy,
     mixtral_config_from_hf,
+    mixtral_params_from_hf,
     moe_llama_params_from_numpy,
+    opt_config_from_hf,
+    opt_params_from_hf,
     optax_state_from_numpy,
+    phi3_config_from_hf,
+    phi3_params_from_hf,
     qwen2_config_from_hf,
+    qwen2_params_from_hf,
     qwen3_config_from_hf,
+    qwen3_params_from_hf,
 )
 from .ops.paged_attention import init_kv_pool
 from .optim import (
@@ -171,6 +202,10 @@ __all__ = [
     "DeviceBatchPrefetcher",
     "Fp8RecipeKwargs",
     "FullyShardedDataParallelPlugin",
+    "GPT2",
+    "GPT2Config",
+    "GPTX",
+    "GPTXConfig",
     "GradScalerState",
     "GradientAccumulationPlugin",
     "GradientState",
@@ -192,7 +227,6 @@ __all__ = [
     "adafactor",
     "adam",
     "adamw",
-    "bert_config_from_hf",
     "bert_params_from_numpy",
     "constant_schedule",
     "convnet_params_from_numpy",
@@ -204,8 +238,6 @@ __all__ = [
     "find_executable_batch_size",
     "gather",
     "gather_object",
-    "gemma2_config_from_hf",
-    "gemma_config_from_hf",
     "generate",
     "get_logger",
     "infer_auto_device_map",
@@ -215,19 +247,15 @@ __all__ = [
     "inject_hyperparams",
     "linear_schedule",
     "notebook_launcher",
-    "llama_config_from_hf",
     "llama_params_from_numpy",
     "load_and_quantize_model",
     "load_checkpoint_and_dispatch",
-    "mixtral_config_from_hf",
     "moe_llama_params_from_numpy",
     "optax_state_from_numpy",
     "optim",
     "polynomial_schedule",
     "prepare_data_loader",
     "prepare_pippy",
-    "qwen2_config_from_hf",
-    "qwen3_config_from_hf",
     "reduce",
     "release_memory",
     "reset_transfer_stats",
@@ -240,4 +268,7 @@ __all__ = [
     "skip_first_batches",
     "tqdm",
     "transfer_stats",
+    "gpt2_params_from_numpy",
+    "gptx_params_from_numpy",
+    *HF_CONVERTERS,
 ]

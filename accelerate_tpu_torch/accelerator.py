@@ -153,10 +153,11 @@ runs on the same shards (one process per rank).
 
 Tensor parallelism (``ParallelismConfig(tp_size=)``, ``tp_plugin=
 TensorParallelPlugin(...)``, ``megatron_plugin=MegatronStylePlugin(...)``
-or ``ACCELERATE_MESH_SHAPE=dp:2,tp:2``) always runs on shards: the Llama
-rules split the heads, the MLP's columns and the vocab over tp, each layer
-is gathered over fsdp only, and the model runs Megatron's split on its tp
-pieces (``parallel/tensor.py``); the tp and sp ranks of one data coordinate
+or ``ACCELERATE_MESH_SHAPE=dp:2,tp:2``) always runs on shards: the
+model's rules (Llama's, GPT-2's, GPTX's) split the heads, the MLP's
+columns and the vocab over tp, each layer is gathered over fsdp only, and
+the model runs Megatron's split on its tp pieces (``parallel/tensor.py``;
+any model of ``SHARD_PROTOCOL``); the tp and sp ranks of one data coordinate
 read the same rows, and the gradients are summed over dp, fsdp and sp,
 never over tp. Under fp16 the sharded fused step scales the loss, unscales
 each rank's shards and skips the update on every rank when the norm is not
@@ -211,7 +212,6 @@ import torch
 import torch.utils.data as tud
 
 from .data_loader import DataLoaderShard, prepare_data_loader, skip_first_batches
-from .models.llama import Llama
 from .modules import Module
 from .ops.fused_update import fused_update_apply, reference_update_apply
 from .ops.moe import DataRouterStats, RecordedRouterStats
@@ -264,6 +264,13 @@ from .utils.tree import tree_leaves, tree_map, tree_unflatten
 # dropout key with ACCELERATE_SEED + 7919; no environment variable sets it).
 DROPOUT_SEED = 7919
 
+
+# What the shard engine needs of a model (``Accelerator._shard``): the stage
+# protocol, the layer loop that reads a stacked leaf one index at a time
+# (``parallel/fsdp._StackedLeaf``), and the tp hooks that run a block on the
+# pieces of a leaf split over tp.
+SHARD_PROTOCOL = ("embed", "block", "head", "run_layers", "_tp_attention", "_tp_mlp",
+                  "sharding_rules")
 
 class TrainHandle:
     """Binds a prepared model to its optimizer: the module, the current
@@ -1028,11 +1035,14 @@ class Accelerator:
         """Keep only this rank's shards of ``handle``'s parameters
         (``parallel/fsdp.py``), laid out as the JAX package plans them."""
         module = handle.module
-        if not isinstance(module, Llama):
+        missing = [m for m in SHARD_PROTOCOL if not callable(getattr(module, m, None))]
+        if missing or not isinstance(handle.params.get("layers"), dict):
             raise NotImplementedError(
-                f"sharded training (fsdp, tp, ZeRO, a loopback) runs models that read their "
-                f"stacked layers one index at a time, as Llama does; {type(module).__name__} "
-                "is not ported to it yet (ROADMAP.md, module queue)")
+                f"sharded training (fsdp, tp, ZeRO, a loopback) runs models of the embed / "
+                f"block / head protocol that read their stacked layers one index at a time "
+                f"(run_layers) and run tp on their pieces (the tp hooks _tp_attention and "
+                f"_tp_mlp), as Llama, MoELlama, GPT2 and GPTX do; {type(module).__name__} "
+                f"lacks {missing or ['stacked layers']} (ROADMAP.md, Queue 1 item 5)")
         sizes = self.mesh_sizes
         n_experts = getattr(module.config, "num_experts", None)
         if n_experts is not None and (n_experts % sizes["ep"]

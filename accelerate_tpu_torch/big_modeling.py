@@ -256,7 +256,8 @@ class StreamedScanModel:
     Spread (``stages`` of ``((start, stop), device, layers)``): each layer
     runs on its stage's card from the slice held there, the residual stream
     moving between cards; the embedding runs where its weight is and the
-    head where ``final_norm`` is.
+    head where the final norm (``final_norm``, GPT's ``ln_f``) is; a tied
+    head reads the embedding's table there.
 
     The decode cache is a list of per-layer K/V tensors, each on its layer's
     device."""
@@ -275,7 +276,8 @@ class StreamedScanModel:
             nonlayer = {k: v for k, v in model.params.items() if k != "layers"}
             tied = getattr(model.config, "tie_word_embeddings", False)
             self._embed_device = _leaf_device(nonlayer.get("embed"), self.stages[0][1])
-            self._head_device = _leaf_device(nonlayer.get("final_norm"), self.stages[-1][1])
+            final_norm = nonlayer.get("final_norm", nonlayer.get("ln_f"))  # Llama's, GPT's
+            self._head_device = _leaf_device(final_norm, self.stages[-1][1])
             self._head_params = _to({k: v for k, v in nonlayer.items() if k != "embed" or tied},
                                     self._head_device)
 

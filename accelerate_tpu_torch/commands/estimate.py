@@ -5,15 +5,15 @@ optimizer bytes per dtype; the counterpart of
 The bytes come from the port's own models built on the ``meta`` device
 under ``big_modeling.init_empty_weights`` (the JAX package's
 ``jax.eval_shape``): shapes only, no memory, no device. A model is named by
-a zoo preset (the JAX package's Llama and BERT presets, and
-``llama-3-8b`` and ``gemma-2-9b`` at their published widths), a local
-Hugging Face ``config.json`` of a family the port has (Llama, Mistral,
-Gemma, Gemma-2, Qwen2, Qwen3, Mixtral, the last as ``MoELlama``, and
-BERT), or a Hub id whose ``config.json`` is in the local Hugging Face
-cache: nothing is fetched from the network. The JAX package's t5, gpt-j,
-gpt-neox and opt presets, and configs of the other families (gpt2, gptx,
-t5, whisper, vit, phi3), raise ``NotImplementedError``: those models are
-not ported yet.
+a zoo preset (the JAX package's Llama, BERT and classic-GPT presets
+``gpt-j-6b``, ``gpt-neox-20b`` and ``opt-30b``, and ``llama-3-8b`` and
+``gemma-2-9b`` at their published widths), a local Hugging Face
+``config.json`` of a family the port has (Llama, Mistral, Gemma, Gemma-2,
+Qwen2, Qwen3, Phi-3, Mixtral as ``MoELlama``, BERT, GPT-2, and GPT-NeoX,
+GPT-J and OPT as ``GPTX``), or a Hub id whose ``config.json`` is in the
+local Hugging Face cache: nothing is fetched from the network. The JAX
+package's t5 presets, and configs of t5, whisper and vit, raise
+``NotImplementedError``: those models are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,9 +26,9 @@ import os
 from ..utils.modeling import calculate_maximum_sizes
 from ..utils.other import convert_bytes
 
-# name -> (family, config fields). The Llama and BERT sizes are the JAX
-# package's presets; llama-3-8b is LlamaConfig.llama3_8b's and gemma-2-9b
-# the published google/gemma-2-9b config.json.
+# name -> (family, config fields). The Llama, BERT and classic-GPT sizes are
+# the JAX package's presets; llama-3-8b is LlamaConfig.llama3_8b's and
+# gemma-2-9b the published google/gemma-2-9b config.json.
 PRESETS = {
     "tiny": ("llama", dict(vocab_size=256, hidden_size=64, intermediate_size=128,
                            num_hidden_layers=2, num_attention_heads=4,
@@ -54,18 +54,27 @@ PRESETS = {
                                   query_pre_attn_scalar=256, attn_logit_softcapping=50.0,
                                   final_logit_softcapping=30.0,
                                   hidden_activation="gelu_pytorch_tanh")),
+    # The reference's BASELINE.md big-model-inference trio (models/gptx.py).
+    "gpt-j-6b": ("gptx", dict(vocab_size=50400, hidden_size=4096, intermediate_size=16384,
+                              num_hidden_layers=28, num_attention_heads=16,
+                              position_style="rotary_gptj", rotary_dim=64,
+                              shared_layernorm=True, attention_bias=False, lm_head_bias=True)),
+    "gpt-neox-20b": ("gptx", dict(vocab_size=50432, hidden_size=6144, intermediate_size=24576,
+                                  num_hidden_layers=44, num_attention_heads=64,
+                                  position_style="rotary_neox", rotary_dim=24)),
+    "opt-30b": ("gptx", dict(vocab_size=50272, hidden_size=7168, intermediate_size=28672,
+                             num_hidden_layers=48, num_attention_heads=56,
+                             position_style="learned", position_offset=2,
+                             parallel_residual=False, hidden_act="relu",
+                             tie_word_embeddings=True)),
     "bert-base": ("bert", dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
                                num_attention_heads=12, intermediate_size=3072)),
     "bert-large": ("bert", dict(vocab_size=30522, hidden_size=1024, num_hidden_layers=24,
                                 num_attention_heads=16, intermediate_size=4096)),
 }
 # The JAX package's presets of families the port has no model for yet.
-UNPORTED_PRESETS = {"t5-small": "t5", "t5-base": "t5", "t5-large": "t5", "gpt-j-6b": "gptj",
-                    "gpt-neox-20b": "gpt_neox", "opt-30b": "opt"}
-_UNPORTED_FAMILIES = {
-    "gpt2": "item 8", "gpt_neox": "item 8", "gptj": "item 8", "opt": "item 8", "t5": "item 8",
-    "whisper": "item 8", "vit": "item 8", "phi3": "item 8",
-}
+UNPORTED_PRESETS = {"t5-small": "t5", "t5-base": "t5", "t5-large": "t5"}
+_UNPORTED_FAMILIES = {"t5": "item 8", "whisper": "item 8", "vit": "item 8"}
 # config.json "architectures" names -> model_type (the JAX package's list).
 _ARCHITECTURES = (("mixtral", "mixtral"), ("gemma2", "gemma2"), ("gemma", "gemma"),
                   ("qwen2", "qwen2"), ("mistral", "mistral"), ("llama", "llama"),
@@ -87,8 +96,8 @@ def _model_from_hf_config(hf: dict):
     the config converters; a Llama-family config that its converter refuses
     for a feature the shapes do not need (an activation, a rope recipe) is
     sized from its size keys alone, as in the JAX package."""
-    from ..models import BertForSequenceClassification, Llama, LlamaConfig, MoELlama
-    from ..models.convert import _get_converter
+    from ..models import Llama, LlamaConfig
+    from ..models.convert import _get_family
 
     model_type = hf.get("model_type")
     if model_type is None:
@@ -96,11 +105,9 @@ def _model_from_hf_config(hf: dict):
         model_type = next((mtype for known, mtype in _ARCHITECTURES if known in arch), None)
     if model_type in _UNPORTED_FAMILIES:
         raise _unported("this config", model_type)
-    config_fn = _get_converter(model_type)
-    if model_type == "bert":
-        return BertForSequenceClassification(config_fn(hf), device="cpu")
+    cls, config_fn, _ = _get_family(model_type)
     try:
-        return (MoELlama if model_type == "mixtral" else Llama)(config_fn(hf), device="cpu")
+        return cls(config_fn(hf), device="cpu")
     except (ValueError, KeyError) as exc:
         size_keys = ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
                      "num_attention_heads")
@@ -148,7 +155,8 @@ def create_empty_model(model_name: str):
     """The parameter tree on ``meta`` of a preset, a local ``config.json``
     or a cached Hub id (module docstring)."""
     from ..big_modeling import init_empty_weights
-    from ..models import BertConfig, BertForSequenceClassification, Llama, LlamaConfig
+    from ..models import GPTX, BertConfig, BertForSequenceClassification, GPTXConfig, Llama, \
+        LlamaConfig
     from ..models.convert import gemma2_config_from_hf
 
     if os.path.isfile(model_name):
@@ -160,6 +168,8 @@ def create_empty_model(model_name: str):
             model = Llama(LlamaConfig(**kw), device="cpu")
         elif family == "gemma2":
             model = Llama(gemma2_config_from_hf(kw), device="cpu")
+        elif family == "gptx":
+            model = GPTX(GPTXConfig(**kw), device="cpu")
         else:
             model = BertForSequenceClassification(BertConfig(**kw), device="cpu")
     elif model_name in UNPORTED_PRESETS:

@@ -1,6 +1,7 @@
 """Carry parameters and optimizer state across from the JAX package.
 
-``llama_params_from_numpy`` (and ``bert_params_from_numpy``, for BERT) takes
+``llama_params_from_numpy`` (and ``bert_params_from_numpy``, for BERT,
+``gpt2_params_from_numpy`` and ``gptx_params_from_numpy``) takes
 the JAX package's parameter tree with
 its leaves already converted to numpy arrays (``jax.tree_util.tree_map(
 np.asarray, params)`` on the JAX side — this module imports no JAX) and
@@ -27,6 +28,8 @@ from ..optim import EmptyState, ScaleByAdam, ScaleByAdamState, Trace, TraceState
 from ..utils.device import resolve_device
 from ..utils.tree import tree_map
 from .bert import BertConfig, BertForSequenceClassification
+from .gpt2 import GPT2, GPT2Config
+from .gptx import GPTX, GPTXConfig
 from .llama import Llama, LlamaConfig
 from .moe import MoELlama, MoELlamaConfig
 from .vision import ConvNetConfig, ConvNetForImageClassification
@@ -65,6 +68,21 @@ def llama_params_from_numpy(tree, config: LlamaConfig, device=None, dtype=torch.
     on ``device`` in ``dtype``. Raises on a missing, extra or mis-shaped
     leaf instead of loading a partial model."""
     return _params_from_numpy(tree, _expected_shapes(Llama, config), device, dtype)
+
+
+def gpt2_params_from_numpy(tree, config: GPT2Config, device=None, dtype=torch.float32):
+    """Numpy GPT-2 parameter tree (the JAX layout: ``embed/{wte,wpe}``, the
+    stacked ``layers``, ``ln_f``) → the port's parameters, leaf for leaf;
+    raises as :func:`llama_params_from_numpy` does."""
+    return _params_from_numpy(tree, _expected_shapes(GPT2, config), device, dtype)
+
+
+def gptx_params_from_numpy(tree, config: GPTXConfig, device=None, dtype=torch.float32):
+    """Numpy GPTX (GPT-NeoX / GPT-J / OPT) parameter tree (the JAX layout,
+    its leaves set by the config: ``wpe`` for learned positions, the biases,
+    ``ln_2``, ``lm_head`` and its bias) → the port's parameters, leaf for
+    leaf; raises as :func:`llama_params_from_numpy` does."""
+    return _params_from_numpy(tree, _expected_shapes(GPTX, config), device, dtype)
 
 
 def moe_llama_params_from_numpy(tree, config: MoELlamaConfig, device=None,

@@ -30,6 +30,9 @@
     python3 chip_smoke.py --launch   # only phase 19: the launcher and the CLI
     python3 chip_smoke.py --moe      # only phase 20: mixture of experts at
                                      # Mixtral-8x7B widths, the ep axis
+    python3 chip_smoke.py --gptx     # only phase 21: a Hugging Face GPT-NeoX
+                                     # checkpoint served and streamed, OPT and
+                                     # GPT-2 trained, sharded, sized
     python3 chip_smoke.py --splash-times  # only the splash kernels' times at
                                      # Gemma-2-9B's layers (to set two trees
                                      # side by side in one run: copy this
@@ -349,6 +352,39 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    ``estimate-memory`` on the literal: exactly 46,702,792,704 parameters,
    93.41 GB in bf16.
 
+21. Hugging Face checkpoints and the classic-GPT decoders, on published
+   config.json values. A: a random bf16 checkpoint in the Hugging Face
+   GPT-NeoX layout of EleutherAI/pythia-6.9b (32 layers, hidden 4096, 32
+   heads of 128, rotary over 32 lanes, parallel residual; 13.7 GB in two
+   safetensors shards and an index) loaded by ``from_hf_checkpoint`` with
+   the config as a dict; sampled leaves of every kind, first and last layer,
+   bitwise the source rearranged by numpy (the per-head de-interleave of
+   ``query_key_value``); phase 3's wave through ``ContinuousBatcher(paged=
+   True)`` identical to ``kernels="off"``; ``generate`` on 4 of the wave's
+   prompts against the engine's tokens (``greedy_agreement``: equal, or
+   parted only at a near tie). B: A's model with ``matmul_precision=
+   "int8"``, 4 int8 launches a layer a forward, tokens identical to the
+   ``kernels="off"`` int8 engine's. E: the checkpoint converted onto the
+   host, ``infer_auto_device_map`` under a 6 GiB card budget (logged), the
+   layers dispatched to pinned host memory and streamed: 16 greedy tokens
+   of 4 prompts identical to A's resident model, s and bytes a token. C:
+   facebook/opt-30b's widths at 2 layers (1.61B parameters; relu, learned
+   positions at offset 2, tied), ``build_train_step`` at 2 x 2048, bf16,
+   ``adamw(3e-4)``, clip 1.0, 3 steps: flash 2 + 2 and the update once a
+   leaf a step, the losses within ``TRAIN_LOSS_ATOL`` of a ``kernels="off"``
+   arm's, the imperative loop within ``GPTX_IMPERATIVE_ATOL`` of the fused
+   step; step ms, tokens/s, MFU, peak memory. F: C's widths at 4 x 2048 on
+   ``LoopbackShards(4)``: tp 2 x fsdp 2, tp 4, pp 2 x dp 2 under 1F1B, each
+   within ``SHARD_LOSS_ATOL`` of the unsharded step, flash once per rank
+   and layer (1F1B: twice forward a microbatch), the update once per
+   distinct slice of the plan, the distinct shards the unsharded bytes. D:
+   openai-community/gpt2-xl at all 48 layers (1.56B parameters, flash at D
+   = 64), 3 steps at 4 x 1024 under C's pins (its ``kernels="off"`` arm
+   with remat, to fit), then greedy ``generate`` of 4 left-padded prompts
+   against the uncached ``kernels="off"`` greedy decode. G:
+   ``estimate-memory`` of gpt-j-6b, gpt-neox-20b and opt-30b equals the JAX
+   package's parameter count x 2 bytes in bf16.
+
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script exits non-zero before printing any result.
@@ -531,6 +567,44 @@ MOE_LOSS_ATOL = SHARD_LOSS_ATOL
 # and the combine sum in another order; a dropped or misrouted token moves
 # its block by far more) and the router loss's relative error.
 MOE_OP_TILE_REL = 1e-2
+# Phase 21: Hugging Face checkpoints and the classic-GPT decoders, on the
+# published config.json values of EleutherAI/pythia-6.9b (arms A, B, E: all
+# 32 layers), facebook/opt-30b (C, F: depth cut to GPTX_TRAIN_LAYERS) and
+# openai-community/gpt2-xl (D: all 48 layers), from the Hugging Face hub.
+PYTHIA_6_9B = dict(architectures=["GPTNeoXForCausalLM"], model_type="gpt_neox",
+                   vocab_size=50432, hidden_size=4096, intermediate_size=16384,
+                   num_hidden_layers=32, num_attention_heads=32, rotary_pct=0.25,
+                   rotary_emb_base=10000, max_position_embeddings=2048, layer_norm_eps=1e-5,
+                   use_parallel_residual=True, hidden_act="gelu", tie_word_embeddings=False,
+                   bos_token_id=0, eos_token_id=0)
+OPT_30B = dict(architectures=["OPTForCausalLM"], model_type="opt", vocab_size=50272,
+               hidden_size=7168, ffn_dim=28672, num_hidden_layers=48, num_attention_heads=56,
+               max_position_embeddings=2048, word_embed_proj_dim=7168, do_layer_norm_before=True,
+               activation_function="relu", enable_bias=True, layer_norm_elementwise_affine=True,
+               pad_token_id=1, bos_token_id=2, eos_token_id=2)
+GPT2_XL = dict(architectures=["GPT2LMHeadModel"], model_type="gpt2", vocab_size=50257,
+               n_embd=1600, n_layer=48, n_head=25, n_positions=1024, n_ctx=1024, n_inner=None,
+               activation_function="gelu_new", layer_norm_epsilon=1e-5, scale_attn_weights=True,
+               bos_token_id=50256, eos_token_id=50256)
+# A and E: greedy tokens of GPTX_BATCH x GPTX_PROMPT seeded prompts; A's
+# generate repeats the wave's requests GPTX_ENGINE_ROWS (prompts of 51-88
+# tokens, none chunked); E streams under a card budget of GPTX_STREAM_CARD.
+GPTX_BATCH, GPTX_PROMPT, GPTX_NEW_TOKENS = 4, 64, 16
+GPTX_ENGINE_ROWS = (1, 2, 3, 4)
+GPTX_STREAM_CARD = "6GiB"
+GPTX_TRAIN_LAYERS, GPTX_TRAIN_BATCH, GPTX_SEQ, GPTX_STEPS = 2, 2, 2048, 3
+GPTX_SHARD_BATCH = 4
+GPT2_BATCH, GPT2_SEQ = 4, 1024
+# C: the imperative loop against the fused step on the same model and batch
+# (the same ops in another grouping; phase 20's MoE loop was bitwise).
+GPTX_IMPERATIVE_ATOL = 1e-3
+# Two greedy decodes of one bf16 model by different routes (chunked or not,
+# another batch shape) may part only at a near tie: a top-2 gap within 2^-6
+# of the top logit, four bf16 steps of a logit the head rounds to bf16.
+GREEDY_TIE_REL = 2 ** -6
+# estimate-memory's presets: parameters by the JAX package's GPTX.num_params.
+CLASSIC_GPT_PARAMS = {"gpt-j-6b": 6_050_882_784, "gpt-neox-20b": 20_554_567_680,
+                      "opt-30b": 29_974_540_288}
 T_START = time.perf_counter()
 
 
@@ -851,7 +925,7 @@ def engine_forwards(engine) -> int:
 
 def engine_phase(model, kv_quant, kernel_names, card: str, matmul_precision=None):
     """Both arms on one wave; returns the kernel arm's launch counts, its
-    forwards, tokens/s and TTFT p50 (s)."""
+    forwards, tokens/s, TTFT p50 (s) and tokens."""
     import numpy as np
 
     from accelerate_tpu_torch import ContinuousBatcher
@@ -894,7 +968,8 @@ def engine_phase(model, kv_quant, kernel_names, card: str, matmul_precision=None
     for i, (suffix, toks) in enumerate(zip(suffixes, tokens)):
         log(f"{label}: request {i}: prompt {prefix.size}+{suffix.size} tokens -> "
             f"{toks.size} tokens {toks.tolist()}")
-    return dict(launches=launches, forwards=forwards, tokens_per_s=n_tok / wall, ttft_s=ttft)
+    return dict(launches=launches, forwards=forwards, tokens_per_s=n_tok / wall, ttft_s=ttft,
+                tokens=tokens)
 
 
 def int8_engine_phase(model, card: str, bf16_run: dict):
@@ -3284,8 +3359,8 @@ def precision_phase(card: str):
 def _tp_arm(cfg, label: str, accelerator_kw: dict, *, batch, mixed_precision: str = "bf16",
            remat: bool = False, zero: bool = False, poison=None, device: str = "cuda",
            steps: int = None, kernels=None, record_aux: bool = False, reference=None):
-    """One arm of phase 15 (and 20) on a fresh model from the seed (a
-    ``MoELlama`` for a ``MoELlamaConfig``): ``steps`` (``TP_STEPS``)
+    """One arm of phase 15 (and 20, 21) on a fresh model from the seed (the
+    config's model, ``_model_class``): ``steps`` (``TP_STEPS``)
     ``build_train_step`` steps of ``batch`` with clip 1.0 on the
     Accelerator of ``accelerator_kw`` (and ``kernels``). Returns the losses,
     step seconds after ``TP_WARMUP``, the launch counts (total and per
@@ -3299,7 +3374,7 @@ def _tp_arm(cfg, label: str, accelerator_kw: dict, *, batch, mixed_precision: st
 
     import torch
 
-    from accelerate_tpu_torch import Accelerator, Llama, MoELlama, MoELlamaConfig, adamw
+    from accelerate_tpu_torch import Accelerator, adamw
     from accelerate_tpu_torch.ops import registry
     from accelerate_tpu_torch.utils.tree import flatten_with_paths, tree_leaves
 
@@ -3307,8 +3382,7 @@ def _tp_arm(cfg, label: str, accelerator_kw: dict, *, batch, mixed_precision: st
     cuda = device == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    model = (MoELlama if isinstance(cfg, MoELlamaConfig) else Llama)(
-        dataclasses.replace(cfg, remat=remat), device=device)
+    model = _model_class(cfg)(dataclasses.replace(cfg, remat=remat), device=device)
     model.init_params(SEED)
     acc = Accelerator(mixed_precision=mixed_precision, device=device, kernels=kernels,
                       **accelerator_kw)
@@ -4361,38 +4435,6 @@ def moe_reference_loss(pm, batch, microbatches: int = 0) -> float:
         counted_dispatch.paused = False
 
 
-def _moe_imperative_arm(cfg, batch, steps: int, device: str, precision: str) -> dict:
-    """Phase 20 C: ``model(**batch)``, ``backward``, ``clip_grad_norm_``,
-    ``optimizer.step()`` on a fresh model from the seed; before each step,
-    ``moe_reference_loss`` on its parameters."""
-    import torch
-
-    from accelerate_tpu_torch import Accelerator, MoELlama, adamw
-    from accelerate_tpu_torch.ops import registry
-
-    model = MoELlama(cfg, device=device)
-    model.init_params(SEED)
-    acc = Accelerator(mixed_precision=precision, device=device)
-    pm, po = acc.prepare(model, adamw(3e-4, device=device))
-    del model
-    registry.reset_launch_counts()
-    losses, aux, refs = [], [], []
-    for _ in range(steps):
-        refs.append(moe_reference_loss(pm, batch))
-        out = pm(**batch)
-        acc.backward(out["loss"])
-        acc.clip_grad_norm_(pm, 1.0)
-        po.step()
-        po.zero_grad()
-        losses.append(float(out["loss"].detach()))
-        aux.append(float(out["aux_loss"].detach()))
-    counts = dict(registry.launch_counts)
-    del acc, pm, po, out
-    if device == "cuda":
-        free_cuda()
-    return dict(losses=losses, aux=aux, counts=counts, refs=refs)
-
-
 def moe_op_arm(cf: float, device: str, cut) -> dict:
     """Phase 20 F at one capacity factor: the three back-ends' outputs and
     router losses against einsum's, and each one's forward and backward
@@ -4548,7 +4590,7 @@ def moe_phase(card: str, device: str = "cuda", cut=None) -> dict:
         return max(abs(x - y) for x, y in zip(run["losses"], b["losses"]))
 
     # C: the imperative loop on B's model and batch.
-    c = _moe_imperative_arm(cfg, batch, MOE_SHARD_STEPS, device, precision)
+    c = _imperative_arm(cfg, batch, MOE_SHARD_STEPS, device, precision)
     c_diff = held("C", c, MOE_LOSS_ATOL)
     if cuda and c["counts"].get("fused_adamw_update") != MOE_LEAVES * MOE_SHARD_STEPS:
         raise SystemExit(f"moe C: launches {c['counts']}, expected the update "
@@ -4641,6 +4683,589 @@ def moe_phase(card: str, device: str = "cuda", cut=None) -> dict:
         f"{largest[1]!r}; the command prints {out.stdout.strip().splitlines()[-1].split()}")
     log(f"moe: phase 20 in {time.perf_counter() - t_phase:.1f} s [{card}]")
     return totals
+
+
+# ------------------------------------------------------------------ phase 21
+def _model_class(cfg):
+    """The port's model class of a config: MoELlama, GPTX, GPT2, else
+    Llama."""
+    import accelerate_tpu_torch as T
+
+    for config_cls, model_cls in ((T.MoELlamaConfig, T.MoELlama), (T.GPTXConfig, T.GPTX),
+                                  (T.GPT2Config, T.GPT2)):
+        if isinstance(cfg, config_cls):
+            return model_cls
+    return T.Llama
+
+
+def write_neox_checkpoint(hf: dict, folder: str, device: str) -> int:
+    """Random bf16 weights from the seed in the Hugging Face GPT-NeoX
+    layout (its names, its ``(out, in)`` shapes, the per-head interleaved
+    ``query_key_value``), as two safetensors shards and their index, written
+    a shard at a time; returns the bytes written. Projections are normal
+    with std 1/sqrt(fan_in), norm scales about 1, biases about 0."""
+    import torch
+
+    from accelerate_tpu_torch.utils.safetensors_io import save_file
+
+    h, inter, L, V = (hf["hidden_size"], hf["intermediate_size"], hf["num_hidden_layers"],
+                      hf["vocab_size"])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+
+    def normal(shape, scale, center=0.0):
+        t = torch.randn(shape, generator=gen, device=device) * scale + center
+        return t.to(torch.bfloat16).cpu()
+
+    def layer(i):
+        p = f"gpt_neox.layers.{i}."
+        out = {}
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            out[p + norm + ".weight"] = normal((h,), 0.1, 1.0)
+            out[p + norm + ".bias"] = normal((h,), 0.1)
+        for name, rows, cols in (("attention.query_key_value", 3 * h, h),
+                                 ("attention.dense", h, h), ("mlp.dense_h_to_4h", inter, h),
+                                 ("mlp.dense_4h_to_h", h, inter)):
+            out[p + name + ".weight"] = normal((rows, cols), cols ** -0.5)
+            out[p + name + ".bias"] = normal((rows,), 0.02)
+        return out
+
+    shards = [(range(0, L // 2), {"gpt_neox.embed_in.weight": None}),
+              (range(L // 2, L), {"gpt_neox.final_layer_norm.weight": None,
+                                  "gpt_neox.final_layer_norm.bias": None,
+                                  "embed_out.weight": None})]
+    weight_map, total = {}, 0
+    for n, (layers, extra) in enumerate(shards, 1):
+        name = f"model-{n:05d}-of-{len(shards):05d}.safetensors"
+        tensors = {}
+        if "gpt_neox.embed_in.weight" in extra:
+            tensors["gpt_neox.embed_in.weight"] = normal((V, h), h ** -0.5)
+        for i in layers:
+            tensors.update(layer(i))
+        if "embed_out.weight" in extra:
+            tensors["gpt_neox.final_layer_norm.weight"] = normal((h,), 0.1, 1.0)
+            tensors["gpt_neox.final_layer_norm.bias"] = normal((h,), 0.1)
+            tensors["embed_out.weight"] = normal((V, h), h ** -0.5)
+        save_file(tensors, os.path.join(folder, name), metadata={"format": "pt"})
+        total += sum(t.numel() * 2 for t in tensors.values())
+        weight_map.update({k: name for k in tensors})
+        del tensors
+    with open(os.path.join(folder, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    with open(os.path.join(folder, "config.json"), "w") as f:
+        json.dump(hf, f)
+    return total
+
+
+def check_neox_leaves(params, folder: str, hf: dict) -> int:
+    """Sampled leaves of the converted tree (every kind, the first and the
+    last layer) against the source tensors rearranged by numpy (the
+    de-interleave of ``query_key_value``, the transposes), bitwise; returns
+    the leaves checked."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.utils.modeling import _resolve_checkpoint_files, load_state_dict
+
+    sd = {}
+    for f in _resolve_checkpoint_files(folder):
+        sd.update(load_state_dict(f))
+    h, nh, L = hf["hidden_size"], hf["num_attention_heads"], hf["num_hidden_layers"]
+    hd = h // nh
+
+    def bits(t):
+        return t.detach().cpu().contiguous().view(torch.int16).numpy()
+
+    pairs = [(params["embed"]["wte"], bits(sd["gpt_neox.embed_in.weight"]), "embed/wte"),
+             (params["lm_head"]["weight"], bits(sd["embed_out.weight"]).T, "lm_head/weight"),
+             (params["ln_f"]["scale"], bits(sd["gpt_neox.final_layer_norm.weight"]), "ln_f"),
+             (params["ln_f"]["bias"], bits(sd["gpt_neox.final_layer_norm.bias"]), "ln_f/bias")]
+    lay = params["layers"]
+    for i in (0, L - 1):
+        src = f"gpt_neox.layers.{i}."
+        w = bits(sd[src + "attention.query_key_value.weight"])
+        b = bits(sd[src + "attention.query_key_value.bias"])
+        pairs += [
+            (lay["attn"]["w_qkv"][i], w.reshape(nh, 3, hd, h).transpose(1, 0, 2, 3)
+             .reshape(3 * h, h).T, f"w_qkv[{i}]"),
+            (lay["attn"]["b_qkv"][i], b.reshape(nh, 3, hd).transpose(1, 0, 2).reshape(-1),
+             f"b_qkv[{i}]"),
+            (lay["attn"]["wo"][i], bits(sd[src + "attention.dense.weight"]).T, f"wo[{i}]"),
+            (lay["attn"]["bo"][i], bits(sd[src + "attention.dense.bias"]), f"bo[{i}]"),
+            (lay["mlp"]["w_in"][i], bits(sd[src + "mlp.dense_h_to_4h.weight"]).T, f"w_in[{i}]"),
+            (lay["mlp"]["b_in"][i], bits(sd[src + "mlp.dense_h_to_4h.bias"]), f"b_in[{i}]"),
+            (lay["mlp"]["w_out"][i], bits(sd[src + "mlp.dense_4h_to_h.weight"]).T,
+             f"w_out[{i}]"),
+            (lay["mlp"]["b_out"][i], bits(sd[src + "mlp.dense_4h_to_h.bias"]), f"b_out[{i}]"),
+            (lay["ln_1"]["scale"][i], bits(sd[src + "input_layernorm.weight"]), f"ln_1[{i}]"),
+            (lay["ln_1"]["bias"][i], bits(sd[src + "input_layernorm.bias"]), f"ln_1/bias[{i}]"),
+            (lay["ln_2"]["scale"][i], bits(sd[src + "post_attention_layernorm.weight"]),
+             f"ln_2[{i}]"),
+            (lay["ln_2"]["bias"][i], bits(sd[src + "post_attention_layernorm.bias"]),
+             f"ln_2/bias[{i}]")]
+    for got, want, name in pairs:
+        if got.dtype != torch.bfloat16 or not np.array_equal(bits(got), want):
+            raise SystemExit(f"gptx A: converted leaf {name} ({got.dtype}) is not the source "
+                             "rearranged by numpy, bitwise")
+    return len(pairs)
+
+
+def greedy_agreement(model, prompts, got, want, label: str) -> str:
+    """Rows of two greedy continuations of ``prompts``: equal, or parted
+    only where the uncached ``kernels="off"`` forward, teacher-forced on the
+    common prefix, has a near tie (top-2 gap within ``GREEDY_TIE_REL`` of
+    the top logit: a few bf16 steps of a logit the model rounds to bf16).
+    Raises otherwise; returns a summary."""
+    import torch
+
+    parted = []
+    for r, (p, a, b) in enumerate(zip(prompts, got, want)):
+        a, b = list(map(int, a)), list(map(int, b))
+        if a == b:
+            continue
+        at = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        ids = torch.tensor([list(map(int, p)) + a[:at]], device=model.device)
+        with torch.no_grad():
+            row = model.apply(model.params, input_ids=ids, kernels="off")["logits"][0, -1]
+        top = torch.topk(row.float(), 2).values
+        gap, tie = float(top[0] - top[1]), abs(float(top[0])) * GREEDY_TIE_REL
+        if gap > tie:
+            raise SystemExit(f"{label}: row {r} parts at new token {at} ({a[at]} vs {b[at]}) "
+                             f"where the top-2 gap is {gap:.4f} > {tie:.4f}")
+        parted.append(f"row {r} at token {at} (gap {gap:.4f} <= {tie:.4f})")
+    return "token-identical" if not parted else "parted at near ties: " + "; ".join(parted)
+
+
+def _imperative_arm(cfg, batch, steps: int, device: str, precision: str) -> dict:
+    """``model(**batch)``, ``backward``, ``clip_grad_norm_``,
+    ``optimizer.step()`` on a fresh model from the seed; before each step,
+    ``moe_reference_loss`` on its parameters (phase 20 C, phase 21 C)."""
+    from accelerate_tpu_torch import Accelerator, adamw
+    from accelerate_tpu_torch.ops import registry
+
+    model = _model_class(cfg)(cfg, device=device)
+    model.init_params(SEED)
+    acc = Accelerator(mixed_precision=precision, device=device)
+    pm, po = acc.prepare(model, adamw(3e-4, device=device))
+    del model
+    registry.reset_launch_counts()
+    losses, aux, refs = [], [], []
+    for _ in range(steps):
+        refs.append(moe_reference_loss(pm, batch))
+        out = pm(**batch)
+        acc.backward(out["loss"])
+        acc.clip_grad_norm_(pm, 1.0)
+        po.step()
+        po.zero_grad()
+        losses.append(float(out["loss"].detach()))
+        if "aux_loss" in out:
+            aux.append(float(out["aux_loss"].detach()))
+    counts = dict(registry.launch_counts)
+    del acc, pm, po, out
+    if device == "cuda":
+        free_cuda()
+    return dict(losses=losses, aux=aux, counts=counts, refs=refs)
+
+
+def gptx_config(hf: dict, family: str, layers: int = None, cut=None):
+    """The port's config of a published ``config.json`` through its
+    converter, depth cut to ``layers``; ``cut`` (config fields) shrinks it
+    for a rehearsal on the CPU."""
+    import dataclasses
+
+    from accelerate_tpu_torch.models.convert import _get_converter
+
+    cfg = _get_converter(family)(hf)
+    kw = dict(cut or {})
+    if layers is not None:
+        kw.setdefault("num_hidden_layers", layers)
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+def _launch_check(label, run, want_step, cuda):
+    for i, counts in enumerate(run["per_step"]):
+        if cuda and counts != want_step:
+            raise SystemExit(f"gptx {label} step {i}: launches {counts}, expected {want_step}")
+
+
+def gptx_serving_arms(card: str, tmp: str, device: str, cut) -> dict:
+    """Phase 21 A, B and E on the GPT-NeoX checkpoint; returns the launch
+    counts of the engines."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import accelerate_tpu_torch as T
+    from accelerate_tpu_torch.big_modeling import StreamedScanModel
+    from accelerate_tpu_torch.utils.modeling import (compute_module_sizes,
+                                                     convert_file_size_to_int, named_parameters)
+    from accelerate_tpu_torch.utils.tree import tree_map
+
+    cuda = device == "cuda"
+    hf = dict(PYTHIA_6_9B, **(cut or {}))
+    per_layer = 2 * (4 * hf["hidden_size"] ** 2 + 2 * hf["hidden_size"] * hf["intermediate_size"])
+    free = min(shutil.disk_usage(tmp).free, _available_host_bytes() // 3)
+    fit = min(hf["num_hidden_layers"], int(0.8 * free // per_layer))
+    if fit < hf["num_hidden_layers"]:
+        log(f"gptx A: depth cut {hf['num_hidden_layers']} -> {fit} layers to fit the disk and "
+            "host memory (widths kept)")
+        hf["num_hidden_layers"] = fit
+    L = hf["num_hidden_layers"]
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # A: the checkpoint, written here, loaded through the converter.
+    ckpt = os.path.join(tmp, "pythia")
+    os.makedirs(ckpt)
+    nbytes, t_write = _timed(lambda: write_neox_checkpoint(hf, ckpt, device), cuda)
+    log(f"gptx A: a random bf16 checkpoint in the Hugging Face GPT-NeoX layout "
+        f"(EleutherAI/pythia-6.9b's config.json, {L} layers): {nbytes / 1e9:.2f} GB in 2 "
+        f"safetensors shards and an index, written in {t_write:.1f} s")
+    (model, params), t_load = _timed(lambda: T.from_hf_checkpoint(
+        "gpt_neox", ckpt, hf, dtype=torch.bfloat16, device=device), cuda)
+    cfg = model.config
+    n_leaves = check_neox_leaves(params, ckpt, hf)
+    if (cfg.rotary_dim, cfg.parallel_residual, cfg.hidden_act) != (
+            cfg.head_dim // 4, True, "gelu") or model.num_params() * 2 != nbytes:
+        raise SystemExit(f"gptx A: converted config {cfg} ({model.num_params()} parameters) "
+                         f"does not match the checkpoint's {nbytes} bytes")
+    log(f"gptx A: from_hf_checkpoint('gpt_neox', dir, config dict, dtype=bf16) in {t_load:.2f} s "
+        f"({nbytes / 1e9 / t_load:.2f} GB/s from the page cache: the shards were just written); "
+        f"{model.num_params() / 1e9:.3f}B parameters, rotary_dim {cfg.rotary_dim} of "
+        f"{cfg.head_dim}; {n_leaves} sampled leaves bitwise the source rearranged by numpy "
+        f"[{card}]")
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(1, cfg.vocab_size, (GPTX_BATCH, GPTX_PROMPT)).astype(np.int32)
+    ids = torch.as_tensor(prompts, device=device)
+    if cuda:
+        run = engine_phase(model, None, ("paged_gather",), card)
+        add(run["launches"])
+        # generate on 4 of the wave's prompts (shared prefix + suffix, none
+        # chunked), right-padded, against the engine's tokens for them.
+        prefix, suffixes = make_traffic(cfg.vocab_size)
+        rows = list(GPTX_ENGINE_ROWS)
+        full = [np.concatenate([prefix, suffixes[r]]) for r in rows]
+        width = max(p.size for p in full)
+        batch = np.zeros((len(rows), width), np.int32)
+        mask = np.zeros_like(batch)
+        for j, p in enumerate(full):
+            batch[j, :p.size], mask[j, :p.size] = p, 1
+        new = engine_kwargs()["max_new_tokens"]
+        got = T.generate(model, batch, attention_mask=mask, max_new_tokens=new,
+                         include_prompt=False).cpu().numpy()
+        agree = greedy_agreement(model, full, got, [run["tokens"][r] for r in rows],
+                                 "gptx A generate vs engine")
+        log(f"gptx A: generate on the wave's requests {rows} ({[p.size for p in full]}-token "
+            f"prompts, right-padded) -> {new} tokens: {agree} with the engine's [{card}]")
+        # B: int8 weights on A's model.
+        run8 = engine_phase(model, None, ("int8_matmul", "paged_gather"), card,
+                            matmul_precision="int8")
+        want = 4 * L * run8["forwards"]
+        if run8["launches"]["int8_matmul"] != want:
+            raise SystemExit(f"gptx B: int8_matmul launched {run8['launches']['int8_matmul']} "
+                             f"times over {run8['forwards']} forwards, expected {want} (4 "
+                             f"projections x {L} layers)")
+        add(run8["launches"])
+        log(f"gptx B: int8 weights, int8_matmul {want // run8['forwards']} launches a forward "
+            f"(4 x {L} layers), tokens identical to the kernels='off' int8 engine's; "
+            f"{run8['tokens_per_s']:.1f} tokens/s, TTFT p50 {run8['ttft_s'] * 1e3:.1f} ms "
+            f"against {run['tokens_per_s']:.1f} tokens/s, {run['ttft_s'] * 1e3:.1f} ms in bf16 "
+            f"[{card}]")
+    resident, t_res = _timed(lambda: T.generate(model, ids, max_new_tokens=GPTX_NEW_TOKENS,
+                                                include_prompt=False, device=device), cuda)
+
+    # E: the checkpoint's layers streamed from pinned host memory. The tree
+    # is A's conversion moved to the host (converting again on the host
+    # spends about 28 s on its transposes).
+    host = T.GPTX(cfg, device=device)
+    host.params, t_host = _timed(lambda: tree_map(lambda t: t.cpu(), params), cuda)
+    hparams = host.params
+    del model, params
+    if cuda:
+        free_cuda()
+    sizes = compute_module_sizes(hparams)
+    card_budget = (convert_file_size_to_int(GPTX_STREAM_CARD) if cut is None
+                   else sizes[""] - sizes["layers"] + sizes["layers"] // 4)
+    planned = T.infer_auto_device_map(hparams, max_memory={"cuda:0": card_budget,
+                                                           "cpu": 2 * sizes[""]})
+    if planned.get("layers") != "cpu" or planned.get("embed") != "cuda:0":
+        raise SystemExit(f"gptx E: the planner under {card_budget} B gave {planned}")
+    # The planner never returns to the card after a block it sent to the
+    # host (JAX's behaviour), so the final norm and the head follow the
+    # layers there; the streaming runtime takes them on the card, which the
+    # budget holds.
+    rest = sizes[""] - sizes["layers"]
+    if rest > card_budget:
+        raise SystemExit(f"gptx E: the blocks beside the layers ({rest} B) exceed the card "
+                         f"budget {card_budget}")
+    device_map = {k: ("cpu" if k == "layers" else "cuda:0") for k in hparams}
+    streamed = T.dispatch_model(host, device_map, main_device=None if cuda else "cpu")
+    if not isinstance(streamed, StreamedScanModel):
+        raise SystemExit(f"gptx E: dispatch gave {type(streamed).__name__}")
+    pinned = all(leaf.is_pinned() for k, leaf in named_parameters(streamed.params).items()
+                 if k.startswith("layers."))
+    if cuda and not pinned:
+        raise SystemExit("gptx E: the host layers are not pinned")
+    T.generate(streamed, ids, max_new_tokens=2, device=device)  # first-call costs, untimed
+    before = streamed.bytes_streamed
+    tokens, t_gen = _timed(lambda: T.generate(streamed, ids, max_new_tokens=GPTX_NEW_TOKENS,
+                                              include_prompt=False, device=device), cuda)
+    per_token = (streamed.bytes_streamed - before) / GPTX_NEW_TOKENS
+    if not torch.equal(tokens.cpu(), resident.cpu()):
+        raise SystemExit(f"gptx E: streamed tokens {tokens.tolist()} differ from the resident "
+                         f"model's {resident.tolist()}")
+    if per_token != sizes["layers"]:
+        raise SystemExit(f"gptx E: {per_token} B streamed a token, the layers hold "
+                         f"{sizes['layers']} B")
+    log(f"gptx E: infer_auto_device_map under {card_budget / 2**30:.2f} GiB for cuda:0 -> "
+        f"{planned}; dispatched with the layers on the host (pinned: {pinned}), the rest on "
+        f"the card: {type(streamed).__name__}; A's tree copied to the host in {t_host:.2f} s; "
+        f"{GPTX_NEW_TOKENS} greedy tokens of {GPTX_BATCH} x {GPTX_PROMPT} prompts identical to "
+        f"the resident model's, {t_gen / GPTX_NEW_TOKENS:.3f} s a token (resident "
+        f"{t_res / GPTX_NEW_TOKENS:.4f} s), {per_token / 1e9:.2f} GB streamed a token, "
+        f"{per_token / 1e9 / (t_gen / GPTX_NEW_TOKENS):.2f} GB/s [{card}]")
+    del streamed, host, hparams
+    if cuda:
+        free_cuda()
+    return totals
+
+
+def gptx_phase(card: str, device: str = "cuda", cut=None) -> dict:
+    """Phase 21; returns the launch counts of its arms (the gather for row
+    1, the int8 matmul for row 3, flash for rows 5 and 5b, the fused update
+    for row 4). ``device="cpu"`` with ``cut`` (config fields over the
+    published ones) rehearses the phase's logic at a small size: the CPU
+    runs no kernel, so no launch is checked there, and the engines of arms
+    A and B need the card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from accelerate_tpu_torch import (GPTX, GPTXConfig, LoopbackShards, ParallelismConfig,
+                                      PipelineParallelPlugin, TensorParallelPlugin)
+    from accelerate_tpu_torch.commands import estimate
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    precision = "bf16" if cut is None else "no"  # as phase 20's rehearsal
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gptx_")
+    try:
+        add(gptx_serving_arms(card, tmp, device, cut))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # C: OPT-30B's widths at 2 layers, the fused step and the imperative loop.
+    cfg = gptx_config(OPT_30B, "opt", GPTX_TRAIN_LAYERS, cut)
+    probe = _model_class(cfg)(cfg, device="cpu")
+    n_params, fpt, layers = probe.num_params(), probe.flops_per_token(), cfg.num_hidden_layers
+    leaves = len(_leaf_shapes(probe))
+    seq = GPTX_SEQ if cut is None else 64
+    rng = np.random.default_rng(SEED)
+    ids = rng.integers(0, cfg.vocab_size, (GPTX_TRAIN_BATCH, seq)).astype(np.int32)
+    batch = {"input_ids": ids, "labels": ids}
+    tokens = GPTX_TRAIN_BATCH * seq
+    # f32 masters, the buffer and adamw's two moments (16 B a parameter),
+    # the bf16 copies of the step (2 B), activations beside.
+    log(f"gptx C: predicted peak {18 * n_params / 2**30:.1f} GiB of parameter state "
+        f"({n_params / 1e9:.3f}B parameters x 18 B) plus activations")
+    steps = GPTX_STEPS
+
+    def arm(label, kw, cfg_=cfg, batch_=batch, **extra):
+        return _tp_arm(cfg_, label, kw, batch=batch_, steps=steps, device=device,
+                       mixed_precision=precision, **extra)
+
+    c = arm("C", {})
+    c_off = arm("C off", {}, kernels="off")
+    want = {"flash_attention_fwd": layers, "flash_attention_bwd": layers,
+            "fused_adamw_update": leaves}
+    _launch_check("C", c, want, cuda)
+    if c_off["counts"] and cuda:
+        raise SystemExit(f"gptx C off: launches {c_off['counts']}")
+    diff = max(abs(x - y) for x, y in zip(c["losses"], c_off["losses"]))
+    if diff > TRAIN_LOSS_ATOL or not all(math.isfinite(x) for x in c["losses"]):
+        raise SystemExit(f"gptx C: losses {c['losses']} vs kernels='off' {c_off['losses']} "
+                         f"(max |diff| {diff}, pin {TRAIN_LOSS_ATOL})")
+    ci = _imperative_arm(cfg, batch, steps, device, precision)
+    i_diff = max(abs(x - y) for x, y in zip(ci["losses"], c["losses"]))
+    if i_diff > GPTX_IMPERATIVE_ATOL:
+        raise SystemExit(f"gptx C imperative: losses {ci['losses']} vs the fused step's "
+                         f"{c['losses']} (max |diff| {i_diff}, pin {GPTX_IMPERATIVE_ATOL})")
+    if cuda and ci["counts"].get("fused_adamw_update") != leaves * steps:
+        raise SystemExit(f"gptx C imperative: launches {ci['counts']}")
+    add(c["counts"])
+    add(ci["counts"])
+    mfu = fpt * tokens / c["step_s"] / BF16_OPS_PER_S
+    log(f"gptx C: facebook/opt-30b's widths (hidden {cfg.hidden_size}, {cfg.num_attention_heads} "
+        f"heads of {cfg.head_dim}, ffn {cfg.intermediate_size}, relu, learned positions at "
+        f"offset {cfg.position_offset}, tied), {layers} layers, {n_params / 1e9:.3f}B "
+        f"parameters; batch {GPTX_TRAIN_BATCH}x{seq}, bf16 compute on f32 masters, "
+        f"adamw(3e-4), clip 1.0: losses {[round(x, 4) for x in c['losses']]}, kernels='off' "
+        f"{[round(x, 4) for x in c_off['losses']]} (max |diff| {diff:.3e}, pin "
+        f"{TRAIN_LOSS_ATOL}); imperative loop {[round(x, 4) for x in ci['losses']]} (max "
+        f"|diff| {i_diff:.3e} from the fused step's, pin {GPTX_IMPERATIVE_ATOL}); step "
+        f"{c['step_s'] * 1e3:.1f} ms, {tokens / c['step_s']:.0f} tokens/s, MFU "
+        f"{100 * mfu:.2f}% of 989 TFLOP/s; launches a step {c['per_step'][-1]}; peak memory "
+        f"{c['peak'] / 2**30:.2f} GiB (kernels='off' {c_off['peak'] / 2**30:.2f} GiB) [{card}]")
+
+    # F: C's widths on LoopbackShards(4), 4 x 2048.
+    f_ids = rng.integers(0, cfg.vocab_size, (GPTX_SHARD_BATCH, seq)).astype(np.int32)
+    f_batch = {"input_ids": f_ids, "labels": f_ids}
+    f_tokens = GPTX_SHARD_BATCH * seq
+    loop = LoopbackShards(4)
+    plan = {
+        "F0": ({}, None),
+        "F tp2xfsdp2": (dict(parallelism_config=ParallelismConfig(tp_size=2, fsdp_size=2),
+                             loopback=loop), (4, 1)),
+        "F tp4": (dict(tp_plugin=TensorParallelPlugin(4), loopback=loop), (4, 1)),
+        "F pp2xdp2 1f1b": (dict(parallelism_config=ParallelismConfig(pp_size=2, dp_size=2),
+                                pp_plugin=PipelineParallelPlugin(2, 2, "1f1b"),
+                                loopback=loop), (2, 2)),
+    }
+    f_runs = {}
+    total = n_params * 4
+    want_bytes = {"params": total, "moments": 2 * total, "buffer": total}
+    for name, (kw, shape) in plan.items():
+        run = f_runs[name] = arm(name, kw, batch_=f_batch)
+        if shape is None:
+            fwd = bwd = layers
+        elif name.startswith("F pp"):
+            units, micro = shape  # 1F1B runs each block's forward again in its backward unit
+            fwd, bwd = 2 * layers * micro * units, layers * micro * units
+        else:
+            fwd = bwd = shape[0] * layers  # once per rank and layer
+        updates = sum(n for n, _ in planned_update_slices(probe, run["sizes"]))
+        _launch_check(name, run, {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd,
+                                  "fused_adamw_update": updates}, cuda)
+        if run["distinct"] != want_bytes:
+            raise SystemExit(f"gptx {name}: the distinct shards over the ranks hold "
+                             f"{run['distinct']}, the unsharded model {want_bytes}")
+        add(run["counts"])
+        if name == "F0":
+            continue
+        diff = max(abs(x - y) for x, y in zip(run["losses"], f_runs["F0"]["losses"]))
+        if diff > SHARD_LOSS_ATOL:
+            raise SystemExit(f"gptx {name}: losses {run['losses']} vs the unsharded step's "
+                             f"{f_runs['F0']['losses']} (max |diff| {diff}, pin "
+                             f"{SHARD_LOSS_ATOL})")
+        mfu = fpt * f_tokens / run["step_s"] / BF16_OPS_PER_S
+        log(f"gptx {name}: mesh {run['sizes']}; losses {[round(x, 4) for x in run['losses']]} "
+            f"vs unsharded {[round(x, 4) for x in f_runs['F0']['losses']]} (max |diff| "
+            f"{diff:.3e}, pin {SHARD_LOSS_ATOL}); step {run['step_s'] * 1e3:.1f} ms (unsharded "
+            f"{f_runs['F0']['step_s'] * 1e3:.1f} ms), MFU {100 * mfu:.2f}%; launches a step "
+            f"{run['per_step'][-1]} (flash {fwd} + {bwd}, update {updates} distinct slices); "
+            f"distinct shards {run['distinct']} = the unsharded bytes; peak "
+            f"{run['peak'] / 2**30:.2f} GiB [{card}]")
+
+    # D: GPT-2 XL at full depth, 3 fused steps, then generate.
+    g_cfg = gptx_config(GPT2_XL, "gpt2", None, cut)
+    g_probe = _model_class(g_cfg)(g_cfg, device="cpu")
+    g_layers, g_leaves = g_cfg.num_hidden_layers, len(_leaf_shapes(g_probe))
+    g_seq = GPT2_SEQ if cut is None else 64
+    g_ids = rng.integers(0, g_cfg.vocab_size, (GPT2_BATCH, g_seq)).astype(np.int32)
+    g_batch = {"input_ids": g_ids, "labels": g_ids}
+    d = arm("D", {}, cfg_=g_cfg, batch_=g_batch)
+    # The plain attention keeps (B, H, S, S) f32 scores for 48 layers; the
+    # kernels='off' arm runs with remat (the same numbers, JAX's and the
+    # port's remat being exact) to fit beside the optimizer state.
+    d_off = arm("D off", {}, cfg_=g_cfg, batch_=g_batch, kernels="off", remat=True)
+    _launch_check("D", d, {"flash_attention_fwd": g_layers, "flash_attention_bwd": g_layers,
+                           "fused_adamw_update": g_leaves}, cuda)
+    diff = max(abs(x - y) for x, y in zip(d["losses"], d_off["losses"]))
+    if diff > TRAIN_LOSS_ATOL or not all(math.isfinite(x) for x in d["losses"]):
+        raise SystemExit(f"gptx D: losses {d['losses']} vs kernels='off' {d_off['losses']} "
+                         f"(max |diff| {diff}, pin {TRAIN_LOSS_ATOL})")
+    add(d["counts"])
+    g_tokens = GPT2_BATCH * g_seq
+    mfu = g_probe.flops_per_token() * g_tokens / d["step_s"] / BF16_OPS_PER_S
+    log(f"gptx D: openai-community/gpt2-xl ({g_layers} layers, hidden {g_cfg.hidden_size}, "
+        f"{g_cfg.num_attention_heads} heads of {g_cfg.head_dim}), "
+        f"{g_probe.num_params() / 1e9:.3f}B parameters; batch {GPT2_BATCH}x{g_seq}: losses "
+        f"{[round(x, 4) for x in d['losses']]}, kernels='off' (remat) "
+        f"{[round(x, 4) for x in d_off['losses']]} (max |diff| {diff:.3e}, pin "
+        f"{TRAIN_LOSS_ATOL}); step {d['step_s'] * 1e3:.1f} ms, {g_tokens / d['step_s']:.0f} "
+        f"tokens/s, MFU {100 * mfu:.2f}%; launches a step {d['per_step'][-1]}; peak "
+        f"{d['peak'] / 2**30:.2f} GiB [{card}]")
+    add(gpt2_generate_arm(g_cfg, card, device))
+
+    # G: sizes.
+    for preset, n in CLASSIC_GPT_PARAMS.items():
+        family, kw = estimate.PRESETS[preset]
+        counted = GPTX(GPTXConfig(**kw), device="cpu").num_params()
+        args = estimate.estimate_command_parser().parse_args([preset, "--dtypes", "bf16"])
+        rows, largest = estimate.gather_data(args)
+        if family != "gptx" or counted != n or rows[0][2] != 2 * n:
+            raise SystemExit(f"gptx G: {preset}: {counted} parameters, {rows[0][2]} B in bf16; "
+                             f"the JAX package counts {n} ({2 * n} B)")
+        log(f"gptx G: estimate-memory {preset}: {n:,} parameters, {rows[0][2] / 1e9:.2f} GB in "
+            f"bf16 = num_params x 2 (largest block {largest[1]})")
+    log(f"gptx: phase 21 in {time.perf_counter() - t_phase:.1f} s; launches {totals}")
+    return totals
+
+
+def gpt2_generate_arm(cfg, card: str, device: str) -> dict:
+    """Phase 21 D's generation: GPT-2 XL from the seed in bf16, greedy
+    ``generate`` of ``GPTX_NEW_TOKENS`` from 4 ragged prompts (passed
+    right-padded, as ``generate`` takes them; it rolls them to left padding,
+    so each row's positions start at 0 in a shared cache).
+    Its cached path launches no kernel (the plain cached attention), so the
+    kernels='off' reference is the uncached forward with ``kernels="off"``,
+    teacher-forced on the tokens (``greedy_agreement``)."""
+    import numpy as np
+    import torch
+
+    import accelerate_tpu_torch as T
+
+    cuda = device == "cuda"
+    model = T.GPT2(cfg, device=device)
+    model.init_params(SEED, dtype=torch.bfloat16)
+    rng = np.random.default_rng(SEED + 1)
+    lengths = (24, 9, 40, 17)
+    width = max(lengths)
+    ids = np.zeros((len(lengths), width), np.int32)
+    mask = np.zeros_like(ids)
+    prompts = []
+    for b, n in enumerate(lengths):  # right-padded in, rolled to left padding by generate
+        p = rng.integers(1, cfg.vocab_size, (n,)).astype(np.int32)
+        ids[b, :n], mask[b, :n] = p, 1
+        prompts.append(p)
+    from accelerate_tpu_torch.ops import registry
+
+    registry.reset_launch_counts()
+    out, t_gen = _timed(lambda: T.generate(model, ids, attention_mask=mask,
+                                           max_new_tokens=GPTX_NEW_TOKENS,
+                                           include_prompt=False, device=device), cuda)
+    counts = dict(registry.launch_counts)
+    out = out.cpu().numpy()
+    # The reference tokens: greedy decoding by the uncached kernels='off'
+    # forward, one token at a time.
+    ref = []
+    for p in prompts:
+        seq = list(map(int, p))
+        for _ in range(GPTX_NEW_TOKENS):
+            with torch.no_grad():
+                logits = model.apply(model.params, input_ids=torch.tensor([seq], device=device),
+                                     kernels="off")["logits"][0, -1]
+            seq.append(int(logits.float().argmax()))
+        ref.append(seq[p.size:])
+    agree = greedy_agreement(model, prompts, out, ref, "gptx D generate")
+    log(f"gptx D: generate of {len(lengths)} ragged prompts {lengths} (left-aligned in the "
+        f"cache) -> {GPTX_NEW_TOKENS} greedy tokens in {t_gen:.3f} s, launches {counts}; "
+        f"{agree} with the uncached kernels='off' greedy decode [{card}]")
+    del model
+    if cuda:
+        free_cuda()
+    return counts
 
 
 def _leaf_shapes(model):
@@ -4780,6 +5405,14 @@ def main(argv) -> int:
         log(f"phase 20 launches: {moe_phase(card)}")
         print(card)
         return 0
+    if "--gptx" in argv:
+        _build.build(["flash_attention", "fused_update", "paged_gather", "int8_matmul"])
+        card = card_info()
+        log(f"build: flash_attention, fused_update, paged_gather, int8_matmul in "
+            f"{time.perf_counter() - t0:.1f} s; device: {card}")
+        log(f"phase 21 launches: {gptx_phase(card)}")
+        print(card)
+        return 0
     if "--splash-times" in argv:
         _build.build(["splash_attention"])
         card = card_info()
@@ -4868,18 +5501,17 @@ def main(argv) -> int:
     launch_counts = launch_phase(card)
     free_cuda()
     moe_counts = moe_phase(card)
-    for row in rows:  # phase 3's or 7's launches plus those of phases 11 to 20
+    free_cuda()
+    gptx_counts = gptx_phase(card)
+    for row in rows:  # phase 3's or 7's launches plus those of phases 11 to 21
         later = [counts.get(row["name"], 0) for counts in (loop_counts, ckpt_counts,
                                                            shard_counts, precision_counts,
                                                            tp_counts, pp_counts, big_counts,
                                                            cv_counts, launch_counts,
-                                                           moe_counts)]
+                                                           moe_counts, gptx_counts)]
         if any(later):
             log(f"kernel {row['name']}: {row['launches']} launches in phase 3 or 7, "
-                f"{later[0]} in phase 11, {later[1]} in phase 12, {later[2]} in phase 13, "
-                f"{later[3]} in phase 14, {later[4]} in phase 15, {later[5]} in phase 16, "
-                f"{later[6]} in phase 17, {later[7]} in phase 18, {later[8]} in phase 19, "
-                f"{later[9]} in phase 20")
+                + ", ".join(f"{n} in phase {ph}" for n, ph in zip(later, range(11, 22))))
             row["launches"] += sum(later)
     for row in precision_rows:  # phase 14's launches plus phase 15's fp16 arms'
         if tp_counts.get(row["name"]):

@@ -225,7 +225,8 @@ def test_unknown_keys_and_bad_values_raise(tmp_path):
             tlaunch.launch(tconfig_args.ClusterConfig(use_cpu=True, **bad), ["true"])
 
 
-SHARED_PRESETS = ["tiny", "llama-7b", "llama-13b", "llama-70b", "bert-base", "bert-large"]
+SHARED_PRESETS = ["tiny", "llama-7b", "llama-13b", "llama-70b", "bert-base", "bert-large",
+                  "gpt-j-6b", "gpt-neox-20b", "opt-30b"]
 
 
 @pytest.mark.parametrize("preset", SHARED_PRESETS)
@@ -257,6 +258,21 @@ CONFIG_FILES = {
     "mixtral-small": dict(model_type="mixtral", vocab_size=300, hidden_size=64,
                           intermediate_size=96, num_hidden_layers=2, num_attention_heads=4,
                           num_key_value_heads=2, num_local_experts=4, num_experts_per_tok=2),
+    # openai-community/gpt2-xl's published config.json (its size keys).
+    "gpt2-xl": dict(model_type="gpt2", vocab_size=50257, n_embd=1600, n_layer=48, n_head=25,
+                    n_positions=1024),
+    # EleutherAI/pythia-6.9b's published config.json (its size keys).
+    "pythia-6.9b": dict(architectures=["GPTNeoXForCausalLM"], vocab_size=50432,
+                        hidden_size=4096, intermediate_size=16384, num_hidden_layers=32,
+                        num_attention_heads=32, rotary_pct=0.25, max_position_embeddings=2048,
+                        use_parallel_residual=True, tie_word_embeddings=False),
+    "gptj-small": dict(model_type="gptj", vocab_size=400, n_embd=64, n_layer=2, n_head=4,
+                       rotary_dim=8),
+    "opt-small": dict(architectures=["OPTForCausalLM"], vocab_size=400, hidden_size=64,
+                      ffn_dim=128, num_hidden_layers=2, num_attention_heads=4,
+                      max_position_embeddings=64),
+    "phi3-small": dict(model_type="phi3", vocab_size=400, hidden_size=64, intermediate_size=128,
+                       num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2),
 }
 
 
@@ -281,9 +297,10 @@ def test_estimate_table_and_the_families_not_ported(tmp_path, monkeypatch, capsy
         with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
             testimate.abstract_param_bytes(preset)
     path = tmp_path / "config.json"
-    path.write_text(json.dumps({"model_type": "gpt2", "n_embd": 64}))
-    with pytest.raises(NotImplementedError, match="gpt2.*Queue 1 item 8"):
-        testimate.abstract_param_bytes(str(path))
+    for model_type in ("t5", "whisper", "vit"):
+        path.write_text(json.dumps({"model_type": model_type, "d_model": 64}))
+        with pytest.raises(NotImplementedError, match=f"{model_type}.*Queue 1 item 8"):
+            testimate.abstract_param_bytes(str(path))
     # A Hub id resolves from the local cache only.
     monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "hub"))
     with pytest.raises(ValueError, match="pass its path instead"):
@@ -314,6 +331,26 @@ def test_ep_size_in_the_config_and_the_launch_flag(clean_env, tmp_path):
         "use_cpu", "num_processes", "ep_size", "dp_size")}), process_id=0)
     assert tenv["ACCELERATE_MESH_SHAPE"] == jenv["ACCELERATE_MESH_SHAPE"]
     assert "ep:4" in tenv["ACCELERATE_MESH_SHAPE"].split(",")
+
+
+# The JAX package's classic-GPT presets: parameters, and bf16 bytes = 2 x
+# parameters (counted by the JAX package's GPTX.num_params).
+CLASSIC_GPT_PARAMS = {"gpt-j-6b": 6_050_882_784, "gpt-neox-20b": 20_554_567_680,
+                      "opt-30b": 29_974_540_288}
+
+
+@pytest.mark.parametrize("preset", sorted(CLASSIC_GPT_PARAMS))
+def test_estimate_of_the_classic_gpt_presets(preset):
+    from accelerate_tpu.commands import estimate as jestimate
+    from accelerate_tpu.models import GPTX as JGPTX, GPTXConfig as JGPTXConfig
+
+    family, kw = testimate.PRESETS[preset]
+    n = T.GPTX(T.GPTXConfig(**kw), device="cpu").num_params()
+    assert family == "gptx" and jestimate.PRESETS[preset] == (family, kw)
+    assert n == JGPTX(JGPTXConfig(**kw)).num_params() == CLASSIC_GPT_PARAMS[preset]
+    args = testimate.estimate_command_parser().parse_args([preset, "--dtypes", "bf16"])
+    rows, _ = testimate.gather_data(args)
+    assert rows[0][2] == 2 * n
 
 
 def test_estimate_of_mixtral_8x7b(tmp_path, capsys):

@@ -187,6 +187,8 @@ def test_offload_under_fsdp_over_two_gloo_ranks_is_bitwise(tmp_path):
 def test_new_entry_points_default_to_the_card():
     """Without ``device="cpu"`` this slice's entry points take the card and
     raise on a host without one; never a quiet fall to the CPU."""
+    import types
+
     import pytest
 
     if torch.cuda.is_available():
@@ -212,7 +214,17 @@ def test_new_entry_points_default_to_the_card():
                                   loopback=T.LoopbackShards(2)),
             # The pp entry points: the pipeline plugin and prepare_pippy's model.
             lambda: T.Accelerator(pp_plugin=T.PipelineParallelPlugin(pp_size=2)),
-            lambda: T.prepare_pippy(T.Llama(T.LlamaConfig.tiny()))):
+            lambda: T.prepare_pippy(T.Llama(T.LlamaConfig.tiny())),
+            # The classic-GPT models and the Hugging Face state-dict converters.
+            lambda: T.GPT2(T.GPT2Config.tiny()),
+            lambda: T.GPTX(T.GPTXConfig.tiny()),
+            lambda: T.opt_params_from_hf({}, T.GPTXConfig.tiny(position_style="learned")),
+            lambda: T.from_hf(types.SimpleNamespace(config=types.SimpleNamespace(
+                model_type="gpt2", vocab_size=128, n_embd=64, n_layer=2, n_head=4),
+                state_dict=dict)),
+            lambda: T.from_hf_checkpoint("gpt_neox", "missing", dict(
+                vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                num_attention_heads=4))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
 
